@@ -1,0 +1,123 @@
+// Global max of the raw pairwise squared distance on Hopper (sm_90a).
+//
+// Replaces: nbody_tpu/ops/pallas_nbody.py, _max_kernel (the kernel body)
+// and pallas_max_dist_sq (its wrapper): the upper-triangle max of raw d^2
+// that the int-sim log grid needs as its tensor-global upper bound. The
+// wrapper adds eps^2 in PyTorch afterwards.
+//
+// Design: particles are cut into tiles of MT; a grid of at most
+// `capacity` blocks walks the tile pairs (I, J) with I <= J in a
+// grid-stride loop (thread per receiver row, source tile staged in shared
+// memory), each block keeps its running max, and max_d2_reduce takes the
+// max over the per-block values. Max is exact, so the result does not
+// depend on the order and is bitwise the plain version's.
+//
+// d^2 is subtract-form and never contracted into an FMA:
+// __fadd_rn(__fmul_rn(dx,dx), __fmul_rn(dy,dy)) (+ dz^2), op for op what
+// PyTorch's eager ops and the force kernel compute, so the bound the grid
+// gets is the max of the d^2 the force kernel quantizes.
+//
+// `skip` (nullable, on the device) makes both kernels return at once when
+// *skip != 0 (the reduce then writes 0): the candidate-pruned bounds pass
+// launches the full set unconditionally and lets the device decide
+// whether the candidates already sufficed, so the step never waits on the
+// host.
+//
+// What bounds it on the H100: arithmetic, ~6 fp32 ops per pair over
+// N^2/2 pairs; positions are O(N) bytes. On the main path it runs on the
+// 1024 candidates (~0.5M pairs) and the full-set launch exits at once.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int MT = 256;
+
+template <int D>
+__global__ void __launch_bounds__(MT)
+max_d2_tiles(const float* __restrict__ pos, int n, const int* __restrict__ skip,
+             float* __restrict__ block_max) {
+  if (skip != nullptr && *skip != 0) return;
+  const int t = threadIdx.x;
+  const long long T = (n + MT - 1) / MT;
+  __shared__ float xj_s[D][MT];
+  __shared__ float red[MT];
+  float best = 0.f;
+  for (long long p = blockIdx.x; p < T * T; p += gridDim.x) {
+    const int I = (int)(p / T);
+    const int J = (int)(p % T);
+    if (I > J) continue;  // block-uniform
+    const int j0 = J * MT;
+    const int jcnt = min(MT, n - j0);
+    __syncthreads();  // the previous pair's readers are done with xj_s
+    if (t < jcnt) {
+#pragma unroll
+      for (int d = 0; d < D; ++d) xj_s[d][t] = pos[(size_t)(j0 + t) * D + d];
+    }
+    __syncthreads();
+    const int i = I * MT + t;
+    if (i < n) {
+      float xi[D];
+#pragma unroll
+      for (int d = 0; d < D; ++d) xi[d] = pos[(size_t)i * D + d];
+      for (int j = 0; j < jcnt; ++j) {
+        const float dx0 = __fsub_rn(xj_s[0][j], xi[0]);
+        float d2 = __fmul_rn(dx0, dx0);
+#pragma unroll
+        for (int d = 1; d < D; ++d) {
+          const float dx = __fsub_rn(xj_s[d][j], xi[d]);
+          d2 = __fadd_rn(d2, __fmul_rn(dx, dx));
+        }
+        best = fmaxf(best, d2);
+      }
+    }
+  }
+  red[t] = best;
+  __syncthreads();
+  for (int s = MT / 2; s > 0; s >>= 1) {
+    if (t < s) red[t] = fmaxf(red[t], red[t + s]);
+    __syncthreads();
+  }
+  if (t == 0) block_max[blockIdx.x] = red[0];
+}
+
+__global__ void __launch_bounds__(MT)
+max_d2_reduce(const float* __restrict__ block_max, int nb,
+              const int* __restrict__ skip, float* __restrict__ out) {
+  const int t = threadIdx.x;
+  if (skip != nullptr && *skip != 0) {
+    if (t == 0) out[0] = 0.f;
+    return;
+  }
+  __shared__ float red[MT];
+  float best = 0.f;
+  for (int k = t; k < nb; k += MT) best = fmaxf(best, block_max[k]);
+  red[t] = best;
+  __syncthreads();
+  for (int s = MT / 2; s > 0; s >>= 1) {
+    if (t < s) red[t] = fmaxf(red[t], red[t + s]);
+    __syncthreads();
+  }
+  if (t == 0) out[0] = red[0];
+}
+
+}  // namespace
+
+// pos (n, dim) f32 on the device; skip: nullable device int; block_max:
+// scratch of `capacity` floats; out: one float, the raw max d^2 (0 when
+// skipped). Returns cudaGetLastError().
+extern "C" int nbody_max_d2(const float* pos, int n, int dim, const int* skip,
+                            float* block_max, int capacity, float* out,
+                            void* stream) {
+  if (n <= 0 || (dim != 2 && dim != 3) || capacity <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long T = (n + MT - 1) / MT;
+  const int nb = (int)(T * T < capacity ? T * T : capacity);
+  if (dim == 2)
+    max_d2_tiles<2><<<nb, MT, 0, s>>>(pos, n, skip, block_max);
+  else
+    max_d2_tiles<3><<<nb, MT, 0, s>>>(pos, n, skip, block_max);
+  max_d2_reduce<<<1, MT, 0, s>>>(block_max, nb, skip, out);
+  return (int)cudaGetLastError();
+}

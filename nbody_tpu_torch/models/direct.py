@@ -1,0 +1,379 @@
+"""Direct O(N^2) N-body engine: kick-drift-kick leapfrog.
+
+PyTorch counterpart of ``nbody_tpu.models.direct``. The JAX engine runs a
+whole history as one ``lax.scan`` program; here the scan is a Python loop
+over ticks whose state never leaves the device. Each tick launches its
+kernels without waiting on the host, snapshots stay device tensors, and a
+run stacks them and copies them to the host once at its end.
+
+Precision ladder:
+* degraded modes (f32/bf16/f16/int8/int4/custom) run on ``ParticleState``
+  (f32 state) with the quantization hook inside the force kernel;
+* the float64 baseline runs on ``BaselineState`` in native f64.
+
+Not ported yet (each raises NotImplementedError; see ROADMAP.md): the
+multi-device ring (``mesh=``, ``schedule``, ``ticks_per_dispatch``),
+traced parameter sweeps (``dynamic_params``) and the speculate-and-verify
+int-sim bounds (``bounds_mode='cached'``, which needs the kernel's fused
+max).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from nbody_tpu_torch.config import DEFAULT_SIM, SimConfig
+from nbody_tpu_torch.diagnostics import metrics as metrics_lib
+from nbody_tpu_torch.models.state import (
+    BaselineState,
+    ParticleState,
+    make_baseline_state,
+    make_state,
+)
+from nbody_tpu_torch.ops import forces, hopper_nbody
+from nbody_tpu_torch.ops.precision import (
+    Precision,
+    Quantizer,
+    dist_sq_log_bounds,
+)
+
+IMPLS = ("auto", "dense", "tiled", "kernel")
+
+
+def _not_ported(what: str):
+    return NotImplementedError(
+        f"{what} is not ported to nbody_tpu_torch yet (see ROADMAP.md, "
+        f"'Queue 1'); use the JAX package nbody_tpu for it")
+
+
+def _resolve_impl(impl: str) -> str:
+    """'auto' is the sym_force kernel (its plain version on CPU tensors)."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown force impl: {impl}; valid: {IMPLS}")
+    return "kernel" if impl == "auto" else impl
+
+
+def _force_fn(impl: str) -> Callable:
+    impl = _resolve_impl(impl)
+    if impl == "dense":
+        return forces.dense_accelerations
+    if impl == "tiled":
+        return forces.tiled_accelerations
+    return hopper_nbody.sym_accelerations
+
+
+# --------------------------------------------------------------------------
+# Functional core
+# --------------------------------------------------------------------------
+
+def leapfrog_step(state: ParticleState, q: Quantizer, cfg: SimConfig,
+                  force: Callable, quantize_forces: bool) -> ParticleState:
+    """One KDK step (reference: simulation.py:120-143)."""
+    half_dt = cfg.dt * 0.5
+    vel = state.velocities + state.accelerations * half_dt
+    pos = state.positions + vel * cfg.dt
+    acc = force(pos, state.masses, q, cfg, quantize_forces=quantize_forces)
+    vel = vel + acc * half_dt
+    return ParticleState(pos, vel, state.masses, acc, state.tick + 1)
+
+
+def leapfrog_step_baseline(state: BaselineState,
+                           cfg: SimConfig) -> BaselineState:
+    """One KDK step of the native float64 baseline."""
+    half_dt = cfg.dt * 0.5
+    vel = state.velocities + state.accelerations * half_dt
+    pos = state.positions + vel * cfg.dt
+    acc = forces.baseline_accelerations(pos, state.masses, cfg)
+    vel = vel + acc * half_dt
+    return BaselineState(pos, vel, state.masses, acc, state.tick + 1)
+
+
+def _stepper(q: Quantizer, cfg: SimConfig, impl: str, quantize_forces: bool,
+             bounds_every: int = 1) -> Callable:
+    """A ``step(state) -> state`` closure for the degraded modes.
+
+    ``bounds_every=k>1`` (int-sim modes): the tensor-global log-grid
+    bounds are recomputed on the freshly drifted positions every k-th
+    step of this stepper and reused in between (the JAX bounds-reuse
+    scan; stale bounds can clip, a documented semantic delta). The step
+    counter lives in the closure, so it runs on across snapshot chunks
+    of one history and restarts with each new stepper."""
+    if bounds_every < 1:
+        raise ValueError("bounds_every must be >= 1")
+    force = _force_fn(impl)
+    if not (q.is_int and bounds_every > 1):
+        return lambda s: leapfrog_step(s, q, cfg, force, quantize_forces)
+
+    max_pass = (hopper_nbody.max_pairwise_dist_sq_pruned
+                if _resolve_impl(impl) == "kernel"
+                else forces.max_pairwise_dist_sq)
+    half_dt = cfg.dt * 0.5
+    k = 0
+    bounds = None
+
+    def step(s: ParticleState) -> ParticleState:
+        nonlocal k, bounds
+        vel = s.velocities + s.accelerations * half_dt
+        pos = s.positions + vel * cfg.dt
+        if k % bounds_every == 0:
+            bounds = dist_sq_log_bounds(q, max_pass(pos, cfg),
+                                        cfg.softening_sq)
+        acc = force(pos, s.masses, q, cfg, quantize_forces=quantize_forces,
+                    log_lo=bounds[0], log_hi=bounds[1])
+        vel = vel + acc * half_dt
+        k += 1
+        return ParticleState(pos, vel, s.masses, acc, s.tick + 1)
+
+    return step
+
+
+def run_steps(state: ParticleState, q: Quantizer, cfg: SimConfig, impl: str,
+              quantize_forces: bool, num_steps: int,
+              bounds_every: int = 1) -> ParticleState:
+    """num_steps leapfrog steps, state kept on the device."""
+    step = _stepper(q, cfg, impl, quantize_forces, bounds_every)
+    for _ in range(num_steps):
+        state = step(state)
+    return state
+
+
+def run_steps_baseline(state: BaselineState, cfg: SimConfig,
+                       num_steps: int) -> BaselineState:
+    for _ in range(num_steps):
+        state = leapfrog_step_baseline(state, cfg)
+    return state
+
+
+def _run_chunks(state, step: Callable, steps_per_chunk: int, num_chunks: int,
+                snap_fn: Callable):
+    snaps, frames = [], []
+    for _ in range(num_chunks):
+        for _ in range(steps_per_chunk):
+            state = step(state)
+        snap, frame = snap_fn(state)
+        snaps.append(snap)
+        frames.append(frame)
+    return (state, metrics_lib.stack_snapshots(snaps),
+            torch.stack(frames).cpu().numpy())
+
+
+def run_with_snapshots(state: ParticleState, q: Quantizer, cfg: SimConfig,
+                       impl: str, quantize_forces: bool,
+                       steps_per_chunk: int, num_chunks: int,
+                       num_bins: int = 20, bounds_every: int = 1):
+    """Run num_chunks * steps_per_chunk ticks; take a metrics Snapshot and
+    a position frame after each chunk on the device. Returns
+    (state, snapshots, frames): snapshots as a Snapshot of numpy arrays
+    stacked over chunks, frames as a (num_chunks, N, D) numpy array, both
+    copied to the host once at the end."""
+    step = _stepper(q, cfg, impl, quantize_forces, bounds_every)
+
+    def snap(s: ParticleState):
+        return (metrics_lib.snapshot(s.positions, s.velocities, s.masses,
+                                     s.tick, cfg, num_bins=num_bins),
+                s.positions)
+
+    return _run_chunks(state, step, steps_per_chunk, num_chunks, snap)
+
+
+def run_with_snapshots_baseline(state: BaselineState, cfg: SimConfig,
+                                steps_per_chunk: int, num_chunks: int,
+                                num_bins: int = 20):
+    """run_with_snapshots for the f64 baseline; metrics see the state
+    rounded to f32, as in the JAX package."""
+    def snap(s: BaselineState):
+        f32 = s.to_f32()
+        return (metrics_lib.snapshot(f32.positions, f32.velocities,
+                                     f32.masses, f32.tick, cfg,
+                                     num_bins=num_bins),
+                f32.positions)
+
+    return _run_chunks(state, lambda s: leapfrog_step_baseline(s, cfg),
+                       steps_per_chunk, num_chunks, snap)
+
+
+# --------------------------------------------------------------------------
+# Engine wrapper (reference-parity API)
+# --------------------------------------------------------------------------
+
+class DirectSimulation:
+    """Stateful wrapper mirroring the reference's GalaxySimulation API
+    (reference: simulation.py:12-196): step / run / get_state / energies.
+
+    ``device`` defaults to the positions' device for a tensor, else the
+    CPU. ``force_impl`` is one of auto | dense | tiled | kernel; auto is
+    the sym_force kernel (its plain version on a CPU tensor)."""
+
+    def __init__(self, positions, velocities, masses,
+                 precision: Quantizer | Precision | str = Precision.FLOAT32,
+                 cfg: SimConfig = DEFAULT_SIM,
+                 G: Optional[float] = None,
+                 softening: Optional[float] = None,
+                 dt: Optional[float] = None,
+                 force_impl: str = "auto",
+                 quantize_forces: Optional[bool] = None,
+                 custom_levels: int = 64,
+                 dynamic_params: bool = False,
+                 mesh=None,
+                 schedule: Optional[str] = None,
+                 bounds_every: int = 1,
+                 ticks_per_dispatch: Optional[int] = None,
+                 bounds_mode: str = "exact",
+                 device=None):
+        if mesh is not None:
+            raise _not_ported("mesh= (the multi-device ring)")
+        if schedule is not None:
+            raise _not_ported("schedule= (the ring's force schedules)")
+        if ticks_per_dispatch is not None:
+            raise _not_ported("ticks_per_dispatch")
+        if dynamic_params:
+            raise _not_ported("dynamic_params")
+        if bounds_mode != "exact":
+            raise _not_ported(f"bounds_mode={bounds_mode!r}")
+        if isinstance(precision, str):
+            precision = Quantizer.from_string(precision, custom_levels)
+        elif isinstance(precision, Precision):
+            precision = Quantizer(mode=precision, custom_levels=custom_levels)
+        self.quantizer = precision
+        if G is not None or softening is not None or dt is not None:
+            cfg = SimConfig(
+                G=G if G is not None else cfg.G,
+                softening=softening if softening is not None else cfg.softening,
+                dt=dt if dt is not None else cfg.dt)
+        self.cfg = cfg
+        _resolve_impl(force_impl)
+        self.force_impl = force_impl
+        if quantize_forces is None:
+            # Reference applies force quantization only for int8/int4
+            # (simulation.py:115-116), not CUSTOM.
+            quantize_forces = self.quantizer.mode in (Precision.INT4_SIM,
+                                                      Precision.INT8_SIM)
+        self.quantize_forces = quantize_forces
+        self.bounds_every = bounds_every
+        self.is_baseline = self.quantizer.mode == Precision.FLOAT64
+        if device is None:
+            device = (positions.device if isinstance(positions, torch.Tensor)
+                      else "cpu")
+        self.device = torch.device(device)
+
+        if self.is_baseline:
+            self.state = make_baseline_state(positions, velocities, masses,
+                                             self.device)
+            acc = forces.baseline_accelerations(self.state.positions,
+                                                self.state.masses, cfg)
+        else:
+            self.state = make_state(positions, velocities, masses,
+                                    self.device)
+            acc = _force_fn(force_impl)(
+                self.state.positions, self.state.masses, self.quantizer, cfg,
+                quantize_forces=self.quantize_forces)
+        self.state = self.state._replace(accelerations=acc)
+
+    # -- stepping -----------------------------------------------------------
+
+    @property
+    def tick(self) -> int:
+        return self.state.tick
+
+    @property
+    def positions(self) -> torch.Tensor:
+        return self.state.positions.to(torch.float32)
+
+    @property
+    def velocities(self) -> torch.Tensor:
+        return self.state.velocities.to(torch.float32)
+
+    @property
+    def masses(self) -> torch.Tensor:
+        return self.state.masses.to(torch.float32)
+
+    def step(self, num_steps: int = 1):
+        if self.is_baseline:
+            self.state = run_steps_baseline(self.state, self.cfg, num_steps)
+        else:
+            self.state = run_steps(self.state, self.quantizer, self.cfg,
+                                   self.force_impl, self.quantize_forces,
+                                   num_steps, bounds_every=self.bounds_every)
+
+    def run(self, num_ticks: int, callback: Optional[Callable] = None,
+            callback_interval: int = 100):
+        """Chunked run with an optional host callback at interval
+        boundaries (reference: simulation.py:145-158)."""
+        if callback is None:
+            self.step(num_ticks)
+            return
+        done = 0
+        while done < num_ticks:
+            chunk = min(callback_interval, num_ticks - done)
+            self.step(chunk)
+            done += chunk
+            callback(self, self.tick)
+
+    def run_with_history(self, num_ticks: int, snapshot_interval: int = 100,
+                         num_bins: int = 20):
+        """Run with on-device snapshots; returns (snapshots, frames) stacked
+        over snapshot boundaries, copied to the host once.
+
+        Snapshots land at interval multiples; any remainder ticks are still
+        run (reference: simulation.py:154-158)."""
+        num_chunks = max(num_ticks // snapshot_interval, 1)
+        steps = (snapshot_interval if num_ticks >= snapshot_interval
+                 else num_ticks)
+        if self.is_baseline:
+            self.state, snaps, frames = run_with_snapshots_baseline(
+                self.state, self.cfg, steps, num_chunks, num_bins)
+        else:
+            self.state, snaps, frames = run_with_snapshots(
+                self.state, self.quantizer, self.cfg, self.force_impl,
+                self.quantize_forces, steps, num_chunks, num_bins,
+                bounds_every=self.bounds_every)
+        remainder = num_ticks - steps * num_chunks
+        if remainder > 0:
+            self.step(remainder)
+        return snaps, frames
+
+    # -- diagnostics --------------------------------------------------------
+
+    def get_kinetic_energy(self) -> float:
+        return float(metrics_lib.kinetic_energy(self.velocities, self.masses))
+
+    def get_potential_energy(self) -> float:
+        return float(metrics_lib.potential_energy(self.positions, self.masses,
+                                                  self.cfg))
+
+    def get_total_energy(self) -> float:
+        return float(metrics_lib.total_energy(self.positions, self.velocities,
+                                              self.masses, self.cfg))
+
+    def get_state(self) -> dict:
+        """Reference-parity state export (reference: simulation.py:160-168)."""
+        return {
+            "positions": self.positions,
+            "velocities": self.velocities,
+            "masses": self.masses,
+            "tick": self.tick,
+            "precision_mode": self.quantizer.mode.value,
+        }
+
+
+def run_comparison(positions, velocities, masses, modes,
+                   num_ticks: int = 1000, snapshot_interval: int = 100,
+                   **sim_kwargs):
+    """Same ICs under several precision modes
+    (reference: simulation.py:199-250). Returns {mode_value: {...}}."""
+    results = {}
+    for mode in modes:
+        sim = DirectSimulation(positions, velocities, masses,
+                               precision=mode, **sim_kwargs)
+        e0 = sim.get_total_energy()
+        snaps, frames = sim.run_with_history(num_ticks, snapshot_interval)
+        results[sim.quantizer.mode.value] = {
+            "final_state": sim.get_state(),
+            "snapshots": snaps,
+            "frames": frames,
+            "initial_energy": e0,
+            "simulation": sim,
+        }
+    return results

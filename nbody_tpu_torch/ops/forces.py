@@ -1,0 +1,140 @@
+"""Softened all-pairs gravity with a precision-degradation hook.
+
+PyTorch counterpart of ``nbody_tpu.ops.forces``. Three implementations
+share identical semantics:
+
+* ``dense_accelerations`` — materialises the (N, N) pairwise block; the
+  correctness oracle at small N;
+* ``tiled_accelerations`` — row blocks, O(block * N) memory;
+* the ``sym_force`` CUDA kernel behind ``ops.hopper_nbody.sym_accelerations``
+  — the production path on the GPU.
+
+The int-sim quantizer needs the global log-bounds of the softened d^2
+matrix: the min is analytic (``precision.dist_sq_log_bounds``), the max
+comes from a max pass. ``max_pairwise_dist_sq_pruned`` (defined in
+``ops.hopper_nbody``) finds it exactly in O(N) work with the ``max_d2``
+kernel, and decides on the device whether its candidates suffice.
+
+The float64 baseline is native ``torch.float64`` here
+(``baseline_accelerations``). The JAX package emulates it with
+double-double arithmetic (``nbody_tpu/ops/doubledouble.py``) because a
+TPU has no f64 unit; the GPU has one, and the torch reference ran true
+f64, so double-double is not carried over.
+
+Physics (reference: simulation.py:83-117):
+    diff[i, j] = x_j - x_i
+    d2[i, j]   = |diff|^2 + softening^2
+    d2q        = quantize(d2, mode)
+    acc[i]     = G * sum_{j != i} m_j * diff[i, j] / d2q^{3/2}
+    acc        = quantize_force(acc) for int8/int4 modes
+"""
+
+from __future__ import annotations
+
+import torch
+
+from nbody_tpu_torch.config import SimConfig
+from nbody_tpu_torch.ops import hopper_nbody
+# The pruned bounds pass drives the max_d2 kernel and lives beside it;
+# its public name stays here, where the JAX package has it.
+from nbody_tpu_torch.ops.hopper_nbody import max_pairwise_dist_sq_pruned
+from nbody_tpu_torch.ops.precision import (
+    Quantizer,
+    dist_sq_log_bounds,
+    quantize_distance_squared,
+    quantize_force,
+)
+
+
+def _pair_block(pos_i, pos_j, masses_j, self_mask, q: Quantizer,
+                cfg: SimConfig, log_lo, log_hi):
+    """Acceleration of receivers ``pos_i`` (B, D) due to sources ``pos_j``
+    (M, D); ``self_mask`` (B, M) marks receiver == source. (B, D) f32."""
+    diff = pos_j[None, :, :] - pos_i[:, None, :]
+    d2 = (diff * diff).sum(dim=-1) + cfg.softening_sq
+    d2q = quantize_distance_squared(d2, q, log_lo=log_lo, log_hi=log_hi)
+    inv_d = torch.rsqrt(d2q.to(torch.float32))
+    inv_d3 = inv_d * inv_d * inv_d
+    factor = cfg.G * masses_j[None, :] * inv_d3
+    factor = torch.where(self_mask, 0.0, factor)
+    return (factor[:, :, None] * diff).sum(dim=1)
+
+
+def max_pairwise_dist_sq(positions: torch.Tensor,
+                         cfg: SimConfig) -> torch.Tensor:
+    """Global max of the softened pairwise d^2 matrix, plain PyTorch,
+    O(block * N) memory (the plain version of the max_d2 kernel)."""
+    pos = positions.to(torch.float32)
+    return hopper_nbody.max_d2_plain(pos) + cfg.softening_sq
+
+
+def _quant_bounds(positions, q: Quantizer, cfg: SimConfig):
+    """(log_lo, log_hi) for int modes, else (None, None)."""
+    if not q.is_int:
+        return None, None
+    return dist_sq_log_bounds(q, max_pairwise_dist_sq(positions, cfg),
+                              cfg.softening_sq)
+
+
+def _maybe_quantize_force(acc, q: Quantizer, quantize_forces: bool):
+    if quantize_forces and q.is_int:
+        return quantize_force(acc, q)
+    return acc
+
+
+def dense_accelerations(positions, masses, q: Quantizer, cfg: SimConfig,
+                        quantize_forces: bool = True,
+                        log_lo=None, log_hi=None) -> torch.Tensor:
+    """Oracle implementation: materialises (N, N). Small N only.
+
+    ``log_lo``/``log_hi`` optionally supply external int-sim grid bounds;
+    by default they are recomputed per call."""
+    positions = positions.to(torch.float32)
+    masses = masses.to(torch.float32)
+    n = positions.shape[0]
+    if log_lo is None or log_hi is None:
+        log_lo, log_hi = _quant_bounds(positions, q, cfg)
+    self_mask = torch.eye(n, dtype=torch.bool, device=positions.device)
+    acc = _pair_block(positions, positions, masses, self_mask, q, cfg,
+                      log_lo, log_hi)
+    return _maybe_quantize_force(acc, q, quantize_forces)
+
+
+def tiled_accelerations(positions, masses, q: Quantizer, cfg: SimConfig,
+                        quantize_forces: bool = True, block: int = 1024,
+                        log_lo=None, log_hi=None) -> torch.Tensor:
+    """O(block * N) memory row-blocked force evaluation."""
+    positions = positions.to(torch.float32)
+    masses = masses.to(torch.float32)
+    n = positions.shape[0]
+    if log_lo is None or log_hi is None:
+        log_lo, log_hi = _quant_bounds(positions, q, cfg)
+    ids = torch.arange(n, device=positions.device)
+    blocks = []
+    for r0 in range(0, n, block):
+        self_mask = ids[r0:r0 + block, None] == ids[None, :]
+        blocks.append(_pair_block(positions[r0:r0 + block], positions,
+                                  masses, self_mask, q, cfg, log_lo,
+                                  log_hi))
+    return _maybe_quantize_force(torch.cat(blocks), q, quantize_forces)
+
+
+def baseline_accelerations(positions, masses, cfg: SimConfig,
+                           block: int = 1024) -> torch.Tensor:
+    """Native float64 force for the baseline: every pair term and the sum
+    in f64, row-blocked so memory stays O(block * N). (N, D) f64."""
+    pos = positions.to(torch.float64)
+    m = masses.to(torch.float64)
+    n = pos.shape[0]
+    ids = torch.arange(n, device=pos.device)
+    gm = cfg.G * m
+    out = torch.empty_like(pos)
+    for r0 in range(0, n, block):
+        diff = pos[None, :, :] - pos[r0:r0 + block, None, :]
+        d2 = (diff * diff).sum(dim=-1) + cfg.softening_sq
+        inv_d = torch.rsqrt(d2)
+        factor = gm[None, :] * (inv_d * inv_d * inv_d)
+        factor = torch.where(ids[r0:r0 + block, None] == ids[None, :],
+                             0.0, factor)
+        out[r0:r0 + block] = (factor[:, :, None] * diff).sum(dim=1)
+    return out
