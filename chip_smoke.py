@@ -9,23 +9,37 @@ Run from the repository root on a machine with one NVIDIA GPU:
 Phases (any failure exits non-zero before the last line is printed):
 
 1. card: name and power limit from nvidia-smi, torch's CUDA version.
-2. build: compiles csrc/*.cu with nvcc, timed, with ptxas's summary.
-3. kernels: each kernel against its plain PyTorch version on the card
-   (all six degraded modes x D in {2,3} x N in {5, 300, 4099, 5000},
-   unequal and equal masses, softening 0.1 and 0); max_d2 bitwise; the
-   pruned bounds pass bitwise equal to the full max on a disk and on a
-   ring that takes the fallback; sym_force bitwise equal run to run.
+2. build: compiles csrc/*.cu with nvcc (one process per source, all at
+   once), timed, with ptxas's summary.
+3. kernels: each kernel against its plain PyTorch version on the card:
+   sym_force and row_force over all six degraded modes x D in {2,3} x
+   N in {5, 300, 4099, 5000}, unequal and equal masses, softening 0.1, 0
+   and a run-time softening; pair_sym_force on disjoint sets of ragged
+   sizes, rows and reactions; max_d2 bitwise; the pruned bounds pass
+   bitwise equal to the full max on a disk and on a ring that takes the
+   fallback; sym_force, pair_sym_force and the chunked path bitwise equal
+   run to run; the chunked path at N=131072 in 2 and 3 chunks against
+   single-launch sym_force.
 4. main: ``nbody_tpu_torch.cli.main`` at 5000 stars x 2000 ticks for
    float64, float32 and int4, with the launch counters read around it.
 5. gate: float32, int4 and float64 from the JAX package's committed ICs
    at 5000 x 2000, held to the torch-reference envelopes cached under
    tools/reference_cache/ (the rule of tools/reference_parity.py).
-6. perf: throughput at N=131072 and kernel-vs-plain times.
+6. perf: throughput at N=131072, kernel-vs-plain times, and
+   ``dynamic_params`` runs at 5000 stars against static ones.
+7. large: N=1,048,576 through ``run_steps(..., "auto", ...)`` for 5 steps
+   (D=2 disk and D=3 Plummer sphere, seed 43, float32 and int4): the
+   chunked path's launch counts, pairs/s, one force evaluation chunked
+   against the row kernel over all rows and both against the plain
+   version on sampled rows; zero softening routed to the row kernel; the
+   pruned bounds pass at D=3 bitwise equal to the full max.
 
-One more phase runs only when asked for (``--phases profile``): the main
+Two more phases run only when asked for: ``--phases profile``, the main
 path under ``torch.profiler`` at 5000 and 131072 stars, per mode: wall,
 device kernel time, busy share and the top kernels, also written as JSON
-to ``--profile-out``.
+to ``--profile-out``; and ``--phases scale``, each kernel against its
+plain version at the N=1,048,576 path's shapes (plain versions take
+minutes there).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -36,6 +50,7 @@ from __future__ import annotations
 import argparse
 import io
 import json
+import math
 import re
 import subprocess
 import sys
@@ -46,17 +61,25 @@ import numpy as np
 import torch
 
 REPO = Path(__file__).resolve().parent
-PHASES = ("kernels", "main", "gate", "perf")   # the default run
-EXTRA_PHASES = ("profile",)
+PHASES = ("kernels", "main", "gate", "perf", "large")   # the default run
+EXTRA_PHASES = ("profile", "scale")
 MODES = ("float32", "bfloat16", "float16", "int8", "int4", "custom")
 STARS, TICKS, INTERVAL = 5000, 2000, 100
 BIG_N = 131072
+LARGE_N, LARGE_STEPS, LARGE_SEED = 1_048_576, 5, 43   # bench.py:129-130
+SAMPLED_ROWS = 4096
+DYNAMIC_TICKS = 300
+RUNTIME_SOFTENING = 0.05   # the kernels phase's run-time softening
 
 KERNELS = {
     "sym_force": {"source": "nbody_tpu_torch/csrc/sym_force.cu",
                   "replaces": "nbody_tpu/ops/pallas_nbody.py:260"},
     "max_d2": {"source": "nbody_tpu_torch/csrc/max_dist_sq.cu",
                "replaces": "nbody_tpu/ops/pallas_nbody.py:1263"},
+    "row_force": {"source": "nbody_tpu_torch/csrc/row_force.cu",
+                  "replaces": "nbody_tpu/ops/pallas_nbody.py:645"},
+    "pair_sym_force": {"source": "nbody_tpu_torch/csrc/pair_sym_force.cu",
+                       "replaces": "nbody_tpu/ops/pallas_nbody.py:956"},
 }
 
 
@@ -132,12 +155,37 @@ def ring_positions(n: int, dev) -> torch.Tensor:
     return pos.to(torch.float32).to(dev).contiguous()
 
 
+def shell_positions(n: int, dev) -> torch.Tensor:
+    """A 3-D shell (Fibonacci lattice) whose radius rises gently toward
+    +z: every point clears the pruned pass's radius threshold, so it must
+    take its full-set fallback, and the 1024 largest radii form a polar
+    cap without the diameter pair."""
+    k = torch.arange(n, dtype=torch.float64) + 0.5
+    z = 1.0 - 2.0 * k / n
+    phi = k * (np.pi * (3.0 - np.sqrt(5.0)))
+    s = torch.sqrt(1.0 - z * z)
+    r = 10.0 + 0.01 * z
+    pos = torch.stack([r * s * torch.cos(phi), r * s * torch.sin(phi),
+                       r * z], 1)
+    return pos.to(torch.float32).to(dev).contiguous()
+
+
 # --------------------------------------------------------------------------
 # Phase 3: kernels against their plain versions
 # --------------------------------------------------------------------------
 
 RTOL, ATOL = 5e-5, 2e-6   # the float tolerance of tests/test_pallas_kernel.py
-FLIPS_ALLOWED = 4         # per case, after the int modes' quantize_force
+FLIPS_ALLOWED = 4         # per case up to 40,000 components
+FLIP_RATE = 1e-4          # per component beyond that
+
+
+def flips_allowed(t: torch.Tensor) -> int:
+    """Components a case may hold one grid step apart after the int modes'
+    quantize_force: differences inside the tolerance that straddle an
+    edge of the linear grid. A roughly symmetric force distribution puts
+    an edge of the 16-level grid at 0 (normalised 7.5), where components
+    are densest, so the count grows with N (1M, D=3: 34 of 3.1M)."""
+    return max(FLIPS_ALLOWED, math.floor(FLIP_RATE * t.numel()))
 
 
 def agree(got, want, scale):
@@ -172,82 +220,152 @@ def quantized_flips(got, want, q):
     return int(off.sum()), bool((diff[off] <= step + tol).all())
 
 
+class Tally:
+    """One kernel's cases against its plain version: failures, the worst
+    absolute error and the worst error over its bound."""
+
+    def __init__(self):
+        self.failures, self.cases, self.nonfinite, self.flips = [], 0, 0, 0
+        self.worst_err, self.worst_ratio = (0.0, ""), (0.0, "")
+
+    def hold(self, case, got, want, scale, q=None):
+        ok, err, ratio, nonfinite = agree(got, want, scale)
+        self.cases += 1
+        self.nonfinite += nonfinite > 0
+        self.worst_err = max(self.worst_err, (err, case))
+        self.worst_ratio = max(self.worst_ratio, (ratio, case))
+        if not ok:
+            self.failures.append(f"{case}: max err {err:.3e} ({ratio:.3f} "
+                                 f"of its bound), {nonfinite} non-finite")
+        if q is not None and q.mode.value in ("int8_sim", "int4_sim"):
+            off, one_step = quantized_flips(got, want, q)
+            self.flips += off
+            if off > flips_allowed(want) or not one_step:
+                self.failures.append(f"{case}: after quantize_force {off} "
+                                     f"components differ (one step each: "
+                                     f"{one_step})")
+
+    def report(self, name: str, entry: dict) -> None:
+        print(f"kernels: {name} vs plain, {self.cases} cases: "
+              f"{len(self.failures)} failures; worst abs err "
+              f"{self.worst_err[0]:.4e} ({self.worst_err[1]}); worst "
+              f"err/bound {self.worst_ratio[0]:.4f} ({self.worst_ratio[1]});"
+              f" int8/int4 components one grid step apart after "
+              f"quantize_force: {self.flips}; cases holding non-finite "
+              f"forces (equal in both): {self.nonfinite}")
+        entry.update(max_abs_err=self.worst_err[0],
+                     err_over_bound=self.worst_ratio[0], cases=self.cases)
+        check(not self.failures, f"{name} disagreements:\n  "
+              + "\n  ".join(self.failures))
+
+
+def lazy_scale(pos, gm, bounds, q, masked, got, want, rows=None):
+    """The summed-|terms| scale where the |a| rule alone does not hold,
+    0 elsewhere: the same rule as a full scale (a row that holds at |a|
+    holds at max(|a|, s)), computed in plain PyTorch only for the rows that
+    need it. ``rows`` maps got/want's rows to particle indices."""
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+    scale = torch.zeros_like(want)
+    bound = ATOL + RTOL * want.abs()
+    need = ((got - want).abs() > bound).any(dim=1).nonzero().flatten()
+    if need.numel():
+        idx = need if rows is None else rows[need]
+        scale[need] = hn.sym_force_term_scale(pos, gm, bounds, q, masked,
+                                              rows=idx, block=256)
+    return scale
+
+
+def force_bounds(q, pos, soft, dev):
+    """[log_lo, log_hi, eps^2] of the kernels, from the plain max pass."""
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+    from nbody_tpu_torch.ops.precision import dist_sq_log_bounds
+    soft_t = torch.full((), soft, device=dev)
+    max_d2 = hn.max_d2_plain(pos) + soft_t
+    lo_hi = (dist_sq_log_bounds(q, max_d2, soft_t) if q.is_int
+             else (max_d2 * 0, max_d2 * 0))
+    return torch.stack([lo_hi[0], lo_hi[1], soft_t])
+
+
 def phase_kernels(dev, report: dict) -> None:
     from nbody_tpu_torch.config import SimConfig
     from nbody_tpu_torch.ops import forces, hopper_nbody as hn
-    from nbody_tpu_torch.ops.precision import Quantizer, dist_sq_log_bounds
+    from nbody_tpu_torch.ops.precision import Quantizer
 
-    failures, n_cases, n_nonfinite, flips = [], 0, 0, 0
-    worst_err, worst_ratio, worst_max = (0.0, ""), (0.0, ""), 0.0
+    # (label, eps^2, self-masked): static 0.1, zero, and a run-time value,
+    # which the kernels self-mask since the host never reads it.
+    softenings = (("0.1", 0.01, False), ("0", 0.0, True),
+                  (f"run-time {RUNTIME_SOFTENING}", RUNTIME_SOFTENING ** 2,
+                   True))
+    sym, row, pair = Tally(), Tally(), Tally()
+    worst_max, max_failures = 0.0, []
     for dim in (2, 3):
         for n in (5, 300, 4099, 5000):
             for equal in (False, True):
                 pos, m = make_inputs(n, dim, equal, seed=n + dim, dev=dev)
-                for soft in (0.1, 0.0):
-                    cfg = SimConfig(softening=soft)
-                    gm = (cfg.G * m).contiguous()
-                    max_d2 = hn.max_d2_plain(pos) + cfg.softening_sq
-                    masked = soft <= 0.0
+                gm = (SimConfig().G * m).contiguous()
+                for label, soft, masked in softenings:
                     for mode in MODES:
                         q = Quantizer.from_string(mode)
-                        case = f"{mode} D={dim} N={n} eq={equal} soft={soft}"
-                        lo_hi = (dist_sq_log_bounds(q, max_d2, soft)
-                                 if q.is_int else (max_d2 * 0, max_d2 * 0))
-                        soft_t = torch.full((), soft, device=dev)
-                        bounds = torch.stack([lo_hi[0], lo_hi[1], soft_t])
-                        got = hn.sym_force(pos, gm, bounds, q, masked)
-                        want = hn.sym_force_plain(pos, gm, bounds, q, masked)
+                        case = f"{mode} D={dim} N={n} eq={equal} soft={label}"
+                        bounds = force_bounds(q, pos, soft, dev)
+                        want = hn.row_force_plain(pos, gm, bounds, q, masked)
                         # Zero softening: near-coincident pairs' terms, far
                         # above |a|, cancel, so two summation orders differ
                         # with the summed |terms|, not with |a|.
                         scale = (hn.sym_force_term_scale(pos, gm, bounds, q,
                                                          masked)
-                                 if masked else torch.zeros_like(want))
-                        ok, err, ratio, nonfinite = agree(got, want, scale)
-                        n_nonfinite += nonfinite > 0
-                        worst_err = max(worst_err, (err, case))
-                        worst_ratio = max(worst_ratio, (ratio, case))
-                        if not ok:
-                            failures.append(f"{case}: max err {err:.3e} "
-                                            f"({ratio:.3f} of its bound), "
-                                            f"{nonfinite} non-finite")
-                        if mode in ("int8", "int4"):
-                            off, one_step = quantized_flips(got, want, q)
-                            flips += off
-                            if off > FLIPS_ALLOWED or not one_step:
-                                failures.append(
-                                    f"{case}: after quantize_force {off} "
-                                    f"components differ (one step each: "
-                                    f"{one_step})")
-                        n_cases += 1
+                                 if soft == 0.0 else torch.zeros_like(want))
+                        sym.hold(case, hn.sym_force(pos, gm, bounds, q,
+                                                    masked), want, scale, q)
+                        row.hold(case, hn.row_force(pos, gm, bounds, q,
+                                                    masked), want, scale, q)
                 k = hn.max_d2(pos)
                 p = hn.max_d2_plain(pos)
                 worst_max = max(worst_max, (k - p).abs().item())
                 if not torch.equal(k, p):
-                    failures.append(f"max_d2 D={dim} N={n}: {k.item()!r} "
-                                    f"!= plain {p.item()!r}")
+                    max_failures.append(f"max_d2 D={dim} N={n}: "
+                                        f"{k.item()!r} != plain {p.item()!r}")
+    # pair_sym_force: disjoint sets of ragged sizes (softening > 0).
+    for dim in (2, 3):
+        for n_a, n_b in ((300, 4099), (5000, 64), (4099, 300), (5, 1)):
+            pos, m = make_inputs(n_a + n_b, dim, False, seed=7 * dim + n_a,
+                                 dev=dev)
+            gm = (SimConfig().G * m).contiguous()
+            pa, pb = pos[:n_a], pos[n_a:]
+            ga, gb = gm[:n_a], gm[n_a:]
+            for mode in MODES:
+                q = Quantizer.from_string(mode)
+                bounds = force_bounds(q, pos, 0.01, dev)
+                rows, cols = hn.pair_sym_force(pa, ga, pb, gb, bounds, q)
+                rw, cw = hn.pair_sym_force_plain(pa, ga, pb, gb, bounds, q)
+                case = f"{mode} D={dim} {n_a}x{n_b}"
+                pair.hold(case + " rows", rows, rw, torch.zeros_like(rw), q)
+                pair.hold(case + " cols", cols, cw, torch.zeros_like(cw), q)
     torch.cuda.synchronize()
-    print(f"kernels: sym_force vs plain, {n_cases} cases, every mode held "
-          f"elementwise to |err| <= {ATOL} + {RTOL} max(|a|, s), s = summed "
-          f"|terms| at zero softening and 0 otherwise; int8/int4 after "
-          f"quantize_force: at most {FLIPS_ALLOWED} components a case one "
-          f"grid step apart ({flips} in all): {len(failures)} failures")
-    print(f"kernels: worst abs err {worst_err[0]:.4e} ({worst_err[1]}); "
-          f"worst err/bound {worst_ratio[0]:.4f} ({worst_ratio[1]}); "
-          f"{n_nonfinite} float cases hold non-finite forces (f16 at zero "
-          f"softening), equal in both; max_d2 bitwise vs plain on 16 inputs")
-    check(not failures, "kernel disagreements:\n  " + "\n  ".join(failures))
-    report["sym_force"].update(max_abs_err=worst_err[0],
-                               err_over_bound=worst_ratio[0], cases=n_cases)
+    print(f"kernels: elementwise rule |err| <= {ATOL} + {RTOL} max(|a|, s), "
+          f"s = summed |terms| at zero softening and 0 otherwise; int8/int4 "
+          f"after quantize_force: at most max({FLIPS_ALLOWED}, {FLIP_RATE} x "
+          f"components) a case, each one grid step apart")
+    sym.report("sym_force", report["sym_force"])
+    row.report("row_force", report["row_force"])
+    pair.report("pair_sym_force", report["pair_sym_force"])
+    print(f"kernels: max_d2 bitwise vs plain on 16 inputs: "
+          f"{len(max_failures)} failures")
+    check(not max_failures, "\n  ".join(max_failures))
     report["max_d2"].update(cases=16)
 
-    # max_d2: the skip flag, and the pruned pass against the full max.
+    # max_d2: the skip and count flags, and the pruned pass against the
+    # full max.
     cfg = SimConfig()
     pos, _ = make_inputs(STARS, 2, True, seed=1, dev=dev)
     one = torch.ones((), dtype=torch.int32, device=dev)
-    check(hn.max_d2(pos, skip=one).item() == 0.0, "max_d2 ignored skip=1")
-    check(torch.equal(hn.max_d2(pos, skip=one * 0), hn.max_d2_plain(pos)),
+    count = torch.zeros((), dtype=torch.int32, device=dev)
+    check(hn.max_d2(pos, skip=one, count=count).item() == 0.0,
+          "max_d2 ignored skip=1")
+    check(torch.equal(hn.max_d2(pos, skip=one * 0, count=count),
+                      hn.max_d2_plain(pos)),
           "max_d2 with skip=0 differs from plain")
+    check(count.item() == 1, f"max_d2 counted {count.item()} runs, not 1")
     for name, geom in (("disk", pos), ("ring", ring_positions(STARS, dev)),
                        ("disk-3d", make_inputs(STARS, 3, True, 2, dev)[0])):
         pruned = hn.max_pairwise_dist_sq_pruned(geom, cfg)
@@ -265,14 +383,52 @@ def phase_kernels(dev, report: dict) -> None:
           "ring: the candidates alone hold the max, the fallback is untested")
     report["max_d2"]["max_abs_err"] = worst_max
 
-    # sym_force twice: bitwise equal.
+    # Run to run: sym_force, pair_sym_force and the chunked path bitwise.
+    m = torch.ones(STARS, device=dev)
     for mode in ("float32", "int4"):
         q = Quantizer.from_string(mode)
-        a = hn.sym_accelerations(pos, torch.ones(STARS, device=dev), q, cfg)
-        b = hn.sym_accelerations(pos, torch.ones(STARS, device=dev), q, cfg)
+        a = hn.sym_accelerations(pos, m, q, cfg)
+        b = hn.sym_accelerations(pos, m, q, cfg)
         check(torch.equal(a, b), f"sym_force not deterministic ({mode})")
-    print("kernels: sym_force run-to-run bitwise equal (float32, int4); "
-          "max_d2 skip flag honoured")
+        bounds = force_bounds(q, pos, cfg.softening_sq, dev)
+        ra, ca = hn.pair_sym_force(pos[:1700], m[:1700], pos[1700:],
+                                   m[1700:], bounds, q)
+        rb, cb = hn.pair_sym_force(pos[:1700], m[:1700], pos[1700:],
+                                   m[1700:], bounds, q)
+        check(torch.equal(ra, rb) and torch.equal(ca, cb),
+              f"pair_sym_force not deterministic ({mode})")
+        a = hn.sym_accelerations_chunked(pos, m, q, cfg, chunk=1700)
+        b = hn.sym_accelerations_chunked(pos, m, q, cfg, chunk=1700)
+        check(torch.equal(a, b), f"chunked path not deterministic ({mode})")
+    print("kernels: sym_force, pair_sym_force and the chunked path run to "
+          "run bitwise equal (float32, int4); max_d2 skip and count flags "
+          "honoured")
+
+    # The chunked path at N=131072 in 2 and 3 chunks (a ragged tail)
+    # against single-launch sym_force: another summation order of the same
+    # pairs, held with the summed-|terms| scale where |a| alone does not.
+    pos, m = make_inputs(BIG_N, 2, False, seed=11, dev=dev)
+    gm = (cfg.G * m).contiguous()
+    for mode in ("float32", "int4"):
+        q = Quantizer.from_string(mode)
+        single = hn.sym_accelerations(pos, m, q, cfg, quantize_forces=False)
+        bounds = force_bounds(q, pos, cfg.softening_sq, dev)
+        for chunk in (BIG_N // 2, -(-BIG_N // 3)):
+            got = hn.sym_accelerations_chunked(pos, m, q, cfg,
+                                               quantize_forces=False,
+                                               chunk=chunk)
+            scale = lazy_scale(pos, gm, bounds, q, False, got, single)
+            ok, err, ratio, _ = agree(got, single, scale)
+            off, one_step = quantized_flips(got, single, q) if q.is_int \
+                else (0, True)
+            print(f"kernels: chunked {-(-BIG_N // chunk)} chunks vs "
+                  f"single-launch sym_force, N={BIG_N} {mode}: max err "
+                  f"{err:.4e}, err/bound {ratio:.4f}, rows needing the "
+                  f"|terms| scale {int((scale != 0).any(1).sum())}, "
+                  f"quantize_force flips {off}")
+            check(ok and off <= flips_allowed(single) and one_step,
+                  f"chunked != sym_force at N={BIG_N} {mode} chunk {chunk}")
+    del pos, m, gm
 
 
 # --------------------------------------------------------------------------
@@ -309,8 +465,10 @@ def phase_main(dev, report: dict) -> None:
         rate = re.search(r"(\d+) ticks in ([\d.]+)s \(([\d.]+) ticks/s, "
                          r"([\d.e+]+) pairwise", block)
         per_mode[mode] = launched
+        path = re.search(r"force path: (.*)", block).group(1)
         print(f"main: {mode}: ticks/s {rate.group(3)}, pairwise "
-              f"interactions/s {rate.group(4)}, launches {launched}")
+              f"interactions/s {rate.group(4)}, launches {launched}, "
+              f"force path: {path}")
     check(set(per_mode) == {"float64", "float32", "int4_sim"},
           f"modes run: {sorted(per_mode)}")
     for mode in ("float32", "int4_sim"):
@@ -324,7 +482,7 @@ def phase_main(dev, report: dict) -> None:
               and np.isfinite(h.total_energy).all(),
               f"{mode}: history not finite / wrong length")
     print(f"main: wall {wall:.1f}s for three modes; launches {launches}")
-    for k in KERNELS:
+    for k in ("sym_force", "max_d2"):
         report[k]["launches"] = launches[k]
         check(launches[k] > 0, f"{k} was never launched on the main path")
 
@@ -416,15 +574,16 @@ def phase_perf(dev, report: dict) -> None:
                   f"plain {min(plain_ms, plain_ms2):.4f} ms "
                   f"(plain runs {plain_ms:.4f} / {plain_ms2:.4f})")
             if n == STARS and mode == "float32":
-                report["sym_force"]["ms"] = ms
-                report["sym_force"]["plain_ms"] = min(plain_ms, plain_ms2)
+                report["sym_force"].update(
+                    ms=ms, plain_ms=min(plain_ms, plain_ms2),
+                    timed_at=f"N={STARS} D=2 float32")
         plain_ms = cuda_ms(lambda: hn.max_d2_plain(pos), reps)
         ms = cuda_ms(lambda: hn.max_d2(pos), reps)
         print(f"perf: max_d2 N={n} D=2 full set: kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms")
         if n == STARS:
-            report["max_d2"]["ms"] = ms
-            report["max_d2"]["plain_ms"] = plain_ms
+            report["max_d2"].update(ms=ms, plain_ms=plain_ms,
+                                    timed_at=f"N={STARS} D=2 full set")
         del pos, m, gm
 
     from nbody_tpu_torch.models.galaxy import create_disk_galaxy
@@ -443,6 +602,303 @@ def phase_perf(dev, report: dict) -> None:
               f"every 10) in {wall:.3f}s = {20 / wall:.3f} ticks/s, "
               f"{BIG_N ** 2 * 20 / wall:.4e} pairwise interactions/s")
         del sim
+
+    # The row sweep at N=131072 (its plain version at the 1M path's shape
+    # takes minutes; --phases scale has it) and the pair tile at the
+    # chunk shape of the N=1M, D=2 path.
+    pos, m = make_inputs(BIG_N, 2, True, seed=7, dev=dev)
+    gm = (cfg.G * m).contiguous()
+    q = Quantizer.from_string("float32")
+    bounds = force_bounds(q, pos, cfg.softening_sq, dev)
+    plain_ms = cuda_ms(lambda: hn.row_force_plain(pos, gm, bounds, q, False),
+                       2)
+    ms = cuda_ms(lambda: hn.row_force(pos, gm, bounds, q, False), 3)
+    plain_ms2 = cuda_ms(lambda: hn.row_force_plain(pos, gm, bounds, q,
+                                                   False), 2)
+    print(f"perf: row_force N={BIG_N} D=2 float32: kernel {ms:.4f} ms, "
+          f"plain {min(plain_ms, plain_ms2):.4f} ms (plain runs "
+          f"{plain_ms:.4f} / {plain_ms2:.4f})")
+    report["row_force"].update(ms=ms, plain_ms=min(plain_ms, plain_ms2),
+                               timed_at=f"N={BIG_N} D=2 float32")
+    chunk = hn.sym_chunk_size(LARGE_N, 2)
+    pos, m = make_inputs(2 * chunk, 2, True, seed=8, dev=dev)
+    gm = (cfg.G * m).contiguous()
+    pa, pb, ga, gb = pos[:chunk], pos[chunk:], gm[:chunk], gm[chunk:]
+    plain_ms = cuda_ms(lambda: hn.pair_sym_force_plain(pa, ga, pb, gb,
+                                                       bounds, q), 1, 0)
+    ms = cuda_ms(lambda: hn.pair_sym_force(pa, ga, pb, gb, bounds, q), 3)
+    plain_ms2 = cuda_ms(lambda: hn.pair_sym_force_plain(pa, ga, pb, gb,
+                                                        bounds, q), 1, 0)
+    print(f"perf: pair_sym_force {chunk}x{chunk} D=2 float32 (the N=1M "
+          f"chunk pair): kernel {ms:.4f} ms, plain "
+          f"{min(plain_ms, plain_ms2):.4f} ms (plain runs {plain_ms:.4f} / "
+          f"{plain_ms2:.4f})")
+    report["pair_sym_force"].update(ms=ms, plain_ms=min(plain_ms, plain_ms2),
+                                    timed_at=f"{chunk}x{chunk} D=2 float32")
+    del pos, m, gm, pa, pb, ga, gb
+
+    # dt and softening as run-time device scalars against the same run
+    # with static parameters: the same launches on the same values, so
+    # the drifts must agree to rounding.
+    p0, v0, m0 = create_disk_galaxy(torch.Generator().manual_seed(0),
+                                    num_stars=STARS, device=dev)
+    for mode in ("float32", "int4"):
+        drifts = []
+        for dynamic in (False, True):
+            sim = DirectSimulation(p0, v0, m0, precision=mode, device=dev,
+                                   dynamic_params=dynamic)
+            e0 = sim.get_total_energy()
+            snaps, _ = sim.run_with_history(DYNAMIC_TICKS, INTERVAL)
+            drifts.append((np.asarray(snaps.total) - e0) / abs(e0))
+        gap = float(np.abs(drifts[1] - drifts[0]).max())
+        print(f"perf: dynamic_params {mode} N={STARS} {DYNAMIC_TICKS} ticks:"
+              f" drift static {drifts[0][-1]:+.9e}, run-time "
+              f"{drifts[1][-1]:+.9e}, max gap {gap:.3e} "
+              f"({'bitwise equal' if gap == 0 else 'not bitwise equal'})")
+        check(np.isfinite(drifts[1]).all() and gap <= 1e-7,
+              f"dynamic_params {mode}: drift gap {gap} beyond rounding")
+
+
+# --------------------------------------------------------------------------
+# Phase 7: N = 1,048,576 through the "auto" routing
+# --------------------------------------------------------------------------
+
+def large_ics(dim: int, dev):
+    """bench.py's large-N arms: a D=2 disk or a D=3 Plummer sphere of
+    LARGE_N stars from LARGE_SEED (torch's generator, not JAX's)."""
+    from nbody_tpu_torch.models import galaxy
+    gen = torch.Generator().manual_seed(LARGE_SEED)
+    make = (galaxy.create_disk_galaxy if dim == 2
+            else galaxy.create_plummer_sphere)
+    return make(gen, num_stars=LARGE_N, device=dev)
+
+
+def reset_counters(hn) -> None:
+    for k in hn.LAUNCHES:
+        hn.LAUNCHES[k] = 0
+    hn.BOUNDS_FALLBACKS.clear()
+
+
+def hold_large(name, got, want, pos, gm, bounds, q, rows=None):
+    """Two summation orders of the same ~1M terms per row: the elementwise
+    rule with the summed-|terms| scale where |a| alone does not hold, and
+    for int8/int4 the quantize_force flip rule. Returns a summary."""
+    scale = lazy_scale(pos, gm, bounds, q, False, got, want, rows)
+    ok, err, ratio, nonfinite = agree(got, want, scale)
+    off, one_step = quantized_flips(got, want, q) if q.is_int else (0, True)
+    allowed = flips_allowed(want)
+    scaled = (scale != 0).any(1)
+    scaled_ratio = (agree(got[scaled], want[scaled], scale[scaled])[2]
+                    if scaled.any() else 0.0)
+    print(f"large:   {name}: max err {err:.4e}, err/bound {ratio:.4f}; rows "
+          f"beyond the |a| rule {int(scaled.sum())}, held to the summed "
+          f"|terms|: worst err/bound {scaled_ratio:.4f}; non-finite "
+          f"{nonfinite}; quantize_force flips {off} (allowed {allowed})")
+    check(ok and off <= allowed and one_step,
+          f"{name}: kernels disagree at N={LARGE_N}")
+    return err
+
+
+def phase_large(dev, report: dict) -> None:
+    from nbody_tpu_torch.config import SimConfig
+    from nbody_tpu_torch.models.direct import _resolve_impl, run_steps
+    from nbody_tpu_torch.models.state import make_state
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+    from nbody_tpu_torch.ops.precision import Quantizer
+    from nbody_tpu_torch.utils.profiler import fence
+
+    cfg = SimConfig()
+    gen = torch.Generator().manual_seed(LARGE_SEED)
+    rows = torch.randperm(LARGE_N, generator=gen)[:SAMPLED_ROWS].to(dev)
+    pair_launches = 0
+    for dim in (2, 3):
+        pos0, vel0, m0 = large_ics(dim, dev)
+        chunk = hn.sym_chunk_size(LARGE_N, dim)
+        n_chunks = -(-LARGE_N // chunk)
+        impl = _resolve_impl("auto", LARGE_N, dim)
+        print(f"large: D={dim}: auto -> {impl}; sym_force alone would need "
+              f"{hn.sym_force_scratch_bytes(LARGE_N, dim) / 1e9:.1f} GB of "
+              f"scratch (budget {hn.SCRATCH_BUDGET / 1e9:.0f} GB); "
+              f"{n_chunks} chunks of {chunk}")
+        check(impl == "kernel_sym_chunked", f"D={dim}: auto picked {impl}")
+        for mode in ("float32", "int4"):
+            q = Quantizer.from_string(mode)
+            state = make_state(pos0, vel0, m0, dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            fence(state.positions)
+            reset_counters(hn)
+            t0 = time.time()
+            state = run_steps(state, q, cfg, "auto", q.is_int, LARGE_STEPS)
+            fence(state.positions)
+            wall = time.time() - t0
+            launched = dict(hn.LAUNCHES)
+            fallbacks = hn.bounds_fallbacks(dev)
+            peak = torch.cuda.max_memory_allocated(dev) / 1e9
+            print(f"large: D={dim} {mode}: {LARGE_STEPS} steps in "
+                  f"{wall:.3f}s = {wall / LARGE_STEPS * 1e3:.1f} ms/step, "
+                  f"{LARGE_N ** 2 * LARGE_STEPS / wall:.4e} pairs/s; "
+                  f"launches {launched}; peak {peak:.2f} GB")
+            want = {"sym_force": LARGE_STEPS * n_chunks,
+                    "pair_sym_force":
+                        LARGE_STEPS * n_chunks * (n_chunks - 1) // 2,
+                    "row_force": 0,
+                    "max_d2": 2 * LARGE_STEPS if q.is_int else 0}
+            check(launched == want, f"D={dim} {mode}: launches {launched}, "
+                                    f"expected {want}")
+            pair_launches += launched["pair_sym_force"]
+            if q.is_int:
+                print(f"large: D={dim} {mode}: the pruned bounds pass took "
+                      f"its full-set fallback in {fallbacks} of "
+                      f"{LARGE_STEPS} evaluations")
+            check(bool(torch.isfinite(state.positions).all()
+                       and torch.isfinite(state.velocities).all()),
+                  f"D={dim} {mode}: non-finite state")
+
+            # One evaluation, two independent kernels over all rows, and
+            # both against the plain version on sampled receivers.
+            pos = state.positions
+            gm = (cfg.G * state.masses).contiguous()
+            bounds = hn.kernel_bounds(pos, q, cfg)
+            fence(bounds)
+            t0 = time.time()
+            chunked = hn.sym_accelerations_chunked(pos, state.masses, q, cfg,
+                                                   quantize_forces=False)
+            fence(chunked)
+            t_chunked = time.time() - t0
+            t0 = time.time()
+            rowsweep = hn.accelerations_rows(pos, state.masses, q, cfg,
+                                             quantize_forces=False)
+            fence(rowsweep)
+            t_rows = time.time() - t0
+            print(f"large: D={dim} {mode}: one evaluation: chunked "
+                  f"{t_chunked * 1e3:.1f} ms, row sweep {t_rows * 1e3:.1f} "
+                  f"ms (wall, each with its bounds pass)")
+            if dim == 2 and mode == "float32":
+                report["pair_sym_force"]["chunked_eval_ms_1M_D2"] = \
+                    t_chunked * 1e3
+            hold_large("chunked vs row_force, all rows", chunked, rowsweep,
+                       pos, gm, bounds, q)
+            plain = hn.row_force_plain(pos, gm, bounds, q, False, rows=rows,
+                                       block=512)
+            hold_large(f"chunked vs plain, {SAMPLED_ROWS} rows",
+                       chunked[rows], plain, pos, gm, bounds, q, rows)
+            hold_large(f"row_force vs plain, {SAMPLED_ROWS} rows",
+                       rowsweep[rows], plain, pos, gm, bounds, q, rows)
+            del state, pos, gm, chunked, rowsweep, plain
+        if dim == 3:
+            bounds_pass_checks(hn, cfg, pos0, dev)
+        del pos0, vel0, m0
+    report["pair_sym_force"]["launches"] = pair_launches
+
+    # Zero softening routes the chunked path to the row sweep. The D=3
+    # Plummer sphere, since the disk's radius clamp at 0.1 puts exactly
+    # coincident stars among 1M torch draws (24-bit angles), and at zero
+    # softening a coincident pair is 0 * inf = NaN, in JAX as here.
+    pos0, vel0, m0 = large_ics(3, dev)
+    n_unique = torch.unique(pos0, dim=0).shape[0]
+    check(n_unique == LARGE_N, f"Plummer ICs hold {LARGE_N - n_unique} "
+                               f"coincident stars")
+    cfg0 = SimConfig(softening=0.0)
+    q = Quantizer.from_string("float32")
+    state = make_state(pos0, vel0, m0, dev)
+    fence(state.positions)
+    reset_counters(hn)
+    t0 = time.time()
+    state = run_steps(state, q, cfg0, "auto", False, 2)
+    fence(state.positions)
+    wall = time.time() - t0
+    launched = dict(hn.LAUNCHES)
+    print(f"large: D=3 float32 zero softening: 2 steps in {wall:.3f}s = "
+          f"{wall / 2 * 1e3:.1f} ms/step, {LARGE_N ** 2 * 2 / wall:.4e} "
+          f"pairs/s; launches {launched}")
+    check(launched == {"sym_force": 0, "max_d2": 0, "row_force": 2,
+                       "pair_sym_force": 0},
+          f"zero softening did not route to row_force: {launched}")
+    check(bool(torch.isfinite(state.positions).all()),
+          "zero softening: non-finite positions")
+    report["row_force"]["launches"] = launched["row_force"]
+    report["row_force"]["step_ms_1M_D3_zero_softening"] = wall / 2 * 1e3
+
+
+def bounds_pass_checks(hn, cfg, plummer, dev) -> None:
+    """The pruned bounds pass at D=3, N=1M bitwise equal to the full
+    max_d2, on the Plummer ICs and on a shell that forces the fallback."""
+    for name, geom in (("Plummer", plummer),
+                       ("shell", shell_positions(LARGE_N, dev))):
+        hn.BOUNDS_FALLBACKS.clear()
+        pruned = hn.max_pairwise_dist_sq_pruned(geom, cfg)
+        took = hn.bounds_fallbacks(dev)
+        ms = cuda_ms(lambda: hn.max_d2(geom), 2)
+        full = hn.max_dist_sq(geom, cfg)
+        print(f"large: bounds pass D=3 {name}: pruned {pruned.item()!r}, "
+              f"full max_d2 {full.item()!r} ({ms:.3f} ms a full launch), "
+              f"fallback taken: {bool(took)}")
+        check(torch.equal(pruned, full), f"{name}: pruned != full max")
+        if name == "shell":
+            check(took == 1, "the shell did not take the fallback")
+            r = torch.linalg.vector_norm(geom - geom.mean(0), dim=1)
+            cand = geom[torch.topk(r, 1024).indices]
+            check(hn.max_d2(cand) < hn.max_d2(geom),
+                  "shell: the candidates alone hold the max")
+
+
+# --------------------------------------------------------------------------
+# Extra phase: each kernel against its plain version at the 1M shapes
+# --------------------------------------------------------------------------
+
+def phase_scale(dev) -> None:
+    from nbody_tpu_torch.config import SimConfig
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+    from nbody_tpu_torch.ops.precision import Quantizer
+
+    cfg = SimConfig()
+    for dim in (2, 3):
+        pos, _, m = large_ics(dim, dev)
+        gm = (cfg.G * m).contiguous()
+        for mode in ("float32", "int4"):
+            q = Quantizer.from_string(mode)
+            bounds = hn.kernel_bounds(pos, q, cfg)
+            chunk = hn.sym_chunk_size(LARGE_N, dim)
+            pa, pb, ga, gb = (pos[:chunk], pos[chunk:2 * chunk], gm[:chunk],
+                              gm[chunk:2 * chunk])
+            runs = (
+                ("row_force", lambda: hn.row_force(pos, gm, bounds, q,
+                                                   False),
+                 lambda: hn.row_force_plain(pos, gm, bounds, q, False,
+                                            block=512)),
+                ("chunked", lambda: hn.sym_accelerations_chunked(
+                    pos, m, q, cfg, quantize_forces=False, log_lo=bounds[0],
+                    log_hi=bounds[1]), None),
+                ("sym_force one chunk", lambda: hn.sym_force(
+                    pa, ga, bounds, q, False),
+                 lambda: hn.sym_force_plain(pa, ga, bounds, q, False)),
+                ("pair_sym_force chunk pair", lambda: hn.pair_sym_force(
+                    pa, ga, pb, gb, bounds, q),
+                 lambda: hn.pair_sym_force_plain(pa, ga, pb, gb, bounds, q)),
+            )
+            for name, kernel, plain in runs:
+                ms = cuda_ms(kernel, 1)
+                # The chunked path's plain version is row_force's.
+                plain_ms = (f"{cuda_ms(plain, 1, 0):.3f} ms" if plain
+                            else "as row_force")
+                print(f"scale: {name} N={LARGE_N} D={dim} {mode} (chunk "
+                      f"{chunk}): kernel {ms:.3f} ms, plain {plain_ms}")
+        if dim == 3:
+            # The self-mask of zero and run-time softening, on the same
+            # inputs: its per-pair branch is the only difference.
+            q = Quantizer.from_string("float32")
+            bounds = hn.kernel_bounds(pos, q, cfg)
+            for masked in (False, True):
+                ms = cuda_ms(lambda: hn.row_force(pos, gm, bounds, q,
+                                                  masked), 1)
+                print(f"scale: row_force N={LARGE_N} D=3 float32 "
+                      f"self_masked={masked}: kernel {ms:.3f} ms")
+        del pos, m, gm
+    geom = shell_positions(LARGE_N, dev)
+    ms = cuda_ms(lambda: hn.max_d2(geom), 2)
+    plain_ms = cuda_ms(lambda: hn.max_d2_plain(geom), 1, 0)
+    print(f"scale: max_d2 full set N={LARGE_N} D=3 shell: kernel {ms:.3f} "
+          f"ms, plain {plain_ms:.3f} ms")
 
 
 # --------------------------------------------------------------------------
@@ -534,7 +990,8 @@ def main(argv=None) -> int:
     print(f"build: nvcc {' '.join(_build.NVCC_FLAGS)} in "
           f"{time.time() - t0:.1f}s")
     for line in _build.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
+        if ("registers" in line or "spill" in line or "Compiling" in line
+                or line.startswith("==")):
             print(f"build: {line.strip()}")
 
     report = {k: {"name": k, "route": "cuda", **v, "launches": 0,
@@ -551,8 +1008,12 @@ def main(argv=None) -> int:
                 phase_gate(dev)
             elif phase == "perf":
                 phase_perf(dev, report)
+            elif phase == "large":
+                phase_large(dev, report)
             elif phase == "profile":
                 phase_profile(dev, args.profile_out)
+            elif phase == "scale":
+                phase_scale(dev)
             torch.cuda.synchronize()
             print(f"phase {phase}: ok in {time.time() - t:.1f}s")
     except Failed as e:

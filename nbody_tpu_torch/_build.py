@@ -1,16 +1,19 @@
 """Build and load the package's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled with nvcc, at first use, into one
-shared library with a plain C interface, loaded with ``ctypes``:
+Every ``csrc/*.cu`` file is compiled with nvcc, at first use, into a
+shared library of its own with a plain C interface, loaded with
+``ctypes``. The nvcc processes of all sources start together and run in
+parallel:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v
+         -Xcompiler -fPIC -Xptxas -v -o <stem>.so csrc/<stem>.cu
 
 No ``--use_fast_math``: the int-sim chain needs the accurate logf/expf
-(a different log moves the log-grid bin edges). The library lands in
+(a different log moves the log-grid bin edges). The libraries land in
 ``build/nbody_tpu_torch/<hash>/`` at the repository root, keyed by a hash
-of the sources and the flags, so an edit rebuilds and a rerun reuses it.
-Only the repository's own sources are compiled.
+of the sources, the shared headers (``csrc/*.cuh``) and the flags, so an
+edit rebuilds and a rerun reuses them. Only the repository's own sources
+are compiled.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import os
 import shutil
 import subprocess
 import threading
+import types
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
@@ -29,9 +33,29 @@ BUILD_ROOT = _PKG.parent / "build" / "nbody_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C functions of each source: name -> argtypes (every one returns an int).
+SIGNATURES = {
+    "sym_force": {
+        "nbody_sym_force_tile": [],
+        "nbody_sym_force": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P, _P,
+                            _P],
+    },
+    "max_dist_sq": {
+        "nbody_max_d2": [_P, _I, _I, _P, _P, _P, _I, _P, _P],
+    },
+    "row_force": {
+        "nbody_row_force": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P, _P],
+    },
+    "pair_sym_force": {
+        "nbody_pair_sym_force": [_P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _F,
+                                 _F, _I, _P, _P, _P, _P, _P],
+    },
+}
+
 _lock = threading.Lock()
 _lib = None
-BUILD_LOG = ""  # nvcc's output of the build this process ran (ptxas -v)
+BUILD_LOG = ""  # nvcc's output of the builds this process ran (ptxas -v)
 
 
 def _nvcc() -> str:
@@ -45,51 +69,58 @@ def _nvcc() -> str:
     return found
 
 
-def _sources() -> list:
-    return sorted(CSRC.glob("*.cu"))
-
-
-def _digest(sources) -> str:
+def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
-def _compile(out: Path, sources) -> None:
+def _compile(out_dir: Path, stems) -> None:
+    """One nvcc per source, all started at once; raises if any fails."""
     global BUILD_LOG
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOG = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{BUILD_LOG}")
-    os.replace(tmp, out)
-
-
-def _bind(lib) -> None:
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.nbody_sym_force_tile.argtypes = []
-    lib.nbody_sym_force_tile.restype = i
-    lib.nbody_sym_force.argtypes = [p, p, p, i, i, i, i, f, f, i, p, p, p]
-    lib.nbody_sym_force.restype = i
-    lib.nbody_max_d2.argtypes = [p, i, i, p, p, i, p, p]
-    lib.nbody_max_d2.restype = i
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    jobs = []
+    for stem in stems:
+        tmp = out_dir / f"{stem}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{stem}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((stem, tmp, cmd, proc))
+    logs, failed = [], []
+    for stem, tmp, cmd, proc in jobs:
+        log = proc.communicate()[0]
+        logs.append(f"== {stem}.cu\n{log}")
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{log}")
+        else:
+            os.replace(tmp, out_dir / f"lib{stem}.so")
+    BUILD_LOG = "".join(logs)
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def library():
-    """The loaded kernel library, building it first if needed."""
+    """The loaded kernels, building them first if needed: a namespace of
+    the C functions of every source, with their ctypes signatures set."""
     global _lib
     with _lock:
         if _lib is None:
-            sources = _sources()
-            out = BUILD_ROOT / _digest(sources) / "libnbody_hopper.so"
-            if not out.exists():
-                _compile(out, sources)
-            lib = ctypes.CDLL(str(out))
-            _bind(lib)
-            _lib = lib
+            out_dir = BUILD_ROOT / _digest()
+            missing = [s for s in SIGNATURES
+                       if not (out_dir / f"lib{s}.so").exists()]
+            if missing:
+                _compile(out_dir, missing)
+            fns = {}
+            for stem, sigs in SIGNATURES.items():
+                cdll = ctypes.CDLL(str(out_dir / f"lib{stem}.so"))
+                for name, argtypes in sigs.items():
+                    fn = getattr(cdll, name)
+                    fn.argtypes = argtypes
+                    fn.restype = _I
+                    fns[name] = fn
+            _lib = types.SimpleNamespace(**fns)
         return _lib

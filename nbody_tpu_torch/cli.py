@@ -70,7 +70,8 @@ Precision modes:
                    help="ticks between on-device metric snapshots")
     p.add_argument("--force-impl", type=str, default="auto",
                    choices=["auto", "dense", "tiled", "kernel"],
-                   help="force implementation (auto = the sym_force kernel)")
+                   help="force implementation (auto = the sym_force "
+                        "kernel, chunked past its scratch budget)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (default: cuda)")
     p.add_argument("--mesh", type=int, nargs="?", const=0, default=None,
@@ -85,6 +86,17 @@ Precision modes:
     p.add_argument("--ticks-per-dispatch", type=int, default=None,
                    metavar="T", help="mesh dispatch cap (not yet ported)")
     return p
+
+
+def force_path(launched: dict) -> str:
+    """Which force path a run took, from its kernel launch counts."""
+    if launched["pair_sym_force"]:
+        return "chunked Newton's-third-law (sym_force + pair_sym_force)"
+    if launched["row_force"]:
+        return "row sweep (row_force)"
+    if launched["sym_force"]:
+        return "single-launch sym_force"
+    return "no force kernel launched (CPU plain versions or the f64 baseline)"
 
 
 def _resolve_device(name: str) -> torch.device:
@@ -157,6 +169,7 @@ def run_compare(args) -> dict:
         launched = {k: hopper_nbody.LAUNCHES[k] - launches0[k]
                     for k in hopper_nbody.LAUNCHES}
         print(f"  kernel launches: {json.dumps(launched)}")
+        print(f"  force path: {force_path(launched)}")
         for tick, e in zip(h.ticks[::2], h.total_energy[::2]):
             print(f"  Tick {tick}: Energy={e:.4f}")
 

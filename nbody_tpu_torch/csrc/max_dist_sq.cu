@@ -21,11 +21,21 @@
 // *skip != 0 (the reduce then writes 0): the candidate-pruned bounds pass
 // launches the full set unconditionally and lets the device decide
 // whether the candidates already sufficed, so the step never waits on the
-// host.
+// host. `count` (nullable, on the device) is incremented by the reduce
+// whenever the launch ran, so a run can read afterwards how often the
+// pruned pass took its full-set fallback.
+//
+// Large N: this kernel also replaces _max_kernel_streamed /
+// pallas_max_dist_sq_streamed (TPU kernel #3), the fallback past 8 MB of
+// VMEM-resident positions. It never holds the source set resident: each
+// block stages one MT-tile of sources at a time from device memory, the
+// tile-pair index is 64-bit and the grid is capped at `capacity` blocks,
+// so N is bounded only by int32 particle indices.
 //
 // What bounds it on the H100: arithmetic, ~6 fp32 ops per pair over
 // N^2/2 pairs; positions are O(N) bytes. On the main path it runs on the
-// 1024 candidates (~0.5M pairs) and the full-set launch exits at once.
+// 1024 candidates (~0.5M pairs) and the full-set launch exits at once
+// unless the geometry defeats the candidates.
 
 #include <cuda_runtime.h>
 
@@ -83,12 +93,14 @@ max_d2_tiles(const float* __restrict__ pos, int n, const int* __restrict__ skip,
 
 __global__ void __launch_bounds__(MT)
 max_d2_reduce(const float* __restrict__ block_max, int nb,
-              const int* __restrict__ skip, float* __restrict__ out) {
+              const int* __restrict__ skip, int* __restrict__ count,
+              float* __restrict__ out) {
   const int t = threadIdx.x;
   if (skip != nullptr && *skip != 0) {
     if (t == 0) out[0] = 0.f;
     return;
   }
+  if (t == 0 && count != nullptr) *count += 1;
   __shared__ float red[MT];
   float best = 0.f;
   for (int k = t; k < nb; k += MT) best = fmaxf(best, block_max[k]);
@@ -103,12 +115,12 @@ max_d2_reduce(const float* __restrict__ block_max, int nb,
 
 }  // namespace
 
-// pos (n, dim) f32 on the device; skip: nullable device int; block_max:
-// scratch of `capacity` floats; out: one float, the raw max d^2 (0 when
-// skipped). Returns cudaGetLastError().
+// pos (n, dim) f32 on the device; skip, count: nullable device ints;
+// block_max: scratch of `capacity` floats; out: one float, the raw max d^2
+// (0 when skipped). Returns cudaGetLastError().
 extern "C" int nbody_max_d2(const float* pos, int n, int dim, const int* skip,
-                            float* block_max, int capacity, float* out,
-                            void* stream) {
+                            int* count, float* block_max, int capacity,
+                            float* out, void* stream) {
   if (n <= 0 || (dim != 2 && dim != 3) || capacity <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -118,6 +130,6 @@ extern "C" int nbody_max_d2(const float* pos, int n, int dim, const int* skip,
     max_d2_tiles<2><<<nb, MT, 0, s>>>(pos, n, skip, block_max);
   else
     max_d2_tiles<3><<<nb, MT, 0, s>>>(pos, n, skip, block_max);
-  max_d2_reduce<<<1, MT, 0, s>>>(block_max, nb, skip, out);
+  max_d2_reduce<<<1, MT, 0, s>>>(block_max, nb, skip, count, out);
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,147 @@
+// Device code shared by the force kernels of nbody_tpu_torch (sym_force.cu,
+// row_force.cu, pair_sym_force.cu): the precision hook of one pair, the
+// fixed-order reduction of per-tile partials, and the dispatch from the
+// runtime (mode, dim) to a kernel instance.
+//
+// Numerics, matched to the plain PyTorch versions (ops/hopper_nbody.py):
+//   * d^2 is subtract-form and never contracted into an FMA:
+//     __fadd_rn(__fmul_rn(dx,dx), __fmul_rn(dy,dy)) (+ dz^2), then + eps^2;
+//   * float32: w = rsqrtf(d2)^3; CUDA documents rsqrtf at 2 ulp, and
+//     torch.rsqrt on the card calls the same function;
+//   * bf16 / f16: __float2bfloat16_rn / __float2half_rn and back (IEEE
+//     round-to-nearest-even, f16 subnormals, inf at |x| >= 65520);
+//   * int-sim: the folded log-grid chain of the TPU kernels
+//     (pallas_nbody.py:176-219), max, log, mul-add, rint, mul-add, min,
+//     exp, with the grid scalars hoisted per block. logf / expf are the
+//     accurate versions and rintf rounds half to even (as jnp.round):
+//     never build with --use_fast_math, a different log moves the bin
+//     edges. The two multiply-adds round twice (mul, then add) as the JAX
+//     chain and the plain version do, so a kernel and its plain version
+//     agree bin for bin.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+
+#include <cstddef>
+#include <type_traits>
+
+namespace {
+
+// Tile of the Newton's-third-law kernels: a block of BT threads owns BT
+// receivers, and per-tile partials hold BT rows (hopper_nbody.TILE).
+constexpr int BT = 64;
+
+enum Mode { MODE_F32 = 0, MODE_BF16 = 1, MODE_F16 = 2, MODE_INT = 3 };
+
+struct IntGrid {
+  float norm_a, norm_b, arg_k, arg_0, arg_cap, min_d2;
+};
+
+// The folded int chain's grid scalars from bounds = [log_lo, log_hi, eps^2]
+// (pallas_nbody.py:321-328), each op a single IEEE rounding.
+__device__ __forceinline__ IntGrid int_grid(const float* bounds, int levels,
+                                            float arg_cap, float min_d2) {
+  const float log_lo = bounds[0];
+  const float log_hi = bounds[1];
+  const float lvl = (float)(levels - 1);
+  const float safe_span = fmaxf(__fsub_rn(log_hi, log_lo), 1e-10f);
+  IntGrid g;
+  g.norm_a = __fdiv_rn(lvl, safe_span);
+  g.norm_b = __fmul_rn(-log_lo, g.norm_a);
+  g.arg_k = __fdiv_rn(__fmul_rn(-1.5f, safe_span), lvl);
+  g.arg_0 = __fmul_rn(-1.5f, log_lo);
+  g.arg_cap = arg_cap;
+  g.min_d2 = min_d2;
+  return g;
+}
+
+template <int D>
+__device__ __forceinline__ float raw_d2(const float (&dx)[D]) {
+  float s = __fmul_rn(dx[0], dx[0]);
+#pragma unroll
+  for (int d = 1; d < D; ++d) s = __fadd_rn(s, __fmul_rn(dx[d], dx[d]));
+  return s;
+}
+
+// w = quantized |r|^-3 of the softened d^2.
+template <int MODE>
+__device__ __forceinline__ float pair_w(float d2, const IntGrid& g) {
+  if (MODE == MODE_INT) {
+    const float log_d2 = logf(fmaxf(d2, g.min_d2));
+    const float k = rintf(__fadd_rn(__fmul_rn(log_d2, g.norm_a), g.norm_b));
+    const float arg = fminf(__fadd_rn(__fmul_rn(k, g.arg_k), g.arg_0),
+                            g.arg_cap);
+    return expf(arg);
+  }
+  float d2q = d2;
+  if (MODE == MODE_BF16) d2q = __bfloat162float(__float2bfloat16_rn(d2));
+  if (MODE == MODE_F16) d2q = __half2float(__float2half_rn(d2));
+  const float inv = rsqrtf(d2q);
+  return __fmul_rn(__fmul_rn(inv, inv), inv);
+}
+
+// out[row] = sum over b = 0..nb-1 of part[row / BT][b][row % BT], in that
+// order: part is (ceil(n / BT), nb, BT, D). A fixed order, so two runs give
+// the same bits (the multiverse experiments read summation order as
+// physics).
+template <int D>
+__global__ void reduce_partials(const float* __restrict__ part, int n, int nb,
+                                float* __restrict__ out) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= n) return;
+  const size_t a = row / BT;
+  const size_t r = row % BT;
+  float s[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) s[d] = 0.f;
+  for (int b = 0; b < nb; ++b) {
+    const float* p = part + ((a * nb + b) * BT + r) * D;
+#pragma unroll
+    for (int d = 0; d < D; ++d) s[d] = __fadd_rn(s[d], p[d]);
+  }
+#pragma unroll
+  for (int d = 0; d < D; ++d) out[(size_t)row * D + d] = s[d];
+}
+
+template <int D>
+void launch_reduce(const float* part, int n, int nb, float* out,
+                   cudaStream_t stream) {
+  reduce_partials<D><<<(n + 255) / 256, 256, 0, stream>>>(part, n, nb, out);
+}
+
+template <int V>
+using Const = std::integral_constant<int, V>;
+
+// Calls f(Const<MODE>{}, Const<D>{}) for the runtime mode and dim; returns
+// false (and calls nothing) for a mode or dim no kernel is built for.
+template <typename F>
+bool dispatch(int mode, int dim, F&& f) {
+  if (dim != 2 && dim != 3) return false;
+  auto by_dim = [&](auto m) {
+    if (dim == 2)
+      f(m, Const<2>{});
+    else
+      f(m, Const<3>{});
+  };
+  switch (mode) {
+    case MODE_F32:
+      by_dim(Const<MODE_F32>{});
+      return true;
+    case MODE_BF16:
+      by_dim(Const<MODE_BF16>{});
+      return true;
+    case MODE_F16:
+      by_dim(Const<MODE_F16>{});
+      return true;
+    case MODE_INT:
+      by_dim(Const<MODE_INT>{});
+      return true;
+    default:
+      return false;
+  }
+}
+
+}  // namespace

@@ -1,0 +1,161 @@
+// Newton's-third-law pair forces between two disjoint particle sets on
+// Hopper (sm_90a).
+//
+// Replaces: nbody_tpu/ops/pallas_nbody.py, _pair_force_sym_kernel (the
+// kernel body) and pallas_pair_force_sym (its wrapper), TPU kernel #6:
+// receivers A and sources B; each pair's w = quantized |r|^-3 is
+// evaluated once and gives both
+//   rows[i] =  sum_j G m_j w_ij (x_j - x_i)   (A's accelerations due to B)
+//   cols[j] = -sum_i G m_i w_ij (x_j - x_i)   (B's reactions due to A).
+// The TPU kernel keeps the reaction columns in a VMEM buffer revisited by
+// a sequential grid; Hopper's blocks run in no order.
+//
+// Design (deterministic, no atomics), on tiles of BT particles:
+//   * a block of BT threads owns receiver tile I and a segment of up to
+//     seg_tiles consecutive source tiles J; per source tile it computes
+//     the BT x BT w once into shared memory, accumulates the rows in
+//     registers (thread per receiver, j ascending), then the reactions
+//     of tile J from the stored w (thread per source, i ascending) and
+//     writes them to cpart[J][I];
+//   * after its segment the block writes its row sums to rpart[I][S];
+//   * reduce_partials sums rpart[I][0..nseg-1] and cpart[J][0..Ta-1] in a
+//     fixed order, so two runs give the same bits.
+//   Ragged tails of either set are handled by counts: no padded pairs.
+//   Scratch: rpart (Ta, nseg, BT, D) and cpart (Tb, Ta, BT, D) f32, with
+//   Ta = ceil(na / BT), Tb = ceil(nb / BT), nseg = ceil(Tb / seg_tiles)
+//   (hopper_nbody.pair_sym_force_scratch_bytes). Segments keep tens of
+//   thousands of blocks in flight at the chunk sizes of the chunked path,
+//   so no wave of blocks runs mostly idle.
+//
+// Requires eps^2 > 0 (bounds[2]), as the TPU kernel does: the sets are
+// disjoint, so no pair is masked, and a coincident pair at zero softening
+// would be 0 * inf. The chunked path routes zero and run-time softening to
+// the row sweep.
+//
+// Numerics: csrc/nbody_common.cuh.
+//
+// What bounds it on the H100: arithmetic, as the sym kernel: ~20 fp32 ops
+// plus one rsqrt or logf + expf per pair, na * nb pairs, against O(na + nb)
+// positions and 4 * D * BT bytes of partials per block and source tile.
+
+#include "nbody_common.cuh"
+
+namespace {
+
+template <int MODE, int D>
+__global__ void __launch_bounds__(BT)
+pair_sym_tiles(const float* __restrict__ pa, const float* __restrict__ gma,
+               int na, const float* __restrict__ pb,
+               const float* __restrict__ gmb, int nb,
+               const float* __restrict__ bounds, int levels, float arg_cap,
+               float min_d2, int seg_tiles, float* __restrict__ rpart,
+               float* __restrict__ cpart) {
+  const int S = blockIdx.x;  // segment of source tiles
+  const int I = blockIdx.y;  // receiver tile
+  const int nseg = gridDim.x;
+  const int Ta = gridDim.y;
+  const int Tb = (nb + BT - 1) / BT;
+  const int t = threadIdx.x;
+  const int i0 = I * BT;
+  const int icnt = min(BT, na - i0);
+
+  __shared__ float xi_s[D][BT];
+  __shared__ float xj_s[D][BT];
+  __shared__ float gmi_s[BT];
+  __shared__ float gmj_s[BT];
+  __shared__ float w_s[BT][BT + 1];
+
+  if (t < icnt) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) xi_s[d][t] = pa[(size_t)(i0 + t) * D + d];
+    gmi_s[t] = gma[i0 + t];
+  }
+  const float soft = bounds[2];
+  IntGrid g{};
+  if (MODE == MODE_INT) g = int_grid(bounds, levels, arg_cap, min_d2);
+
+  float row[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) row[d] = 0.f;
+  const int J_end = min(Tb, (S + 1) * seg_tiles);
+  for (int J = S * seg_tiles; J < J_end; ++J) {
+    const int j0 = J * BT;
+    const int jcnt = min(BT, nb - j0);
+    __syncthreads();  // the previous tile's readers are done with xj_s, w_s
+    if (t < jcnt) {
+#pragma unroll
+      for (int d = 0; d < D; ++d) xj_s[d][t] = pb[(size_t)(j0 + t) * D + d];
+      gmj_s[t] = gmb[j0 + t];
+    }
+    __syncthreads();
+    if (t < icnt) {
+      float xi[D];
+#pragma unroll
+      for (int d = 0; d < D; ++d) xi[d] = xi_s[d][t];
+      for (int j = 0; j < jcnt; ++j) {
+        float dx[D];
+#pragma unroll
+        for (int d = 0; d < D; ++d) dx[d] = __fsub_rn(xj_s[d][j], xi[d]);
+        const float w = pair_w<MODE>(__fadd_rn(raw_d2<D>(dx), soft), g);
+        w_s[t][j] = w;
+        const float fr = __fmul_rn(gmj_s[j], w);
+#pragma unroll
+        for (int d = 0; d < D; ++d) row[d] = fmaf(fr, dx[d], row[d]);
+      }
+    }
+    __syncthreads();
+    // Reactions on tile J: -(sum_i G m_i w_ij diff_ij), from the stored w.
+    float col[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) col[d] = 0.f;
+    if (t < jcnt) {
+      float xj[D];
+#pragma unroll
+      for (int d = 0; d < D; ++d) xj[d] = xj_s[d][t];
+      for (int i = 0; i < icnt; ++i) {
+        const float fc = __fmul_rn(gmi_s[i], w_s[i][t]);
+#pragma unroll
+        for (int d = 0; d < D; ++d)
+          col[d] = fmaf(fc, __fsub_rn(xj[d], xi_s[d][i]), col[d]);
+      }
+    }
+    float* out_col = cpart + (((size_t)J * Ta + I) * BT + t) * D;
+#pragma unroll
+    for (int d = 0; d < D; ++d) out_col[d] = -col[d];
+  }
+  float* out_row = rpart + (((size_t)I * nseg + S) * BT + t) * D;
+#pragma unroll
+  for (int d = 0; d < D; ++d) out_row[d] = row[d];
+}
+
+}  // namespace
+
+// pa (na, dim), gma (na,), pb (nb, dim), gmb (nb,) f32 with gm = G * m;
+// bounds (3,) f32 = [log_lo, log_hi, eps^2]; seg_tiles >= 1; scratch
+// rpart (Ta, nseg, BT, dim) and cpart (Tb, Ta, BT, dim) f32 as in the
+// header comment; rows (na, dim), cols (nb, dim) f32. All on the device.
+// Returns cudaGetLastError().
+extern "C" int nbody_pair_sym_force(const float* pa, const float* gma, int na,
+                                    const float* pb, const float* gmb, int nb,
+                                    const float* bounds, int dim, int mode,
+                                    int levels, float arg_cap, float min_d2,
+                                    int seg_tiles, float* rpart, float* cpart,
+                                    float* rows, float* cols, void* stream) {
+  if (na <= 0 || nb <= 0 || seg_tiles <= 0) return (int)cudaErrorInvalidValue;
+  const int Ta = (na + BT - 1) / BT;
+  const int Tb = (nb + BT - 1) / BT;
+  const int nseg = (Tb + seg_tiles - 1) / seg_tiles;
+  if (Ta > 65535) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool known = dispatch(mode, dim, [&](auto m, auto d) {
+    constexpr int M = decltype(m)::value;
+    constexpr int DD = decltype(d)::value;
+    pair_sym_tiles<M, DD><<<dim3(nseg, Ta), BT, 0, s>>>(
+        pa, gma, na, pb, gmb, nb, bounds, levels, arg_cap, min_d2, seg_tiles,
+        rpart, cpart);
+    launch_reduce<DD>(rpart, na, nseg, rows, s);
+    launch_reduce<DD>(cpart, nb, Ta, cols, s);
+  });
+  if (!known) return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}

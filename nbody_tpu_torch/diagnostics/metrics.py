@@ -29,11 +29,14 @@ def kinetic_energy(velocities, masses) -> torch.Tensor:
 
 
 def potential_energy(positions, masses, cfg: SimConfig,
-                     block: int = 1024) -> torch.Tensor:
+                     block: int = 1024, softening_sq=None) -> torch.Tensor:
     """U = -G * sum_{i<j} m_i m_j / sqrt(|x_i - x_j|^2 + eps^2).
 
     Row-blocked (O(block * N) memory), f32 pair terms summed in f64;
-    counts every unordered pair once via 0.5x the full masked matrix."""
+    counts every unordered pair once via 0.5x the full masked matrix.
+    ``softening_sq`` optionally replaces cfg's (a run-time value)."""
+    if softening_sq is None:
+        softening_sq = cfg.softening_sq
     pos = positions.to(torch.float32)
     m = masses.to(torch.float32)
     n = pos.shape[0]
@@ -41,7 +44,7 @@ def potential_energy(positions, masses, cfg: SimConfig,
     total = torch.zeros((), dtype=torch.float64, device=pos.device)
     for r0 in range(0, n, block):
         diff = pos[None, :, :] - pos[r0:r0 + block, None, :]
-        d2 = (diff * diff).sum(dim=-1) + cfg.softening_sq
+        d2 = (diff * diff).sum(dim=-1) + softening_sq
         pair = m[r0:r0 + block, None] * m[None, :] * torch.rsqrt(d2)
         pair = torch.where(ids[r0:r0 + block, None] != ids[None, :],
                            pair, 0.0)
@@ -49,10 +52,10 @@ def potential_energy(positions, masses, cfg: SimConfig,
     return -0.5 * cfg.G * total
 
 
-def total_energy(positions, velocities, masses,
-                 cfg: SimConfig) -> torch.Tensor:
+def total_energy(positions, velocities, masses, cfg: SimConfig,
+                 softening_sq=None) -> torch.Tensor:
     return kinetic_energy(velocities, masses) + potential_energy(
-        positions, masses, cfg)
+        positions, masses, cfg, softening_sq=softening_sq)
 
 
 # --------------------------------------------------------------------------

@@ -11,11 +11,22 @@ Precision ladder:
   (f32 state) with the quantization hook inside the force kernel;
 * the float64 baseline runs on ``BaselineState`` in native f64.
 
+Force paths (``force_impl``): ``auto`` is the sym_force kernel while its
+scratch fits ``hopper_nbody.SCRATCH_BUDGET`` and the chunked
+Newton's-third-law path past it (the JAX engine's VMEM-residency routing,
+with the card's own thresholds); ``kernel``, ``kernel_rows``,
+``kernel_streamed`` and ``kernel_sym_chunked`` name the paths directly
+(counterparts of ``pallas``, ``pallas_rows``, ``pallas_streamed`` and
+``pallas_sym_chunked``); ``dense`` and ``tiled`` are plain PyTorch.
+
+``dt`` and ``softening_sq`` may be run-time 0-d device tensors
+(``DirectSimulation(dynamic_params=True)``): a sweep over them changes
+no launch parameter, and nothing reads them on the host inside a tick.
+
 Not ported yet (each raises NotImplementedError; see ROADMAP.md): the
-multi-device ring (``mesh=``, ``schedule``, ``ticks_per_dispatch``),
-traced parameter sweeps (``dynamic_params``) and the speculate-and-verify
-int-sim bounds (``bounds_mode='cached'``, which needs the kernel's fused
-max).
+multi-device ring (``mesh=``, ``schedule``, ``ticks_per_dispatch``) and
+the speculate-and-verify int-sim bounds (``bounds_mode='cached'``, which
+needs the kernel's fused max).
 """
 
 from __future__ import annotations
@@ -39,7 +50,20 @@ from nbody_tpu_torch.ops.precision import (
     dist_sq_log_bounds,
 )
 
-IMPLS = ("auto", "dense", "tiled", "kernel")
+IMPLS = ("auto", "dense", "tiled", "kernel", "kernel_rows",
+         "kernel_streamed", "kernel_sym_chunked")
+
+_FORCE_FNS = {
+    "dense": forces.dense_accelerations,
+    "tiled": forces.tiled_accelerations,
+    "kernel": hopper_nbody.sym_accelerations,
+    "kernel_rows": hopper_nbody.accelerations_rows,
+    "kernel_streamed": hopper_nbody.accelerations_streamed,
+    "kernel_sym_chunked": hopper_nbody.sym_accelerations_chunked,
+}
+
+# Paths that take external int-sim grid bounds (bounds_every > 1).
+_BOUNDS_REUSE_IMPLS = ("dense", "tiled", "kernel")
 
 
 def _not_ported(what: str):
@@ -48,20 +72,20 @@ def _not_ported(what: str):
         f"'Queue 1'); use the JAX package nbody_tpu for it")
 
 
-def _resolve_impl(impl: str) -> str:
-    """'auto' is the sym_force kernel (its plain version on CPU tensors)."""
+def _resolve_impl(impl: str, n: int, dim: int = 2) -> str:
+    """'auto' is the single-launch sym_force kernel while its scratch
+    fits the budget (``hopper_nbody.sym_force_fits``), else the chunked
+    path; on CPU tensors both run their kernels' plain versions."""
     if impl not in IMPLS:
         raise ValueError(f"unknown force impl: {impl}; valid: {IMPLS}")
-    return "kernel" if impl == "auto" else impl
+    if impl == "auto":
+        return ("kernel" if hopper_nbody.sym_force_fits(n, dim)
+                else "kernel_sym_chunked")
+    return impl
 
 
-def _force_fn(impl: str) -> Callable:
-    impl = _resolve_impl(impl)
-    if impl == "dense":
-        return forces.dense_accelerations
-    if impl == "tiled":
-        return forces.tiled_accelerations
-    return hopper_nbody.sym_accelerations
+def _force_fn(impl: str, n: int, dim: int = 2) -> Callable:
+    return _FORCE_FNS[_resolve_impl(impl, n, dim)]
 
 
 # --------------------------------------------------------------------------
@@ -69,12 +93,16 @@ def _force_fn(impl: str) -> Callable:
 # --------------------------------------------------------------------------
 
 def leapfrog_step(state: ParticleState, q: Quantizer, cfg: SimConfig,
-                  force: Callable, quantize_forces: bool) -> ParticleState:
-    """One KDK step (reference: simulation.py:120-143)."""
-    half_dt = cfg.dt * 0.5
+                  force: Callable, quantize_forces: bool,
+                  dt=None, softening_sq=None) -> ParticleState:
+    """One KDK step (reference: simulation.py:120-143). ``dt`` and
+    ``softening_sq`` optionally replace cfg's with run-time 0-d tensors."""
+    dt = cfg.dt if dt is None else dt
+    half_dt = dt * 0.5
     vel = state.velocities + state.accelerations * half_dt
-    pos = state.positions + vel * cfg.dt
-    acc = force(pos, state.masses, q, cfg, quantize_forces=quantize_forces)
+    pos = state.positions + vel * dt
+    acc = force(pos, state.masses, q, cfg, quantize_forces=quantize_forces,
+                softening_sq=softening_sq)
     vel = vel + acc * half_dt
     return ParticleState(pos, vel, state.masses, acc, state.tick + 1)
 
@@ -91,37 +119,47 @@ def leapfrog_step_baseline(state: BaselineState,
 
 
 def _stepper(q: Quantizer, cfg: SimConfig, impl: str, quantize_forces: bool,
-             bounds_every: int = 1) -> Callable:
+             n: int, dim: int, bounds_every: int = 1, dt=None,
+             softening_sq=None) -> Callable:
     """A ``step(state) -> state`` closure for the degraded modes.
 
     ``bounds_every=k>1`` (int-sim modes): the tensor-global log-grid
     bounds are recomputed on the freshly drifted positions every k-th
     step of this stepper and reused in between (the JAX bounds-reuse
-    scan; stale bounds can clip, a documented semantic delta). The step
-    counter lives in the closure, so it runs on across snapshot chunks
-    of one history and restarts with each new stepper."""
+    scan; stale bounds can clip, a documented semantic delta). Only the
+    paths that take external bounds allow it (``_BOUNDS_REUSE_IMPLS``, as
+    in JAX). The step counter lives in the closure, so it runs on across
+    snapshot chunks of one history and restarts with each new stepper."""
     if bounds_every < 1:
         raise ValueError("bounds_every must be >= 1")
-    force = _force_fn(impl)
+    force = _force_fn(impl, n, dim)
     if not (q.is_int and bounds_every > 1):
-        return lambda s: leapfrog_step(s, q, cfg, force, quantize_forces)
+        return lambda s: leapfrog_step(s, q, cfg, force, quantize_forces,
+                                       dt, softening_sq)
 
+    resolved = _resolve_impl(impl, n, dim)
+    if resolved not in _BOUNDS_REUSE_IMPLS:
+        raise ValueError(f"bounds_every > 1 is not supported for force "
+                         f"impl '{resolved}' (no external-bounds hook); use "
+                         f"one of {_BOUNDS_REUSE_IMPLS}")
     max_pass = (hopper_nbody.max_pairwise_dist_sq_pruned
-                if _resolve_impl(impl) == "kernel"
-                else forces.max_pairwise_dist_sq)
-    half_dt = cfg.dt * 0.5
+                if resolved == "kernel" else forces.max_pairwise_dist_sq)
+    soft = cfg.softening_sq if softening_sq is None else softening_sq
+    dt = cfg.dt if dt is None else dt
+    half_dt = dt * 0.5
     k = 0
     bounds = None
 
     def step(s: ParticleState) -> ParticleState:
         nonlocal k, bounds
         vel = s.velocities + s.accelerations * half_dt
-        pos = s.positions + vel * cfg.dt
+        pos = s.positions + vel * dt
         if k % bounds_every == 0:
-            bounds = dist_sq_log_bounds(q, max_pass(pos, cfg),
-                                        cfg.softening_sq)
+            bounds = dist_sq_log_bounds(
+                q, max_pass(pos, cfg, softening_sq=softening_sq), soft)
         acc = force(pos, s.masses, q, cfg, quantize_forces=quantize_forces,
-                    log_lo=bounds[0], log_hi=bounds[1])
+                    softening_sq=softening_sq, log_lo=bounds[0],
+                    log_hi=bounds[1])
         vel = vel + acc * half_dt
         k += 1
         return ParticleState(pos, vel, s.masses, acc, s.tick + 1)
@@ -130,10 +168,12 @@ def _stepper(q: Quantizer, cfg: SimConfig, impl: str, quantize_forces: bool,
 
 
 def run_steps(state: ParticleState, q: Quantizer, cfg: SimConfig, impl: str,
-              quantize_forces: bool, num_steps: int,
-              bounds_every: int = 1) -> ParticleState:
-    """num_steps leapfrog steps, state kept on the device."""
-    step = _stepper(q, cfg, impl, quantize_forces, bounds_every)
+              quantize_forces: bool, num_steps: int, dt=None,
+              softening_sq=None, bounds_every: int = 1) -> ParticleState:
+    """num_steps leapfrog steps, state kept on the device. Optional
+    run-time dt/softening_sq (0-d tensors) replace cfg's."""
+    step = _stepper(q, cfg, impl, quantize_forces, *state.positions.shape,
+                    bounds_every, dt, softening_sq)
     for _ in range(num_steps):
         state = step(state)
     return state
@@ -162,13 +202,17 @@ def _run_chunks(state, step: Callable, steps_per_chunk: int, num_chunks: int,
 def run_with_snapshots(state: ParticleState, q: Quantizer, cfg: SimConfig,
                        impl: str, quantize_forces: bool,
                        steps_per_chunk: int, num_chunks: int,
-                       num_bins: int = 20, bounds_every: int = 1):
+                       num_bins: int = 20, dt=None, softening_sq=None,
+                       bounds_every: int = 1):
     """Run num_chunks * steps_per_chunk ticks; take a metrics Snapshot and
     a position frame after each chunk on the device. Returns
     (state, snapshots, frames): snapshots as a Snapshot of numpy arrays
     stacked over chunks, frames as a (num_chunks, N, D) numpy array, both
-    copied to the host once at the end."""
-    step = _stepper(q, cfg, impl, quantize_forces, bounds_every)
+    copied to the host once at the end. Optional run-time dt/softening_sq
+    drive the steps; the snapshots' potential energy uses cfg's softening,
+    as the JAX engine's fused snapshot does."""
+    step = _stepper(q, cfg, impl, quantize_forces, *state.positions.shape,
+                    bounds_every, dt, softening_sq)
 
     def snap(s: ParticleState):
         return (metrics_lib.snapshot(s.positions, s.velocities, s.masses,
@@ -203,8 +247,12 @@ class DirectSimulation:
     (reference: simulation.py:12-196): step / run / get_state / energies.
 
     ``device`` defaults to the positions' device for a tensor, else the
-    CPU. ``force_impl`` is one of auto | dense | tiled | kernel; auto is
-    the sym_force kernel (its plain version on a CPU tensor)."""
+    CPU. ``force_impl`` is one of ``IMPLS`` (module docstring); auto is
+    the sym_force kernel or, past its scratch budget, the chunked path
+    (their plain versions on a CPU tensor). ``dynamic_params=True`` keeps
+    dt and softening^2 as 0-d device tensors (``_dyn_dt``,
+    ``_dyn_soft_sq``); the kernels then mask the diagonal by id, as the
+    JAX kernels do for a traced softening."""
 
     def __init__(self, positions, velocities, masses,
                  precision: Quantizer | Precision | str = Precision.FLOAT32,
@@ -228,8 +276,6 @@ class DirectSimulation:
             raise _not_ported("schedule= (the ring's force schedules)")
         if ticks_per_dispatch is not None:
             raise _not_ported("ticks_per_dispatch")
-        if dynamic_params:
-            raise _not_ported("dynamic_params")
         if bounds_mode != "exact":
             raise _not_ported(f"bounds_mode={bounds_mode!r}")
         if isinstance(precision, str):
@@ -237,13 +283,32 @@ class DirectSimulation:
         elif isinstance(precision, Precision):
             precision = Quantizer(mode=precision, custom_levels=custom_levels)
         self.quantizer = precision
-        if G is not None or softening is not None or dt is not None:
+        if dynamic_params and precision.mode == Precision.FLOAT64:
+            raise ValueError("dynamic_params is not supported for the "
+                             "float64 baseline (it uses the static cfg); "
+                             "sweep with static configs")
+        if device is None:
+            device = (positions.device if isinstance(positions, torch.Tensor)
+                      else "cpu")
+        self.device = torch.device(device)
+        self._dyn_dt = None
+        self._dyn_soft_sq = None
+        if dynamic_params:
+            # dt and softening^2 become run-time device scalars; G stays
+            # static (it scales the G*m the kernels read).
+            s = softening if softening is not None else cfg.softening
+            self._dyn_dt = torch.full((), dt if dt is not None else cfg.dt,
+                                      dtype=torch.float32, device=self.device)
+            self._dyn_soft_sq = torch.full((), s * s, dtype=torch.float32,
+                                           device=self.device)
+            if G is not None:
+                cfg = SimConfig(G=G, softening=cfg.softening, dt=cfg.dt)
+        elif G is not None or softening is not None or dt is not None:
             cfg = SimConfig(
                 G=G if G is not None else cfg.G,
                 softening=softening if softening is not None else cfg.softening,
                 dt=dt if dt is not None else cfg.dt)
         self.cfg = cfg
-        _resolve_impl(force_impl)
         self.force_impl = force_impl
         if quantize_forces is None:
             # Reference applies force quantization only for int8/int4
@@ -253,22 +318,20 @@ class DirectSimulation:
         self.quantize_forces = quantize_forces
         self.bounds_every = bounds_every
         self.is_baseline = self.quantizer.mode == Precision.FLOAT64
-        if device is None:
-            device = (positions.device if isinstance(positions, torch.Tensor)
-                      else "cpu")
-        self.device = torch.device(device)
 
         if self.is_baseline:
             self.state = make_baseline_state(positions, velocities, masses,
                                              self.device)
+            _resolve_impl(force_impl, *self.state.positions.shape)
             acc = forces.baseline_accelerations(self.state.positions,
                                                 self.state.masses, cfg)
         else:
             self.state = make_state(positions, velocities, masses,
                                     self.device)
-            acc = _force_fn(force_impl)(
+            acc = _force_fn(force_impl, *self.state.positions.shape)(
                 self.state.positions, self.state.masses, self.quantizer, cfg,
-                quantize_forces=self.quantize_forces)
+                quantize_forces=self.quantize_forces,
+                softening_sq=self._dyn_soft_sq)
         self.state = self.state._replace(accelerations=acc)
 
     # -- stepping -----------------------------------------------------------
@@ -295,7 +358,9 @@ class DirectSimulation:
         else:
             self.state = run_steps(self.state, self.quantizer, self.cfg,
                                    self.force_impl, self.quantize_forces,
-                                   num_steps, bounds_every=self.bounds_every)
+                                   num_steps, dt=self._dyn_dt,
+                                   softening_sq=self._dyn_soft_sq,
+                                   bounds_every=self.bounds_every)
 
     def run(self, num_ticks: int, callback: Optional[Callable] = None,
             callback_interval: int = 100):
@@ -328,6 +393,7 @@ class DirectSimulation:
             self.state, snaps, frames = run_with_snapshots(
                 self.state, self.quantizer, self.cfg, self.force_impl,
                 self.quantize_forces, steps, num_chunks, num_bins,
+                dt=self._dyn_dt, softening_sq=self._dyn_soft_sq,
                 bounds_every=self.bounds_every)
         remainder = num_ticks - steps * num_chunks
         if remainder > 0:
@@ -340,12 +406,14 @@ class DirectSimulation:
         return float(metrics_lib.kinetic_energy(self.velocities, self.masses))
 
     def get_potential_energy(self) -> float:
-        return float(metrics_lib.potential_energy(self.positions, self.masses,
-                                                  self.cfg))
+        return float(metrics_lib.potential_energy(
+            self.positions, self.masses, self.cfg,
+            softening_sq=self._dyn_soft_sq))
 
     def get_total_energy(self) -> float:
-        return float(metrics_lib.total_energy(self.positions, self.velocities,
-                                              self.masses, self.cfg))
+        return float(metrics_lib.total_energy(
+            self.positions, self.velocities, self.masses, self.cfg,
+            softening_sq=self._dyn_soft_sq))
 
     def get_state(self) -> dict:
         """Reference-parity state export (reference: simulation.py:160-168)."""

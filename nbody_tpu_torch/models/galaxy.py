@@ -1,7 +1,8 @@
 """Galaxy initial conditions (torch RNG).
 
-PyTorch counterpart of ``nbody_tpu.models.galaxy``: the same IC model on
-an explicit ``torch.Generator``. Torch's and JAX's generators give
+PyTorch counterpart of ``nbody_tpu.models.galaxy``: the disk, test-disk,
+Plummer-sphere and disk-in-NFW-halo IC models on an explicit
+``torch.Generator``. Torch's and JAX's generators give
 different numbers from one seed, so the port's own ICs match the JAX
 package's statistically, and runs that must start from the JAX ICs read
 the committed fixture (``load_disk_fixture``).
@@ -65,6 +66,103 @@ def create_disk_galaxy(generator: torch.Generator, num_stars: int = 5000,
         velocities.shape, generator=generator, device=gen_dev) * dispersion
     device = gen_dev if device is None else device
     return (positions.to(device), velocities.to(device), masses.to(device))
+
+
+def _uniform(generator: torch.Generator, n: int, low: float = 0.0,
+             high: float = 1.0) -> torch.Tensor:
+    u = torch.rand(n, generator=generator, device=generator.device)
+    return low + (high - low) * u
+
+
+def create_test_galaxy(generator: torch.Generator, num_stars: int = 1000,
+                       G: float = 0.001, device=None) -> Tensors:
+    """Uniform disk with Keplerian velocities, for quick experiments
+    (reference: galaxy.py:95-124; JAX ``create_test_galaxy``)."""
+    radii = torch.sqrt(_uniform(generator, num_stars)) * 10.0 + 0.5
+    angles = _uniform(generator, num_stars) * 2.0 * math.pi
+    positions = torch.stack([radii * torch.cos(angles),
+                             radii * torch.sin(angles)], dim=-1)
+    masses = torch.ones(num_stars, dtype=torch.float32,
+                        device=generator.device)
+    v_circ = torch.sqrt(G * num_stars * 0.5 / radii)
+    velocities = torch.stack([-v_circ * torch.sin(angles),
+                              v_circ * torch.cos(angles)], dim=-1)
+    device = generator.device if device is None else device
+    return (positions.to(device), velocities.to(device), masses.to(device))
+
+
+def create_plummer_sphere(generator: torch.Generator, num_stars: int = 5000,
+                          scale_radius: float = 10.0, G: float = 0.001,
+                          device=None) -> Tensors:
+    """3-D Plummer sphere with isotropic Gaussian velocities (JAX
+    ``create_plummer_sphere``): radii by inverse-CDF sampling of
+    M(<r)/M = (r/a)^3 / (1 + (r/a)^2)^{3/2}, truncated at 10a; directions
+    uniform on S^2; velocities Gaussian with the local dispersion
+    sigma^2(r) = G M / (6 sqrt(r^2 + a^2)); all masses 1."""
+    a = scale_radius
+    total_mass = float(num_stars)
+    # Inverse CDF: u = x^3/(1+x^2)^{3/2}  =>  x = u^{1/3}/sqrt(1-u^{2/3}),
+    # with u capped so r <= 10a (u_max = CDF(10a)).
+    u_max = 1000.0 / (1.0 + 100.0) ** 1.5
+    u = _uniform(generator, num_stars, 1e-6, u_max)
+    u23 = u ** (2.0 / 3.0)
+    radii = torch.clamp(a * torch.sqrt(u23 / (1.0 - u23)), 0.05 * a, 10.0 * a)
+
+    z = _uniform(generator, num_stars, -1.0, 1.0)
+    phi = _uniform(generator, num_stars) * 2.0 * math.pi
+    s = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    positions = torch.stack([radii * s * torch.cos(phi),
+                             radii * s * torch.sin(phi), radii * z], dim=-1)
+
+    sigma = torch.sqrt(G * total_mass / (6.0 * torch.sqrt(radii * radii
+                                                          + a * a)))
+    velocities = torch.randn((num_stars, 3), generator=generator,
+                             device=generator.device) * sigma[:, None]
+    masses = torch.ones(num_stars, dtype=torch.float32,
+                        device=generator.device)
+    device = generator.device if device is None else device
+    return (positions.to(device), velocities.to(device), masses.to(device))
+
+
+def nfw_enclosed_mass(r: torch.Tensor, M_total, r_s: float) -> torch.Tensor:
+    """Analytic NFW M(<r) = M_total * f(r/r_s) / f(10), with
+    f(x) = ln(1+x) - x/(1+x) (reference: galaxy.py:127-139)."""
+    x = r / r_s
+    f_x = torch.log1p(x) - x / (1.0 + x)
+    f_norm = math.log(11.0) - 10.0 / 11.0
+    return M_total * f_x / f_norm
+
+
+def create_galaxy_with_halo(generator: torch.Generator, num_stars: int = 5000,
+                            galaxy_radius: float = 10.0,
+                            halo_radius: float = 30.0,
+                            dm_mass_ratio: float = 5.0, G: float = 0.001,
+                            device=None) -> Tensors:
+    """Disk galaxy embedded in an analytic NFW dark-matter halo: flat
+    rotation-curve ICs (reference: galaxy.py:142-211; JAX
+    ``create_galaxy_with_halo``). The halo adds to the circular
+    velocities but adds no particles."""
+    pos, _, masses = create_disk_galaxy(generator, num_stars, galaxy_radius,
+                                        G=G)
+    dm_total = masses.sum() * dm_mass_ratio
+    r = torch.sqrt((pos * pos).sum(dim=-1))
+    theta = torch.atan2(pos[:, 1], pos[:, 0])
+
+    # Enclosed visible mass via sort + cumsum (reference: galaxy.py:186-192).
+    order = torch.argsort(r, stable=True)
+    enclosed_visible = torch.empty_like(masses).scatter_(
+        0, order, torch.cumsum(masses[order], dim=0))
+    enclosed_dm = nfw_enclosed_mass(r, dm_total, halo_radius)
+
+    v_circ = torch.sqrt(G * (enclosed_visible + enclosed_dm)
+                        / torch.clamp(r, min=0.1))
+    vel = torch.stack([-v_circ * torch.sin(theta),
+                       v_circ * torch.cos(theta)], dim=-1)
+    dispersion = 0.05 * v_circ.mean()
+    vel = vel + torch.randn(vel.shape, generator=generator,
+                            device=generator.device) * dispersion
+    device = generator.device if device is None else device
+    return (pos.to(device), vel.to(device), masses.to(device))
 
 
 def load_disk_fixture(num_stars: int = 5000, seed: int = 42,

@@ -6,8 +6,9 @@ share identical semantics:
 * ``dense_accelerations`` — materialises the (N, N) pairwise block; the
   correctness oracle at small N;
 * ``tiled_accelerations`` — row blocks, O(block * N) memory;
-* the ``sym_force`` CUDA kernel behind ``ops.hopper_nbody.sym_accelerations``
-  — the production path on the GPU.
+* the CUDA kernels behind ``ops.hopper_nbody`` (``sym_accelerations``,
+  its chunked form past one launch's scratch budget, and the row sweep
+  ``accelerations_rows``) — the production paths on the GPU.
 
 The int-sim quantizer needs the global log-bounds of the softened d^2
 matrix: the min is analytic (``precision.dist_sq_log_bounds``), the max
@@ -46,12 +47,17 @@ from nbody_tpu_torch.ops.precision import (
 )
 
 
+def _softening(cfg: SimConfig, softening_sq):
+    return cfg.softening_sq if softening_sq is None else softening_sq
+
+
 def _pair_block(pos_i, pos_j, masses_j, self_mask, q: Quantizer,
-                cfg: SimConfig, log_lo, log_hi):
+                cfg: SimConfig, log_lo, log_hi, softening_sq=None):
     """Acceleration of receivers ``pos_i`` (B, D) due to sources ``pos_j``
-    (M, D); ``self_mask`` (B, M) marks receiver == source. (B, D) f32."""
+    (M, D); ``self_mask`` (B, M) marks receiver == source. (B, D) f32.
+    ``softening_sq`` optionally replaces cfg's (a run-time value)."""
     diff = pos_j[None, :, :] - pos_i[:, None, :]
-    d2 = (diff * diff).sum(dim=-1) + cfg.softening_sq
+    d2 = (diff * diff).sum(dim=-1) + _softening(cfg, softening_sq)
     d2q = quantize_distance_squared(d2, q, log_lo=log_lo, log_hi=log_hi)
     inv_d = torch.rsqrt(d2q.to(torch.float32))
     inv_d3 = inv_d * inv_d * inv_d
@@ -60,20 +66,22 @@ def _pair_block(pos_i, pos_j, masses_j, self_mask, q: Quantizer,
     return (factor[:, :, None] * diff).sum(dim=1)
 
 
-def max_pairwise_dist_sq(positions: torch.Tensor,
-                         cfg: SimConfig) -> torch.Tensor:
+def max_pairwise_dist_sq(positions: torch.Tensor, cfg: SimConfig,
+                         softening_sq=None) -> torch.Tensor:
     """Global max of the softened pairwise d^2 matrix, plain PyTorch,
     O(block * N) memory (the plain version of the max_d2 kernel)."""
     pos = positions.to(torch.float32)
-    return hopper_nbody.max_d2_plain(pos) + cfg.softening_sq
+    return hopper_nbody.max_d2_plain(pos) + _softening(cfg, softening_sq)
 
 
-def _quant_bounds(positions, q: Quantizer, cfg: SimConfig):
+def _quant_bounds(positions, q: Quantizer, cfg: SimConfig,
+                  softening_sq=None):
     """(log_lo, log_hi) for int modes, else (None, None)."""
     if not q.is_int:
         return None, None
-    return dist_sq_log_bounds(q, max_pairwise_dist_sq(positions, cfg),
-                              cfg.softening_sq)
+    return dist_sq_log_bounds(
+        q, max_pairwise_dist_sq(positions, cfg, softening_sq),
+        _softening(cfg, softening_sq))
 
 
 def _maybe_quantize_force(acc, q: Quantizer, quantize_forces: bool):
@@ -83,39 +91,41 @@ def _maybe_quantize_force(acc, q: Quantizer, quantize_forces: bool):
 
 
 def dense_accelerations(positions, masses, q: Quantizer, cfg: SimConfig,
-                        quantize_forces: bool = True,
+                        quantize_forces: bool = True, softening_sq=None,
                         log_lo=None, log_hi=None) -> torch.Tensor:
     """Oracle implementation: materialises (N, N). Small N only.
 
     ``log_lo``/``log_hi`` optionally supply external int-sim grid bounds;
-    by default they are recomputed per call."""
+    by default they are recomputed per call. ``softening_sq`` optionally
+    replaces cfg's with a run-time value."""
     positions = positions.to(torch.float32)
     masses = masses.to(torch.float32)
     n = positions.shape[0]
     if log_lo is None or log_hi is None:
-        log_lo, log_hi = _quant_bounds(positions, q, cfg)
+        log_lo, log_hi = _quant_bounds(positions, q, cfg, softening_sq)
     self_mask = torch.eye(n, dtype=torch.bool, device=positions.device)
     acc = _pair_block(positions, positions, masses, self_mask, q, cfg,
-                      log_lo, log_hi)
+                      log_lo, log_hi, softening_sq)
     return _maybe_quantize_force(acc, q, quantize_forces)
 
 
 def tiled_accelerations(positions, masses, q: Quantizer, cfg: SimConfig,
                         quantize_forces: bool = True, block: int = 1024,
-                        log_lo=None, log_hi=None) -> torch.Tensor:
+                        softening_sq=None, log_lo=None,
+                        log_hi=None) -> torch.Tensor:
     """O(block * N) memory row-blocked force evaluation."""
     positions = positions.to(torch.float32)
     masses = masses.to(torch.float32)
     n = positions.shape[0]
     if log_lo is None or log_hi is None:
-        log_lo, log_hi = _quant_bounds(positions, q, cfg)
+        log_lo, log_hi = _quant_bounds(positions, q, cfg, softening_sq)
     ids = torch.arange(n, device=positions.device)
     blocks = []
     for r0 in range(0, n, block):
         self_mask = ids[r0:r0 + block, None] == ids[None, :]
         blocks.append(_pair_block(positions[r0:r0 + block], positions,
                                   masses, self_mask, q, cfg, log_lo,
-                                  log_hi))
+                                  log_hi, softening_sq))
     return _maybe_quantize_force(torch.cat(blocks), q, quantize_forces)
 
 

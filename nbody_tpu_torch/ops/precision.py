@@ -213,18 +213,22 @@ def quantize_force(force: torch.Tensor, q: Quantizer, lo=None,
     return force
 
 
-def dist_sq_log_bounds(q: Quantizer, max_dist_sq,
-                       softening_sq: float) -> tuple:
+def dist_sq_log_bounds(q: Quantizer, max_dist_sq, softening_sq) -> tuple:
     """Global log bounds for the dist^2 quantizer in the direct engine.
 
     The raw global minimum of the softened dist^2 matrix is analytically
     softening^2 (its diagonal), so after the safety clamp it is
     max(softening^2, min_dist_sq); only the max needs a pass over all
-    pairs. Returns 0-d f32 tensors on ``max_dist_sq``'s device (the
-    softening becomes a fill there, never a blocking host copy)."""
+    pairs. ``softening_sq`` is a float or a 0-d tensor (a run-time
+    softening). Returns 0-d f32 tensors on ``max_dist_sq``'s device (a
+    float softening becomes a fill there, never a blocking host copy)."""
     max_dist_sq = torch.as_tensor(max_dist_sq, dtype=torch.float32)
-    soft = torch.full((), float(softening_sq), dtype=torch.float32,
-                      device=max_dist_sq.device)
+    if isinstance(softening_sq, torch.Tensor):
+        soft = softening_sq.to(device=max_dist_sq.device,
+                               dtype=torch.float32).reshape(())
+    else:
+        soft = torch.full((), float(softening_sq), dtype=torch.float32,
+                          device=max_dist_sq.device)
     lo = torch.clamp(soft, min=q.min_dist_sq)
     log_lo = torch.log(lo)
     log_hi = torch.log(torch.maximum(max_dist_sq, lo))

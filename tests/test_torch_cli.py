@@ -59,3 +59,17 @@ def test_import_never_pulls_in_jax():
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
+
+
+def test_cli_names_the_force_path_from_the_launch_counts(tmp_path, capsys):
+    none = {"sym_force": 0, "max_d2": 0, "row_force": 0, "pair_sym_force": 0}
+    assert "chunked" in cli.force_path({**none, "sym_force": 5,
+                                        "pair_sym_force": 10})
+    assert "row sweep" in cli.force_path({**none, "row_force": 3})
+    assert cli.force_path({**none, "sym_force": 3}) == \
+        "single-launch sym_force"
+    assert "no force kernel" in cli.force_path(none)
+    cli.main(["--device", "cpu", "--stars", "32", "--ticks", "4",
+              "--snapshot-interval", "2", "--compare", "float32",
+              "--output", str(tmp_path)])
+    assert "force path: no force kernel launched" in capsys.readouterr().out

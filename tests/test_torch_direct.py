@@ -171,7 +171,7 @@ def test_run_comparison(ics):
 
 @pytest.mark.parametrize("kwargs", [{"mesh": object()}, {"schedule": "sym"},
                                     {"ticks_per_dispatch": 10},
-                                    {"dynamic_params": True},
+                                    {"schedule": "rows"},
                                     {"bounds_mode": "cached"}])
 def test_unported_options_raise(ics, kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -181,3 +181,126 @@ def test_unported_options_raise(ics, kwargs):
 def test_unknown_force_impl_raises(ics):
     with pytest.raises(ValueError, match="unknown force impl"):
         td.DirectSimulation(*ics, force_impl="pallas")
+
+
+# --------------------------------------------------------------------------
+# Routing by size, run-time parameters and the repairs that came with them
+# --------------------------------------------------------------------------
+
+def test_auto_routes_by_scratch_budget():
+    """'auto' keeps the single-launch sym_force while its per-tile scratch
+    fits the stated budget and takes the chunked path past it."""
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+    assert td._resolve_impl("auto", 5000, 2) == "kernel"
+    assert td._resolve_impl("auto", 131072, 3) == "kernel"
+    for dim in (2, 3):
+        assert td._resolve_impl("auto", 1_048_576, dim) == \
+            "kernel_sym_chunked"
+        assert hn.sym_force_scratch_bytes(1_048_576, dim) > \
+            hn.SCRATCH_BUDGET
+        # the largest N that still fits is the routing threshold
+        n = 64
+        while hn.sym_force_fits(n + 64, dim):
+            n += 64
+        assert td._resolve_impl("auto", n, dim) == "kernel"
+        assert td._resolve_impl("auto", n + 64, dim) == "kernel_sym_chunked"
+    assert td._resolve_impl("kernel_rows", 10, 2) == "kernel_rows"
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_chunk_size_fits_the_budget_at_1m(dim):
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+    n = 1_048_576
+    chunk = hn.sym_chunk_size(n, dim)
+    n_chunks = -(-n // chunk)
+    assert chunk % hn.TILE == 0 and n_chunks == {2: 5, 3: 6}[dim]
+    assert (hn.sym_force_scratch_bytes(chunk, dim)
+            + hn.pair_sym_force_scratch_bytes(chunk, chunk, dim)
+            <= hn.SCRATCH_BUDGET)
+    # the last chunk is no sliver: chunks are spread evenly
+    assert n - (n_chunks - 1) * chunk > 0.9 * chunk
+    assert hn.sym_chunk_size(1000, dim) == 1024  # one chunk, tile-rounded
+
+
+@pytest.mark.parametrize("impl", ["kernel_rows", "kernel_streamed",
+                                  "kernel_sym_chunked"])
+def test_named_kernel_paths_match_jax(ics, impl):
+    jimpl = {"kernel_rows": "pallas_rows",
+             "kernel_streamed": "pallas_streamed",
+             "kernel_sym_chunked": "pallas_sym_chunked"}[impl]
+    jsim = jd.DirectSimulation(*ics, precision="float32", force_impl=jimpl)
+    tsim = td.DirectSimulation(*ics, precision="float32", force_impl=impl)
+    jsim.step(10)
+    tsim.step(10)
+    np.testing.assert_allclose(tsim.positions.numpy(),
+                               np.asarray(jsim.positions), rtol=1e-4,
+                               atol=1e-5)
+
+
+def test_bounds_every_rejected_on_paths_without_external_bounds(ics):
+    """As in JAX (direct.py:172-176): only dense, tiled and the sym kernel
+    take external int-sim bounds."""
+    for impl in ("kernel_rows", "kernel_streamed", "kernel_sym_chunked"):
+        sim = td.DirectSimulation(*ics, precision="int4", force_impl=impl,
+                                  bounds_every=4)
+        with pytest.raises(ValueError, match="bounds_every > 1"):
+            sim.step(2)
+
+
+def test_dynamic_params_float64_raises_value_error(ics):
+    with pytest.raises(ValueError, match="dynamic_params"):
+        td.DirectSimulation(*ics, precision="float64", dynamic_params=True)
+
+
+@pytest.mark.parametrize("mode", ["float32", "int4"])
+def test_dynamic_params_drift_matches_jax(ics, mode):
+    """dt and softening as run-time scalars, on both engines: the drift
+    curve over 4 snapshot chunks (float32 rtol 1e-5 on the energies; int4
+    within 10% of JAX's drift, the int rule above). The snapshots' PE uses
+    cfg's softening in both, as the JAX engine's fused snapshot does."""
+    kw = dict(precision=mode, dynamic_params=True, softening=0.08, dt=0.005)
+    jsim = jd.DirectSimulation(*ics, force_impl="dense", **kw)
+    tsim = td.DirectSimulation(*ics, **kw)
+    assert tsim._dyn_soft_sq.dtype == torch.float32
+    assert float(tsim._dyn_soft_sq) == np.float32(0.08 * 0.08)
+    je0, te0 = jsim.get_total_energy(), tsim.get_total_energy()
+    np.testing.assert_allclose(te0, je0, rtol=1e-6)
+    jsn, _ = jsim.run_with_history(40, 10)
+    tsn, _ = tsim.run_with_history(40, 10)
+    jt, tt = np.asarray(jsn.total, np.float64), np.asarray(tsn.total)
+    if mode == "float32":
+        np.testing.assert_allclose(tt, jt, rtol=1e-5)
+        np.testing.assert_allclose(tsim.positions.numpy(),
+                                   np.asarray(jsim.positions), rtol=1e-4,
+                                   atol=1e-5)
+    else:
+        j_drift, t_drift = (jt[-1] - je0) / abs(je0), (tt[-1] - te0) / abs(te0)
+        assert abs(t_drift - j_drift) <= max(0.1 * abs(j_drift), 5e-7)
+
+
+def test_dynamic_params_equal_static_run_bitwise(ics):
+    """The same values as run-time scalars or as cfg constants give the
+    same bits: the launches see the same numbers."""
+    static = td.DirectSimulation(*ics, precision="int4")
+    dynamic = td.DirectSimulation(*ics, precision="int4",
+                                  dynamic_params=True)
+    static.step(20)
+    dynamic.step(20)
+    assert torch.equal(static.positions, dynamic.positions)
+
+
+def test_energies_use_the_run_time_softening(ics):
+    from nbody_tpu_torch.diagnostics import metrics as tm
+    sim = td.DirectSimulation(*ics, precision="float32",
+                              dynamic_params=True, softening=0.3)
+    want = tm.potential_energy(sim.positions, sim.masses, sim.cfg,
+                               softening_sq=torch.tensor(0.09))
+    assert sim.get_potential_energy() == pytest.approx(float(want),
+                                                       rel=1e-12)
+    static_pe = float(tm.potential_energy(sim.positions, sim.masses,
+                                          sim.cfg))
+    assert abs(sim.get_potential_energy() - static_pe) > 1e-3 * abs(
+        static_pe)
+    np.testing.assert_allclose(
+        sim.get_total_energy(),
+        sim.get_kinetic_energy() + sim.get_potential_energy(), rtol=1e-12)

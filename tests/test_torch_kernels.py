@@ -100,3 +100,107 @@ def test_sym_accelerations_on_card_matches_cpu_plain(cuda):
                                 q, cfg)
     off = (got.cpu() - want).abs() > 1e-4 * want.abs().max()
     assert off.float().mean().item() < 0.02
+
+
+def _bounds(q, pt, soft, device):
+    lo, hi = tp.dist_sq_log_bounds(q, hn.max_d2_plain(pt) + soft, soft)
+    if not q.is_int:
+        lo = hi = lo * 0
+    return torch.stack([lo, hi, torch.full((), soft, device=device)])
+
+
+def _hold(got, want, q, scale=None):
+    """The float rule elementwise (with the summed |terms| where given);
+    int modes as above."""
+    got_np, want_np = got.cpu().numpy(), want.cpu().numpy()
+    assert np.isfinite(got_np).all()
+    if q.is_int:
+        off = np.abs(got_np - want_np) > 1e-4 * np.abs(want_np).max()
+        assert off.mean() < 0.02
+        return
+    bound = 2e-6 + 5e-5 * np.abs(want_np)
+    if scale is not None:
+        bound = np.maximum(bound, 2e-6 + 5e-5 * scale.cpu().numpy())
+    assert (np.abs(got_np - want_np) <= bound).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("soft,masked", [(0.01, False), (0.0, True),
+                                         (0.0025, True)])
+def test_row_force_kernel_matches_plain(cuda, mode, dim, soft, masked):
+    """Softening 0.1, 0 and a run-time 0.05 (self-masked); zero softening
+    is held with the summed |terms| (terms of near pairs cancel)."""
+    rng = np.random.default_rng(3)
+    pt = torch.from_numpy(_disk(1000, dim, seed=3)).to(cuda)
+    gm = (0.001 * (1.0 + torch.from_numpy(rng.random(1000)).float())).to(cuda)
+    q = tp.Quantizer.from_string(mode)
+    bounds = _bounds(q, pt, soft, cuda)
+    before = hn.LAUNCHES["row_force"]
+    got = hn.row_force(pt, gm, bounds, q, masked)
+    assert hn.LAUNCHES["row_force"] == before + 1
+    want = hn.row_force_plain(pt, gm, bounds, q, masked)
+    scale = (hn.sym_force_term_scale(pt, gm, bounds, q, masked)
+             if soft == 0.0 else None)
+    _hold(got, want, q, scale)
+    assert torch.equal(got, hn.row_force(pt, gm, bounds, q, masked))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("n_a,n_b", [(300, 1100), (1000, 64), (1, 5)])
+def test_pair_sym_force_kernel_matches_plain(cuda, mode, dim, n_a, n_b):
+    rng = np.random.default_rng(n_a)
+    pt = torch.from_numpy(_disk(n_a + n_b, dim, seed=4)).to(cuda)
+    gm = (0.001 * (1.0 + torch.from_numpy(rng.random(n_a + n_b)).float())
+          ).to(cuda)
+    q = tp.Quantizer.from_string(mode)
+    bounds = _bounds(q, pt, 0.01, cuda)
+    args = (pt[:n_a], gm[:n_a], pt[n_a:], gm[n_a:], bounds, q)
+    before = hn.LAUNCHES["pair_sym_force"]
+    rows, cols = hn.pair_sym_force(*args)
+    assert hn.LAUNCHES["pair_sym_force"] == before + 1
+    want_r, want_c = hn.pair_sym_force_plain(*args)
+    _hold(rows, want_r, q)
+    _hold(cols, want_c, q)
+    rows2, cols2 = hn.pair_sym_force(*args)
+    assert torch.equal(rows, rows2) and torch.equal(cols, cols2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["float32", "int4"])
+@pytest.mark.parametrize("chunk", [5000, 3334, 1000])
+def test_chunked_matches_single_launch_sym_force(cuda, mode, chunk):
+    """2, 3 (ragged) and 10 chunks against one sym_force launch: the same
+    pairs in another order, held with the summed |terms| where needed."""
+    pt = torch.from_numpy(_disk(10000, 2, seed=5)).to(cuda)
+    m = torch.ones(10000, device=cuda)
+    q, cfg = tp.Quantizer.from_string(mode), SimConfig()
+    single = hn.sym_accelerations(pt, m, q, cfg, quantize_forces=False)
+    n_chunks = -(-10000 // chunk)
+    before = dict(hn.LAUNCHES)
+    got = hn.sym_accelerations_chunked(pt, m, q, cfg, quantize_forces=False,
+                                       chunk=chunk)
+    assert hn.LAUNCHES["sym_force"] - before["sym_force"] == n_chunks
+    assert (hn.LAUNCHES["pair_sym_force"] - before["pair_sym_force"]
+            == n_chunks * (n_chunks - 1) // 2)
+    bounds = hn.kernel_bounds(pt, q, cfg)
+    scale = hn.sym_force_term_scale(pt, cfg.G * m, bounds, q, False)
+    bound = 2e-6 + 5e-5 * torch.maximum(single.abs(), scale)
+    assert bool(((got - single).abs() <= bound).all())
+    assert torch.equal(got, hn.sym_accelerations_chunked(
+        pt, m, q, cfg, quantize_forces=False, chunk=chunk))
+
+
+@pytest.mark.gpu
+def test_zero_softening_chunked_routes_to_row_force(cuda):
+    pt = torch.from_numpy(_disk(3000, 3, seed=6)).to(cuda)
+    m = torch.ones(3000, device=cuda)
+    before = dict(hn.LAUNCHES)
+    acc = hn.sym_accelerations_chunked(pt, m, tp.Quantizer(),
+                                       SimConfig(softening=0.0), chunk=1000)
+    assert hn.LAUNCHES["row_force"] == before["row_force"] + 1
+    assert hn.LAUNCHES["pair_sym_force"] == before["pair_sym_force"]
+    assert bool(torch.isfinite(acc).all())

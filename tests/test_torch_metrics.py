@@ -103,3 +103,23 @@ def test_compare_rotation_curves_matches_jax():
     for k in ("mean_velocity_diff", "outer_slope_baseline",
               "outer_slope_quantized", "flatness_increase"):
         np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-7)
+
+
+@pytest.mark.parametrize("softening_sq", [0.0025, 0.0])
+def test_energies_with_run_time_softening_match_jax(softening_sq):
+    pos, vel, m = _state(600, seed=5)
+    want_pe = float(jm.potential_energy(jnp.asarray(pos), jnp.asarray(m),
+                                        JaxConfig(), block=256,
+                                        softening_sq=jnp.float32(
+                                            softening_sq)))
+    got_pe = tm.potential_energy(torch.from_numpy(pos), torch.from_numpy(m),
+                                 SimConfig(), block=256,
+                                 softening_sq=torch.tensor(softening_sq))
+    np.testing.assert_allclose(float(got_pe), want_pe, rtol=1e-5)
+    want = float(jm.total_energy(jnp.asarray(pos), jnp.asarray(vel),
+                                 jnp.asarray(m), JaxConfig(),
+                                 softening_sq=jnp.float32(softening_sq)))
+    got = tm.total_energy(torch.from_numpy(pos), torch.from_numpy(vel),
+                          torch.from_numpy(m), SimConfig(),
+                          softening_sq=torch.tensor(softening_sq))
+    np.testing.assert_allclose(float(got), want, rtol=1e-5)
