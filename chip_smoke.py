@@ -33,6 +33,17 @@ Phases (any failure exits non-zero before the last line is printed):
    against the row kernel over all rows and both against the plain
    version on sampled rows; zero softening routed to the row kernel; the
    pruned bounds pass at D=3 bitwise equal to the full max.
+8. ring: the multi-device ring (``--mesh``) and its tiles pair_force
+   (#10), pair_max (#9) and pair_pe_rows (#7): each tile against its plain
+   version at (5000, 5000) one set, (32768, 32771), (1, 1000) and prime
+   sizes, all seven modes, D in {2,3} (pair_max bitwise), and timed and
+   held at the --mesh path's 131072^2; ``cli.main`` at 131072 stars x
+   200 ticks with ``--mesh`` for both schedules, float32 and int4, launch counts exact; virtual shards
+   (S in {1, 3, 4} on the one card, N in {5000, 131072, 131075}): forces
+   against single-device sym_force, max d^2 bitwise, energies against the
+   plain metric, launch counts exact; the reference gate through a mesh of
+   one; N=1,048,576 through ``DirectSimulation(mesh=...)`` on a mesh of one
+   (float32 and int4) and on two virtual shards (budget-chunked pair tile).
 
 Two more phases run only when asked for: ``--phases profile``, the main
 path under ``torch.profiler`` at 5000 and 131072 stars, per mode: wall,
@@ -61,7 +72,7 @@ import numpy as np
 import torch
 
 REPO = Path(__file__).resolve().parent
-PHASES = ("kernels", "main", "gate", "perf", "large")   # the default run
+PHASES = ("kernels", "main", "gate", "perf", "large", "ring")  # default
 EXTRA_PHASES = ("profile", "scale")
 MODES = ("float32", "bfloat16", "float16", "int8", "int4", "custom")
 STARS, TICKS, INTERVAL = 5000, 2000, 100
@@ -80,6 +91,12 @@ KERNELS = {
                   "replaces": "nbody_tpu/ops/pallas_nbody.py:645"},
     "pair_sym_force": {"source": "nbody_tpu_torch/csrc/pair_sym_force.cu",
                        "replaces": "nbody_tpu/ops/pallas_nbody.py:956"},
+    "pair_force": {"source": "nbody_tpu_torch/csrc/row_force.cu",
+                   "replaces": "nbody_tpu/ops/pallas_nbody.py:1485"},
+    "pair_max": {"source": "nbody_tpu_torch/csrc/max_dist_sq.cu",
+                 "replaces": "nbody_tpu/ops/pallas_nbody.py:1416"},
+    "pair_pe_rows": {"source": "nbody_tpu_torch/csrc/pair_pe_rows.cu",
+                     "replaces": "nbody_tpu/ops/pallas_nbody.py:1165"},
 }
 
 
@@ -496,7 +513,8 @@ def radius90(pos) -> float:
     return float(np.percentile(r, 90))
 
 
-def phase_gate(dev) -> None:
+def phase_gate(dev, mesh=None, label: str = "gate") -> None:
+    """The reference gate, single-device or (``mesh``) on the ring."""
     from nbody_tpu_torch.models.direct import DirectSimulation
     from nbody_tpu_torch.models.galaxy import load_disk_fixture
 
@@ -510,7 +528,8 @@ def phase_gate(dev) -> None:
         ref_perm = (json.loads(perm_path.read_text())
                     if perm_path.exists() else None)
         t0 = time.time()
-        sim = DirectSimulation(pos, vel, m, precision=mode, device=dev)
+        sim = DirectSimulation(pos, vel, m, precision=mode, device=dev,
+                               mesh=mesh)
         e0 = sim.get_total_energy()
         snaps, _ = sim.run_with_history(TICKS, INTERVAL)
         drifts = (np.asarray(snaps.total) - e0) / abs(e0) * 100.0
@@ -529,16 +548,16 @@ def phase_gate(dev) -> None:
         r_ref, r_our = radius90(ref["final_pos"]), radius90(our_pos)
         r_tol = max(0.1 * r_ref, 2.0 * r_spread)
         r_agree = abs(r_ref - r_our) < r_tol
-        print(f"gate: {mode}: drift per snapshot (%) ours "
+        print(f"{label}: {mode}: drift per snapshot (%) ours "
               f"{[round(float(d), 6) for d in drifts]}")
-        print(f"gate: {mode}: final drift ours {final_our:+.6f}% vs "
+        print(f"{label}: {mode}: final drift ours {final_our:+.6f}% vs "
               f"reference {final_ref:+.6f}% (tol {tol:.4f}) "
               f"{'AGREE' if agree else 'DISAGREE'}; radius90 ours "
               f"{r_our:.4f} vs {r_ref:.4f} (tol {r_tol:.4f}) "
               f"{'AGREE' if r_agree else 'DISAGREE'}; {wall:.1f}s")
         if not (agree and r_agree):
             fails.append(mode)
-    check(not fails, f"reference gate DISAGREE for {fails}")
+    check(not fails, f"{label}: reference gate DISAGREE for {fails}")
 
 
 # --------------------------------------------------------------------------
@@ -738,10 +757,10 @@ def phase_large(dev, report: dict) -> None:
                   f"{wall:.3f}s = {wall / LARGE_STEPS * 1e3:.1f} ms/step, "
                   f"{LARGE_N ** 2 * LARGE_STEPS / wall:.4e} pairs/s; "
                   f"launches {launched}; peak {peak:.2f} GB")
-            want = {"sym_force": LARGE_STEPS * n_chunks,
+            want = {**dict.fromkeys(hn.LAUNCHES, 0),
+                    "sym_force": LARGE_STEPS * n_chunks,
                     "pair_sym_force":
                         LARGE_STEPS * n_chunks * (n_chunks - 1) // 2,
-                    "row_force": 0,
                     "max_d2": 2 * LARGE_STEPS if q.is_int else 0}
             check(launched == want, f"D={dim} {mode}: launches {launched}, "
                                     f"expected {want}")
@@ -811,8 +830,7 @@ def phase_large(dev, report: dict) -> None:
     print(f"large: D=3 float32 zero softening: 2 steps in {wall:.3f}s = "
           f"{wall / 2 * 1e3:.1f} ms/step, {LARGE_N ** 2 * 2 / wall:.4e} "
           f"pairs/s; launches {launched}")
-    check(launched == {"sym_force": 0, "max_d2": 0, "row_force": 2,
-                       "pair_sym_force": 0},
+    check(launched == {**dict.fromkeys(hn.LAUNCHES, 0), "row_force": 2},
           f"zero softening did not route to row_force: {launched}")
     check(bool(torch.isfinite(state.positions).all()),
           "zero softening: non-finite positions")
@@ -840,6 +858,454 @@ def bounds_pass_checks(hn, cfg, plummer, dev) -> None:
             cand = geom[torch.topk(r, 1024).indices]
             check(hn.max_d2(cand) < hn.max_d2(geom),
                   "shell: the candidates alone hold the max")
+
+
+# --------------------------------------------------------------------------
+# Phase 8: the multi-device ring (--mesh) and its tiles #10, #9, #7
+# --------------------------------------------------------------------------
+
+ALL_MODES = ("float64",) + MODES
+# (receivers, sources); equal counts are one set used as both.
+RING_SHAPES = ((5000, 5000), (32768, 32771), (1, 1000), (4099, 1009))
+RING_TICKS, RING_INTERVAL = 200, 100
+RING_NS = (STARS, BIG_N, BIG_N + 3)   # the ring's energy/forces checks
+VIRTUAL_SHARDS = (3, 4)
+
+
+def pe_rtol(n_sources: int) -> float:
+    """pair_pe_rows against its plain version, relative to the row (its
+    terms are positive, so the row is its summed |terms|): twice the
+    worst-case rounding of the kernel's two-level order, 128 terms a tile
+    and one add per tile, plus a few ulp for the terms."""
+    return 2 * (128 + -(-n_sources // 128) + 4) * 2.0 ** -24
+
+
+def ring_sets(n_i, n_j, dim, seed, dev):
+    """Receivers, sources and their G*m; equal counts give one set."""
+    from nbody_tpu_torch.config import SimConfig
+    g = SimConfig().G
+    if n_i == n_j:
+        pos, m = make_inputs(n_i, dim, False, seed, dev)
+        gm = (g * m).contiguous()
+        return pos, pos, m, m, gm, gm
+    pos, m = make_inputs(n_i + n_j, dim, False, seed, dev)
+    gm = (g * m).contiguous()
+    return (pos[:n_i], pos[n_i:], m[:n_i], m[n_i:], gm[:n_i], gm[n_i:])
+
+
+def lazy_pair_scale(xi, xj, gmj, bounds, q, got, want):
+    """lazy_scale for pair_force: the summed |terms| of the rows where the
+    |a| rule alone does not hold."""
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+    scale = torch.zeros_like(want)
+    need = ((got - want).abs() > ATOL + RTOL * want.abs()).any(
+        dim=1).nonzero().flatten()
+    if need.numel():
+        scale[need] = hn.pair_force_term_scale(xi[need], xj, gmj, bounds, q,
+                                               block=256)
+    return scale
+
+
+def ring_tiles(dev, report: dict) -> None:
+    """The three tiles against their plain versions at the checked shapes:
+    one set, disjoint sets, a single receiver and prime sizes; then their
+    times at the mesh-of-one path's shape, 131072^2 one set, with the last
+    kernel and plain outputs of the timing held against each other."""
+    from nbody_tpu_torch.config import SimConfig
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+    from nbody_tpu_torch.ops.precision import Quantizer
+
+    cfg = SimConfig()
+    force, pe_worst, max_fail, pe_fail = Tally(), (0.0, ""), [], []
+    max_cases = pe_cases = 0
+    gen = torch.Generator().manual_seed(5)
+
+    def hold_pe(case, got, want, n_j):
+        nonlocal pe_worst, pe_cases
+        pe_cases += 1
+        fin = torch.isfinite(want)
+        err = ((got - want).abs() / want.abs())[fin]
+        ratio = err.max().item() / pe_rtol(n_j) if err.numel() else 0.0
+        pe_worst = max(pe_worst, (ratio, case))
+        report["pair_pe_rows"]["max_abs_err"] = max(
+            report["pair_pe_rows"]["max_abs_err"] or 0.0,
+            (got - want)[fin].abs().max().item() if err.numel() else 0.0)
+        if ratio > 1.0 or not torch.equal(torch.isfinite(got), fin):
+            pe_fail.append(f"{case}: err/bound {ratio:.3f}")
+
+    def hold_max(case, got, want):
+        nonlocal max_cases
+        max_cases += 1
+        if not torch.equal(got, want):
+            max_fail.append(f"{case}: {got.item()!r} != {want.item()!r}")
+
+    for dim in (2, 3):
+        for n_i, n_j in RING_SHAPES:
+            xi, xj, mi, mj, _, gmj = ring_sets(n_i, n_j, dim, n_i + dim, dev)
+            shape = f"D={dim} {n_i}x{n_j}{' one set' if n_i == n_j else ''}"
+            for mode in ALL_MODES:
+                q = Quantizer.from_string(mode)
+                bounds = force_bounds(q, torch.cat([xi, xj]),
+                                      cfg.softening_sq, dev)
+                lo, hi = (bounds[0], bounds[1]) if q.is_int else (None, None)
+                got = hn.pair_force(xi, xj, gmj, q, cfg, lo, hi)
+                want = hn.pair_force_plain(xi, xj, gmj, q, cfg, lo, hi)
+                force.hold(f"{mode} {shape}", got, want,
+                           lazy_pair_scale(xi, xj, gmj, bounds, q, got, want),
+                           q)
+            for label, vi, vj in (
+                    ("all valid", torch.ones(n_i, dtype=torch.bool),
+                     torch.ones(n_j, dtype=torch.bool)),
+                    ("some invalid", torch.rand(n_i, generator=gen) < 0.7,
+                     torch.rand(n_j, generator=gen) < 0.7),
+                    ("receivers invalid", torch.zeros(n_i, dtype=torch.bool),
+                     torch.ones(n_j, dtype=torch.bool))):
+                vi, vj = vi.to(dev), vj.to(dev)
+                hold_max(f"{shape} {label}", hn.pair_max(xi, xj, vi, vj),
+                         hn.pair_max_plain(xi, xj, vi, vj))
+            if n_i == n_j:
+                ones = torch.ones(n_i, dtype=torch.bool, device=dev)
+                hold_max(f"{shape} vs max_d2",
+                         hn.pair_max(xi, xi, ones, ones), hn.max_d2(xi))
+            ids_i = torch.arange(n_i, dtype=torch.int32, device=dev)
+            ids_j = ids_i if n_i == n_j else torch.arange(
+                n_i - 1, n_i - 1 + n_j, dtype=torch.int32, device=dev)
+            for soft in (cfg.softening_sq, 0.0):
+                args = (xi, mi, ids_i, xj, mj, ids_j, soft)
+                hold_pe(f"{shape} eps^2={soft}", hn.pair_pe_rows(*args),
+                        hn.pair_pe_rows_plain(*args), n_j)
+
+    # Run to run, one case each.
+    xi, xj, mi, mj, _, gmj = ring_sets(32768, 32771, 2, 1, dev)
+    q = Quantizer.from_string("int4")
+    bounds = force_bounds(q, torch.cat([xi, xj]), cfg.softening_sq, dev)
+    ones_i = torch.ones(xi.shape[0], dtype=torch.bool, device=dev)
+    ones_j = torch.ones(xj.shape[0], dtype=torch.bool, device=dev)
+    ids_i = torch.arange(xi.shape[0], dtype=torch.int32, device=dev)
+    ids_j = torch.arange(xi.shape[0], xi.shape[0] + xj.shape[0],
+                         dtype=torch.int32, device=dev)
+    for name, fn in (
+            ("pair_force", lambda: hn.pair_force(xi, xj, gmj, q, cfg,
+                                                 bounds[0], bounds[1])),
+            ("pair_max", lambda: hn.pair_max(xi, xj, ones_i, ones_j)),
+            ("pair_pe_rows", lambda: hn.pair_pe_rows(
+                xi, mi, ids_i, xj, mj, ids_j, cfg.softening_sq))):
+        check(torch.equal(fn(), fn()), f"{name} not deterministic")
+    print("ring: pair_force, pair_max and pair_pe_rows run to run bitwise "
+          "equal")
+
+    # Times at the mesh-of-one path's shape, N=131072 (D=2 disk, equal
+    # masses): plain, kernel, plain in one call. The last kernel and plain
+    # outputs are held against each other: these are the tiles the --mesh
+    # run launches (pair_force under --schedule rows in float32 and int4,
+    # pair_pe_rows every snapshot, pair_max the int4 bounds pass; pair_max
+    # does not depend on the mode, so it is held once).
+    pos, m = make_inputs(BIG_N, 2, True, seed=7, dev=dev)
+    gm = (cfg.G * m).contiguous()
+    ones = torch.ones(BIG_N, dtype=torch.bool, device=dev)
+    ids = torch.arange(BIG_N, dtype=torch.int32, device=dev)
+    shape = f"D=2 {BIG_N}x{BIG_N} one set (the --mesh path)"
+    out = {}
+
+    def keep(fn, slot):
+        return lambda: out.__setitem__(slot, fn())
+
+    for mode in ("float32", "int4"):
+        q = Quantizer.from_string(mode)
+        bounds = force_bounds(q, pos, cfg.softening_sq, dev)
+        lo, hi = (bounds[0], bounds[1]) if q.is_int else (None, None)
+        runs = [("pair_force", lambda: hn.pair_force(pos, pos, gm, q, cfg,
+                                                     lo, hi),
+                 lambda: hn.pair_force_plain(pos, pos, gm, q, cfg, lo, hi))]
+        if mode == "float32":
+            runs += [("pair_max", lambda: hn.pair_max(pos, pos, ones, ones),
+                      lambda: hn.pair_max_plain(pos, pos, ones, ones)),
+                     ("pair_pe_rows", lambda: hn.pair_pe_rows(
+                         pos, m, ids, pos, m, ids, cfg.softening_sq),
+                      lambda: hn.pair_pe_rows_plain(pos, m, ids, pos, m, ids,
+                                                    cfg.softening_sq))]
+        for name, kernel, plain in runs:
+            plain_ms = cuda_ms(keep(plain, "plain"), 1)
+            ms = cuda_ms(keep(kernel, "kernel"), 3)
+            plain_ms2 = cuda_ms(keep(plain, "plain"), 1, 0)
+            print(f"ring: time {name} {BIG_N}x{BIG_N} D=2 {mode}: kernel "
+                  f"{ms:.4f} ms, plain {min(plain_ms, plain_ms2):.4f} ms "
+                  f"(plain runs {plain_ms:.4f} / {plain_ms2:.4f})")
+            if mode == "float32":
+                report[name].update(ms=ms, plain_ms=min(plain_ms, plain_ms2),
+                                    timed_at=f"{BIG_N}x{BIG_N} D=2 float32")
+            got, want = out["kernel"], out["plain"]
+            if name == "pair_force":
+                force.hold(f"{mode} {shape}", got, want,
+                           lazy_pair_scale(pos, pos, gm, bounds, q, got,
+                                           want), q)
+            elif name == "pair_max":
+                hold_max(f"{shape} vs plain", got, want)
+                hold_max(f"{shape} vs max_d2", got, hn.max_d2(pos))
+            else:
+                hold_pe(f"{shape} eps^2={cfg.softening_sq}", got, want,
+                        BIG_N)
+            out.clear()
+            del got, want
+    del pos, m, gm, ones, ids
+
+    torch.cuda.synchronize()
+    force.report("pair_force", report["pair_force"])
+    print(f"ring: pair_max bitwise vs plain (and vs max_d2 on one set) in "
+          f"{max_cases} cases: {len(max_fail)} failures")
+    check(not max_fail, "\n  ".join(max_fail))
+    report["pair_max"].update(max_abs_err=0.0, cases=max_cases)
+    print(f"ring: pair_pe_rows vs plain in {pe_cases} cases, |err| <= "
+          f"2 (128 + tiles + 4) 2^-24 |row|: {len(pe_fail)} failures; worst "
+          f"err/bound {pe_worst[0]:.4f} ({pe_worst[1]})")
+    check(not pe_fail, "pair_pe_rows disagreements:\n  "
+          + "\n  ".join(pe_fail))
+    report["pair_pe_rows"].update(err_over_bound=pe_worst[0],
+                                  cases=pe_cases)
+
+
+def ring_cli(dev, report: dict) -> None:
+    """``python -m nbody_tpu_torch --stars 131072 --ticks 200 --compare
+    float32,int4 --mesh`` and its ``--schedule rows`` twin through
+    cli.main, with the launch counters read around each: a mesh of the one
+    card, so per mode 201 force evaluations (the entry force and 200
+    ticks) and 2 energy passes, each of one tile."""
+    from nbody_tpu_torch import cli
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+
+    evals, passes = RING_TICKS + 1, RING_TICKS // RING_INTERVAL
+    totals = {"pair_force": 0, "pair_max": 0, "pair_pe_rows": 0}
+    for schedule in ("sym", "rows"):
+        argv = ["--device", str(dev), "--stars", str(BIG_N), "--ticks",
+                str(RING_TICKS), "--snapshot-interval", str(RING_INTERVAL),
+                "--mesh", "--schedule", schedule, "--compare",
+                "float32,int4", "--output",
+                str(REPO / "output" / "chip_smoke_ring")]
+        print(f"ring: nbody_tpu_torch.cli.main({argv})")
+        reset_counters(hn)
+        tee = Tee(sys.stdout)
+        old, sys.stdout = sys.stdout, tee
+        try:
+            histories = cli.main(argv)
+        finally:
+            sys.stdout = old
+        for k in totals:
+            totals[k] += hn.LAUNCHES[k]
+        text = tee.buf.getvalue()
+        check(f"Mesh: 1 device(s), schedule={schedule}" in text,
+              f"{schedule}: no mesh line")
+        for block in text.split("Running simulation: ")[1:]:
+            mode = block.split()[0]
+            launched = json.loads(re.search(r"kernel launches: (\{.*\})",
+                                            block).group(1))
+            rate = re.search(r"(\d+) ticks in ([\d.]+)s \(([\d.]+) ticks/s",
+                             block)
+            path = re.search(r"force path: (.*)", block).group(1)
+            is_int = mode == "int4_sim"
+            want = dict.fromkeys(hn.LAUNCHES, 0)
+            want["pair_pe_rows"] = passes
+            want["pair_max"] = evals if is_int else 0
+            want["sym_force" if schedule == "sym" else "pair_force"] = evals
+            print(f"ring: --schedule {schedule} {mode}: {rate.group(1)} "
+                  f"ticks in {rate.group(2)}s ({rate.group(3)} ticks/s); "
+                  f"launches {launched}; force path: {path}")
+            check(launched == want, f"{schedule} {mode}: launches "
+                                    f"{launched}, expected {want}")
+            check(path.startswith(f"ring, {'rows' if schedule == 'rows' else 'sym'}"),
+                  f"{schedule} {mode}: force path {path!r}")
+        for mode, h in histories.items():
+            check(len(h.total_energy) == passes + 1
+                  and np.isfinite(h.total_energy).all(),
+                  f"{schedule} {mode}: history not finite / wrong length")
+    for k, n in totals.items():
+        report[k]["launches"] = n
+        check(n > 0, f"{k} was never launched on the mesh path")
+
+
+def ring_virtual(dev) -> None:
+    """Virtual shards on the one card at N in {5000, 131072, 131075
+    (phantom rows)}, D=2 disk: for S in {1, 3, 4} the ring's energy
+    against metrics.potential_energy (and its wall beside the plain one's)
+    and its max d^2 against the single-device max_d2 bitwise; for S in
+    {1, 3, 4}, float32 and int4, one evaluation of each schedule against
+    single-device sym_force (S=1 rows is pair_force on the whole set, the
+    tile of --mesh --schedule rows); every launch count exact."""
+    from nbody_tpu_torch.config import SimConfig
+    from nbody_tpu_torch.diagnostics import metrics
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+    from nbody_tpu_torch.ops.precision import Quantizer
+    from nbody_tpu_torch.parallel import ring
+
+    cfg = SimConfig()
+    worst = {}
+    for n in RING_NS:
+        pos, m = make_inputs(n, 2, False, seed=n, dev=dev)
+        gm = (cfg.G * m).contiguous()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        pe_plain = float(metrics.potential_energy(pos, m, cfg))
+        plain_ms = (time.time() - t0) * 1e3
+        max_single = hn.max_d2(pos) + cfg.softening_sq
+        singles, single_ms = {}, {}
+        for mode in ("float32", "int4"):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            singles[mode] = hn.sym_accelerations(
+                pos, m, Quantizer.from_string(mode), cfg,
+                quantize_forces=False)
+            torch.cuda.synchronize()
+            single_ms[mode] = (time.time() - t0) * 1e3
+        pe_tol = 1e-6 if n <= STARS else 1e-5
+        for n_shards in (1,) + VIRTUAL_SHARDS:
+            mesh = ring.ParticleMesh.virtual(n_shards, dev)
+            reset_counters(hn)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            pe = float(ring.ring_potential_energy(pos, m, cfg, mesh))
+            pe_ms = (time.time() - t0) * 1e3
+            check(hn.LAUNCHES["pair_pe_rows"] == n_shards ** 2,
+                  f"S={n_shards}: {hn.LAUNCHES['pair_pe_rows']} pair_pe_rows "
+                  f"launches in one energy pass")
+            rel = abs(pe - pe_plain) / abs(pe_plain)
+            print(f"ring: S={n_shards} N={n}: energy {pe!r} vs plain "
+                  f"{pe_plain!r}, rel err {rel:.3e} (tol {pe_tol}); wall "
+                  f"{pe_ms:.1f} ms (plain metrics.potential_energy "
+                  f"{plain_ms:.1f} ms)")
+            check(rel <= pe_tol, f"S={n_shards} N={n}: ring energy off by "
+                                 f"{rel:.3e}")
+            worst["energy"] = max(worst.get("energy", 0.0), rel)
+            padded, _, _, ids = ring._padded(pos, None, m, mesh)
+            reset_counters(hn)
+            got_max = ring._ring_max_d2(mesh, ring._shards(padded, mesh),
+                                        ring._shards(ids, mesh), n, cfg)
+            check(hn.LAUNCHES["pair_max"] == n_shards * (n_shards // 2 + 1),
+                  f"S={n_shards}: {hn.LAUNCHES['pair_max']} pair_max "
+                  f"launches in one bounds pass")
+            check(torch.equal(got_max, max_single),
+                  f"S={n_shards} N={n}: ring max {got_max.item()!r} != "
+                  f"single-device {max_single.item()!r}")
+            for mode in ("float32", "int4"):
+                q = Quantizer.from_string(mode)
+                single = singles[mode]
+                bounds = hn.kernel_bounds(pos, q, cfg)
+                for schedule in ("sym", "rows"):
+                    reset_counters(hn)
+                    torch.cuda.synchronize()
+                    t0 = time.time()
+                    got = ring.ring_accelerations(pos, m, q, cfg, mesh,
+                                                  schedule=schedule)
+                    torch.cuda.synchronize()
+                    if n >= BIG_N:
+                        print(f"ring: S={n_shards} N={n} {mode} {schedule}: "
+                              f"one evaluation {(time.time() - t0) * 1e3:.1f}"
+                              f" ms wall (single-device sym_accelerations "
+                              f"{single_ms[mode]:.1f} ms)")
+                    launched = {k: v for k, v in hn.LAUNCHES.items() if v}
+                    s = n_shards
+                    want = ({"sym_force": s, "pair_sym_force": s * (s - 1) // 2}
+                            if schedule == "sym" else {"pair_force": s * s})
+                    if q.is_int:
+                        want["pair_max"] = s * (s // 2 + 1)
+                    want = {k: v for k, v in want.items() if v}
+                    check(launched == want, f"S={s} N={n} {mode} {schedule}: "
+                                            f"launches {launched}, expected "
+                                            f"{want}")
+                    scale = lazy_scale(pos, gm, bounds, q, False, got, single)
+                    ok, err, ratio, _ = agree(got, single, scale)
+                    off, one_step = (quantized_flips(got, single, q)
+                                     if q.is_int else (0, True))
+                    key = f"{mode} {schedule}"
+                    worst[key] = max(worst.get(key, 0.0), ratio)
+                    check(ok and off <= flips_allowed(single) and one_step,
+                          f"S={s} N={n} {mode} {schedule}: err/bound "
+                          f"{ratio:.3f}, flips {off}")
+            print(f"ring: S={n_shards} N={n}: max d^2 bitwise the "
+                  f"single-device max_d2; sym and rows, float32 and int4 "
+                  f"hold to single-device sym_force; launch counts exact")
+        del pos, m, gm, singles
+    print(f"ring: virtual shards, worst: energy rel err "
+          f"{worst['energy']:.3e}; force err/bound "
+          + ", ".join(f"{k} {v:.4f}" for k, v in worst.items()
+                      if k != "energy"))
+
+
+def ring_large(dev) -> None:
+    """N=1,048,576 (D=2 disk) through DirectSimulation(mesh=...): a mesh of
+    the one card (float32 and int4, 5 ticks and one snapshot: the
+    diagonal is the chunked path, the energy #7), and virtual(2) (float32,
+    2 ticks: the pair tile source-chunked past the budget)."""
+    from nbody_tpu_torch.config import SimConfig
+    from nbody_tpu_torch.models.direct import DirectSimulation
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+    from nbody_tpu_torch.parallel import ring
+    from nbody_tpu_torch.utils.profiler import fence
+
+    cfg = SimConfig()
+    p0, v0, m0 = large_ics(2, dev)
+    one, two = ring.make_particle_mesh(1, dev), ring.ParticleMesh.virtual(
+        2, dev)
+    for mesh, mode, ticks in ((one, "float32", LARGE_STEPS),
+                              (one, "int4", LARGE_STEPS),
+                              (two, "float32", 2)):
+        s = mesh.size
+        b = LARGE_N // s
+        c = -(-b // hn.sym_chunk_size(b, 2))          # diagonal chunks
+        k = -(-b // ring._src_chunk_size(b, b, 2)) if s > 1 else 0
+        evals = ticks + 1
+        want = {"sym_force": evals * s * c,
+                "pair_sym_force": evals * (s * c * (c - 1) // 2
+                                           + s * (s - 1) // 2 * k),
+                "pair_pe_rows": s * s}
+        if mode == "int4":
+            want["pair_max"] = evals * s * (s // 2 + 1)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counters(hn)
+        sim = DirectSimulation(p0, v0, m0, precision=mode, mesh=mesh)
+        fence(sim.state.positions)
+        t0 = time.time()
+        snaps, frames = sim.run_with_history(ticks, ticks)
+        wall = time.time() - t0
+        launched = {k2: v for k2, v in hn.LAUNCHES.items() if v}
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        print(f"ring: 1M {mode} mesh of {s}: {ticks} ticks + 1 snapshot in "
+              f"{wall:.3f}s ({evals} evaluations: {c} diagonal chunks, "
+              f"pair tiles in {k} source chunks); launches {launched}; peak "
+              f"{peak:.2f} GB; energy {float(snaps.total[0])!r}")
+        check(launched == want, f"1M {mode} S={s}: launches {launched}, "
+                                f"expected {want}")
+        check(np.isfinite(np.asarray(snaps.total)).all()
+              and bool(torch.isfinite(sim.positions).all())
+              and frames.shape == (1, LARGE_N, 2),
+              f"1M {mode} S={s}: non-finite or misshapen output")
+        del sim, snaps, frames
+    # The energy pass at 1M, one tile of 1M^2 against four of 524288^2.
+    t0 = time.time()
+    e1 = ring.ring_potential_energy(p0, m0, cfg, one)
+    fence(e1)
+    t1 = time.time()
+    e2 = ring.ring_potential_energy(p0, m0, cfg, two)
+    fence(e2)
+    t2 = time.time()
+    rel = abs(float(e1) - float(e2)) / abs(float(e1))
+    print(f"ring: 1M energy, mesh of 1 {float(e1)!r} ({(t1 - t0) * 1e3:.1f} "
+          f"ms) vs virtual(2) {float(e2)!r} ({(t2 - t1) * 1e3:.1f} ms): rel "
+          f"{rel:.3e}")
+    check(rel <= 1e-5, f"1M energy: meshes of 1 and 2 differ by {rel:.3e}")
+
+
+def phase_ring(dev, report: dict) -> None:
+    from nbody_tpu_torch.parallel import ring
+    for name, part in (("tiles", lambda: ring_tiles(dev, report)),
+                       ("cli", lambda: ring_cli(dev, report)),
+                       ("virtual", lambda: ring_virtual(dev)),
+                       ("gate", lambda: phase_gate(
+                           dev, ring.make_particle_mesh(1, dev),
+                           "ring: gate, mesh of 1")),
+                       ("large", lambda: ring_large(dev))):
+        t = time.time()
+        part()
+        torch.cuda.synchronize()
+        print(f"ring: {name} ok in {time.time() - t:.1f}s")
 
 
 # --------------------------------------------------------------------------
@@ -1010,6 +1476,8 @@ def main(argv=None) -> int:
                 phase_perf(dev, report)
             elif phase == "large":
                 phase_large(dev, report)
+            elif phase == "ring":
+                phase_ring(dev, report)
             elif phase == "profile":
                 phase_profile(dev, args.profile_out)
             elif phase == "scale":

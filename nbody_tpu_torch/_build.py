@@ -43,13 +43,19 @@ SIGNATURES = {
     },
     "max_dist_sq": {
         "nbody_max_d2": [_P, _I, _I, _P, _P, _P, _I, _P, _P],
+        "nbody_pair_max": [_P, _P, _I, _P, _P, _I, _I, _P, _I, _P, _P],
     },
     "row_force": {
-        "nbody_row_force": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P, _P],
+        "nbody_row_force": [_P, _I, _P, _P, _I, _P, _I, _I, _I, _F, _F, _I,
+                            _P, _P],
     },
     "pair_sym_force": {
         "nbody_pair_sym_force": [_P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _F,
                                  _F, _I, _P, _P, _P, _P, _P],
+    },
+    "pair_pe_rows": {
+        "nbody_pair_pe_rows": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P,
+                               _P],
     },
 }
 

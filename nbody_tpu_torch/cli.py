@@ -8,6 +8,7 @@ state on the device and copies its snapshots to the host once.
 Usage:
     python -m nbody_tpu_torch --stars 5000 --ticks 2000 --compare float64,int4
     python -m nbody_tpu_torch --quick
+    python -m nbody_tpu_torch --stars 131072 --ticks 200 --compare float32,int4 --mesh
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from nbody_tpu_torch.models.direct import DirectSimulation
 from nbody_tpu_torch.models.galaxy import create_disk_galaxy
 from nbody_tpu_torch.ops import hopper_nbody
 from nbody_tpu_torch.ops.precision import describe_mode, get_mode_from_string
+from nbody_tpu_torch.parallel import ring
 from nbody_tpu_torch.utils.history import MetricsHistory
 from nbody_tpu_torch.utils.profiler import fence
 from nbody_tpu_torch.utils.viz import plot_full_comparison, print_summary
@@ -41,6 +43,7 @@ Examples:
   python -m nbody_tpu_torch --stars 5000 --ticks 2000 --compare float64,int4
   python -m nbody_tpu_torch --quick
   python -m nbody_tpu_torch --stars 10000 --compare float64,float16,int8,int4
+  python -m nbody_tpu_torch --stars 131072 --ticks 200 --compare float32,int4 --mesh
 
 Precision modes:
   float64  - native 64-bit baseline
@@ -75,21 +78,40 @@ Precision modes:
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (default: cuda)")
     p.add_argument("--mesh", type=int, nargs="?", const=0, default=None,
-                   metavar="N", help="multi-device ring (not yet ported)")
-    p.add_argument("--schedule", type=str, default=None,
+                   metavar="N",
+                   help=("run sharded over an N-device mesh of --device's "
+                         "type (bare --mesh = all local devices): particles "
+                         "ring-sharded, forces via the half-ring "
+                         "Newton's-third-law schedule, energies from the "
+                         "energy ring"))
+    p.add_argument("--schedule", type=str, default="sym",
                    choices=["sym", "rows"],
-                   help="ring force schedule (not yet ported)")
+                   help="ring force schedule for --mesh runs")
     p.add_argument("--bounds-every", type=int, default=1, metavar="K",
                    help="int-sim modes: recompute the global log-grid "
                         "bounds every K steps instead of every force "
                         "evaluation (K=1 = exact reference semantics)")
     p.add_argument("--ticks-per-dispatch", type=int, default=None,
-                   metavar="T", help="mesh dispatch cap (not yet ported)")
+                   metavar="T",
+                   help="mesh runs: cap the ticks of each call into the "
+                        "ring runners (identical physics)")
     return p
 
 
-def force_path(launched: dict) -> str:
-    """Which force path a run took, from its kernel launch counts."""
+RING_KERNELS = ("sym_force", "pair_sym_force", "row_force", "pair_force",
+                "pair_max", "pair_pe_rows")
+
+
+def force_path(launched: dict, schedule: str | None = None) -> str:
+    """Which force path a run took: a mesh run names its ring
+    ``schedule`` and the kernels it launched; a single-device run is
+    told apart by its kernel launch counts."""
+    if schedule is not None:
+        name = "rows" if schedule == "rows" else "sym (half ring)"
+        kernels = (" + ".join(k for k in RING_KERNELS if launched[k])
+                   or "no kernel launched: CPU plain versions or the f64 "
+                      "baseline")
+        return f"ring, {name} schedule ({kernels})"
     if launched["pair_sym_force"]:
         return "chunked Newton's-third-law (sym_force + pair_sym_force)"
     if launched["row_force"]:
@@ -108,11 +130,6 @@ def _resolve_device(name: str) -> torch.device:
 
 
 def run_compare(args) -> dict:
-    for flag, value in (("--mesh", args.mesh), ("--schedule", args.schedule),
-                        ("--ticks-per-dispatch", args.ticks_per_dispatch)):
-        if value is not None:
-            raise SystemExit(f"error: {flag} is not yet ported to "
-                             f"nbody_tpu_torch (see ROADMAP.md)")
     device = _resolve_device(args.device)
     if args.quick:
         args.stars = 500
@@ -145,12 +162,27 @@ def run_compare(args) -> dict:
     cfg = SimConfig(G=args.G, dt=args.dt)
     histories, final_positions = {}, {}
 
+    mesh = None
+    if args.mesh is not None:
+        try:
+            mesh = ring.make_particle_mesh(args.mesh or None, device)
+        except ValueError as e:
+            raise SystemExit(f"error: --mesh: {e}")
+        print(f"\nMesh: {mesh.size} device(s), schedule={args.schedule} "
+              f"(particle-ring sharding)")
+    elif args.ticks_per_dispatch is not None:
+        raise SystemExit("--ticks-per-dispatch requires --mesh (it bounds "
+                         "the sharded runners' dispatches; single-device "
+                         "runs are chunked via the snapshot interval)")
+
     for mode in modes:
         print(f"\n{'=' * 50}\nRunning simulation: {mode.value}\n{'=' * 50}")
         launches0 = dict(hopper_nbody.LAUNCHES)
         sim = DirectSimulation(positions, velocities, masses, precision=mode,
                                cfg=cfg, force_impl=args.force_impl,
-                               bounds_every=args.bounds_every, device=device)
+                               bounds_every=args.bounds_every, device=device,
+                               mesh=mesh, schedule=args.schedule,
+                               ticks_per_dispatch=args.ticks_per_dispatch)
         snap0 = metrics_lib.to_host(metrics_lib.snapshot(
             sim.positions, sim.velocities, sim.masses, sim.tick, cfg))
         fence(sim.state.positions)
@@ -169,7 +201,8 @@ def run_compare(args) -> dict:
         launched = {k: hopper_nbody.LAUNCHES[k] - launches0[k]
                     for k in hopper_nbody.LAUNCHES}
         print(f"  kernel launches: {json.dumps(launched)}")
-        print(f"  force path: {force_path(launched)}")
+        schedule = args.schedule if mesh is not None else None
+        print(f"  force path: {force_path(launched, schedule)}")
         for tick, e in zip(h.ticks[::2], h.total_energy[::2]):
             print(f"  Tick {tick}: Energy={e:.4f}")
 

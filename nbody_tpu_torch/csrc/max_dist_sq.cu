@@ -36,12 +36,39 @@
 // N^2/2 pairs; positions are O(N) bytes. On the main path it runs on the
 // 1024 candidates (~0.5M pairs) and the full-set launch exits at once
 // unless the geometry defeats the candidates.
+//
+// Two sets: nbody_pair_max replaces _pair_max_kernel / pallas_pair_max
+// (TPU kernel #9), the tile of the multi-device ring's bounds pass: the
+// max of raw d^2 over every (receiver, source) pair of two sets, where a
+// pair counts only if both ends are valid (the TPU kernel multiplies d^2
+// by v_i * v_j; d^2 >= 0 and the max starts at 0, so skipping an invalid
+// pair is the same). It is an entry here rather than a file of its own
+// because it is this kernel on two sets: the same tile walk over all
+// Ta x Tb tile pairs instead of the upper triangle, the same capped grid,
+// and the same per-block maxima and reduction, so its max of one set
+// against itself, all valid, is bitwise max_d2's. What bounds it is the
+// same: ~6 fp32 ops per pair, na * nb pairs (the ring's pass visits
+// S * (S/2 + 1) shard pairs, N^2 / 2 pairs and more in all).
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int MT = 256;
+
+// block_max[blockIdx.x] = the max of `best` over the block's threads.
+__device__ __forceinline__ void store_block_max(float best,
+                                                float* __restrict__ block_max) {
+  __shared__ float red[MT];
+  const int t = threadIdx.x;
+  red[t] = best;
+  __syncthreads();
+  for (int s = MT / 2; s > 0; s >>= 1) {
+    if (t < s) red[t] = fmaxf(red[t], red[t + s]);
+    __syncthreads();
+  }
+  if (t == 0) block_max[blockIdx.x] = red[0];
+}
 
 template <int D>
 __global__ void __launch_bounds__(MT)
@@ -51,7 +78,6 @@ max_d2_tiles(const float* __restrict__ pos, int n, const int* __restrict__ skip,
   const int t = threadIdx.x;
   const long long T = (n + MT - 1) / MT;
   __shared__ float xj_s[D][MT];
-  __shared__ float red[MT];
   float best = 0.f;
   for (long long p = blockIdx.x; p < T * T; p += gridDim.x) {
     const int I = (int)(p / T);
@@ -82,13 +108,55 @@ max_d2_tiles(const float* __restrict__ pos, int n, const int* __restrict__ skip,
       }
     }
   }
-  red[t] = best;
-  __syncthreads();
-  for (int s = MT / 2; s > 0; s >>= 1) {
-    if (t < s) red[t] = fmaxf(red[t], red[t + s]);
+  store_block_max(best, block_max);
+}
+
+// One block's max of pair d^2 over valid pairs of receivers pa (validity
+// va) and sources pb (validity vb); tile pairs walked as in max_d2_tiles,
+// all Ta x Tb of them.
+template <int D>
+__global__ void __launch_bounds__(MT)
+pair_max_tiles(const float* __restrict__ pa, const unsigned char* __restrict__ va,
+               int na, const float* __restrict__ pb,
+               const unsigned char* __restrict__ vb, int nb,
+               float* __restrict__ block_max) {
+  const int t = threadIdx.x;
+  const long long Ta = (na + MT - 1) / MT;
+  const long long Tb = (nb + MT - 1) / MT;
+  __shared__ float xj_s[D][MT];
+  __shared__ unsigned char vj_s[MT];
+  float best = 0.f;
+  for (long long p = blockIdx.x; p < Ta * Tb; p += gridDim.x) {
+    const int I = (int)(p / Tb);
+    const int J = (int)(p % Tb);
+    const int j0 = J * MT;
+    const int jcnt = min(MT, nb - j0);
+    __syncthreads();  // the previous pair's readers are done with xj_s
+    if (t < jcnt) {
+#pragma unroll
+      for (int d = 0; d < D; ++d) xj_s[d][t] = pb[(size_t)(j0 + t) * D + d];
+      vj_s[t] = vb[j0 + t];
+    }
     __syncthreads();
+    const int i = I * MT + t;
+    if (i < na && va[i]) {
+      float xi[D];
+#pragma unroll
+      for (int d = 0; d < D; ++d) xi[d] = pa[(size_t)i * D + d];
+      for (int j = 0; j < jcnt; ++j) {
+        if (!vj_s[j]) continue;
+        const float dx0 = __fsub_rn(xj_s[0][j], xi[0]);
+        float d2 = __fmul_rn(dx0, dx0);
+#pragma unroll
+        for (int d = 1; d < D; ++d) {
+          const float dx = __fsub_rn(xj_s[d][j], xi[d]);
+          d2 = __fadd_rn(d2, __fmul_rn(dx, dx));
+        }
+        best = fmaxf(best, d2);
+      }
+    }
   }
-  if (t == 0) block_max[blockIdx.x] = red[0];
+  store_block_max(best, block_max);
 }
 
 __global__ void __launch_bounds__(MT)
@@ -131,5 +199,27 @@ extern "C" int nbody_max_d2(const float* pos, int n, int dim, const int* skip,
   else
     max_d2_tiles<3><<<nb, MT, 0, s>>>(pos, n, skip, block_max);
   max_d2_reduce<<<1, MT, 0, s>>>(block_max, nb, skip, count, out);
+  return (int)cudaGetLastError();
+}
+
+// Receivers pa (na, dim), sources pb (nb, dim) f32; va (na,), vb (nb,)
+// validity bytes (0 or 1); block_max: scratch of `capacity` floats; out:
+// one float, the max raw d^2 over valid pairs (0 if there is none). All on
+// the device. Returns cudaGetLastError().
+extern "C" int nbody_pair_max(const float* pa, const unsigned char* va, int na,
+                              const float* pb, const unsigned char* vb, int nb,
+                              int dim, float* block_max, int capacity,
+                              float* out, void* stream) {
+  if (na <= 0 || nb <= 0 || (dim != 2 && dim != 3) || capacity <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long pairs =
+      (long long)((na + MT - 1) / MT) * ((nb + MT - 1) / MT);
+  const int grid = (int)(pairs < capacity ? pairs : capacity);
+  if (dim == 2)
+    pair_max_tiles<2><<<grid, MT, 0, s>>>(pa, va, na, pb, vb, nb, block_max);
+  else
+    pair_max_tiles<3><<<grid, MT, 0, s>>>(pa, va, na, pb, vb, nb, block_max);
+  max_d2_reduce<<<1, MT, 0, s>>>(block_max, grid, nullptr, nullptr, out);
   return (int)cudaGetLastError();
 }

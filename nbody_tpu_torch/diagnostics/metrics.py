@@ -39,17 +39,27 @@ def potential_energy(positions, masses, cfg: SimConfig,
         softening_sq = cfg.softening_sq
     pos = positions.to(torch.float32)
     m = masses.to(torch.float32)
-    n = pos.shape[0]
-    ids = torch.arange(n, device=pos.device)
-    total = torch.zeros((), dtype=torch.float64, device=pos.device)
-    for r0 in range(0, n, block):
-        diff = pos[None, :, :] - pos[r0:r0 + block, None, :]
+    ids = torch.arange(pos.shape[0], device=pos.device)
+    return -0.5 * cfg.G * pair_potential_sum(pos, m, ids, pos, m, ids,
+                                             softening_sq, block)
+
+
+def pair_potential_sum(pos_i, m_i, ids_i, pos_j, m_j, ids_j, softening_sq,
+                       block: int = 1024) -> torch.Tensor:
+    """sum over (i, j) with ids_i != ids_j of m_i m_j / sqrt(|x_i - x_j|^2
+    + eps^2) between receivers i and sources j (f32): f32 terms summed in
+    f64, row-blocked. One set gives twice the pairwise potential sum; the
+    multi-device ring's compensated energy pass sums it over shard pairs.
+    0-d f64."""
+    total = torch.zeros((), dtype=torch.float64, device=pos_i.device)
+    for r0 in range(0, pos_i.shape[0], block):
+        diff = pos_j[None, :, :] - pos_i[r0:r0 + block, None, :]
         d2 = (diff * diff).sum(dim=-1) + softening_sq
-        pair = m[r0:r0 + block, None] * m[None, :] * torch.rsqrt(d2)
-        pair = torch.where(ids[r0:r0 + block, None] != ids[None, :],
+        pair = m_i[r0:r0 + block, None] * m_j[None, :] * torch.rsqrt(d2)
+        pair = torch.where(ids_i[r0:r0 + block, None] != ids_j[None, :],
                            pair, 0.0)
         total = total + pair.to(torch.float64).sum()
-    return -0.5 * cfg.G * total
+    return total
 
 
 def total_energy(positions, velocities, masses, cfg: SimConfig,
@@ -150,10 +160,13 @@ class Snapshot(NamedTuple):
 
 
 def snapshot(positions, velocities, masses, tick: int, cfg: SimConfig,
-             num_bins: int = 20) -> Snapshot:
-    """One snapshot of device tensors (``tick`` stays a host int)."""
+             num_bins: int = 20, potential=None) -> Snapshot:
+    """One snapshot of device tensors (``tick`` stays a host int).
+    ``potential`` is the potential energy where the caller already has it
+    (the multi-device ring's energy pass); else the plain O(N^2) sum."""
     ke = kinetic_energy(velocities, masses)
-    pe = potential_energy(positions, masses, cfg)
+    pe = (potential_energy(positions, masses, cfg) if potential is None
+          else potential)
     curve = rotation_curve(positions, velocities, num_bins=num_bins)
     return Snapshot(
         tick=int(tick),

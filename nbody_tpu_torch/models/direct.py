@@ -23,9 +23,12 @@ with the card's own thresholds); ``kernel``, ``kernel_rows``,
 (``DirectSimulation(dynamic_params=True)``): a sweep over them changes
 no launch parameter, and nothing reads them on the host inside a tick.
 
-Not ported yet (each raises NotImplementedError; see ROADMAP.md): the
-multi-device ring (``mesh=``, ``schedule``, ``ticks_per_dispatch``) and
-the speculate-and-verify int-sim bounds (``bounds_mode='cached'``, which
+``DirectSimulation(mesh=...)`` runs on the multi-device ring
+(``parallel/ring.py``), with the state resident between calls, padded to
+the shard boundary.
+
+Not ported yet (raises NotImplementedError; see ROADMAP.md): the
+speculate-and-verify int-sim bounds (``bounds_mode='cached'``, which
 needs the kernel's fused max).
 """
 
@@ -33,6 +36,7 @@ from __future__ import annotations
 
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from nbody_tpu_torch.config import DEFAULT_SIM, SimConfig
@@ -49,6 +53,7 @@ from nbody_tpu_torch.ops.precision import (
     Quantizer,
     dist_sq_log_bounds,
 )
+from nbody_tpu_torch.parallel import ring
 
 IMPLS = ("auto", "dense", "tiled", "kernel", "kernel_rows",
          "kernel_streamed", "kernel_sym_chunked")
@@ -64,6 +69,36 @@ _FORCE_FNS = {
 
 # Paths that take external int-sim grid bounds (bounds_every > 1).
 _BOUNDS_REUSE_IMPLS = ("dense", "tiled", "kernel")
+
+
+def _check_mesh_args(mesh, schedule: str, bounds_every: int,
+                     ticks_per_dispatch, dynamic_params: bool,
+                     force_impl: str) -> None:
+    """The JAX engine's rules for the ring's options (direct.py:523-563)."""
+    if schedule not in ("sym", "rows"):
+        raise ValueError(f"unknown schedule: {schedule}; valid: sym, rows")
+    if ticks_per_dispatch is not None and mesh is None:
+        raise ValueError("ticks_per_dispatch only applies to mesh runs "
+                         "(single-device runs are already host-chunkable "
+                         "via step()/run())")
+    if ticks_per_dispatch is not None and ticks_per_dispatch < 1:
+        raise ValueError("ticks_per_dispatch must be >= 1")
+    if ticks_per_dispatch is not None and bounds_every > 1:
+        raise ValueError("ticks_per_dispatch cannot be combined with "
+                         "bounds_every > 1: the bounds-reuse cadence resets "
+                         "at each dispatch boundary, silently changing the "
+                         "quantization-bounds semantics")
+    if mesh is not None and dynamic_params:
+        raise ValueError("dynamic_params is not supported with mesh= (the "
+                         "ring runners take static dt/softening)")
+    if mesh is not None and force_impl != "auto":
+        raise ValueError("force_impl is single-device only; mesh runs use "
+                         "the ring tile ladder (pass force_impl='auto' with "
+                         "mesh=)")
+    if bounds_every > 1 and mesh is not None and schedule != "sym":
+        raise ValueError("bounds_every > 1 needs schedule='sym' on a mesh "
+                         "(the rows schedule has no external-bounds hook); "
+                         "it would otherwise be silently ignored")
 
 
 def _not_ported(what: str):
@@ -186,6 +221,17 @@ def run_steps_baseline(state: BaselineState, cfg: SimConfig,
     return state
 
 
+def _concat_chunk_parts(parts):
+    """Concatenate (snapshots, frames) parts of one history, each stacked
+    over its chunks, along the chunk axis."""
+    if len(parts) == 1:
+        return parts[0]
+    snaps = metrics_lib.Snapshot(*(
+        np.concatenate([getattr(p[0], f) for p in parts])
+        for f in metrics_lib.Snapshot._fields))
+    return snaps, np.concatenate([p[1] for p in parts])
+
+
 def _run_chunks(state, step: Callable, steps_per_chunk: int, num_chunks: int,
                 snap_fn: Callable):
     snaps, frames = [], []
@@ -252,7 +298,15 @@ class DirectSimulation:
     (their plain versions on a CPU tensor). ``dynamic_params=True`` keeps
     dt and softening^2 as 0-d device tensors (``_dyn_dt``,
     ``_dyn_soft_sq``); the kernels then mask the diagonal by id, as the
-    JAX kernels do for a traced softening."""
+    JAX kernels do for a traced softening.
+
+    ``mesh`` (a ``parallel.ring.ParticleMesh``) shards the particles over
+    the ring, ``schedule`` picks its force schedule ('sym', the half
+    ring, or 'rows'), and the state stays resident on the mesh's first
+    device, padded to the shard boundary; every user surface trims it.
+    ``ticks_per_dispatch`` caps the ticks of each call into the ring
+    runners (whole snapshot chunks), with identical physics: the only
+    cost is one more entry force evaluation per call."""
 
     def __init__(self, positions, velocities, masses,
                  precision: Quantizer | Precision | str = Precision.FLOAT32,
@@ -265,17 +319,13 @@ class DirectSimulation:
                  custom_levels: int = 64,
                  dynamic_params: bool = False,
                  mesh=None,
-                 schedule: Optional[str] = None,
+                 schedule: str = "sym",
                  bounds_every: int = 1,
                  ticks_per_dispatch: Optional[int] = None,
                  bounds_mode: str = "exact",
                  device=None):
-        if mesh is not None:
-            raise _not_ported("mesh= (the multi-device ring)")
-        if schedule is not None:
-            raise _not_ported("schedule= (the ring's force schedules)")
-        if ticks_per_dispatch is not None:
-            raise _not_ported("ticks_per_dispatch")
+        _check_mesh_args(mesh, schedule, bounds_every, ticks_per_dispatch,
+                         dynamic_params, force_impl)
         if bounds_mode != "exact":
             raise _not_ported(f"bounds_mode={bounds_mode!r}")
         if isinstance(precision, str):
@@ -287,7 +337,9 @@ class DirectSimulation:
             raise ValueError("dynamic_params is not supported for the "
                              "float64 baseline (it uses the static cfg); "
                              "sweep with static configs")
-        if device is None:
+        if mesh is not None:
+            device = mesh.devices[0]
+        elif device is None:
             device = (positions.device if isinstance(positions, torch.Tensor)
                       else "cpu")
         self.device = torch.device(device)
@@ -318,21 +370,31 @@ class DirectSimulation:
         self.quantize_forces = quantize_forces
         self.bounds_every = bounds_every
         self.is_baseline = self.quantizer.mode == Precision.FLOAT64
+        self.mesh = mesh
+        self.schedule = schedule
+        self.ticks_per_dispatch = ticks_per_dispatch
 
         if self.is_baseline:
             self.state = make_baseline_state(positions, velocities, masses,
                                              self.device)
             _resolve_impl(force_impl, *self.state.positions.shape)
-            acc = forces.baseline_accelerations(self.state.positions,
-                                                self.state.masses, cfg)
         else:
             self.state = make_state(positions, velocities, masses,
                                     self.device)
-            acc = _force_fn(force_impl, *self.state.positions.shape)(
-                self.state.positions, self.state.masses, self.quantizer, cfg,
-                quantize_forces=self.quantize_forces,
-                softening_sq=self._dyn_soft_sq)
-        self.state = self.state._replace(accelerations=acc)
+        self._n_total = self.state.positions.shape[0]
+        # Mesh runs recompute the acceleration from the positions at the
+        # entry of every call (a pure function of them), so the stored
+        # zeros never reach the integrator.
+        if mesh is None:
+            if self.is_baseline:
+                acc = forces.baseline_accelerations(self.state.positions,
+                                                    self.state.masses, cfg)
+            else:
+                acc = _force_fn(force_impl, *self.state.positions.shape)(
+                    self.state.positions, self.state.masses, self.quantizer,
+                    cfg, quantize_forces=self.quantize_forces,
+                    softening_sq=self._dyn_soft_sq)
+            self.state = self.state._replace(accelerations=acc)
 
     # -- stepping -----------------------------------------------------------
 
@@ -340,20 +402,44 @@ class DirectSimulation:
     def tick(self) -> int:
         return self.state.tick
 
+    def _trim(self, x: torch.Tensor) -> torch.Tensor:
+        """Strip the mesh's phantom padding rows (a no-op otherwise)."""
+        return x[:self._n_total]
+
     @property
     def positions(self) -> torch.Tensor:
-        return self.state.positions.to(torch.float32)
+        return self._trim(self.state.positions.to(torch.float32))
 
     @property
     def velocities(self) -> torch.Tensor:
-        return self.state.velocities.to(torch.float32)
+        return self._trim(self.state.velocities.to(torch.float32))
 
     @property
     def masses(self) -> torch.Tensor:
-        return self.state.masses.to(torch.float32)
+        return self._trim(self.state.masses.to(torch.float32))
 
     def step(self, num_steps: int = 1):
-        if self.is_baseline:
+        tpd = self.ticks_per_dispatch
+        done = 0
+        while done < num_steps:
+            n = num_steps - done if tpd is None else min(tpd,
+                                                         num_steps - done)
+            self._step_dispatch(n)
+            done += n
+
+    def _step_dispatch(self, num_steps: int):
+        if self.mesh is not None:
+            if self.is_baseline:
+                self.state = ring.run_steps_sharded_baseline(
+                    self.state, self.cfg, self.mesh, num_steps,
+                    gather=False, n_total=self._n_total)
+            else:
+                self.state, _ = ring.run_steps_sharded(
+                    self.state, self.quantizer, self.cfg, self.mesh,
+                    num_steps, quantize_forces=self.quantize_forces,
+                    gather=False, schedule=self.schedule,
+                    n_total=self._n_total, bounds_every=self.bounds_every)
+        elif self.is_baseline:
             self.state = run_steps_baseline(self.state, self.cfg, num_steps)
         else:
             self.state = run_steps(self.state, self.quantizer, self.cfg,
@@ -386,7 +472,9 @@ class DirectSimulation:
         num_chunks = max(num_ticks // snapshot_interval, 1)
         steps = (snapshot_interval if num_ticks >= snapshot_interval
                  else num_ticks)
-        if self.is_baseline:
+        if self.mesh is not None:
+            snaps, frames = self._mesh_history(num_chunks, steps, num_bins)
+        elif self.is_baseline:
             self.state, snaps, frames = run_with_snapshots_baseline(
                 self.state, self.cfg, steps, num_chunks, num_bins)
         else:
@@ -400,17 +488,64 @@ class DirectSimulation:
             self.step(remainder)
         return snaps, frames
 
+    def _mesh_history(self, num_chunks: int, steps: int, num_bins: int):
+        """The mesh's history: one ring-runner call, or, under
+        ticks_per_dispatch, whole snapshot chunks per call (as many as fit
+        the cap) with the resident state chained between calls; a cap
+        below the snapshot interval advances each chunk's leading ticks
+        with capped step() calls first."""
+        def one_call(n_chunks, chunk_steps):
+            if self.is_baseline:
+                st, sn, fr = ring.run_with_snapshots_sharded_baseline(
+                    self.state, self.cfg, self.mesh, chunk_steps, n_chunks,
+                    num_bins=num_bins, n_total=self._n_total)
+            else:
+                st, sn, fr = ring.run_with_snapshots_sharded(
+                    self.state, self.quantizer, self.cfg, self.mesh,
+                    chunk_steps, n_chunks,
+                    quantize_forces=self.quantize_forces, num_bins=num_bins,
+                    schedule=self.schedule, n_total=self._n_total,
+                    bounds_every=self.bounds_every)
+            self.state = st
+            return sn, fr
+
+        tpd = self.ticks_per_dispatch
+        if tpd is None:
+            return one_call(num_chunks, steps)
+        parts = []
+        if steps <= tpd:
+            per = tpd // steps
+            done = 0
+            while done < num_chunks:
+                n = min(per, num_chunks - done)
+                parts.append(one_call(n, steps))
+                done += n
+        else:
+            tail = steps % tpd or tpd
+            for _ in range(num_chunks):
+                self.step(steps - tail)
+                parts.append(one_call(1, tail))
+        return _concat_chunk_parts(parts)
+
     # -- diagnostics --------------------------------------------------------
 
     def get_kinetic_energy(self) -> float:
         return float(metrics_lib.kinetic_energy(self.velocities, self.masses))
 
     def get_potential_energy(self) -> float:
+        if self.mesh is not None:
+            # The O(N^2) pair sum stays on the ring; phantom rows of the
+            # resident padded state are left out past n_total.
+            return float(ring.ring_potential_energy(
+                self.state.positions, self.state.masses, self.cfg, self.mesh,
+                n_total=self._n_total, compensated=self.is_baseline))
         return float(metrics_lib.potential_energy(
             self.positions, self.masses, self.cfg,
             softening_sq=self._dyn_soft_sq))
 
     def get_total_energy(self) -> float:
+        if self.mesh is not None:
+            return self.get_kinetic_energy() + self.get_potential_energy()
         return float(metrics_lib.total_energy(
             self.positions, self.velocities, self.masses, self.cfg,
             softening_sq=self._dyn_soft_sq))

@@ -134,17 +134,26 @@ def baseline_accelerations(positions, masses, cfg: SimConfig,
     """Native float64 force for the baseline: every pair term and the sum
     in f64, row-blocked so memory stays O(block * N). (N, D) f64."""
     pos = positions.to(torch.float64)
-    m = masses.to(torch.float64)
-    n = pos.shape[0]
-    ids = torch.arange(n, device=pos.device)
-    gm = cfg.G * m
-    out = torch.empty_like(pos)
-    for r0 in range(0, n, block):
-        diff = pos[None, :, :] - pos[r0:r0 + block, None, :]
+    ids = torch.arange(pos.shape[0], device=pos.device)
+    return baseline_pair_accelerations(pos, ids, pos,
+                                       cfg.G * masses.to(torch.float64), ids,
+                                       cfg, block)
+
+
+def baseline_pair_accelerations(pos_i, ids_i, pos_j, gm_j, ids_j,
+                                cfg: SimConfig,
+                                block: int = 1024) -> torch.Tensor:
+    """Native float64 accelerations of receivers ``pos_i`` due to sources
+    ``pos_j`` (f64, ``gm_j`` = G * m_j), pairs of equal id masked: the
+    baseline's tile, one set or two (the multi-device ring's). (n_i, D)
+    f64."""
+    out = torch.empty_like(pos_i)
+    for r0 in range(0, pos_i.shape[0], block):
+        diff = pos_j[None, :, :] - pos_i[r0:r0 + block, None, :]
         d2 = (diff * diff).sum(dim=-1) + cfg.softening_sq
         inv_d = torch.rsqrt(d2)
-        factor = gm[None, :] * (inv_d * inv_d * inv_d)
-        factor = torch.where(ids[r0:r0 + block, None] == ids[None, :],
+        factor = gm_j[None, :] * (inv_d * inv_d * inv_d)
+        factor = torch.where(ids_i[r0:r0 + block, None] == ids_j[None, :],
                              0.0, factor)
         out[r0:r0 + block] = (factor[:, :, None] * diff).sum(dim=1)
     return out

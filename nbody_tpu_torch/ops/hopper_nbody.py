@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels of the direct engine, with their plain twins.
 
-PyTorch counterpart of ``nbody_tpu.ops.pallas_nbody``. Four CUDA kernels
-replace the TPU kernels of the direct engine's paths:
+PyTorch counterpart of ``nbody_tpu.ops.pallas_nbody``. Five CUDA sources
+replace the TPU kernels of the direct engine's paths and of the
+multi-device ring (``parallel/ring.py``):
 
 * ``sym_force`` — ``csrc/sym_force.cu``, replacing ``_force_kernel_sym`` /
   ``pallas_accelerations_sym`` (#1): softened all-pairs gravity, each
@@ -11,13 +12,22 @@ replace the TPU kernels of the direct engine's paths:
   ``pallas_max_dist_sq`` (#2) and its streamed twin
   ``pallas_max_dist_sq_streamed`` (#3): the global max of the raw
   pairwise d^2, the int-sim log grid's upper bound.
+* ``pair_max`` — a second entry of ``csrc/max_dist_sq.cu``, replacing
+  ``_pair_max_kernel`` / ``pallas_pair_max`` (#9): the max of raw d^2
+  between two sets over valid pairs, the ring's bounds tile.
 * ``row_force`` — ``csrc/row_force.cu``, replacing ``_force_kernel`` /
   ``pallas_accelerations`` (#8) and ``_force_kernel_streamed`` /
   ``pallas_accelerations_streamed`` (#4): every ordered pair, the path of
   zero and run-time softening.
+* ``pair_force`` — the same ``csrc/row_force.cu`` kernel on two sets,
+  replacing ``_force_kernel`` / ``pallas_pair_force`` (#10): receivers'
+  accelerations due to sources, the ring's rows-schedule tile.
 * ``pair_sym_force`` — ``csrc/pair_sym_force.cu``, replacing
   ``_pair_force_sym_kernel`` / ``pallas_pair_force_sym`` (#6): two
   disjoint sets, rows and reactions from one evaluation of each pair.
+* ``pair_pe_rows`` — ``csrc/pair_pe_rows.cu``, replacing
+  ``_pair_pe_kernel`` / ``pallas_pair_pe_rows`` (#7): per-receiver
+  potential-energy row sums with an id mask, the ring's energy tile.
 
 Each kernel has a plain PyTorch version of the same function and
 signature (``*_plain``). A wrapper launches the kernel for a CUDA tensor
@@ -29,9 +39,11 @@ The kernel sources carry the notes on design and numerics.
 The public functions are the counterparts of the JAX wrappers:
 ``sym_accelerations`` (#1), ``accelerations_rows`` (#8),
 ``accelerations_streamed`` (#4), ``sym_accelerations_chunked`` (#5, a
-composition of #1 and #6 past one launch's scratch budget) and
-``max_dist_sq``; ``max_pairwise_dist_sq_pruned``, the int modes' bounds
-pass around the max_d2 kernel, lives here beside it.
+composition of #1 and #6 past one launch's scratch budget),
+``max_dist_sq``, and the ring's tiles ``pair_force`` (#10), ``pair_max``
+(#9) and ``pair_pe_rows`` (#7), with JAX's signatures;
+``max_pairwise_dist_sq_pruned``, the int modes' bounds pass around the
+max_d2 kernel, lives here beside it.
 """
 
 from __future__ import annotations
@@ -52,7 +64,8 @@ from nbody_tpu_torch.ops.precision import (
 
 # Launches of each kernel in this process (reset by whoever reads them).
 LAUNCHES = {"sym_force": 0, "max_d2": 0, "row_force": 0,
-            "pair_sym_force": 0}
+            "pair_sym_force": 0, "pair_force": 0, "pair_max": 0,
+            "pair_pe_rows": 0}
 
 # Full-set max_d2 launches that ran (were not skipped) inside the pruned
 # bounds pass, per device: a device int32 the kernel increments, so the
@@ -237,25 +250,36 @@ def _diffs_w(pi: torch.Tensor, pos: torch.Tensor, soft, q: Quantizer, grid):
     return diffs, _pair_weight(d2 + soft, q, grid)
 
 
-def _plain_rows(pos, gm, bounds, q: Quantizer, self_masked: bool,
-                block: int, term, rows=None) -> torch.Tensor:
-    """sum_j term(gm_j w_ij diff_ij) per receiver and component,
-    row-blocked; receivers are ``rows`` (indices) or all particles."""
-    n, dim = pos.shape
+def _plain_rows(recv, src, gm, bounds, q: Quantizer, self_ids, block: int,
+                term) -> torch.Tensor:
+    """sum_j term(gm_j w_ij diff_ij) per receiver and component, row-blocked
+    over the receivers ``recv`` against every source of ``src``;
+    ``self_ids`` (optional) gives each receiver's index in ``src``, whose
+    own term is masked."""
+    dim = src.shape[1]
     grid = _int_grid(bounds, q) if q.is_int else None
-    ids = torch.arange(n, device=pos.device)
-    rows = ids if rows is None else rows
-    out = torch.empty((rows.shape[0], dim), dtype=torch.float32,
-                      device=pos.device)
-    for r0 in range(0, rows.shape[0], block):
-        ri = rows[r0:r0 + block]
-        diffs, w = _diffs_w(pos[ri], pos, bounds[2], q, grid)
+    src_ids = torch.arange(src.shape[0], device=src.device)
+    out = torch.empty((recv.shape[0], dim), dtype=torch.float32,
+                      device=src.device)
+    for r0 in range(0, recv.shape[0], block):
+        diffs, w = _diffs_w(recv[r0:r0 + block], src, bounds[2], q, grid)
         factor = gm[None, :] * w
-        if self_masked:
-            factor = torch.where(ri[:, None] == ids[None, :], 0.0, factor)
+        if self_ids is not None:
+            factor = torch.where(self_ids[r0:r0 + block, None]
+                                 == src_ids[None, :], 0.0, factor)
         out[r0:r0 + block] = torch.stack(
             [term(factor * diffs[d]).sum(dim=1) for d in range(dim)], dim=1)
     return out
+
+
+def _one_set_rows(pos, gm, bounds, q: Quantizer, self_masked: bool,
+                  block: int, term, rows=None) -> torch.Tensor:
+    """_plain_rows with one set as receivers and sources; receivers are
+    ``rows`` (indices) or all particles."""
+    if rows is None:
+        rows = torch.arange(pos.shape[0], device=pos.device)
+    return _plain_rows(pos[rows], pos, gm, bounds, q,
+                       rows if self_masked else None, block, term)
 
 
 def row_force_plain(pos: torch.Tensor, gm: torch.Tensor,
@@ -270,8 +294,8 @@ def row_force_plain(pos: torch.Tensor, gm: torch.Tensor,
     eps^2]; ``rows`` optionally selects receivers by index (all sources
     always act). Returns (len(rows) or N, D) f32, before any int-sim force
     quantization."""
-    return _plain_rows(pos, gm, bounds, q, self_masked, block, lambda t: t,
-                       rows)
+    return _one_set_rows(pos, gm, bounds, q, self_masked, block,
+                         lambda t: t, rows)
 
 
 def sym_force_plain(pos: torch.Tensor, gm: torch.Tensor,
@@ -290,8 +314,8 @@ def sym_force_term_scale(pos: torch.Tensor, gm: torch.Tensor,
     rounding error that any summation order of a force row makes.
     Where terms cancel (near-coincident pairs at zero softening) |acc| is
     far below it, and a tolerance on |acc| alone would test the order."""
-    return _plain_rows(pos, gm, bounds, q, self_masked, block, torch.abs,
-                       rows)
+    return _one_set_rows(pos, gm, bounds, q, self_masked, block, torch.abs,
+                         rows)
 
 
 def pair_sym_force_plain(pos_a: torch.Tensor, gm_a: torch.Tensor,
@@ -351,15 +375,33 @@ def row_force(pos: torch.Tensor, gm: torch.Tensor, bounds: torch.Tensor,
     n, dim = _check_force_args(pos, gm, bounds)
     if pos.device.type == "cpu":
         return row_force_plain(pos, gm, bounds, q, self_masked)
-    lib = _library()
-    with torch.cuda.device(pos.device):
-        out = torch.empty_like(pos)
-        rc = lib.nbody_row_force(
-            _ptr(pos), _ptr(gm), _ptr(bounds), n, dim, *_int_args(q),
-            int(self_masked), _ptr(out), _stream(pos.device))
-    _raise_on(rc, "row_force")
+    out = _launch_rows(pos, pos, gm, bounds, q, self_masked, "row_force")
     LAUNCHES["row_force"] += 1
     return out
+
+
+def _launch_rows(recv, src, gm, bounds, q: Quantizer, self_masked: bool,
+                 what: str) -> torch.Tensor:
+    """One launch of csrc/row_force.cu: recv's accelerations due to src."""
+    lib = _library()
+    with torch.cuda.device(recv.device):
+        out = torch.empty_like(recv)
+        rc = lib.nbody_row_force(
+            _ptr(recv), recv.shape[0], _ptr(src), _ptr(gm), src.shape[0],
+            _ptr(bounds), recv.shape[1], *_int_args(q), int(self_masked),
+            _ptr(out), _stream(recv.device))
+    _raise_on(rc, what)
+    return out
+
+
+def _check_two_sets(receivers, sources, n_what: str = "sources") -> tuple:
+    """(n_i, n_j, dim) of two f32 position sets on one device."""
+    n_i, dim = _check_positions(receivers)
+    n_j, dim_j = _check_positions(sources)
+    if dim_j != dim:
+        raise ValueError(f"receivers are {dim}-D, {n_what} {dim_j}-D")
+    _check_f32(n_what, sources, (n_j, dim), receivers.device)
+    return n_i, n_j, dim
 
 
 def pair_sym_force(pos_a: torch.Tensor, gm_a: torch.Tensor,
@@ -368,11 +410,8 @@ def pair_sym_force(pos_a: torch.Tensor, gm_a: torch.Tensor,
     """Kernel #6 wrapper: CUDA kernel for CUDA tensors, the plain version
     for CPU tensors. Same arguments and result (rows, cols) as
     pair_sym_force_plain."""
-    n_a, dim = _check_force_args(pos_a, gm_a, bounds)
-    n_b, dim_b = _check_positions(pos_b)
-    if dim_b != dim:
-        raise ValueError(f"receivers are {dim}-D, sources {dim_b}-D")
-    _check_f32("sources", pos_b, (n_b, dim), pos_a.device)
+    _check_force_args(pos_a, gm_a, bounds)
+    n_a, n_b, dim = _check_two_sets(pos_a, pos_b)
     _check_f32("gm_b", gm_b, (n_b,), pos_a.device)
     if pos_a.device.type == "cpu":
         return pair_sym_force_plain(pos_a, gm_a, pos_b, gm_b, bounds, q)
@@ -599,10 +638,10 @@ def _finish(acc, q: Quantizer, quantize_forces: bool):
     return quantize_force(acc, q) if quantize_forces and q.is_int else acc
 
 
-def sym_accelerations(positions: torch.Tensor, masses: torch.Tensor,
-                      q: Quantizer, cfg: SimConfig,
-                      quantize_forces: bool = True, softening_sq=None,
-                      log_lo=None, log_hi=None) -> torch.Tensor:
+def sym_accelerations(positions: torch.Tensor, masses, q: Quantizer,
+                      cfg: SimConfig, quantize_forces: bool = True,
+                      softening_sq=None, log_lo=None, log_hi=None,
+                      gm=None) -> torch.Tensor:
     """Softened all-pairs accelerations through the sym_force kernel.
 
     Same semantics as ``nbody_tpu.ops.pallas_nbody.pallas_accelerations_sym``
@@ -611,8 +650,9 @@ def sym_accelerations(positions: torch.Tensor, masses: torch.Tensor,
     are given, then quantize the (N, D) result with ``quantize_force``.
     ``softening_sq`` optionally replaces cfg's with a run-time (0-d
     tensor) value. The diagonal is masked when softening is zero or given
-    at run time. Nothing here waits on the host."""
-    pos, gm = _prepare(positions, masses, cfg)
+    at run time. ``gm`` (G * m) may replace ``masses``. Nothing here waits
+    on the host."""
+    pos, gm = _prepare(positions, masses, cfg, gm)
     bounds = kernel_bounds(pos, q, cfg, softening_sq, log_lo, log_hi)
     acc = sym_force(pos, gm, bounds, q, _self_masked(cfg, softening_sq))
     return _finish(acc, q, quantize_forces)
@@ -674,3 +714,171 @@ def sym_accelerations_chunked(positions: torch.Tensor, masses, q: Quantizer,
             acc[sj] += cols
         acc[si] += acc_i
     return _finish(acc, q, quantize_forces)
+
+
+# --------------------------------------------------------------------------
+# The multi-device ring's tiles: #10 pair_force, #9 pair_max, #7 pair_pe_rows
+# --------------------------------------------------------------------------
+
+def _pair_bounds(receivers, q: Quantizer, cfg: SimConfig, log_lo, log_hi):
+    if q.is_int and (log_lo is None or log_hi is None):
+        raise ValueError("int-sim modes need global log bounds from the "
+                         "ring max pass")
+    return kernel_bounds(receivers, q, cfg, None, log_lo, log_hi)
+
+
+def pair_force_plain(receivers: torch.Tensor, sources: torch.Tensor,
+                     gm_sources: torch.Tensor, q: Quantizer, cfg: SimConfig,
+                     log_lo=None, log_hi=None,
+                     block: int = 1024) -> torch.Tensor:
+    """Plain PyTorch version of the pair_force kernel, row-blocked over the
+    receivers: acc_i = sum_j gm_j w_ij (x_j - x_i) over every source, no
+    mask (receivers may also be sources: at eps^2 > 0 a self-pair is an
+    exact zero). (n_i, D) f32, before any force quantization."""
+    bounds = _pair_bounds(receivers, q, cfg, log_lo, log_hi)
+    return _plain_rows(receivers, sources, gm_sources, bounds, q, None, block,
+                       lambda t: t)
+
+
+def pair_force_term_scale(receivers: torch.Tensor, sources: torch.Tensor,
+                          gm_sources: torch.Tensor, bounds: torch.Tensor,
+                          q: Quantizer, block: int = 1024) -> torch.Tensor:
+    """sum_j |gm_j w_ij (x_j - x_i)| per receiver and component: the scale
+    of pair_force's rounding error in any summation order (see
+    sym_force_term_scale)."""
+    return _plain_rows(receivers, sources, gm_sources, bounds, q, None, block,
+                       torch.abs)
+
+
+def pair_force(receivers: torch.Tensor, sources: torch.Tensor,
+               gm_sources: torch.Tensor, q: Quantizer, cfg: SimConfig,
+               log_lo=None, log_hi=None) -> torch.Tensor:
+    """Kernel #10 wrapper, the counterpart of ``pallas_pair_force``:
+    accelerations of ``receivers`` due to ``sources`` (disjoint or equal
+    sets) with ``gm_sources`` = G * m_j, through csrc/row_force.cu for CUDA
+    tensors and pair_force_plain for CPU tensors. eps^2 is cfg's; int-sim
+    modes need the global ``log_lo``/``log_hi`` (ValueError otherwise).
+    Nothing here waits on the host."""
+    n_i, n_j, dim = _check_two_sets(receivers, sources)
+    _check_f32("gm_sources", gm_sources, (n_j,), receivers.device)
+    if receivers.device.type == "cpu":
+        return pair_force_plain(receivers, sources, gm_sources, q, cfg,
+                                log_lo, log_hi)
+    bounds = _pair_bounds(receivers, q, cfg, log_lo, log_hi)
+    out = _launch_rows(receivers, sources, gm_sources, bounds, q, False,
+                       "pair_force")
+    LAUNCHES["pair_force"] += 1
+    return out
+
+
+def _check_mask(name: str, t: torch.Tensor, n: int, device) -> None:
+    if t.dtype != torch.bool or tuple(t.shape) != (n,) or t.device != device \
+            or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous ({n},) bool tensor on "
+                         f"{device}")
+
+
+def pair_max_plain(receivers: torch.Tensor, sources: torch.Tensor,
+                   valid_i: torch.Tensor, valid_j: torch.Tensor,
+                   block: int = 1024) -> torch.Tensor:
+    """Plain PyTorch version of the pair_max kernel: the max of the raw
+    subtract-form d^2 over (receiver, source) pairs whose ends are both
+    valid, 0 if none is (0-d f32)."""
+    dim = receivers.shape[1]
+    best = torch.zeros((), dtype=torch.float32, device=receivers.device)
+    for r0 in range(0, receivers.shape[0], block):
+        pi = receivers[r0:r0 + block]
+        dx = sources[None, :, 0] - pi[:, 0, None]
+        d2 = dx * dx
+        for d in range(1, dim):
+            dx = sources[None, :, d] - pi[:, d, None]
+            d2 = d2 + dx * dx
+        both = valid_i[r0:r0 + block, None] & valid_j[None, :]
+        best = torch.maximum(best, torch.where(both, d2, 0.0).max())
+    return best
+
+
+def pair_max(receivers: torch.Tensor, sources: torch.Tensor,
+             valid_i: torch.Tensor, valid_j: torch.Tensor) -> torch.Tensor:
+    """Kernel #9 wrapper, the counterpart of ``pallas_pair_max``: CUDA
+    kernel for CUDA tensors, pair_max_plain for CPU tensors. ``valid_i`` /
+    ``valid_j`` are bool masks of the receivers and sources. Bitwise the
+    plain version's, and for one set against itself, all valid, bitwise
+    max_d2's."""
+    n_i, n_j, dim = _check_two_sets(receivers, sources)
+    _check_mask("valid_i", valid_i, n_i, receivers.device)
+    _check_mask("valid_j", valid_j, n_j, receivers.device)
+    if receivers.device.type == "cpu":
+        return pair_max_plain(receivers, sources, valid_i, valid_j)
+    lib = _library()
+    with torch.cuda.device(receivers.device):
+        block_max = torch.empty(MAX_D2_BLOCKS, dtype=torch.float32,
+                                device=receivers.device)
+        out = torch.empty(1, dtype=torch.float32, device=receivers.device)
+        rc = lib.nbody_pair_max(
+            _ptr(receivers), _ptr(valid_i), n_i, _ptr(sources),
+            _ptr(valid_j), n_j, dim, _ptr(block_max), MAX_D2_BLOCKS,
+            _ptr(out), _stream(receivers.device))
+    _raise_on(rc, "pair_max")
+    LAUNCHES["pair_max"] += 1
+    return out[0]
+
+
+def pair_pe_rows_plain(receivers, m_recv, ids_recv, sources, m_src, ids_src,
+                       softening_sq, block: int = 1024) -> torch.Tensor:
+    """Plain PyTorch version of the pair_pe_rows kernel, row-blocked:
+    rows_i = sum_j m_i m_j / sqrt(|x_j - x_i|^2 + eps^2) over sources j
+    whose id differs from receiver i's. (n_i,) f32."""
+    soft = _scalar(softening_sq, receivers.device)
+    dim = receivers.shape[1]
+    out = torch.empty(receivers.shape[0], dtype=torch.float32,
+                      device=receivers.device)
+    for r0 in range(0, receivers.shape[0], block):
+        pi = receivers[r0:r0 + block]
+        dx = sources[None, :, 0] - pi[:, 0, None]
+        d2 = dx * dx
+        for d in range(1, dim):
+            dx = sources[None, :, d] - pi[:, d, None]
+            d2 = d2 + dx * dx
+        pair = (m_recv[r0:r0 + block, None] * m_src[None, :]) \
+            * torch.rsqrt(d2 + soft)
+        pair = torch.where(ids_recv[r0:r0 + block, None] == ids_src[None, :],
+                           0.0, pair)
+        out[r0:r0 + block] = pair.sum(dim=1)
+    return out
+
+
+def _check_ids(name: str, t: torch.Tensor, n: int, device) -> None:
+    if t.dtype != torch.int32 or tuple(t.shape) != (n,) \
+            or t.device != device or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous ({n},) int32 tensor "
+                         f"on {device}")
+
+
+def pair_pe_rows(receivers, m_recv, ids_recv, sources, m_src, ids_src,
+                 softening_sq) -> torch.Tensor:
+    """Kernel #7 wrapper, the counterpart of ``pallas_pair_pe_rows``: CUDA
+    kernel for CUDA tensors, pair_pe_rows_plain for CPU tensors. Masses
+    f32, ids int32 (any value: equal ids mask the pair), ``softening_sq``
+    a float or a 0-d tensor. (n_i,) f32 row sums in a fixed order; the
+    caller sums them in f64."""
+    n_i, n_j, _ = _check_two_sets(receivers, sources)
+    _check_f32("m_recv", m_recv, (n_i,), receivers.device)
+    _check_f32("m_src", m_src, (n_j,), receivers.device)
+    _check_ids("ids_recv", ids_recv, n_i, receivers.device)
+    _check_ids("ids_src", ids_src, n_j, receivers.device)
+    if receivers.device.type == "cpu":
+        return pair_pe_rows_plain(receivers, m_recv, ids_recv, sources, m_src,
+                                  ids_src, softening_sq)
+    lib = _library()
+    with torch.cuda.device(receivers.device):
+        soft = _scalar(softening_sq, receivers.device)
+        out = torch.empty(n_i, dtype=torch.float32, device=receivers.device)
+        rc = lib.nbody_pair_pe_rows(
+            _ptr(receivers), _ptr(m_recv), _ptr(ids_recv), n_i,
+            _ptr(sources), _ptr(m_src), _ptr(ids_src), n_j,
+            receivers.shape[1], _ptr(soft), _ptr(out),
+            _stream(receivers.device))
+    _raise_on(rc, "pair_pe_rows")
+    LAUNCHES["pair_pe_rows"] += 1
+    return out

@@ -4,10 +4,12 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from nbody_tpu_torch import cli
+from nbody_tpu_torch.config import SimConfig
 
 torch.set_num_threads(1)
 
@@ -37,11 +39,66 @@ def test_cli_default_device_without_cuda_exits():
         cli.main(["--stars", "64", "--ticks", "10"])
 
 
-@pytest.mark.parametrize("flag", [["--mesh"], ["--schedule", "rows"],
-                                  ["--ticks-per-dispatch", "5"]])
-def test_cli_unported_flags_exit(flag):
-    with pytest.raises(SystemExit, match="not yet ported"):
-        cli.main(["--device", "cpu", "--stars", "16", "--ticks", "2", *flag])
+@pytest.mark.parametrize("schedule", [[], ["--schedule", "rows"]])
+def test_cli_mesh_run_prints_the_mesh_line(tmp_path, capsys, schedule):
+    histories = cli.main(["--device", "cpu", "--stars", "37", "--ticks", "4",
+                          "--snapshot-interval", "2", "--mesh",
+                          "--compare", "float64,int4", "--output",
+                          str(tmp_path), *schedule])
+    out = capsys.readouterr().out
+    name = schedule[1] if schedule else "sym"
+    assert f"Mesh: 1 device(s), schedule={name}" in out
+    assert histories["int4_sim"].ticks == [0, 2, 4]
+    for h in histories.values():
+        assert np.isfinite(h.total_energy).all()
+
+
+@pytest.mark.parametrize("schedule", ["sym", "rows"])
+def test_cli_mesh_force_path_names_the_schedule_at_zero_softening(
+        tmp_path, capsys, monkeypatch, schedule):
+    """The force path names the schedule the run was given, also where the
+    launch counts alone could not tell it (zero softening routes the rows
+    schedule's diagonal tile to row_force, and on the CPU nothing counts)."""
+    made = []
+
+    def zero_softening(**kw):
+        made.append(SimConfig(softening=0.0, **kw))
+        return made[-1]
+
+    monkeypatch.setattr(cli, "SimConfig", zero_softening)
+    histories = cli.main(["--device", "cpu", "--stars", "37", "--ticks", "4",
+                          "--snapshot-interval", "2", "--mesh", "--schedule",
+                          schedule, "--compare", "float32", "--output",
+                          str(tmp_path)])
+    out = capsys.readouterr().out
+    assert [c.softening_sq for c in made] == [0.0]
+    name = "rows" if schedule == "rows" else "sym (half ring)"
+    assert f"force path: ring, {name} schedule (no kernel launched" in out
+    assert np.isfinite(histories["float32"].total_energy).all()
+
+
+def test_cli_ticks_per_dispatch_without_mesh_exits():
+    with pytest.raises(SystemExit, match="--ticks-per-dispatch requires "
+                                         "--mesh"):
+        cli.main(["--device", "cpu", "--stars", "16", "--ticks", "2",
+                  "--ticks-per-dispatch", "5"])
+
+
+def test_cli_mesh_of_more_devices_than_present_exits():
+    with pytest.raises(SystemExit, match="asked for a mesh of 2"):
+        cli.main(["--device", "cpu", "--stars", "16", "--ticks", "2",
+                  "--mesh", "2"])
+
+
+def test_cli_mesh_ticks_per_dispatch_matches_fused(tmp_path):
+    """Host chunking of the ring's calls changes no bit of the history."""
+    runs = []
+    for extra in ([], ["--ticks-per-dispatch", "3"]):
+        h = cli.main(["--device", "cpu", "--stars", "37", "--ticks", "6",
+                      "--snapshot-interval", "2", "--mesh", "--compare",
+                      "int4", "--output", str(tmp_path), *extra])
+        runs.append(h["int4_sim"].total_energy)
+    np.testing.assert_array_equal(runs[0], runs[1])
 
 
 def test_cli_rejects_unknown_mode():
@@ -62,9 +119,23 @@ def test_import_never_pulls_in_jax():
 
 
 def test_cli_names_the_force_path_from_the_launch_counts(tmp_path, capsys):
-    none = {"sym_force": 0, "max_d2": 0, "row_force": 0, "pair_sym_force": 0}
+    none = {k: 0 for k in ("sym_force", "max_d2", "row_force",
+                           "pair_sym_force", "pair_force", "pair_max",
+                           "pair_pe_rows")}
     assert "chunked" in cli.force_path({**none, "sym_force": 5,
                                         "pair_sym_force": 10})
+    assert cli.force_path({**none, "sym_force": 3, "pair_sym_force": 3,
+                           "pair_max": 6, "pair_pe_rows": 9}, "sym") == \
+        ("ring, sym (half ring) schedule (sym_force + pair_sym_force + "
+         "pair_max + pair_pe_rows)")
+    assert cli.force_path({**none, "pair_force": 9, "pair_pe_rows": 9},
+                          "rows") == \
+        "ring, rows schedule (pair_force + pair_pe_rows)"
+    # zero softening on a mesh of one: the rows schedule's only tile is the
+    # self-masked diagonal, row_force
+    assert cli.force_path({**none, "row_force": 9, "pair_pe_rows": 2},
+                          "rows") == \
+        "ring, rows schedule (row_force + pair_pe_rows)"
     assert "row sweep" in cli.force_path({**none, "row_force": 3})
     assert cli.force_path({**none, "sym_force": 3}) == \
         "single-launch sym_force"

@@ -169,12 +169,43 @@ def test_run_comparison(ics):
         assert np.isfinite(r["snapshots"].total).all()
 
 
-@pytest.mark.parametrize("kwargs", [{"mesh": object()}, {"schedule": "sym"},
-                                    {"ticks_per_dispatch": 10},
-                                    {"schedule": "rows"},
-                                    {"bounds_mode": "cached"}])
+@pytest.mark.parametrize("kwargs", [{"bounds_mode": "cached"}])
 def test_unported_options_raise(ics, kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        td.DirectSimulation(*ics, precision="int4", **kwargs)
+
+
+def _virtual_mesh(n_shards):
+    from nbody_tpu_torch.parallel import ring
+    return ring.ParticleMesh.virtual(n_shards, "cpu")
+
+
+# The JAX engine's rules for the ring's options (direct.py:523-563), each
+# a ValueError with its message.
+MESH_RULES = {
+    "mesh with dynamic_params": (dict(mesh=2, dynamic_params=True),
+                                 "dynamic_params is not supported with"),
+    "mesh with a force_impl": (dict(mesh=2, force_impl="kernel"),
+                               "force_impl is single-device only"),
+    "bounds_every with rows": (dict(mesh=2, schedule="rows",
+                                    bounds_every=2),
+                               "bounds_every > 1 needs schedule='sym'"),
+    "ticks_per_dispatch without mesh": (dict(ticks_per_dispatch=5),
+                                        "only applies to mesh runs"),
+    "ticks_per_dispatch below 1": (dict(mesh=2, ticks_per_dispatch=0),
+                                   "must be >= 1"),
+    "ticks_per_dispatch with bounds_every": (
+        dict(mesh=2, ticks_per_dispatch=5, bounds_every=2),
+        "cannot be combined with bounds_every > 1"),
+}
+
+
+@pytest.mark.parametrize("rule", list(MESH_RULES))
+def test_mesh_rules_raise_value_error(ics, rule):
+    kwargs, message = MESH_RULES[rule]
+    if "mesh" in kwargs:
+        kwargs = {**kwargs, "mesh": _virtual_mesh(kwargs["mesh"])}
+    with pytest.raises(ValueError, match=message):
         td.DirectSimulation(*ics, precision="int4", **kwargs)
 
 

@@ -204,3 +204,124 @@ def test_zero_softening_chunked_routes_to_row_force(cuda):
     assert hn.LAUNCHES["row_force"] == before["row_force"] + 1
     assert hn.LAUNCHES["pair_sym_force"] == before["pair_sym_force"]
     assert bool(torch.isfinite(acc).all())
+
+
+# --------------------------------------------------------------------------
+# The multi-device ring's tiles: pair_force (#10), pair_max (#9),
+# pair_pe_rows (#7)
+# --------------------------------------------------------------------------
+
+RING_SHAPES = [(700, 700), (300, 1100), (1, 1000), (1009, 67)]
+
+
+def _two_sets(n_i, n_j, dim, seed, cuda):
+    """Receivers and sources; (n, n) is one set used as both."""
+    rng = np.random.default_rng(seed)
+    if n_i == n_j:
+        pt = torch.from_numpy(_disk(n_i, dim, seed)).to(cuda)
+        gm = (0.001 * (1.0 + torch.from_numpy(rng.random(n_i)).float())
+              ).to(cuda)
+        return pt, pt, gm, gm
+    pt = torch.from_numpy(_disk(n_i + n_j, dim, seed)).to(cuda)
+    gm = (0.001 * (1.0 + torch.from_numpy(rng.random(n_i + n_j)).float())
+          ).to(cuda)
+    return pt[:n_i], pt[n_i:], gm[:n_i], gm[n_i:]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("n_i,n_j", RING_SHAPES)
+def test_pair_force_kernel_matches_plain(cuda, mode, dim, n_i, n_j):
+    """Receivers due to sources, one set or two, held with the summed
+    |terms| (another summation order of the same terms)."""
+    xi, xj, _, gm_j = _two_sets(n_i, n_j, dim, 7, cuda)
+    q, cfg = tp.Quantizer.from_string(mode), SimConfig()
+    bounds = _bounds(q, torch.cat([xi, xj]), cfg.softening_sq, cuda)
+    lo, hi = (bounds[0], bounds[1]) if q.is_int else (None, None)
+    before = hn.LAUNCHES["pair_force"]
+    got = hn.pair_force(xi, xj, gm_j, q, cfg, lo, hi)
+    assert hn.LAUNCHES["pair_force"] == before + 1
+    want = hn.pair_force_plain(xi, xj, gm_j, q, cfg, lo, hi)
+    _hold(got, want, q, hn.pair_force_term_scale(xi, xj, gm_j, bounds, q))
+    assert torch.equal(got, hn.pair_force(xi, xj, gm_j, q, cfg, lo, hi))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("n_i,n_j", RING_SHAPES)
+def test_pair_max_kernel_bitwise(cuda, dim, n_i, n_j):
+    xi, xj, _, _ = _two_sets(n_i, n_j, dim, 8, cuda)
+    rng = np.random.default_rng(n_i)
+    for vi, vj in ((np.ones(n_i, bool), np.ones(n_j, bool)),
+                   (rng.random(n_i) < 0.7, rng.random(n_j) < 0.7),
+                   (np.zeros(n_i, bool), np.ones(n_j, bool))):
+        vi_t, vj_t = torch.from_numpy(vi).to(cuda), torch.from_numpy(vj).to(cuda)
+        before = hn.LAUNCHES["pair_max"]
+        got = hn.pair_max(xi, xj, vi_t, vj_t)
+        assert hn.LAUNCHES["pair_max"] == before + 1
+        assert torch.equal(got, hn.pair_max_plain(xi, xj, vi_t, vj_t))
+    if n_i == n_j:
+        ones = torch.ones(n_i, dtype=torch.bool, device=cuda)
+        assert torch.equal(hn.pair_max(xi, xi, ones, ones), hn.max_d2(xi))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("n_i,n_j", RING_SHAPES)
+@pytest.mark.parametrize("soft", [0.01, 0.0])
+def test_pair_pe_rows_kernel_matches_plain(cuda, dim, n_i, n_j, soft):
+    """Row sums of positive terms, relative to the row itself (the summed
+    |terms|): two fixed summation orders of up to n_j terms. One set gets
+    its own ids (the self-pair masked), two sets ids that overlap in one
+    particle."""
+    xi, xj, mi, mj = _two_sets(n_i, n_j, dim, 9, cuda)
+    ids_i = torch.arange(n_i, dtype=torch.int32, device=cuda)
+    ids_j = (ids_i if n_i == n_j else
+             torch.arange(n_i - 1, n_i - 1 + n_j, dtype=torch.int32,
+                          device=cuda))
+    args = (xi, mi, ids_i, xj, mj, ids_j, soft)
+    before = hn.LAUNCHES["pair_pe_rows"]
+    got = hn.pair_pe_rows(*args)
+    assert hn.LAUNCHES["pair_pe_rows"] == before + 1
+    want = hn.pair_pe_rows_plain(*args)
+    assert bool(torch.isfinite(got).all())
+    rtol = 2 * (128 + -(-n_j // 128) + 4) * 2.0 ** -24
+    assert bool(((got - want).abs() <= rtol * want.abs() + 1e-30).all())
+    assert torch.equal(got, hn.pair_pe_rows(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("schedule", ["sym", "rows"])
+@pytest.mark.parametrize("mode", ["float32", "int4"])
+def test_virtual_ring_on_card_matches_single_device(cuda, schedule, mode):
+    """Three shards on the card, N unaligned (phantom rows): one force
+    evaluation against single-launch sym_force, the ring's max d^2 bitwise
+    the single-device max, and exact launch counts."""
+    from nbody_tpu_torch.diagnostics import metrics
+    from nbody_tpu_torch.parallel import ring
+    n, S = 3001, 3
+    pt = torch.from_numpy(_disk(n, 2, seed=10)).to(cuda)
+    m = torch.ones(n, device=cuda)
+    q, cfg = tp.Quantizer.from_string(mode), SimConfig()
+    mesh = ring.ParticleMesh.virtual(S, cuda)
+    before = dict(hn.LAUNCHES)
+    got = ring.ring_accelerations(pt, m, q, cfg, mesh, schedule=schedule)
+    launched = {k: hn.LAUNCHES[k] - before[k] for k in hn.LAUNCHES}
+    want = {"sym_force": S, "pair_sym_force": S * (S - 1) // 2,
+            "pair_force": 0} if schedule == "sym" else \
+        {"sym_force": 0, "pair_sym_force": 0, "pair_force": S * S}
+    want["pair_max"] = S * (S // 2 + 1) if q.is_int else 0
+    assert {k: launched[k] for k in want} == want
+    single = hn.sym_accelerations(pt, m, q, cfg, quantize_forces=False)
+    scale = hn.sym_force_term_scale(pt, cfg.G * m, hn.kernel_bounds(pt, q, cfg),
+                                    q, False)
+    assert bool(((got - single).abs()
+                 <= 2e-6 + 5e-5 * torch.maximum(single.abs(), scale)).all())
+    pos, _, mp, ids = ring._padded(pt, None, m, mesh)
+    assert torch.equal(ring._ring_max_d2(mesh, ring._shards(pos, mesh),
+                                         ring._shards(ids, mesh), n, cfg),
+                       hn.max_d2(pt) + cfg.softening_sq)
+    pe = ring.ring_potential_energy(pt, m, cfg, mesh)
+    assert float(pe) == pytest.approx(
+        float(metrics.potential_energy(pt, m, cfg)), rel=1e-6)
