@@ -28,11 +28,12 @@ Phases (any failure exits non-zero before the last line is printed):
 6. perf: throughput at N=131072, kernel-vs-plain times, and
    ``dynamic_params`` runs at 5000 stars against static ones.
 7. large: N=1,048,576 through ``run_steps(..., "auto", ...)`` for 5 steps
-   (D=2 disk and D=3 Plummer sphere, seed 43, float32 and int4): the
-   chunked path's launch counts, pairs/s, one force evaluation chunked
-   against the row kernel over all rows and both against the plain
-   version on sampled rows; zero softening routed to the row kernel; the
-   pruned bounds pass at D=3 bitwise equal to the full max.
+   (D=2 disk and D=3 Plummer sphere, seed 43, float32 and int4), with the
+   general kernels and with ``uniform_gm``: the chunked path's launch
+   counts, pairs/s, one force evaluation chunked (both variants) against
+   the row kernel over all rows and all against the plain version on
+   sampled rows; zero softening routed to the row kernel; the pruned
+   bounds pass at D=3 bitwise equal to the full max.
 8. ring: the multi-device ring (``--mesh``) and its tiles pair_force
    (#10), pair_max (#9) and pair_pe_rows (#7): each tile against its plain
    version at (5000, 5000) one set, (32768, 32771), (1, 1000) and prime
@@ -44,6 +45,23 @@ Phases (any failure exits non-zero before the last line is printed):
    plain metric, launch counts exact; the reference gate through a mesh of
    one; N=1,048,576 through ``DirectSimulation(mesh=...)`` on a mesh of one
    (float32 and int4) and on two virtual shards (budget-chunked pair tile).
+   Equal masses take the sym tiles' equal-mass variants (timed beside the
+   general ones); phantom layouts keep the general tiles bitwise.
+9. cached: int4 ``run_with_snapshots(bounds_mode="cached")`` at 5000 x
+   2000 (the canonical ICs) and at 131072 x 50 on a disk and on a shell
+   that defeats the pruned bounds pass, beside the exact path: no tick's
+   grid clipped, the redo launches that ran equal the violations, no
+   max_d2 launch; ms a tick, violation rate, the canonical final drift
+   against the int4 reference envelope (reported); the redo's walk timed
+   skipped and running, bitwise the forces of the launch without it.
+10. lab: ``python -m nbody_tpu_torch.lab.kernel_lab``'s table, and each
+   lab kernel against its plain version at N=131072.
+
+The kernels phase also holds the equal-mass variants (D in {2,3}, every
+mode, N in {4096, 32768}), the flag off the tile (N=4100, bitwise the
+general kernel), the fused max (bitwise max_d2, forces bitwise without
+it), the skip flag and the lab kernels; perf and large time each variant
+beside its general twin at 131072 and at the N=1M chunk and pair shapes.
 
 Two more phases run only when asked for: ``--phases profile``, the main
 path under ``torch.profiler`` at 5000 and 131072 stars, per mode: wall,
@@ -72,7 +90,8 @@ import numpy as np
 import torch
 
 REPO = Path(__file__).resolve().parent
-PHASES = ("kernels", "main", "gate", "perf", "large", "ring")  # default
+PHASES = ("kernels", "main", "gate", "perf", "large", "ring", "cached",
+          "lab")  # default
 EXTRA_PHASES = ("profile", "scale")
 MODES = ("float32", "bfloat16", "float16", "int8", "int4", "custom")
 STARS, TICKS, INTERVAL = 5000, 2000, 100
@@ -82,22 +101,97 @@ SAMPLED_ROWS = 4096
 DYNAMIC_TICKS = 300
 RUNTIME_SOFTENING = 0.05   # the kernels phase's run-time softening
 
+_PN = "nbody_tpu/ops/pallas_nbody.py"
+_SYM, _PAIR = "nbody_tpu_torch/csrc/sym_force.cu", \
+    "nbody_tpu_torch/csrc/pair_sym_force.cu"
 KERNELS = {
-    "sym_force": {"source": "nbody_tpu_torch/csrc/sym_force.cu",
-                  "replaces": "nbody_tpu/ops/pallas_nbody.py:260"},
+    "sym_force": {"source": _SYM, "replaces": f"{_PN}:260"},
+    "sym_force_uniform": {"source": _SYM, "replaces": f"{_PN}:368"},
+    "sym_force_max": {"source": _SYM, "replaces": f"{_PN}:407"},
+    "sym_force_uniform_max": {"source": _SYM, "replaces": f"{_PN}:407"},
     "max_d2": {"source": "nbody_tpu_torch/csrc/max_dist_sq.cu",
-               "replaces": "nbody_tpu/ops/pallas_nbody.py:1263"},
+               "replaces": f"{_PN}:1263"},
     "row_force": {"source": "nbody_tpu_torch/csrc/row_force.cu",
-                  "replaces": "nbody_tpu/ops/pallas_nbody.py:645"},
-    "pair_sym_force": {"source": "nbody_tpu_torch/csrc/pair_sym_force.cu",
-                       "replaces": "nbody_tpu/ops/pallas_nbody.py:956"},
+                  "replaces": f"{_PN}:645"},
+    "pair_sym_force": {"source": _PAIR, "replaces": f"{_PN}:956"},
+    "pair_sym_force_uniform": {"source": _PAIR, "replaces": f"{_PN}:1022"},
     "pair_force": {"source": "nbody_tpu_torch/csrc/row_force.cu",
-                   "replaces": "nbody_tpu/ops/pallas_nbody.py:1485"},
+                   "replaces": f"{_PN}:1485"},
     "pair_max": {"source": "nbody_tpu_torch/csrc/max_dist_sq.cu",
-                 "replaces": "nbody_tpu/ops/pallas_nbody.py:1416"},
+                 "replaces": f"{_PN}:1416"},
     "pair_pe_rows": {"source": "nbody_tpu_torch/csrc/pair_pe_rows.cu",
-                     "replaces": "nbody_tpu/ops/pallas_nbody.py:1165"},
+                     "replaces": f"{_PN}:1165"},
+    "sym_force_lab_seedsoft": {"source": _SYM,
+                               "replaces": "tools/kernel_lab.py:94"},
+    "sym_force_lab_wide2": {"source": _SYM,
+                            "replaces": "tools/kernel_lab.py:125"},
+    "sym_force_lab_wide3": {"source": _SYM,
+                            "replaces": "tools/kernel_lab.py:125"},
+    "sym_force_lab_wide4": {"source": _SYM,
+                            "replaces": "tools/kernel_lab.py:125"},
 }
+
+# The H100 SXM's published peaks: FP32 outside the tensor cores, and HBM3
+# bandwidth.
+PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
+# The canonical gate's final drifts (%), bit for bit the same in PRs 1-3.
+GATE_ROWS = {"float32": -0.007852, "int4": 32.506357, "float64": -0.007517}
+
+
+def weight_ops(mode: str) -> int:
+    """fp32 operations of one pair's weight w from its softened d^2, counted
+    in csrc/nbody_common.cuh's pair_w (a transcendental counts as one):
+    rsqrt and two multiplies; plus the bf16 / f16 round trip; the int
+    chain's max, log, mul, add, rint, mul, add, min, exp."""
+    return {"bfloat16": 5, "float16": 5}.get(
+        mode, 9 if mode in ("int8", "int4", "custom") else 3)
+
+
+def pair_ops(kind: str, dim: int, mode: str) -> int:
+    """fp32 operations per pair, counted from the kernel sources: d^2 is D
+    subtracts, D multiplies and D-1 adds, plus the softening add. The sym
+    kernels' pairs are unordered and take D fused multiply-adds (2 ops)
+    into the rows and D subtracts and D fused multiply-adds into the
+    reactions, and the general variant one G m multiply on each side; the
+    row kernels' pairs are ordered (one G m multiply, D fused
+    multiply-adds); the fused max adds one max a pair."""
+    d2 = 3 * dim
+    if kind in ("sym", "sym_uniform", "sym_max", "sym_uniform_max"):
+        ops = d2 + weight_ops(mode) + 5 * dim
+        ops += 0 if "uniform" in kind else 2
+        return ops + ("max" in kind)
+    if kind == "rows":
+        return d2 + weight_ops(mode) + 1 + 2 * dim
+    if kind == "max":
+        return d2               # D subtracts, d^2, one max
+    if kind == "pe":
+        return d2 + 4           # rsqrt, m_i m_j, times, add
+    raise ValueError(kind)
+
+
+def bound(pairs: float, ops_per_pair: int, nbytes: float) -> tuple:
+    """(ms, "operations" or "bytes"): the least time the card could take,
+    the larger of the operations over the FP32 peak and the bytes (each
+    input read once, each output written once) over HBM's rate."""
+    ops_ms = pairs * ops_per_pair / PEAK_FP32 * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def set_timing(entry: dict, ms: float, plain_ms: float, timed_at: str,
+               pairs: float, ops_per_pair: int, nbytes: float) -> None:
+    """A kernel's time, its plain version's, and its bound at the timed
+    shape."""
+    bound_ms, bound_by = bound(pairs, ops_per_pair, nbytes)
+    entry.update(ms=ms, plain_ms=plain_ms, timed_at=timed_at,
+                 bound_ms=bound_ms, bound_by=bound_by,
+                 ops=pairs * ops_per_pair, bytes=nbytes)
+
+
+def sym_bytes(n: int, dim: int, fused_max: bool = False) -> float:
+    """Positions, G m and bounds in, the forces (and the max) out."""
+    return 4 * (n * (2 * dim + 1) + 3 + fused_max)
 
 
 class Failed(Exception):
@@ -129,6 +223,16 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()
     return out[0]
+
+
+def card_state() -> str:
+    """SM clock (now / max), power draw, temperature and the active
+    throttle reasons: a card running below its clocks times slower."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "temperature.gpu,clocks_throttle_reasons.active",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -446,6 +550,174 @@ def phase_kernels(dev, report: dict) -> None:
             check(ok and off <= flips_allowed(single) and one_step,
                   f"chunked != sym_force at N={BIG_N} {mode} chunk {chunk}")
     del pos, m, gm
+    kernels_equal_mass(dev, report)
+
+
+EQUAL_NS = (4096, 32768)   # multiples of TILE: the equal-mass variants run
+RAGGED_N = 4100            # not one: the flag must give the general bits
+
+
+def kernels_equal_mass(dev, report: dict) -> None:
+    """The equal-mass variants of sym_force and pair_sym_force against
+    their plain versions (every mode, D in {2,3}, N in EQUAL_NS; zero
+    softening at the smaller N), bitwise the general kernel at a size off
+    the tile; the fused max bitwise max_d2's with the forces bitwise
+    those without it; the skip flag; the lab variants against their plain
+    versions; every one bitwise run to run."""
+    from nbody_tpu_torch.config import SimConfig
+    from nbody_tpu_torch.lab import kernel_lab
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+    from nbody_tpu_torch.ops.precision import Quantizer
+
+    cfg = SimConfig()
+    tallies = {k: Tally() for k in report if k.startswith(("sym_force_",
+                                                           "pair_sym_force_"))}
+    fails = []
+
+    def same(what, a, b):
+        if not torch.equal(a, b):
+            fails.append(what)
+
+    for dim in (2, 3):
+        for n in EQUAL_NS:
+            pos, m = make_inputs(n, dim, True, seed=n + dim + 1, dev=dev)
+            gm = (cfg.G * m).contiguous()
+            softenings = (("0.1", 0.01, False),) + (
+                (("0", 0.0, True),) if n == EQUAL_NS[0] else ())
+            for label, soft, masked in softenings:
+                for mode in MODES:
+                    q = Quantizer.from_string(mode)
+                    case = f"{mode} D={dim} N={n} soft={label}"
+                    bounds = force_bounds(q, pos, soft, dev)
+                    want = hn.sym_force_uniform_plain(pos, gm, bounds, q,
+                                                      masked)
+                    scale = (hn.sym_force_term_scale(pos, gm, bounds, q,
+                                                     masked)
+                             if soft == 0.0 else torch.zeros_like(want))
+                    got = hn.sym_force(pos, gm, bounds, q, masked,
+                                       uniform=True)
+                    tallies["sym_force_uniform"].hold(case, got, want, scale,
+                                                      q)
+                    same(f"sym_force_uniform run to run {case}", got,
+                         hn.sym_force(pos, gm, bounds, q, masked,
+                                      uniform=True))
+            half = n // 2
+            pa, pb, ga, gb = pos[:half], pos[half:], gm[:half], gm[half:]
+            for mode in MODES:
+                q = Quantizer.from_string(mode)
+                case = f"{mode} D={dim} {half}x{n - half}"
+                bounds = force_bounds(q, pos, 0.01, dev)
+                rows, cols = hn.pair_sym_force(pa, ga, pb, gb, bounds, q,
+                                               uniform=True)
+                rw, cw = hn.pair_sym_force_uniform_plain(pa, ga, pb, gb,
+                                                         bounds, q)
+                tallies["pair_sym_force_uniform"].hold(
+                    case + " rows", rows, rw, torch.zeros_like(rw), q)
+                tallies["pair_sym_force_uniform"].hold(
+                    case + " cols", cols, cw, torch.zeros_like(cw), q)
+                r2, c2 = hn.pair_sym_force(pa, ga, pb, gb, bounds, q,
+                                           uniform=True)
+                same(f"pair_sym_force_uniform run to run {case}",
+                     torch.cat([rows, cols]), torch.cat([r2, c2]))
+
+    # Off the tile the flag changes no bit (the general kernel runs).
+    for dim in (2, 3):
+        pos, m = make_inputs(RAGGED_N + 4096, dim, True, seed=dim, dev=dev)
+        gm = (cfg.G * m).contiguous()
+        p1, g1 = pos[:RAGGED_N], gm[:RAGGED_N]
+        for mode in ("float32", "int4"):
+            q = Quantizer.from_string(mode)
+            bounds = force_bounds(q, pos, 0.01, dev)
+            before = dict(hn.LAUNCHES)
+            same(f"sym_force N={RAGGED_N} D={dim} {mode} flag",
+                 hn.sym_force(p1, g1, bounds, q, False, uniform=True),
+                 hn.sym_force(p1, g1, bounds, q, False))
+            same(f"pair_sym_force {RAGGED_N}x4096 D={dim} {mode} flag",
+                 torch.cat(hn.pair_sym_force(p1, g1, pos[RAGGED_N:],
+                                             gm[RAGGED_N:], bounds, q,
+                                             uniform=True)),
+                 torch.cat(hn.pair_sym_force(p1, g1, pos[RAGGED_N:],
+                                             gm[RAGGED_N:], bounds, q)))
+            check(hn.LAUNCHES["sym_force"] - before["sym_force"] == 2
+                  and hn.LAUNCHES["pair_sym_force"]
+                  - before["pair_sym_force"] == 2,
+                  f"N={RAGGED_N}: the flag did not take the general kernels")
+
+    # The fused max and the skip flag (int modes: the cached-bounds scan).
+    one = torch.ones((), dtype=torch.int32, device=dev)
+    for dim in (2, 3):
+        for n in EQUAL_NS + (RAGGED_N,):
+            pos, m = make_inputs(n, dim, True, seed=3 * n + dim, dev=dev)
+            gm = (cfg.G * m).contiguous()
+            want_max = hn.max_d2(pos)
+            same(f"max_d2 N={n} D={dim} vs plain", want_max,
+                 hn.max_d2_plain(pos))
+            for mode in ("int4", "int8"):
+                q = Quantizer.from_string(mode)
+                bounds = force_bounds(q, pos, 0.01, dev)
+                for uniform in (False, True):
+                    key = ("sym_force_uniform_max" if uniform
+                           and n % hn.TILE == 0 else "sym_force_max")
+                    case = f"{mode} D={dim} N={n} uniform={uniform}"
+                    mx = torch.empty((), device=dev)
+                    got = hn.sym_force(pos, gm, bounds, q, False,
+                                       uniform=uniform, max_out=mx)
+                    same(f"fused max {case}", mx, want_max)
+                    same(f"forces with the fused max {case}", got,
+                         hn.sym_force(pos, gm, bounds, q, False,
+                                      uniform=uniform))
+                    plain = (hn.sym_force_uniform_plain if uniform
+                             and n % hn.TILE == 0 else hn.sym_force_plain)
+                    tallies[key].hold(case, got, plain(pos, gm, bounds, q,
+                                                       False),
+                                      torch.zeros_like(got), q)
+                    mx2 = torch.empty((), device=dev)
+                    same(f"fused max run to run {case}",
+                         hn.sym_force(pos, gm, bounds, q, False,
+                                      uniform=uniform, max_out=mx2), got)
+                    same(f"fused max run to run (max) {case}", mx2, mx)
+                    count = torch.zeros((), dtype=torch.int32, device=dev)
+                    skipped = hn.sym_force(pos, gm, bounds, q, False,
+                                           uniform=uniform, max_out=mx,
+                                           skip=one, count=count)
+                    check(count.item() == 0 and not skipped.any().item()
+                          and mx.item() == 0.0,
+                          f"skip=1 did work: {case}")
+                    ran = hn.sym_force(pos, gm, bounds, q, False,
+                                       uniform=uniform, skip=one * 0,
+                                       count=count)
+                    check(count.item() == 1, f"skip=0 not counted: {case}")
+                    same(f"skip=0 forces {case}", ran, got)
+            acc, mxs = hn.sym_accelerations(
+                pos, m, Quantizer.from_string("int4"), cfg,
+                log_lo=bounds[0], log_hi=bounds[1], uniform_gm=True,
+                emit_max=True)
+            same(f"sym_accelerations emit_max N={n} D={dim}", mxs,
+                 want_max + cfg.softening_sq)
+
+    # The lab variants (D=2, float32 and int4, equal masses).
+    for n in EQUAL_NS:
+        pos, m = make_inputs(n, 2, True, seed=n + 5, dev=dev)
+        gm = (cfg.G * m).contiguous()
+        for mode in ("float32", "int4"):
+            q = Quantizer.from_string(mode)
+            bounds = force_bounds(q, pos, 0.01, dev)
+            for v in kernel_lab.VARIANTS:
+                case = f"{mode} D=2 N={n}"
+                got = kernel_lab.sym_force_lab(pos, gm, bounds, q, False, v)
+                want = kernel_lab.sym_force_lab_plain(pos, gm, bounds, q,
+                                                      False, v)
+                tallies[f"sym_force_lab_{v}"].hold(case, got, want,
+                                                   torch.zeros_like(want), q)
+                same(f"lab {v} run to run {case}", got,
+                     kernel_lab.sym_force_lab(pos, gm, bounds, q, False, v))
+    torch.cuda.synchronize()
+    for name, tally in tallies.items():
+        tally.report(name, report[name])
+    print(f"kernels: the flag off the tile (N={RAGGED_N}), the fused max "
+          f"(bitwise max_d2, forces bitwise without it), the skip flag and "
+          f"every variant run to run: {len(fails)} failures")
+    check(not fails, "not bitwise: " + "; ".join(fails))
 
 
 # --------------------------------------------------------------------------
@@ -519,14 +791,8 @@ def phase_gate(dev, mesh=None, label: str = "gate") -> None:
     from nbody_tpu_torch.models.galaxy import load_disk_fixture
 
     pos, vel, m = load_disk_fixture(STARS, 42, device=dev)
-    cache = REPO / "tools" / "reference_cache"
     fails = []
     for mode in ("float32", "int4", "float64"):
-        stem = f"ref_s{STARS}_t{TICKS}_i{INTERVAL}_seed42_{mode}"
-        ref = json.loads((cache / f"{stem}.json").read_text())
-        perm_path = cache / f"{stem}_perm.json"
-        ref_perm = (json.loads(perm_path.read_text())
-                    if perm_path.exists() else None)
         t0 = time.time()
         sim = DirectSimulation(pos, vel, m, precision=mode, device=dev,
                                mesh=mesh)
@@ -535,29 +801,45 @@ def phase_gate(dev, mesh=None, label: str = "gate") -> None:
         drifts = (np.asarray(snaps.total) - e0) / abs(e0) * 100.0
         our_pos = sim.positions.cpu().numpy()
         wall = time.time() - t0
-        # The rule of tools/reference_parity.py:258-269.
-        spread = r_spread = 0.0
-        if ref_perm is not None:
-            spread = abs(ref["drifts"][-1] - ref_perm["drifts"][-1])
-            r_spread = abs(radius90(ref["final_pos"])
-                           - radius90(ref_perm["final_pos"]))
-        final_ref, final_our = ref["drifts"][-1], float(drifts[-1])
-        scale = max(abs(final_ref), abs(final_our), 0.05)
-        tol = max(0.5 * scale, 0.05, 2.0 * spread)
-        agree = abs(final_ref - final_our) < tol
-        r_ref, r_our = radius90(ref["final_pos"]), radius90(our_pos)
-        r_tol = max(0.1 * r_ref, 2.0 * r_spread)
-        r_agree = abs(r_ref - r_our) < r_tol
         print(f"{label}: {mode}: drift per snapshot (%) ours "
               f"{[round(float(d), 6) for d in drifts]}")
-        print(f"{label}: {mode}: final drift ours {final_our:+.6f}% vs "
-              f"reference {final_ref:+.6f}% (tol {tol:.4f}) "
-              f"{'AGREE' if agree else 'DISAGREE'}; radius90 ours "
-              f"{r_our:.4f} vs {r_ref:.4f} (tol {r_tol:.4f}) "
-              f"{'AGREE' if r_agree else 'DISAGREE'}; {wall:.1f}s")
-        if not (agree and r_agree):
+        agree, text = gate_rule(mode, drifts, our_pos)
+        same = f"{drifts[-1]:+.6f}" == f"{GATE_ROWS[mode]:+.6f}"
+        print(f"{label}: {mode}: {text}; {wall:.1f}s; "
+              f"{'bit for bit' if same else 'NOT'} the row of PRs 1-3 "
+              f"({GATE_ROWS[mode]:+.6f}%)")
+        if not (agree and same):
             fails.append(mode)
-    check(not fails, f"{label}: reference gate DISAGREE for {fails}")
+    check(not fails, f"{label}: reference gate DISAGREE or rows moved for "
+                     f"{fails}")
+
+
+def gate_rule(mode: str, drifts, final_pos) -> tuple:
+    """The rule of tools/reference_parity.py:258-269 against the cached
+    torch-reference run of ``mode`` at 5000 x 2000: (agree, summary)."""
+    cache = REPO / "tools" / "reference_cache"
+    stem = f"ref_s{STARS}_t{TICKS}_i{INTERVAL}_seed42_{mode}"
+    ref = json.loads((cache / f"{stem}.json").read_text())
+    perm_path = cache / f"{stem}_perm.json"
+    ref_perm = (json.loads(perm_path.read_text())
+                if perm_path.exists() else None)
+    spread = r_spread = 0.0
+    if ref_perm is not None:
+        spread = abs(ref["drifts"][-1] - ref_perm["drifts"][-1])
+        r_spread = abs(radius90(ref["final_pos"])
+                       - radius90(ref_perm["final_pos"]))
+    final_ref, final_our = ref["drifts"][-1], float(drifts[-1])
+    scale = max(abs(final_ref), abs(final_our), 0.05)
+    tol = max(0.5 * scale, 0.05, 2.0 * spread)
+    agree = abs(final_ref - final_our) < tol
+    r_ref, r_our = radius90(ref["final_pos"]), radius90(final_pos)
+    r_tol = max(0.1 * r_ref, 2.0 * r_spread)
+    r_agree = abs(r_ref - r_our) < r_tol
+    return agree and r_agree, (
+        f"final drift ours {final_our:+.6f}% vs reference {final_ref:+.6f}% "
+        f"(tol {tol:.4f}) {'AGREE' if agree else 'DISAGREE'}; radius90 ours "
+        f"{r_our:.4f} vs {r_ref:.4f} (tol {r_tol:.4f}) "
+        f"{'AGREE' if r_agree else 'DISAGREE'}")
 
 
 # --------------------------------------------------------------------------
@@ -572,59 +854,98 @@ def phase_perf(dev, report: dict) -> None:
     from nbody_tpu_torch.utils.profiler import fence
 
     cfg = SimConfig()
+    # (kernel, N, mode) whose times go into the kernels line: the canonical
+    # compare's shape, 131072 and the cached-bounds scan's shapes.
+    timed = {("sym_force", STARS, "float32"),
+             ("sym_force_uniform", BIG_N, "float32"),
+             ("sym_force_max", STARS, "int4"),
+             ("sym_force_uniform_max", BIG_N, "int4")}
     for n in (STARS, BIG_N):
         pos, m = make_inputs(n, 2, True, seed=7, dev=dev)
         gm = (cfg.G * m).contiguous()
         max_d2 = hn.max_d2(pos) + cfg.softening_sq
-        reps = 20 if n == STARS else 3
+        reps, plain_reps = (20, 20) if n == STARS else (3, 1)
+        mx = torch.empty((), device=dev)
         for mode in ("float32", "int4"):
             q = Quantizer.from_string(mode)
             lo, hi = dist_sq_log_bounds(q, max_d2, cfg.softening_sq)
             if not q.is_int:
                 lo = hi = max_d2 * 0
             bounds = torch.stack([lo, hi, max_d2 * 0 + cfg.softening_sq])
-            plain_ms = cuda_ms(lambda: hn.sym_force_plain(
-                pos, gm, bounds, q, False), reps)
-            ms = cuda_ms(lambda: hn.sym_force(pos, gm, bounds, q, False),
-                         reps)
-            plain_ms2 = cuda_ms(lambda: hn.sym_force_plain(
-                pos, gm, bounds, q, False), reps)
-            print(f"perf: sym_force N={n} D=2 {mode}: kernel {ms:.4f} ms, "
-                  f"plain {min(plain_ms, plain_ms2):.4f} ms "
-                  f"(plain runs {plain_ms:.4f} / {plain_ms2:.4f})")
-            if n == STARS and mode == "float32":
-                report["sym_force"].update(
-                    ms=ms, plain_ms=min(plain_ms, plain_ms2),
-                    timed_at=f"N={STARS} D=2 float32")
+            # Each variant beside its general twin, in one call; the fused
+            # max's plain version is the plain force plus max_d2_plain.
+            for uniform, fused in ((False, False), (True, False),
+                                   (False, True), (True, True)):
+                if fused and not q.is_int:
+                    continue
+                key = hn._variant("sym_force", uniform, fused)
+                plain_fn = (hn.sym_force_uniform_plain if uniform
+                            else hn.sym_force_plain)
+
+                def plain():
+                    plain_fn(pos, gm, bounds, q, False)
+                    if fused:
+                        hn.max_d2_plain(pos)
+
+                def kernel():
+                    hn.sym_force(pos, gm, bounds, q, False, uniform=uniform,
+                                 max_out=mx if fused else None)
+
+                plain_ms = cuda_ms(plain, plain_reps)
+                ms = cuda_ms(kernel, reps)
+                plain_ms2 = cuda_ms(plain, plain_reps)
+                work = (n * (n - 1) / 2,
+                        pair_ops(key.replace("_force", ""), 2, mode),
+                        sym_bytes(n, 2, fused))
+                print(f"perf: {key} N={n} D=2 {mode}: kernel {ms:.4f} ms, "
+                      f"plain {min(plain_ms, plain_ms2):.4f} ms (plain "
+                      f"runs {plain_ms:.4f} / {plain_ms2:.4f}), bound "
+                      f"{bound(*work)[0]:.4f} ms")
+                if (key, n, mode) in timed:
+                    set_timing(report[key], ms, min(plain_ms, plain_ms2),
+                               f"N={n} D=2 {mode}", *work)
         plain_ms = cuda_ms(lambda: hn.max_d2_plain(pos), reps)
         ms = cuda_ms(lambda: hn.max_d2(pos), reps)
+        work = (n * (n - 1) / 2, pair_ops("max", 2, "float32"),
+                4 * (2 * n + 1))
         print(f"perf: max_d2 N={n} D=2 full set: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms")
+              f"plain {plain_ms:.4f} ms, bound {bound(*work)[0]:.4f} ms")
         if n == STARS:
-            report["max_d2"].update(ms=ms, plain_ms=plain_ms,
-                                    timed_at=f"N={STARS} D=2 full set")
+            set_timing(report["max_d2"], ms, plain_ms,
+                       f"N={STARS} D=2 full set", *work)
         del pos, m, gm
 
+    from nbody_tpu_torch.cli import force_path
     from nbody_tpu_torch.models.galaxy import create_disk_galaxy
     p0, v0, m0 = create_disk_galaxy(torch.Generator().manual_seed(0),
                                     num_stars=BIG_N, device=dev)
     for mode in ("float32", "int4"):
+        reset_counters(hn)
         sim = DirectSimulation(p0, v0, m0, precision=mode, device=dev)
         fence(sim.state.positions)
         t0 = time.time()
         snaps, _ = sim.run_with_history(20, 10)
         fence(sim.state.positions)
         wall = time.time() - t0
+        launched = {k: v for k, v in hn.LAUNCHES.items() if v}
         check(np.isfinite(np.asarray(snaps.total)).all(),
               f"N={BIG_N} {mode}: non-finite energy")
         print(f"perf: main path N={BIG_N} {mode}: 20 ticks (snapshots "
               f"every 10) in {wall:.3f}s = {20 / wall:.3f} ticks/s, "
-              f"{BIG_N ** 2 * 20 / wall:.4e} pairwise interactions/s")
+              f"{BIG_N ** 2 * 20 / wall:.4e} pairwise interactions/s; "
+              f"launches {launched}; force path: {force_path(launched)}")
+        check(launched.get("sym_force_uniform") == 21
+              and not launched.get("sym_force"),
+              f"N={BIG_N} {mode}: not the equal-mass path: {launched}")
+        report["sym_force_uniform"]["launches"] += hn.LAUNCHES[
+            "sym_force_uniform"]
         del sim
 
     # The row sweep at N=131072 (its plain version at the 1M path's shape
-    # takes minutes; --phases scale has it) and the pair tile at the
-    # chunk shape of the N=1M, D=2 path.
+    # takes minutes; --phases scale has it), then the N=1M path's chunk
+    # shapes: sym_force on one chunk and the pair tile on a chunk pair
+    # (D=2 chunk 209728 and D=3 174784), each variant beside its general
+    # twin in this call; plain versions at D=2 float32.
     pos, m = make_inputs(BIG_N, 2, True, seed=7, dev=dev)
     gm = (cfg.G * m).contiguous()
     q = Quantizer.from_string("float32")
@@ -634,27 +955,59 @@ def phase_perf(dev, report: dict) -> None:
     ms = cuda_ms(lambda: hn.row_force(pos, gm, bounds, q, False), 3)
     plain_ms2 = cuda_ms(lambda: hn.row_force_plain(pos, gm, bounds, q,
                                                    False), 2)
+    work = (BIG_N * (BIG_N - 1), pair_ops("rows", 2, "float32"),
+            sym_bytes(BIG_N, 2))
     print(f"perf: row_force N={BIG_N} D=2 float32: kernel {ms:.4f} ms, "
           f"plain {min(plain_ms, plain_ms2):.4f} ms (plain runs "
-          f"{plain_ms:.4f} / {plain_ms2:.4f})")
-    report["row_force"].update(ms=ms, plain_ms=min(plain_ms, plain_ms2),
-                               timed_at=f"N={BIG_N} D=2 float32")
-    chunk = hn.sym_chunk_size(LARGE_N, 2)
-    pos, m = make_inputs(2 * chunk, 2, True, seed=8, dev=dev)
-    gm = (cfg.G * m).contiguous()
-    pa, pb, ga, gb = pos[:chunk], pos[chunk:], gm[:chunk], gm[chunk:]
-    plain_ms = cuda_ms(lambda: hn.pair_sym_force_plain(pa, ga, pb, gb,
-                                                       bounds, q), 1, 0)
-    ms = cuda_ms(lambda: hn.pair_sym_force(pa, ga, pb, gb, bounds, q), 3)
-    plain_ms2 = cuda_ms(lambda: hn.pair_sym_force_plain(pa, ga, pb, gb,
-                                                        bounds, q), 1, 0)
-    print(f"perf: pair_sym_force {chunk}x{chunk} D=2 float32 (the N=1M "
-          f"chunk pair): kernel {ms:.4f} ms, plain "
-          f"{min(plain_ms, plain_ms2):.4f} ms (plain runs {plain_ms:.4f} / "
-          f"{plain_ms2:.4f})")
-    report["pair_sym_force"].update(ms=ms, plain_ms=min(plain_ms, plain_ms2),
-                                    timed_at=f"{chunk}x{chunk} D=2 float32")
-    del pos, m, gm, pa, pb, ga, gb
+          f"{plain_ms:.4f} / {plain_ms2:.4f}), bound {bound(*work)[0]:.4f} "
+          f"ms")
+    set_timing(report["row_force"], ms, min(plain_ms, plain_ms2),
+               f"N={BIG_N} D=2 float32", *work)
+    del pos, m, gm
+    for dim in (2, 3):
+        chunk = hn.sym_chunk_size(LARGE_N, dim)
+        pos, m = make_inputs(2 * chunk, dim, True, seed=8, dev=dev)
+        gm = (cfg.G * m).contiguous()
+        pa, pb, ga, gb = pos[:chunk], pos[chunk:], gm[:chunk], gm[chunk:]
+        for mode in ("float32", "int4"):
+            q = Quantizer.from_string(mode)
+            bounds = force_bounds(q, pos, cfg.softening_sq, dev)
+            with_plain = dim == 2 and mode == "float32"
+            for uniform in (False, True):
+                runs = (
+                    (hn._variant("sym_force", uniform), chunk * (chunk - 1)
+                     / 2, sym_bytes(chunk, dim),
+                     lambda: hn.sym_force(pa, ga, bounds, q, False,
+                                          uniform=uniform),
+                     lambda: (hn.sym_force_uniform_plain if uniform
+                              else hn.sym_force_plain)(pa, ga, bounds, q,
+                                                       False)),
+                    (hn._variant("pair_sym_force", uniform), chunk * chunk,
+                     2 * sym_bytes(chunk, dim),
+                     lambda: hn.pair_sym_force(pa, ga, pb, gb, bounds, q,
+                                               uniform=uniform),
+                     lambda: (hn.pair_sym_force_uniform_plain if uniform
+                              else hn.pair_sym_force_plain)(
+                                  pa, ga, pb, gb, bounds, q)))
+                for key, pairs, nbytes, kernel, plain in runs:
+                    ms = cuda_ms(kernel, 3)
+                    shape = (f"{chunk}x{chunk}" if key.startswith("pair")
+                             else f"N={chunk}")
+                    ops = pair_ops("sym_uniform" if uniform else "sym", dim,
+                                   mode)
+                    line = (f"perf: {key} {shape} D={dim} {mode} (the N=1M "
+                            f"path's chunk shape): kernel {ms:.4f} ms, bound "
+                            f"{bound(pairs, ops, nbytes)[0]:.4f} ms")
+                    if with_plain:
+                        plain_ms = min(cuda_ms(plain, 1, 0),
+                                       cuda_ms(plain, 1, 0))
+                        line += f", plain {plain_ms:.4f} ms"
+                        if key.startswith("pair"):
+                            set_timing(report[key], ms, plain_ms,
+                                       f"{shape} D=2 float32", pairs, ops,
+                                       nbytes)
+                    print(line)
+        del pos, m, gm, pa, pb, ga, gb
 
     # dt and softening as run-time device scalars against the same run
     # with static parameters: the same launches on the same values, so
@@ -693,9 +1046,15 @@ def large_ics(dim: int, dev):
 
 
 def reset_counters(hn) -> None:
-    for k in hn.LAUNCHES:
-        hn.LAUNCHES[k] = 0
-    hn.BOUNDS_FALLBACKS.clear()
+    """Every launch count, the lab's too, and the device counters to 0."""
+    from nbody_tpu_torch.lab import kernel_lab
+    from nbody_tpu_torch.models import direct
+    for counts in (hn.LAUNCHES, kernel_lab.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    for registry in (hn.BOUNDS_FALLBACKS, hn.REDO_LAUNCHES,
+                     direct.CACHED_BOUNDS_STATS):
+        registry.clear()
 
 
 def hold_large(name, got, want, pos, gm, bounds, q, rows=None):
@@ -719,6 +1078,7 @@ def hold_large(name, got, want, pos, gm, bounds, q, rows=None):
 
 
 def phase_large(dev, report: dict) -> None:
+    from nbody_tpu_torch.cli import force_path
     from nbody_tpu_torch.config import SimConfig
     from nbody_tpu_torch.models.direct import _resolve_impl, run_steps
     from nbody_tpu_torch.models.state import make_state
@@ -729,7 +1089,6 @@ def phase_large(dev, report: dict) -> None:
     cfg = SimConfig()
     gen = torch.Generator().manual_seed(LARGE_SEED)
     rows = torch.randperm(LARGE_N, generator=gen)[:SAMPLED_ROWS].to(dev)
-    pair_launches = 0
     for dim in (2, 3):
         pos0, vel0, m0 = large_ics(dim, dev)
         chunk = hn.sym_chunk_size(LARGE_N, dim)
@@ -742,72 +1101,102 @@ def phase_large(dev, report: dict) -> None:
         check(impl == "kernel_sym_chunked", f"D={dim}: auto picked {impl}")
         for mode in ("float32", "int4"):
             q = Quantizer.from_string(mode)
-            state = make_state(pos0, vel0, m0, dev)
-            torch.cuda.reset_peak_memory_stats(dev)
-            fence(state.positions)
-            reset_counters(hn)
-            t0 = time.time()
-            state = run_steps(state, q, cfg, "auto", q.is_int, LARGE_STEPS)
-            fence(state.positions)
-            wall = time.time() - t0
-            launched = dict(hn.LAUNCHES)
-            fallbacks = hn.bounds_fallbacks(dev)
-            peak = torch.cuda.max_memory_allocated(dev) / 1e9
-            print(f"large: D={dim} {mode}: {LARGE_STEPS} steps in "
-                  f"{wall:.3f}s = {wall / LARGE_STEPS * 1e3:.1f} ms/step, "
-                  f"{LARGE_N ** 2 * LARGE_STEPS / wall:.4e} pairs/s; "
-                  f"launches {launched}; peak {peak:.2f} GB")
-            want = {**dict.fromkeys(hn.LAUNCHES, 0),
-                    "sym_force": LARGE_STEPS * n_chunks,
-                    "pair_sym_force":
-                        LARGE_STEPS * n_chunks * (n_chunks - 1) // 2,
-                    "max_d2": 2 * LARGE_STEPS if q.is_int else 0}
-            check(launched == want, f"D={dim} {mode}: launches {launched}, "
-                                    f"expected {want}")
-            pair_launches += launched["pair_sym_force"]
-            if q.is_int:
-                print(f"large: D={dim} {mode}: the pruned bounds pass took "
-                      f"its full-set fallback in {fallbacks} of "
-                      f"{LARGE_STEPS} evaluations")
-            check(bool(torch.isfinite(state.positions).all()
-                       and torch.isfinite(state.velocities).all()),
-                  f"D={dim} {mode}: non-finite state")
+            # The general kernels, then the equal-mass variants, from the
+            # same ICs. Every chunk is a multiple of TILE (209728 / 209664
+            # at D=2, 174784 / 174656 at D=3), so uniform_gm takes the
+            # variants throughout.
+            finals = {}
+            for uniform in (False, True):
+                label = "equal-mass" if uniform else "general"
+                sym = hn._variant("sym_force", uniform)
+                pair = hn._variant("pair_sym_force", uniform)
+                state = make_state(pos0, vel0, m0, dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                fence(state.positions)
+                reset_counters(hn)
+                t0 = time.time()
+                state = run_steps(state, q, cfg, "auto", q.is_int,
+                                  LARGE_STEPS, uniform_gm=uniform)
+                fence(state.positions)
+                wall = time.time() - t0
+                launched = dict(hn.LAUNCHES)
+                fallbacks = hn.bounds_fallbacks(dev)
+                peak = torch.cuda.max_memory_allocated(dev) / 1e9
+                print(f"large: D={dim} {mode} {label}: {LARGE_STEPS} steps "
+                      f"in {wall:.3f}s = {wall / LARGE_STEPS * 1e3:.1f} "
+                      f"ms/step, {LARGE_N ** 2 * LARGE_STEPS / wall:.4e} "
+                      f"pairs/s; launches {launched}; peak {peak:.2f} GB")
+                want = {**dict.fromkeys(hn.LAUNCHES, 0),
+                        sym: LARGE_STEPS * n_chunks,
+                        pair: LARGE_STEPS * n_chunks * (n_chunks - 1) // 2,
+                        "max_d2": 2 * LARGE_STEPS if q.is_int else 0}
+                check(launched == want, f"D={dim} {mode} {label}: launches "
+                                        f"{launched}, expected {want}")
+                print(f"large: D={dim} {mode} {label}: force path "
+                      f"{force_path(launched)}")
+                for k in (sym, pair):
+                    report[k]["launches"] += launched[k]
+                if q.is_int:
+                    print(f"large: D={dim} {mode} {label}: the pruned bounds "
+                          f"pass took its full-set fallback in {fallbacks} "
+                          f"of {LARGE_STEPS} evaluations")
+                check(bool(torch.isfinite(state.positions).all()
+                           and torch.isfinite(state.velocities).all()),
+                      f"D={dim} {mode} {label}: non-finite state")
+                finals[uniform] = state
 
-            # One evaluation, two independent kernels over all rows, and
-            # both against the plain version on sampled receivers.
+            # One evaluation on the general run's final positions: the
+            # chunked path, general and equal-mass, and the row kernel over
+            # all rows, each against the plain version on sampled receivers.
+            state = finals[False]
+            del finals
             pos = state.positions
             gm = (cfg.G * state.masses).contiguous()
             bounds = hn.kernel_bounds(pos, q, cfg)
             fence(bounds)
-            t0 = time.time()
-            chunked = hn.sym_accelerations_chunked(pos, state.masses, q, cfg,
-                                                   quantize_forces=False)
-            fence(chunked)
-            t_chunked = time.time() - t0
+            chunked = {}
+            for uniform in (False, True):
+                t0 = time.time()
+                chunked[uniform] = hn.sym_accelerations_chunked(
+                    pos, state.masses, q, cfg, quantize_forces=False,
+                    uniform_gm=uniform)
+                fence(chunked[uniform])
+                t_chunked = time.time() - t0
+                b_sym = bound(LARGE_N * (LARGE_N - 1) / 2,
+                              pair_ops("sym_uniform" if uniform else "sym",
+                                       dim, mode), sym_bytes(LARGE_N, dim))[0]
+                label = "equal-mass" if uniform else "general"
+                print(f"large: D={dim} {mode}: one evaluation, chunked "
+                      f"{label}: {t_chunked * 1e3:.1f} ms (bound {b_sym:.1f};"
+                      f" wall, with its bounds pass)")
+                if dim == 2 and mode == "float32":
+                    report[hn._variant("pair_sym_force", uniform)][
+                        "chunked_eval_ms_1M_D2"] = t_chunked * 1e3
             t0 = time.time()
             rowsweep = hn.accelerations_rows(pos, state.masses, q, cfg,
                                              quantize_forces=False)
             fence(rowsweep)
             t_rows = time.time() - t0
-            print(f"large: D={dim} {mode}: one evaluation: chunked "
-                  f"{t_chunked * 1e3:.1f} ms, row sweep {t_rows * 1e3:.1f} "
-                  f"ms (wall, each with its bounds pass)")
-            if dim == 2 and mode == "float32":
-                report["pair_sym_force"]["chunked_eval_ms_1M_D2"] = \
-                    t_chunked * 1e3
-            hold_large("chunked vs row_force, all rows", chunked, rowsweep,
-                       pos, gm, bounds, q)
+            b_rows = bound(LARGE_N * (LARGE_N - 1),
+                           pair_ops("rows", dim, mode),
+                           sym_bytes(LARGE_N, dim))[0]
+            print(f"large: D={dim} {mode}: one evaluation, row sweep "
+                  f"{t_rows * 1e3:.1f} ms (bound {b_rows:.1f}; wall, with "
+                  f"its bounds pass)")
             plain = hn.row_force_plain(pos, gm, bounds, q, False, rows=rows,
                                        block=512)
-            hold_large(f"chunked vs plain, {SAMPLED_ROWS} rows",
-                       chunked[rows], plain, pos, gm, bounds, q, rows)
+            for uniform, acc in chunked.items():
+                label = "equal-mass" if uniform else "general"
+                hold_large(f"chunked {label} vs row_force, all rows", acc,
+                           rowsweep, pos, gm, bounds, q)
+                hold_large(f"chunked {label} vs plain, {SAMPLED_ROWS} rows",
+                           acc[rows], plain, pos, gm, bounds, q, rows)
             hold_large(f"row_force vs plain, {SAMPLED_ROWS} rows",
                        rowsweep[rows], plain, pos, gm, bounds, q, rows)
             del state, pos, gm, chunked, rowsweep, plain
         if dim == 3:
             bounds_pass_checks(hn, cfg, pos0, dev)
         del pos0, vel0, m0
-    report["pair_sym_force"]["launches"] = pair_launches
 
     # Zero softening routes the chunked path to the row sweep. The D=3
     # Plummer sphere, since the disk's radius clamp at 0.1 puts exactly
@@ -823,7 +1212,7 @@ def phase_large(dev, report: dict) -> None:
     fence(state.positions)
     reset_counters(hn)
     t0 = time.time()
-    state = run_steps(state, q, cfg0, "auto", False, 2)
+    state = run_steps(state, q, cfg0, "auto", False, 2, uniform_gm=True)
     fence(state.positions)
     wall = time.time() - t0
     launched = dict(hn.LAUNCHES)
@@ -848,9 +1237,11 @@ def bounds_pass_checks(hn, cfg, plummer, dev) -> None:
         took = hn.bounds_fallbacks(dev)
         ms = cuda_ms(lambda: hn.max_d2(geom), 2)
         full = hn.max_dist_sq(geom, cfg)
+        b_ms = bound(LARGE_N * (LARGE_N - 1) / 2, pair_ops("max", 3, ""),
+                     4 * (3 * LARGE_N + 1))[0]
         print(f"large: bounds pass D=3 {name}: pruned {pruned.item()!r}, "
-              f"full max_d2 {full.item()!r} ({ms:.3f} ms a full launch), "
-              f"fallback taken: {bool(took)}")
+              f"full max_d2 {full.item()!r} ({ms:.3f} ms a full launch, "
+              f"bound {b_ms:.3f}), fallback taken: {bool(took)}")
         check(torch.equal(pruned, full), f"{name}: pruned != full max")
         if name == "shell":
             check(took == 1, "the shell did not take the fallback")
@@ -1032,8 +1423,13 @@ def ring_tiles(dev, report: dict) -> None:
                   f"{ms:.4f} ms, plain {min(plain_ms, plain_ms2):.4f} ms "
                   f"(plain runs {plain_ms:.4f} / {plain_ms2:.4f})")
             if mode == "float32":
-                report[name].update(ms=ms, plain_ms=min(plain_ms, plain_ms2),
-                                    timed_at=f"{BIG_N}x{BIG_N} D=2 float32")
+                kind, nbytes = {
+                    "pair_force": ("rows", 4 * 7 * BIG_N),
+                    "pair_max": ("max", 4 * 4 * BIG_N + 2 * BIG_N + 4),
+                    "pair_pe_rows": ("pe", 4 * 9 * BIG_N)}[name]
+                set_timing(report[name], ms, min(plain_ms, plain_ms2),
+                           f"{BIG_N}x{BIG_N} D=2 float32", BIG_N ** 2,
+                           pair_ops(kind, 2, mode), nbytes)
             got, want = out["kernel"], out["plain"]
             if name == "pair_force":
                 force.hold(f"{mode} {shape}", got, want,
@@ -1074,7 +1470,8 @@ def ring_cli(dev, report: dict) -> None:
     from nbody_tpu_torch.ops import hopper_nbody as hn
 
     evals, passes = RING_TICKS + 1, RING_TICKS // RING_INTERVAL
-    totals = {"pair_force": 0, "pair_max": 0, "pair_pe_rows": 0}
+    totals = {"sym_force_uniform": 0, "pair_force": 0, "pair_max": 0,
+              "pair_pe_rows": 0}
     for schedule in ("sym", "rows"):
         argv = ["--device", str(dev), "--stars", str(BIG_N), "--ticks",
                 str(RING_TICKS), "--snapshot-interval", str(RING_INTERVAL),
@@ -1105,7 +1502,10 @@ def ring_cli(dev, report: dict) -> None:
             want = dict.fromkeys(hn.LAUNCHES, 0)
             want["pair_pe_rows"] = passes
             want["pair_max"] = evals if is_int else 0
-            want["sym_force" if schedule == "sym" else "pair_force"] = evals
+            # Equal masses, N % 1 == 0 and 131072 % 64 == 0: the sym
+            # schedule's diagonal is the equal-mass variant.
+            want["sym_force_uniform" if schedule == "sym"
+                 else "pair_force"] = evals
             print(f"ring: --schedule {schedule} {mode}: {rate.group(1)} "
                   f"ticks in {rate.group(2)}s ({rate.group(3)} ticks/s); "
                   f"launches {launched}; force path: {path}")
@@ -1118,11 +1518,11 @@ def ring_cli(dev, report: dict) -> None:
                   and np.isfinite(h.total_energy).all(),
                   f"{schedule} {mode}: history not finite / wrong length")
     for k, n in totals.items():
-        report[k]["launches"] = n
+        report[k]["launches"] += n
         check(n > 0, f"{k} was never launched on the mesh path")
 
 
-def ring_virtual(dev) -> None:
+def ring_virtual(dev, report: dict) -> None:
     """Virtual shards on the one card at N in {5000, 131072, 131075
     (phantom rows)}, D=2 disk: for S in {1, 3, 4} the ring's energy
     against metrics.potential_energy (and its wall beside the plain one's)
@@ -1201,6 +1601,8 @@ def ring_virtual(dev) -> None:
                               f" ms wall (single-device sym_accelerations "
                               f"{single_ms[mode]:.1f} ms)")
                     launched = {k: v for k, v in hn.LAUNCHES.items() if v}
+                    report["pair_sym_force"]["launches"] += hn.LAUNCHES[
+                        "pair_sym_force"]
                     s = n_shards
                     want = ({"sym_force": s, "pair_sym_force": s * (s - 1) // 2}
                             if schedule == "sym" else {"pair_force": s * s})
@@ -1229,11 +1631,75 @@ def ring_virtual(dev) -> None:
                       if k != "energy"))
 
 
+def ring_equal_mass(dev) -> None:
+    """The equal-mass tiles on the ring at N=131072 (equal masses, D=2): a
+    mesh of one and virtual S=4 (shards of 32768), one evaluation with the
+    flag against one without it in the same call (times, launch counts,
+    agreement); then the phantom layouts (S=3 at 131072, S=4 at 131075),
+    where the flag must change no bit."""
+    from nbody_tpu_torch.config import SimConfig
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+    from nbody_tpu_torch.ops.precision import Quantizer
+    from nbody_tpu_torch.parallel import ring
+
+    cfg = SimConfig()
+    accel = hn.prevalidated(ring.ring_accelerations)
+    pos, m = make_inputs(BIG_N + 3, 2, True, seed=17, dev=dev)
+    gm = (cfg.G * m).contiguous()
+    p, mm, g = pos[:BIG_N], m[:BIG_N], gm[:BIG_N]
+    for s in (1, 4):
+        mesh = ring.ParticleMesh.virtual(s, dev)
+        for mode in ("float32", "int4"):
+            q = Quantizer.from_string(mode)
+            out = {}
+            for uniform in (True, False):
+                reset_counters(hn)
+                out[uniform] = accel(p, mm, q, cfg, mesh, uniform_gm=uniform)
+                launched = {k: v for k, v in hn.LAUNCHES.items() if v}
+                sym = hn._variant("sym_force", uniform)
+                pair = hn._variant("pair_sym_force", uniform)
+                want = {sym: s, pair: s * (s - 1) // 2}
+                if q.is_int:
+                    want["pair_max"] = s * (s // 2 + 1)
+                want = {k: v for k, v in want.items() if v}
+                check(launched == want, f"S={s} {mode} uniform={uniform}: "
+                                        f"launches {launched}, want {want}")
+            ms = {u: cuda_ms(lambda u=u: accel(p, mm, q, cfg, mesh,
+                                               uniform_gm=u), 2)
+                  for u in (True, False, True)}
+            bounds = hn.kernel_bounds(p, q, cfg)
+            scale = lazy_scale(p, g, bounds, q, False, out[True], out[False])
+            ok, err, ratio, _ = agree(out[True], out[False], scale)
+            off, one_step = (quantized_flips(out[True], out[False], q)
+                             if q.is_int else (0, True))
+            print(f"ring: equal masses S={s} N={BIG_N} {mode}: one "
+                  f"evaluation {ms[True]:.3f} ms equal-mass tiles vs "
+                  f"{ms[False]:.3f} ms general (device time); err/bound "
+                  f"{ratio:.4f}, quantize_force flips {off}")
+            check(ok and off <= flips_allowed(out[False]) and one_step,
+                  f"S={s} {mode}: equal-mass ring != general ring")
+    for s, n in ((3, BIG_N), (4, BIG_N + 3)):
+        mesh = ring.ParticleMesh.virtual(s, dev)
+        for mode in ("float32", "int4"):
+            q = Quantizer.from_string(mode)
+            reset_counters(hn)
+            got = accel(pos[:n], m[:n], q, cfg, mesh, uniform_gm=True)
+            check(not (hn.LAUNCHES["sym_force_uniform"]
+                       or hn.LAUNCHES["pair_sym_force_uniform"]),
+                  f"S={s} N={n}: equal-mass tiles on a phantom layout")
+            check(torch.equal(got, accel(pos[:n], m[:n], q, cfg, mesh)),
+                  f"S={s} N={n} {mode}: the flag changed bits on a "
+                  f"phantom layout")
+        print(f"ring: phantom layout S={s} N={n}: the flag keeps the general "
+              f"tiles, bitwise (float32, int4)")
+
+
 def ring_large(dev) -> None:
     """N=1,048,576 (D=2 disk) through DirectSimulation(mesh=...): a mesh of
     the one card (float32 and int4, 5 ticks and one snapshot: the
-    diagonal is the chunked path, the energy #7), and virtual(2) (float32,
-    2 ticks: the pair tile source-chunked past the budget)."""
+    diagonal is the chunked path, the energy #7; float32 also with unequal
+    masses, the general tiles), and virtual(2) (float32, 2 ticks: the pair
+    tile source-chunked past the budget)."""
     from nbody_tpu_torch.config import SimConfig
     from nbody_tpu_torch.models.direct import DirectSimulation
     from nbody_tpu_torch.ops import hopper_nbody as hn
@@ -1244,30 +1710,41 @@ def ring_large(dev) -> None:
     p0, v0, m0 = large_ics(2, dev)
     one, two = ring.make_particle_mesh(1, dev), ring.ParticleMesh.virtual(
         2, dev)
-    for mesh, mode, ticks in ((one, "float32", LARGE_STEPS),
-                              (one, "int4", LARGE_STEPS),
-                              (two, "float32", 2)):
+    unequal = m0 * (1.0 + torch.rand(LARGE_N, generator=torch.Generator()
+                                     .manual_seed(LARGE_SEED)).to(dev))
+    for mesh, mode, ticks, masses in ((one, "float32", LARGE_STEPS, m0),
+                                      (one, "float32", LARGE_STEPS, unequal),
+                                      (one, "int4", LARGE_STEPS, m0),
+                                      (two, "float32", 2, m0)):
         s = mesh.size
         b = LARGE_N // s
         c = -(-b // hn.sym_chunk_size(b, 2))          # diagonal chunks
         k = -(-b // ring._src_chunk_size(b, b, 2)) if s > 1 else 0
         evals = ticks + 1
-        want = {"sym_force": evals * s * c,
-                "pair_sym_force": evals * (s * c * (c - 1) // 2
-                                           + s * (s - 1) // 2 * k),
+        # Every chunk and source chunk here is a multiple of TILE (209728 /
+        # 209664 on one shard, 174784 / 174720 on two): equal masses take
+        # the equal-mass tiles, unequal ones the general tiles.
+        uniform = masses is m0
+        want = {hn._variant("sym_force", uniform): evals * s * c,
+                hn._variant("pair_sym_force", uniform):
+                    evals * (s * c * (c - 1) // 2 + s * (s - 1) // 2 * k),
                 "pair_pe_rows": s * s}
         if mode == "int4":
             want["pair_max"] = evals * s * (s // 2 + 1)
         torch.cuda.reset_peak_memory_stats(dev)
         reset_counters(hn)
-        sim = DirectSimulation(p0, v0, m0, precision=mode, mesh=mesh)
+        sim = DirectSimulation(p0, v0, masses, precision=mode, mesh=mesh)
+        check(sim._uniform_gm == uniform,
+              f"1M {mode} S={s}: equal masses detected {sim._uniform_gm}")
         fence(sim.state.positions)
         t0 = time.time()
         snaps, frames = sim.run_with_history(ticks, ticks)
         wall = time.time() - t0
         launched = {k2: v for k2, v in hn.LAUNCHES.items() if v}
         peak = torch.cuda.max_memory_allocated(dev) / 1e9
-        print(f"ring: 1M {mode} mesh of {s}: {ticks} ticks + 1 snapshot in "
+        print(f"ring: 1M {mode} mesh of {s}, "
+              f"{'equal' if uniform else 'unequal'} masses: {ticks} ticks + "
+              f"1 snapshot in "
               f"{wall:.3f}s ({evals} evaluations: {c} diagonal chunks, "
               f"pair tiles in {k} source chunks); launches {launched}; peak "
               f"{peak:.2f} GB; energy {float(snaps.total[0])!r}")
@@ -1297,7 +1774,8 @@ def phase_ring(dev, report: dict) -> None:
     from nbody_tpu_torch.parallel import ring
     for name, part in (("tiles", lambda: ring_tiles(dev, report)),
                        ("cli", lambda: ring_cli(dev, report)),
-                       ("virtual", lambda: ring_virtual(dev)),
+                       ("virtual", lambda: ring_virtual(dev, report)),
+                       ("equal masses", lambda: ring_equal_mass(dev)),
                        ("gate", lambda: phase_gate(
                            dev, ring.make_particle_mesh(1, dev),
                            "ring: gate, mesh of 1")),
@@ -1306,6 +1784,178 @@ def phase_ring(dev, report: dict) -> None:
         part()
         torch.cuda.synchronize()
         print(f"ring: {name} ok in {time.time() - t:.1f}s")
+
+
+# --------------------------------------------------------------------------
+# Phase 9: the speculate-and-verify int bounds (bounds_mode='cached')
+# --------------------------------------------------------------------------
+
+CACHED_TICKS = 50   # at N=131072
+
+
+def cached_run(state, q, cfg, ticks: int, interval: int, mode: str, dev):
+    """int4 run_with_snapshots of ``ticks`` with ``bounds_mode``, the
+    equal-mass path, counters reset before; returns (state, snapshots,
+    wall s, launches)."""
+    from nbody_tpu_torch.models import direct
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+    from nbody_tpu_torch.utils.profiler import fence
+    reset_counters(hn)
+    fence(state.positions)
+    t0 = time.time()
+    state, snaps, _ = direct.run_with_snapshots(
+        state, q, cfg, "kernel", True, interval, ticks // interval,
+        uniform_gm=True, bounds_mode=mode)
+    fence(state.positions)
+    return state, snaps, time.time() - t0, dict(hn.LAUNCHES)
+
+
+def phase_cached(dev, report: dict) -> None:
+    """int4 run_with_snapshots(bounds_mode='cached') on the canonical
+    5000 x 2000 ICs, on a 131072-star disk and on a 131072-star shell
+    whose pruned bounds pass falls back to the full max_d2 every tick,
+    each beside the exact path in the same call. Invariants: no tick's
+    grid clipped its max; the redo launches that ran equal the counted
+    violations; no max_d2 launch; one fused-max and one redo sym_force a
+    tick. Reported: ms a tick, the violation rate, and the canonical final
+    drift against the int4 reference envelope."""
+    from nbody_tpu_torch.config import SimConfig
+    from nbody_tpu_torch.diagnostics import metrics
+    from nbody_tpu_torch.models import direct
+    from nbody_tpu_torch.models.galaxy import (create_disk_galaxy,
+                                               load_disk_fixture)
+    from nbody_tpu_torch.models.state import make_state
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+    from nbody_tpu_torch.ops.precision import Quantizer
+
+    cfg, q = SimConfig(), Quantizer.from_string("int4")
+    disk = create_disk_galaxy(torch.Generator().manual_seed(0),
+                              num_stars=BIG_N, device=dev)
+    shell = shell_positions(BIG_N, dev)
+    cases = (("canonical", load_disk_fixture(STARS, 42, device=dev), TICKS,
+              INTERVAL),
+             ("disk", disk, CACHED_TICKS, CACHED_TICKS),
+             ("shell", (shell, torch.zeros_like(shell),
+                        torch.ones(BIG_N, device=dev)), CACHED_TICKS,
+              CACHED_TICKS))
+    for name, (pos, vel, m), ticks, interval in cases:
+        n = pos.shape[0]
+        uniform = n % hn.TILE == 0
+        state = make_state(pos, vel, m, dev)
+        state = state._replace(accelerations=hn.sym_accelerations(
+            state.positions, state.masses, q, cfg, uniform_gm=True))
+        e0 = float(metrics.total_energy(state.positions, state.velocities,
+                                        state.masses, cfg))
+        out = {}
+        for mode in ("exact", "cached", "exact"):
+            st, snaps, wall, launched = cached_run(state, q, cfg, ticks,
+                                                   interval, mode, dev)
+            drift = (float(snaps.total[-1]) - e0) / abs(e0) * 100.0
+            out.setdefault(mode, []).append(wall)
+            if mode == "exact":
+                fallbacks = hn.bounds_fallbacks(dev)
+                continue
+            viol, clipped = direct.cached_bounds_stats(dev)
+            redo = hn.redo_launches(dev)
+            fused = hn._variant("sym_force", uniform, True)
+            plain = hn._variant("sym_force", uniform)
+            print(f"cached: {name} N={n} x {ticks}: violations {viol} "
+                  f"({viol / ticks:.2%} of ticks), redo launches that ran "
+                  f"{redo}, ticks whose grid clipped {clipped}; launches "
+                  f"{ {k: v for k, v in launched.items() if v} }; final "
+                  f"drift {drift:+.6f}%")
+            check(clipped == 0, f"cached {name}: {clipped} ticks clipped")
+            check(redo == viol, f"cached {name}: {redo} redo launches ran "
+                                f"for {viol} violations")
+            check(launched["max_d2"] == 0, f"cached {name}: max_d2 launched")
+            check(launched[fused] == ticks and launched[plain] == ticks,
+                  f"cached {name}: launches {launched}")
+            check(np.isfinite(np.asarray(snaps.total)).all()
+                  and bool(torch.isfinite(st.positions).all()),
+                  f"cached {name}: non-finite output")
+            report[fused]["launches"] += launched[fused]
+            if name == "canonical":
+                _, text = gate_rule("int4", [drift],
+                                    st.positions.cpu().numpy())
+                print(f"cached: canonical int4 with cached bounds: {text} "
+                      f"(reported, not a gate)")
+        ex, ca = min(out["exact"]), out["cached"][0]
+        # What a tick without a violation pays for its redo: one walk
+        # launch whose every block reads the skip flag and returns; and a
+        # redo that runs against the same launch without the flag (one
+        # block per tile pair), bitwise the same forces.
+        one = torch.ones((), dtype=torch.int32, device=dev)
+        gm = (cfg.G * state.masses).contiguous()
+        bounds = hn.kernel_bounds(state.positions, q, cfg)
+
+        def redo(flag):
+            return hn.sym_force(state.positions, gm, bounds, q, False,
+                                uniform=uniform, skip=flag)
+
+        skip_ms = cuda_ms(lambda: redo(one), 5)
+        run_ms, grid_ms = cuda_ms(lambda: redo(one * 0), 5), cuda_ms(
+            lambda: redo(None), 5)
+        check(torch.equal(redo(one * 0), redo(None)),
+              f"cached {name}: the walk's forces differ from the grid's")
+        print(f"cached: {name} N={n}: {ca / ticks * 1e3:.3f} ms a tick "
+              f"cached vs {ex / ticks * 1e3:.3f} exact (best of "
+              f"{len(out['exact'])}; the exact path's pruned pass fell back "
+              f"to the full max_d2 in {fallbacks} of {ticks} ticks); a "
+              f"skipped redo launch {skip_ms:.4f} ms, one that runs "
+              f"{run_ms:.4f} ms against {grid_ms:.4f} without the flag "
+              f"(device time, bitwise the same forces)")
+        if name == "shell":
+            check(fallbacks == ticks, "the shell did not defeat the pruned "
+                                      "bounds pass")
+
+
+# --------------------------------------------------------------------------
+# Phase 10: the kernel lab
+# --------------------------------------------------------------------------
+
+def phase_lab(dev, report: dict) -> None:
+    """``python -m nbody_tpu_torch.lab.kernel_lab``'s table through its
+    entry point, with every launch count read around it."""
+    from nbody_tpu_torch.lab import kernel_lab
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+
+    reset_counters(hn)
+    rows = kernel_lab.main(["--device", str(dev)])
+    launched = {**{k: v for k, v in hn.LAUNCHES.items() if v},
+                **kernel_lab.LAUNCHES}
+    print(f"lab: launches {launched}")
+    for name, count in kernel_lab.LAUNCHES.items():
+        report[name]["launches"] = count
+        check(count > 0, f"{name} was never launched by the lab")
+    check(launched.get("sym_force") and launched.get("sym_force_uniform"),
+          "the lab did not run prod and uniform")
+    for row in rows:
+        check(np.isfinite(row["ms"]) and (row["mode"] != "float32"
+                                          or row["rel_vs_prod"] <= 1e-4),
+              f"lab row {row}")
+    # Each lab kernel against its plain version at the lab's shape, beside
+    # the production equal-mass kernel, in this call.
+    from nbody_tpu_torch.config import SimConfig
+    from nbody_tpu_torch.ops.precision import Quantizer
+    cfg, q = SimConfig(), Quantizer.from_string("float32")
+    pos, m = make_inputs(BIG_N, 2, True, seed=42, dev=dev)
+    gm = (cfg.G * m).contiguous()
+    bounds = force_bounds(q, pos, cfg.softening_sq, dev)
+    uni_ms = cuda_ms(lambda: hn.sym_force(pos, gm, bounds, q, False,
+                                          uniform=True), 3)
+    for v in kernel_lab.VARIANTS:
+        def plain():
+            kernel_lab.sym_force_lab_plain(pos, gm, bounds, q, False, v)
+        plain_ms = cuda_ms(plain, 1)
+        ms = cuda_ms(lambda: kernel_lab.sym_force_lab(pos, gm, bounds, q,
+                                                      False, v), 3)
+        plain_ms = min(plain_ms, cuda_ms(plain, 1))
+        print(f"lab: sym_force_lab_{v} N={BIG_N} D=2 float32: kernel "
+              f"{ms:.4f} ms (sym_force_uniform {uni_ms:.4f} ms), plain "
+              f"{plain_ms:.4f} ms")
+        set_timing(report[f"sym_force_lab_{v}"], ms, plain_ms,
+                   f"N={BIG_N} D=2 float32", BIG_N * (BIG_N - 1) / 2,
+                   pair_ops("sym_uniform", 2, "float32"), sym_bytes(BIG_N, 2))
 
 
 # --------------------------------------------------------------------------
@@ -1461,7 +2111,8 @@ def main(argv=None) -> int:
             print(f"build: {line.strip()}")
 
     report = {k: {"name": k, "route": "cuda", **v, "launches": 0,
-                  "max_abs_err": None, "ms": None, "plain_ms": None}
+                  "max_abs_err": None, "ms": None, "plain_ms": None,
+                  "bound_ms": None, "bound_by": None, "library_ms": None}
               for k, v in KERNELS.items()}
     try:
         for phase in phases:
@@ -1478,12 +2129,21 @@ def main(argv=None) -> int:
                 phase_large(dev, report)
             elif phase == "ring":
                 phase_ring(dev, report)
+            elif phase == "cached":
+                phase_cached(dev, report)
+            elif phase == "lab":
+                phase_lab(dev, report)
             elif phase == "profile":
                 phase_profile(dev, args.profile_out)
             elif phase == "scale":
                 phase_scale(dev)
             torch.cuda.synchronize()
-            print(f"phase {phase}: ok in {time.time() - t:.1f}s")
+            print(f"phase {phase}: ok in {time.time() - t:.1f}s; card "
+                  f"(SM clock, max, power, temperature, throttle): "
+                  f"{card_state()}")
+        if set(PHASES) <= set(phases):
+            never = [k for k, v in report.items() if not v["launches"]]
+            check(not never, f"never launched on a path: {never}")
     except Failed as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

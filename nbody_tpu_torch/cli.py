@@ -98,26 +98,38 @@ Precision modes:
     return p
 
 
-RING_KERNELS = ("sym_force", "pair_sym_force", "row_force", "pair_force",
+RING_KERNELS = ("sym_force", "sym_force_uniform", "pair_sym_force",
+                "pair_sym_force_uniform", "row_force", "pair_force",
                 "pair_max", "pair_pe_rows")
+EQUAL_MASS = ("sym_force_uniform", "sym_force_uniform_max",
+              "pair_sym_force_uniform")
 
 
 def force_path(launched: dict, schedule: str | None = None) -> str:
     """Which force path a run took: a mesh run names its ring
     ``schedule`` and the kernels it launched; a single-device run is
-    told apart by its kernel launch counts."""
+    told apart by its kernel launch counts. Launches of the sym kernels'
+    equal-mass variants name that variant."""
+    def n(*keys):
+        return sum(launched.get(k, 0) for k in keys)
+
+    equal = " + ".join(k for k in EQUAL_MASS if n(k))
+    variant = f", equal-mass variant ({equal})" if equal else ""
     if schedule is not None:
         name = "rows" if schedule == "rows" else "sym (half ring)"
-        kernels = (" + ".join(k for k in RING_KERNELS if launched[k])
+        kernels = (" + ".join(k for k in RING_KERNELS if n(k))
                    or "no kernel launched: CPU plain versions or the f64 "
                       "baseline")
         return f"ring, {name} schedule ({kernels})"
-    if launched["pair_sym_force"]:
-        return "chunked Newton's-third-law (sym_force + pair_sym_force)"
-    if launched["row_force"]:
+    if n("pair_sym_force", "pair_sym_force_uniform"):
+        return ("chunked Newton's-third-law (sym_force + pair_sym_force)"
+                + variant)
+    if n("row_force"):
         return "row sweep (row_force)"
-    if launched["sym_force"]:
-        return "single-launch sym_force"
+    if n("sym_force", "sym_force_uniform"):
+        return "single-launch sym_force" + variant
+    if n("sym_force_max", "sym_force_uniform_max"):
+        return "single-launch sym_force with the fused max" + variant
     return "no force kernel launched (CPU plain versions or the f64 baseline)"
 
 

@@ -9,7 +9,8 @@
 // `capacity` blocks walks the tile pairs (I, J) with I <= J in a
 // grid-stride loop (thread per receiver row, source tile staged in shared
 // memory), each block keeps its running max, and max_d2_reduce takes the
-// max over the per-block values. Max is exact, so the result does not
+// max over the per-block values (both helpers in max_reduce.cuh, shared
+// with sym_force.cu's fused max). Max is exact, so the result does not
 // depend on the order and is bitwise the plain version's.
 //
 // d^2 is subtract-form and never contracted into an FMA:
@@ -50,25 +51,11 @@
 // same: ~6 fp32 ops per pair, na * nb pairs (the ring's pass visits
 // S * (S/2 + 1) shard pairs, N^2 / 2 pairs and more in all).
 
-#include <cuda_runtime.h>
+#include "max_reduce.cuh"
 
 namespace {
 
-constexpr int MT = 256;
-
-// block_max[blockIdx.x] = the max of `best` over the block's threads.
-__device__ __forceinline__ void store_block_max(float best,
-                                                float* __restrict__ block_max) {
-  __shared__ float red[MT];
-  const int t = threadIdx.x;
-  red[t] = best;
-  __syncthreads();
-  for (int s = MT / 2; s > 0; s >>= 1) {
-    if (t < s) red[t] = fmaxf(red[t], red[t + s]);
-    __syncthreads();
-  }
-  if (t == 0) block_max[blockIdx.x] = red[0];
-}
+constexpr int MT = MAX_RT;
 
 template <int D>
 __global__ void __launch_bounds__(MT)
@@ -108,7 +95,7 @@ max_d2_tiles(const float* __restrict__ pos, int n, const int* __restrict__ skip,
       }
     }
   }
-  store_block_max(best, block_max);
+  store_block_max<MT>(best, block_max + blockIdx.x);
 }
 
 // One block's max of pair d^2 over valid pairs of receivers pa (validity
@@ -156,29 +143,7 @@ pair_max_tiles(const float* __restrict__ pa, const unsigned char* __restrict__ v
       }
     }
   }
-  store_block_max(best, block_max);
-}
-
-__global__ void __launch_bounds__(MT)
-max_d2_reduce(const float* __restrict__ block_max, int nb,
-              const int* __restrict__ skip, int* __restrict__ count,
-              float* __restrict__ out) {
-  const int t = threadIdx.x;
-  if (skip != nullptr && *skip != 0) {
-    if (t == 0) out[0] = 0.f;
-    return;
-  }
-  if (t == 0 && count != nullptr) *count += 1;
-  __shared__ float red[MT];
-  float best = 0.f;
-  for (int k = t; k < nb; k += MT) best = fmaxf(best, block_max[k]);
-  red[t] = best;
-  __syncthreads();
-  for (int s = MT / 2; s > 0; s >>= 1) {
-    if (t < s) red[t] = fmaxf(red[t], red[t + s]);
-    __syncthreads();
-  }
-  if (t == 0) out[0] = red[0];
+  store_block_max<MT>(best, block_max + blockIdx.x);
 }
 
 }  // namespace

@@ -86,21 +86,36 @@ __device__ __forceinline__ float pair_w(float d2, const IntGrid& g) {
 // out[row] = sum over b = 0..nb-1 of part[row / BT][b][row % BT], in that
 // order: part is (ceil(n / BT), nb, BT, D). A fixed order, so two runs give
 // the same bits (the multiverse experiments read summation order as
-// physics).
+// physics). Optional device pointers: `scale` multiplies each sum once by
+// scale[0] (the equal-mass variants' G m_0, never read on the host); when
+// *skip != 0 the launch was skipped and out is zeros; `count` gains 1 when
+// it was not.
 template <int D>
 __global__ void reduce_partials(const float* __restrict__ part, int n, int nb,
+                                const float* __restrict__ scale,
+                                const int* __restrict__ skip,
+                                int* __restrict__ count,
                                 float* __restrict__ out) {
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool skipped = skip != nullptr && *skip != 0;
+  if (row == 0 && count != nullptr && !skipped) *count += 1;
   if (row >= n) return;
-  const size_t a = row / BT;
-  const size_t r = row % BT;
   float s[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) s[d] = 0.f;
-  for (int b = 0; b < nb; ++b) {
-    const float* p = part + ((a * nb + b) * BT + r) * D;
+  if (!skipped) {
+    const size_t a = row / BT;
+    const size_t r = row % BT;
+    for (int b = 0; b < nb; ++b) {
+      const float* p = part + ((a * nb + b) * BT + r) * D;
 #pragma unroll
-    for (int d = 0; d < D; ++d) s[d] = __fadd_rn(s[d], p[d]);
+      for (int d = 0; d < D; ++d) s[d] = __fadd_rn(s[d], p[d]);
+    }
+    if (scale != nullptr) {
+      const float g = scale[0];
+#pragma unroll
+      for (int d = 0; d < D; ++d) s[d] = __fmul_rn(s[d], g);
+    }
   }
 #pragma unroll
   for (int d = 0; d < D; ++d) out[(size_t)row * D + d] = s[d];
@@ -108,8 +123,10 @@ __global__ void reduce_partials(const float* __restrict__ part, int n, int nb,
 
 template <int D>
 void launch_reduce(const float* part, int n, int nb, float* out,
-                   cudaStream_t stream) {
-  reduce_partials<D><<<(n + 255) / 256, 256, 0, stream>>>(part, n, nb, out);
+                   cudaStream_t stream, const float* scale = nullptr,
+                   const int* skip = nullptr, int* count = nullptr) {
+  reduce_partials<D><<<(n + 255) / 256, 256, 0, stream>>>(
+      part, n, nb, scale, skip, count, out);
 }
 
 template <int V>

@@ -2,7 +2,8 @@
 // Hopper (sm_90a).
 //
 // Replaces: nbody_tpu/ops/pallas_nbody.py, _pair_force_sym_kernel (the
-// kernel body) and pallas_pair_force_sym (its wrapper), TPU kernel #6:
+// kernel body) and pallas_pair_force_sym (its wrapper), TPU kernel #6, with
+// its equal-mass fast path (uniform_gm):
 // receivers A and sources B; each pair's w = quantized |r|^-3 is
 // evaluated once and gives both
 //   rows[i] =  sum_j G m_j w_ij (x_j - x_i)   (A's accelerations due to B)
@@ -27,6 +28,13 @@
 //   thousands of blocks in flight at the chunk sizes of the chunked path,
 //   so no wave of blocks runs mostly idle.
 //
+// Equal masses (`uniform`; pallas_nbody.py:974-978, :1022-1031): rows and
+// reactions reduce the same product t = w diff with no G m loaded per pair;
+// reduce_partials scales the rows once by G m_b[0] and the reactions by
+// G m_a[0], read on the device (pallas_nbody.py:1160-1161). The wrapper
+// serves it only when both set sizes are multiples of BT (the full-tile
+// rule, the counterpart of the TPU wrapper's degrade-on-padding).
+//
 // Requires eps^2 > 0 (bounds[2]), as the TPU kernel does: the sets are
 // disjoint, so no pair is masked, and a coincident pair at zero softening
 // would be 0 * inf. The chunked path routes zero and run-time softening to
@@ -34,15 +42,16 @@
 //
 // Numerics: csrc/nbody_common.cuh.
 //
-// What bounds it on the H100: arithmetic, as the sym kernel: ~20 fp32 ops
-// plus one rsqrt or logf + expf per pair, na * nb pairs, against O(na + nb)
-// positions and 4 * D * BT bytes of partials per block and source tile.
+// What bounds it on the H100: arithmetic, as the sym kernel: ~21 fp32 ops
+// (~19 with equal masses; csrc counts, D = 2) plus one rsqrt or logf +
+// expf per pair, na * nb pairs, against O(na + nb) positions and
+// 4 * D * BT bytes of partials per block and source tile.
 
 #include "nbody_common.cuh"
 
 namespace {
 
-template <int MODE, int D>
+template <int MODE, int D, bool UNI>
 __global__ void __launch_bounds__(BT)
 pair_sym_tiles(const float* __restrict__ pa, const float* __restrict__ gma,
                int na, const float* __restrict__ pb,
@@ -68,7 +77,7 @@ pair_sym_tiles(const float* __restrict__ pa, const float* __restrict__ gma,
   if (t < icnt) {
 #pragma unroll
     for (int d = 0; d < D; ++d) xi_s[d][t] = pa[(size_t)(i0 + t) * D + d];
-    gmi_s[t] = gma[i0 + t];
+    if (!UNI) gmi_s[t] = gma[i0 + t];
   }
   const float soft = bounds[2];
   IntGrid g{};
@@ -85,7 +94,7 @@ pair_sym_tiles(const float* __restrict__ pa, const float* __restrict__ gma,
     if (t < jcnt) {
 #pragma unroll
       for (int d = 0; d < D; ++d) xj_s[d][t] = pb[(size_t)(j0 + t) * D + d];
-      gmj_s[t] = gmb[j0 + t];
+      if (!UNI) gmj_s[t] = gmb[j0 + t];
     }
     __syncthreads();
     if (t < icnt) {
@@ -98,7 +107,7 @@ pair_sym_tiles(const float* __restrict__ pa, const float* __restrict__ gma,
         for (int d = 0; d < D; ++d) dx[d] = __fsub_rn(xj_s[d][j], xi[d]);
         const float w = pair_w<MODE>(__fadd_rn(raw_d2<D>(dx), soft), g);
         w_s[t][j] = w;
-        const float fr = __fmul_rn(gmj_s[j], w);
+        const float fr = UNI ? w : __fmul_rn(gmj_s[j], w);
 #pragma unroll
         for (int d = 0; d < D; ++d) row[d] = fmaf(fr, dx[d], row[d]);
       }
@@ -113,7 +122,7 @@ pair_sym_tiles(const float* __restrict__ pa, const float* __restrict__ gma,
 #pragma unroll
       for (int d = 0; d < D; ++d) xj[d] = xj_s[d][t];
       for (int i = 0; i < icnt; ++i) {
-        const float fc = __fmul_rn(gmi_s[i], w_s[i][t]);
+        const float fc = UNI ? w_s[i][t] : __fmul_rn(gmi_s[i], w_s[i][t]);
 #pragma unroll
         for (int d = 0; d < D; ++d)
           col[d] = fmaf(fc, __fsub_rn(xj[d], xi_s[d][i]), col[d]);
@@ -131,7 +140,8 @@ pair_sym_tiles(const float* __restrict__ pa, const float* __restrict__ gma,
 }  // namespace
 
 // pa (na, dim), gma (na,), pb (nb, dim), gmb (nb,) f32 with gm = G * m;
-// bounds (3,) f32 = [log_lo, log_hi, eps^2]; seg_tiles >= 1; scratch
+// uniform != 0 asserts each set's gm equal (rows scaled by gmb[0], cols by
+// gma[0]); bounds (3,) f32 = [log_lo, log_hi, eps^2]; seg_tiles >= 1; scratch
 // rpart (Ta, nseg, BT, dim) and cpart (Tb, Ta, BT, dim) f32 as in the
 // header comment; rows (na, dim), cols (nb, dim) f32. All on the device.
 // Returns cudaGetLastError().
@@ -139,7 +149,8 @@ extern "C" int nbody_pair_sym_force(const float* pa, const float* gma, int na,
                                     const float* pb, const float* gmb, int nb,
                                     const float* bounds, int dim, int mode,
                                     int levels, float arg_cap, float min_d2,
-                                    int seg_tiles, float* rpart, float* cpart,
+                                    int uniform, int seg_tiles, float* rpart,
+                                    float* cpart,
                                     float* rows, float* cols, void* stream) {
   if (na <= 0 || nb <= 0 || seg_tiles <= 0) return (int)cudaErrorInvalidValue;
   const int Ta = (na + BT - 1) / BT;
@@ -150,11 +161,16 @@ extern "C" int nbody_pair_sym_force(const float* pa, const float* gma, int na,
   const bool known = dispatch(mode, dim, [&](auto m, auto d) {
     constexpr int M = decltype(m)::value;
     constexpr int DD = decltype(d)::value;
-    pair_sym_tiles<M, DD><<<dim3(nseg, Ta), BT, 0, s>>>(
-        pa, gma, na, pb, gmb, nb, bounds, levels, arg_cap, min_d2, seg_tiles,
-        rpart, cpart);
-    launch_reduce<DD>(rpart, na, nseg, rows, s);
-    launch_reduce<DD>(cpart, nb, Ta, cols, s);
+    if (uniform)
+      pair_sym_tiles<M, DD, true><<<dim3(nseg, Ta), BT, 0, s>>>(
+          pa, gma, na, pb, gmb, nb, bounds, levels, arg_cap, min_d2,
+          seg_tiles, rpart, cpart);
+    else
+      pair_sym_tiles<M, DD, false><<<dim3(nseg, Ta), BT, 0, s>>>(
+          pa, gma, na, pb, gmb, nb, bounds, levels, arg_cap, min_d2,
+          seg_tiles, rpart, cpart);
+    launch_reduce<DD>(rpart, na, nseg, rows, s, uniform ? gmb : nullptr);
+    launch_reduce<DD>(cpart, nb, Ta, cols, s, uniform ? gma : nullptr);
   });
   if (!known) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

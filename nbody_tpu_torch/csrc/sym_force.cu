@@ -1,11 +1,13 @@
 // Newton's-third-law softened gravity on Hopper (sm_90a).
 //
 // Replaces: nbody_tpu/ops/pallas_nbody.py, _force_kernel_sym (the kernel
-// body) and pallas_accelerations_sym (its wrapper). It computes what that
-// kernel computes, each unordered pair's weight w = quantized |r|^-3 once,
-// rows += G m_j w diff and reactions -= G m_i w diff, but not its block
-// structure: the TPU kernel carries the reaction columns across a
-// sequential grid, and Hopper's blocks run in no order.
+// body) and pallas_accelerations_sym (its wrapper), TPU kernel #1, with its
+// equal-mass fast path (uniform_gm) and its fused max (emit_max). It
+// computes what that kernel computes, each unordered pair's weight
+// w = quantized |r|^-3 once, rows += G m_j w diff and reactions
+// -= G m_i w diff, but not its block structure: the TPU kernel carries the
+// reaction columns across a sequential grid, and Hopper's blocks run in no
+// order.
 //
 // Design (simple and deterministic, no atomics):
 //   * particles are cut into tiles of BT; one block of BT threads per
@@ -16,36 +18,91 @@
 //     per source column, reading the stored w);
 //   * a diagonal block (I, I) computes full row sums into part[I][I],
 //     skipping i == j when self_masked (zero or run-time softening);
+//   * a launch given a skip flag and no fused max (the cached-bounds
+//     scan's redo, skipped on most ticks) walks the T (T + 1) / 2 tile
+//     pairs I <= J instead, with WALK_WAVES times as many blocks as the
+//     card holds at once, each taking every grid-th pair: a skipped walk
+//     reads the flag in a few thousand blocks, not in T * T. A walk that
+//     runs is slower than one block per pair on the H100, the more so the
+//     fewer its blocks, so no other launch walks; which block takes a pair
+//     changes no bit;
 //   * reduce_partials sums part[a][0..T-1] for every row in a fixed
 //     order, so two runs give the same bits.
 //   part holds 4 * D * T * T * BT bytes, T = ceil(N / BT): the scratch
 //   that hopper_nbody.sym_force_scratch_bytes reckons and the "auto"
 //   routing holds to a budget (the chunked path takes larger N).
 //
+// Equal masses (`uniform`, all G m equal; pallas_nbody.py:287-292): rows
+// take sum_j w diff and reactions -sum_i w diff, the same product t = w
+// diff on both sides with no G m loaded per pair; reduce_partials sums the
+// partials in the same fixed order and then multiplies once by G m_0, read
+// on the device from gm[0] (pallas_nbody.py:632-634). The wrapper serves
+// it only when N is a multiple of BT (hopper_nbody.sym_force's full-tile
+// rule, the counterpart of the TPU wrapper's degrade-on-padding).
+//
+// Fused max (`tile_max` set; emit_max, pallas_nbody.py:294-303): a variant
+// built for the int modes only (the kernels without it carry no trace of
+// it), whose every block also takes the max of the raw d^2 of the pairs it
+// visits, formed op for op as max_dist_sq.cu forms it (diagonal tiles
+// included: i == j gives 0, harmless since the max starts at 0), and stores
+// it in tile_max[J (J + 1) / 2 + I]; max_stage and max_d2_reduce
+// (max_reduce.cuh, max_dist_sq.cu's own reduction) fold the T (T + 1) / 2
+// values, so the result is bitwise max_d2's. The forces are the same bits with or
+// without it. No pair is padded here, so the TPU wrapper's padding with
+// duplicates of particle 0 has no counterpart.
+//
+// `skip` (nullable, on the device): when *skip != 0 every pass returns at
+// once, out is zeros and the max 0, so a step can launch a redo
+// unconditionally and let the device decide (the cached-bounds scan's
+// lax.cond). `count` (nullable) gains 1 when the launch ran.
+//
+// Lab variants (nbody_sym_force_lab; tools/kernel_lab.py:51-171, equal
+// masses, D = 2, float32 and int modes): SEED seeds the softening into the
+// d^2 chain, (dx^2 + eps^2) + dy^2; U > 1 keeps U independent row (and
+// reaction) accumulators per thread, pair k into accumulator k % U, joined
+// in order at the end of the tile: the cross-pair instruction-level
+// parallelism that the TPU kernel's 2- to 4-wide tile interleave buys.
+//
 // Numerics: csrc/nbody_common.cuh.
 //
-// What bounds it on the H100: arithmetic. Each pair costs ~20 fp32 ops
-// plus one rsqrt (float modes) or a logf + expf (int modes) against 8-12
-// bytes of shared-memory traffic; device memory sees only O(N) positions
-// plus the part buffer (read once by the reduce). The BT x BT tile of w
-// in shared memory (padded to BT+1 columns, so both phases are free of
-// bank conflicts) lets the reaction pass reuse every w instead of
-// recomputing the transcendental.
+// What bounds it on the H100: arithmetic. Each pair costs ~21 fp32 ops
+// (~19 with equal masses; csrc counts, D = 2) plus one rsqrt (float
+// modes) or a logf + expf (int modes) against 8-12 bytes of
+// shared-memory traffic; device memory sees only O(N) positions plus the
+// part buffer (read once by the reduce).
+// The BT x BT tile of w in shared memory (padded to BT+1 columns, so both
+// phases are free of bank conflicts) lets the reaction pass reuse every w
+// instead of recomputing the transcendental.
 
+#include "max_reduce.cuh"
 #include "nbody_common.cuh"
 
 namespace {
 
-template <int MODE, int D>
-__global__ void __launch_bounds__(BT)
-sym_force_tiles(const float* __restrict__ pos, const float* __restrict__ gm,
-                const float* __restrict__ bounds, int n, int levels,
-                float arg_cap, float min_d2, int self_masked,
-                float* __restrict__ part) {
-  const int I = blockIdx.y;
-  const int J = blockIdx.x;
-  if (I > J) return;
-  const int T = gridDim.x;
+// Blocks of a walk per block the card holds at once (see the notes above).
+constexpr int WALK_WAVES = 32;
+
+// Index of tile pair (I, J), I <= J, in the upper triangle, and back.
+__device__ __forceinline__ long long tri_index(int I, int J) {
+  return (long long)J * (J + 1) / 2 + I;
+}
+
+__device__ __forceinline__ void tri_tile(long long k, int& I, int& J) {
+  long long j = (long long)((sqrt(8.0 * (double)k + 1.0) - 1.0) * 0.5);
+  while (j * (j + 1) / 2 > k) --j;
+  while ((j + 1) * (j + 2) / 2 <= k) ++j;
+  J = (int)j;
+  I = (int)(k - j * (j + 1) / 2);
+}
+
+// One tile pair (I, J), I <= J, by one block: row partials into
+// part[I][J], reactions into part[J][I], the block's max into tile_max.
+template <int MODE, int D, bool UNI, bool EMIT, bool SEED, int U>
+__device__ __forceinline__ void sym_tile_pair(
+    const float* __restrict__ pos, const float* __restrict__ gm,
+    const float* __restrict__ bounds, int n, int T, int I, int J, int levels,
+    float arg_cap, float min_d2, int self_masked, float* __restrict__ part,
+    float* __restrict__ tile_max) {
   const int t = threadIdx.x;
   const int i0 = I * BT;
   const int j0 = J * BT;
@@ -61,12 +118,12 @@ sym_force_tiles(const float* __restrict__ pos, const float* __restrict__ gm,
   if (t < icnt) {
 #pragma unroll
     for (int d = 0; d < D; ++d) xi_s[d][t] = pos[(size_t)(i0 + t) * D + d];
-    gmi_s[t] = gm[i0 + t];
+    if (!UNI) gmi_s[t] = gm[i0 + t];
   }
   if (t < jcnt) {
 #pragma unroll
     for (int d = 0; d < D; ++d) xj_s[d][t] = pos[(size_t)(j0 + t) * D + d];
-    gmj_s[t] = gm[j0 + t];
+    if (!UNI) gmj_s[t] = gm[j0 + t];
   }
 
   const float soft = bounds[2];
@@ -75,52 +132,166 @@ sym_force_tiles(const float* __restrict__ pos, const float* __restrict__ gm,
   __syncthreads();
 
   const bool diag = (I == J);
-  float row[D];
+  float acc[U][D];
 #pragma unroll
-  for (int d = 0; d < D; ++d) row[d] = 0.f;
+  for (int k = 0; k < U; ++k)
+#pragma unroll
+    for (int d = 0; d < D; ++d) acc[k][d] = 0.f;
+  float best = 0.f;
   if (t < icnt) {
     float xi[D];
 #pragma unroll
     for (int d = 0; d < D; ++d) xi[d] = xi_s[d][t];
-    for (int j = 0; j < jcnt; ++j) {
+    // Pair (t, j) into the accumulator a.
+    auto row_pair = [&](int j, float(&a)[D]) {
       float dx[D];
 #pragma unroll
       for (int d = 0; d < D; ++d) dx[d] = __fsub_rn(xj_s[d][j], xi[d]);
-      const float w = pair_w<MODE>(__fadd_rn(raw_d2<D>(dx), soft), g);
+      float d2;
+      if constexpr (SEED) {
+        d2 = __fadd_rn(__fmul_rn(dx[0], dx[0]), soft);
+#pragma unroll
+        for (int d = 1; d < D; ++d)
+          d2 = __fadd_rn(d2, __fmul_rn(dx[d], dx[d]));
+      } else {
+        const float r2 = raw_d2<D>(dx);
+        if constexpr (EMIT) best = fmaxf(best, r2);
+        d2 = __fadd_rn(r2, soft);
+      }
+      const float w = pair_w<MODE>(d2, g);
       if (diag) {
-        if (self_masked && j == t) continue;
+        if (self_masked && j == t) return;
       } else {
         w_s[t][j] = w;
       }
-      const float fr = __fmul_rn(gmj_s[j], w);
+      const float fr = UNI ? w : __fmul_rn(gmj_s[j], w);
 #pragma unroll
-      for (int d = 0; d < D; ++d) row[d] = fmaf(fr, dx[d], row[d]);
+      for (int d = 0; d < D; ++d) a[d] = fmaf(fr, dx[d], a[d]);
+    };
+    if constexpr (U == 1) {
+      for (int j = 0; j < jcnt; ++j) row_pair(j, acc[0]);
+    } else {
+      for (int jb = 0; jb < jcnt; jb += U) {
+#pragma unroll
+        for (int k = 0; k < U; ++k)
+          if (jb + k < jcnt) row_pair(jb + k, acc[k]);
+      }
     }
   }
   float* out_row = part + (((size_t)I * T + J) * BT + t) * D;
 #pragma unroll
-  for (int d = 0; d < D; ++d) out_row[d] = row[d];
+  for (int d = 0; d < D; ++d) {
+    float s = acc[0][d];
+#pragma unroll
+    for (int k = 1; k < U; ++k) s = __fadd_rn(s, acc[k][d]);
+    out_row[d] = s;
+  }
+  if constexpr (EMIT) store_block_max<BT>(best, tile_max + tri_index(I, J));
   if (diag) return;  // block-uniform
 
   __syncthreads();
   // Reactions on tile J: -(sum_i G m_i w_ij diff_ij), from the stored w.
-  float col[D];
 #pragma unroll
-  for (int d = 0; d < D; ++d) col[d] = 0.f;
+  for (int k = 0; k < U; ++k)
+#pragma unroll
+    for (int d = 0; d < D; ++d) acc[k][d] = 0.f;
   if (t < jcnt) {
     float xj[D];
 #pragma unroll
     for (int d = 0; d < D; ++d) xj[d] = xj_s[d][t];
-    for (int i = 0; i < icnt; ++i) {
-      const float fc = __fmul_rn(gmi_s[i], w_s[i][t]);
+    // Pair (i, t)'s reaction into the accumulator a.
+    auto col_pair = [&](int i, float(&a)[D]) {
+      const float fc = UNI ? w_s[i][t] : __fmul_rn(gmi_s[i], w_s[i][t]);
 #pragma unroll
       for (int d = 0; d < D; ++d)
-        col[d] = fmaf(fc, __fsub_rn(xj[d], xi_s[d][i]), col[d]);
+        a[d] = fmaf(fc, __fsub_rn(xj[d], xi_s[d][i]), a[d]);
+    };
+    if constexpr (U == 1) {
+      for (int i = 0; i < icnt; ++i) col_pair(i, acc[0]);
+    } else {
+      for (int ib = 0; ib < icnt; ib += U) {
+#pragma unroll
+        for (int k = 0; k < U; ++k)
+          if (ib + k < icnt) col_pair(ib + k, acc[k]);
+      }
     }
   }
   float* out_col = part + (((size_t)J * T + I) * BT + t) * D;
 #pragma unroll
-  for (int d = 0; d < D; ++d) out_col[d] = -col[d];
+  for (int d = 0; d < D; ++d) {
+    float s = acc[0][d];
+#pragma unroll
+    for (int k = 1; k < U; ++k) s = __fadd_rn(s, acc[k][d]);
+    out_col[d] = -s;
+  }
+}
+
+template <int MODE, int D, bool UNI, bool EMIT, bool SEED, int U>
+__global__ void __launch_bounds__(BT)
+sym_force_tiles(const float* __restrict__ pos, const float* __restrict__ gm,
+                const float* __restrict__ bounds, int n, int levels,
+                float arg_cap, float min_d2, int self_masked,
+                const int* __restrict__ skip, float* __restrict__ part,
+                float* __restrict__ tile_max) {
+  const int I = blockIdx.y;
+  const int J = blockIdx.x;
+  if (I > J) return;
+  if (skip != nullptr && *skip != 0) return;
+  sym_tile_pair<MODE, D, UNI, EMIT, SEED, U>(pos, gm, bounds, n, gridDim.x, I,
+                                             J, levels, arg_cap, min_d2,
+                                             self_masked, part, tile_max);
+}
+
+// The walk over tile pairs k = blockIdx.x, blockIdx.x + gridDim.x, ...
+template <int MODE, int D, bool UNI>
+__global__ void __launch_bounds__(BT)
+sym_force_walk(const float* __restrict__ pos, const float* __restrict__ gm,
+               const float* __restrict__ bounds, int n, int T, int levels,
+               float arg_cap, float min_d2, int self_masked,
+               const int* __restrict__ skip, float* __restrict__ part) {
+  if (*skip != 0) return;
+  const long long pairs = tri_index(0, T);
+  for (long long k = blockIdx.x; k < pairs; k += gridDim.x) {
+    int I, J;
+    tri_tile(k, I, J);
+    sym_tile_pair<MODE, D, UNI, false, false, 1>(pos, gm, bounds, n, T, I, J,
+                                                 levels, arg_cap, min_d2,
+                                                 self_masked, part, nullptr);
+    __syncthreads();  // this pair's readers are done with shared memory
+  }
+}
+
+template <int M, int D, bool UNI, bool EMIT, bool SEED, int U>
+void launch_sym(const float* pos, const float* gm, const float* bounds, int n,
+                int T, int levels, float arg_cap, float min_d2,
+                int self_masked, const int* skip, int* count, float* part,
+                float* tile_max, float* out, cudaStream_t s) {
+  sym_force_tiles<M, D, UNI, EMIT, SEED, U><<<dim3(T, T), BT, 0, s>>>(
+      pos, gm, bounds, n, levels, arg_cap, min_d2, self_masked, skip, part,
+      tile_max);
+  launch_reduce<D>(part, n, T, out, s, UNI ? gm : nullptr, skip, count);
+}
+
+template <int M, int D, bool UNI>
+void launch_walk(const float* pos, const float* gm, const float* bounds, int n,
+                 int T, int levels, float arg_cap, float min_d2,
+                 int self_masked, const int* skip, int* count, float* part,
+                 float* out, cudaStream_t s) {
+  static int per_sm = 0;  // resident blocks per SM, queried once
+  auto kernel = sym_force_walk<M, D, UNI>;
+  if (per_sm <= 0 &&
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, BT, 0) !=
+          cudaSuccess)
+    per_sm = 1;
+  int dev = 0, sms = 1;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long pairs = (long long)T * (T + 1) / 2;
+  const long long cap = (long long)WALK_WAVES * (per_sm > 0 ? per_sm : 1) * sms;
+  kernel<<<(int)(pairs < cap ? pairs : cap), BT, 0, s>>>(
+      pos, gm, bounds, n, T, levels, arg_cap, min_d2, self_masked, skip,
+      part);
+  launch_reduce<D>(part, n, T, out, s, UNI ? gm : nullptr, skip, count);
 }
 
 }  // namespace
@@ -128,23 +299,116 @@ sym_force_tiles(const float* __restrict__ pos, const float* __restrict__ gm,
 extern "C" int nbody_sym_force_tile() { return BT; }
 
 // pos (n, dim) f32, gm (n,) f32 = G * m, bounds (3,) f32 = [log_lo,
-// log_hi, eps^2] on the device; part (T, T, BT, dim) f32 scratch with
-// T = ceil(n / BT); out (n, dim) f32. Returns cudaGetLastError().
+// log_hi, eps^2] on the device; uniform != 0 asserts all gm equal (the
+// result is scaled by gm[0]); skip, count: nullable device ints; part
+// (T, T, BT, dim) f32 scratch with T = ceil(n / BT); out (n, dim) f32.
+// Fused max: tile_max (T (T + 1) / 2 floats) and block_max (`capacity`
+// floats) scratch and max_out (one float, the raw max d^2), all null for
+// none. A skip flag without the fused max takes the walk. Returns
+// cudaGetLastError().
 extern "C" int nbody_sym_force(const float* pos, const float* gm,
                                const float* bounds, int n, int dim, int mode,
                                int levels, float arg_cap, float min_d2,
-                               int self_masked, float* part, float* out,
-                               void* stream) {
+                               int self_masked, int uniform, const int* skip,
+                               int* count, float* part, float* tile_max,
+                               float* block_max, int capacity, float* max_out,
+                               float* out, void* stream) {
   const int T = (n + BT - 1) / BT;
   if (n <= 0 || T > 65535) return (int)cudaErrorInvalidValue;
+  if (tile_max != nullptr && (mode != MODE_INT || block_max == nullptr ||
+                              max_out == nullptr || capacity <= 0))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool known = dispatch(mode, dim, [&](auto m, auto d) {
     constexpr int M = decltype(m)::value;
     constexpr int DD = decltype(d)::value;
-    sym_force_tiles<M, DD><<<dim3(T, T), BT, 0, s>>>(
-        pos, gm, bounds, n, levels, arg_cap, min_d2, self_masked, part);
-    launch_reduce<DD>(part, n, T, out, s);
+    auto run = [&](auto uni, auto emit) {
+      launch_sym<M, DD, decltype(uni)::value, decltype(emit)::value, false,
+                 1>(pos, gm, bounds, n, T, levels, arg_cap, min_d2,
+                    self_masked, skip, count, part, tile_max, out, s);
+    };
+    if constexpr (M == MODE_INT) {
+      if (tile_max != nullptr) {
+        if (uniform)
+          run(std::true_type{}, std::true_type{});
+        else
+          run(std::false_type{}, std::true_type{});
+        return;
+      }
+    }
+    if (skip != nullptr) {
+      auto walk = [&](auto uni) {
+        launch_walk<M, DD, decltype(uni)::value>(
+            pos, gm, bounds, n, T, levels, arg_cap, min_d2, self_masked, skip,
+            count, part, out, s);
+      };
+      if (uniform)
+        walk(std::true_type{});
+      else
+        walk(std::false_type{});
+      return;
+    }
+    if (uniform)
+      run(std::true_type{}, std::false_type{});
+    else
+      run(std::false_type{}, std::false_type{});
   });
+  if (!known) return (int)cudaErrorInvalidValue;
+  if (tile_max != nullptr) {
+    const long long tiles = (long long)T * (T + 1) / 2;
+    const int nb = (int)(tiles < capacity ? tiles : capacity);
+    max_stage<<<nb, MAX_RT, 0, s>>>(tile_max, tiles, skip, block_max);
+    max_d2_reduce<<<1, MAX_RT, 0, s>>>(block_max, nb, skip, nullptr,
+                                       max_out);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The lab variants of the equal-mass kernel, D = 2 only: variant 1 seeds
+// the softening into the d^2 chain, variant u in {2, 3, 4} keeps u row
+// accumulators per thread. mode is float32 (0) or an int mode (3); the
+// other arguments as nbody_sym_force's (no skip, count or fused max).
+extern "C" int nbody_sym_force_lab(const float* pos, const float* gm,
+                                   const float* bounds, int n, int mode,
+                                   int levels, float arg_cap, float min_d2,
+                                   int self_masked, int variant, float* part,
+                                   float* out, void* stream) {
+  const int T = (n + BT - 1) / BT;
+  if (n <= 0 || T > 65535 || (mode != MODE_F32 && mode != MODE_INT))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto run = [&](auto m) {
+    constexpr int M = decltype(m)::value;
+    switch (variant) {
+      case 1:
+        launch_sym<M, 2, true, false, true, 1>(pos, gm, bounds, n, T, levels,
+                                        arg_cap, min_d2, self_masked, nullptr,
+                                        nullptr, part, nullptr, out, s);
+        return true;
+      case 2:
+        launch_sym<M, 2, true, false, false, 2>(pos, gm, bounds, n, T, levels,
+                                         arg_cap, min_d2, self_masked,
+                                         nullptr, nullptr, part, nullptr, out,
+                                         s);
+        return true;
+      case 3:
+        launch_sym<M, 2, true, false, false, 3>(pos, gm, bounds, n, T, levels,
+                                         arg_cap, min_d2, self_masked,
+                                         nullptr, nullptr, part, nullptr, out,
+                                         s);
+        return true;
+      case 4:
+        launch_sym<M, 2, true, false, false, 4>(pos, gm, bounds, n, T, levels,
+                                         arg_cap, min_d2, self_masked,
+                                         nullptr, nullptr, part, nullptr, out,
+                                         s);
+        return true;
+      default:
+        return false;
+    }
+  };
+  const bool known = mode == MODE_F32 ? run(Const<MODE_F32>{})
+                                      : run(Const<MODE_INT>{});
   if (!known) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -27,13 +27,20 @@ no launch parameter, and nothing reads them on the host inside a tick.
 (``parallel/ring.py``), with the state resident between calls, padded to
 the shard boundary.
 
-Not ported yet (raises NotImplementedError; see ROADMAP.md): the
-speculate-and-verify int-sim bounds (``bounds_mode='cached'``, which
-needs the kernel's fused max).
+Equal masses: ``uniform_gm=True`` asserts that every mass is equal and
+sends the sym kernels to their equal-mass variant (``_force_fn``);
+``DirectSimulation`` detects it once at set-up and passes it to every run.
+
+Int-sim grid bounds (``run_steps`` / ``run_with_snapshots``):
+``bounds_mode='exact'`` takes the pruned max pass before every force
+evaluation, ``bounds_every=k`` reuses bounds for k steps, and
+``bounds_mode='cached'`` speculates with the cached grid and verifies it
+with the kernel's fused max (``CachedBoundsStepper``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional
 
 import numpy as np
@@ -47,7 +54,7 @@ from nbody_tpu_torch.models.state import (
     make_baseline_state,
     make_state,
 )
-from nbody_tpu_torch.ops import forces, hopper_nbody
+from nbody_tpu_torch.ops import forces, hopper_nbody as hn
 from nbody_tpu_torch.ops.precision import (
     Precision,
     Quantizer,
@@ -61,10 +68,10 @@ IMPLS = ("auto", "dense", "tiled", "kernel", "kernel_rows",
 _FORCE_FNS = {
     "dense": forces.dense_accelerations,
     "tiled": forces.tiled_accelerations,
-    "kernel": hopper_nbody.sym_accelerations,
-    "kernel_rows": hopper_nbody.accelerations_rows,
-    "kernel_streamed": hopper_nbody.accelerations_streamed,
-    "kernel_sym_chunked": hopper_nbody.sym_accelerations_chunked,
+    "kernel": hn.sym_accelerations,
+    "kernel_rows": hn.accelerations_rows,
+    "kernel_streamed": hn.accelerations_streamed,
+    "kernel_sym_chunked": hn.sym_accelerations_chunked,
 }
 
 # Paths that take external int-sim grid bounds (bounds_every > 1).
@@ -101,12 +108,6 @@ def _check_mesh_args(mesh, schedule: str, bounds_every: int,
                          "it would otherwise be silently ignored")
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to nbody_tpu_torch yet (see ROADMAP.md, "
-        f"'Queue 1'); use the JAX package nbody_tpu for it")
-
-
 def _resolve_impl(impl: str, n: int, dim: int = 2) -> str:
     """'auto' is the single-launch sym_force kernel while its scratch
     fits the budget (``hopper_nbody.sym_force_fits``), else the chunked
@@ -114,13 +115,35 @@ def _resolve_impl(impl: str, n: int, dim: int = 2) -> str:
     if impl not in IMPLS:
         raise ValueError(f"unknown force impl: {impl}; valid: {IMPLS}")
     if impl == "auto":
-        return ("kernel" if hopper_nbody.sym_force_fits(n, dim)
+        return ("kernel" if hn.sym_force_fits(n, dim)
                 else "kernel_sym_chunked")
     return impl
 
 
-def _force_fn(impl: str, n: int, dim: int = 2) -> Callable:
-    return _FORCE_FNS[_resolve_impl(impl, n, dim)]
+def _force_fn(impl: str, n: int, dim: int = 2,
+              uniform_gm: bool = False) -> Callable:
+    """The force function of ``impl`` (JAX direct.py:55-98).
+    ``uniform_gm=True`` asserts equal masses, checked by the caller once:
+    the sym kernel and the chunked path then take their equal-mass
+    variants through their unguarded inner functions (no host read in a
+    tick); the other paths have none, nor has the single launch at an N
+    off the tile (the full-tile rule), which keeps the plain call."""
+    resolved = _resolve_impl(impl, n, dim)
+    fn = hn.prevalidated(_FORCE_FNS[resolved])
+    if (uniform_gm and resolved in ("kernel", "kernel_sym_chunked")
+            and not (resolved == "kernel" and n % hn.TILE)):
+        return functools.partial(fn, uniform_gm=True)
+    return fn
+
+
+def _resolve_device(device) -> torch.device:
+    """``cuda`` unless the caller names a device; with no card it raises
+    and names the CPU option instead of running on the CPU quietly."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(device)!r}: CUDA is not available "
+                           f"here (pass device=\"cpu\" to run on the CPU)")
+    return device
 
 
 # --------------------------------------------------------------------------
@@ -153,9 +176,94 @@ def leapfrog_step_baseline(state: BaselineState,
     return BaselineState(pos, vel, state.masses, acc, state.tick + 1)
 
 
+BOUNDS_MODES = ("exact", "cached")
+
+# Device int32 counters of the cached-bounds runs since last cleared, per
+# device: [ticks whose fused max left the cached grid (each ran one redo
+# launch), ticks whose final grid still clipped the tick's max (0 by
+# construction)]. Read with cached_bounds_stats().
+CACHED_BOUNDS_STATS: dict = {}
+
+
+def cached_bounds_stats(device) -> tuple:
+    """(violations, clipped) of the cached-bounds runs on ``device`` since
+    CACHED_BOUNDS_STATS was last cleared (host read)."""
+    stats = CACHED_BOUNDS_STATS.get(str(torch.device(device)))
+    return (0, 0) if stats is None else tuple(int(v) for v in stats)
+
+
+class CachedBoundsStepper:
+    """Speculate-and-verify int-sim bounds, the counterpart of JAX's
+    ``_cached_bounds_scan`` (direct.py:214-291): the separate max pass
+    leaves the steady state.
+
+    Each tick runs one sym_force launch with the cached grid hi and its
+    fused max (``emit_max``). If the observed log max escapes the cached
+    hi (the grid would clip) or falls more than 3 x ``headroom`` below it
+    (the grid went slack), the tick's forces come from a redo launch with
+    hi = log max + headroom, which is re-cached. The redo is launched every
+    tick with a device skip flag (= not violated), and ``torch.where``
+    picks the result and the new hi, so the host never reads anything in a
+    tick. The cache starts at -inf, so the first tick always violates.
+    ``hi`` and ``log_max`` hold the last tick's values (0-d f32 on the
+    device); CACHED_BOUNDS_STATS and hopper_nbody.REDO_LAUNCHES count what
+    happened."""
+
+    def __init__(self, q: Quantizer, cfg: SimConfig, impl: str,
+                 quantize_forces: bool, n: int, dim: int, headroom: float,
+                 dt=None, softening_sq=None, uniform_gm: bool = False):
+        resolved = _resolve_impl(impl, n, dim)
+        if resolved != "kernel":
+            raise ValueError(f"bounds_mode='cached' requires the resident "
+                             f"sym kernel (resolved impl '{resolved}'); use "
+                             f"bounds_every or impl='kernel'")
+        if not q.is_int:
+            raise ValueError("bounds_mode='cached' only applies to int-sim "
+                             "modes")
+        self.q, self.cfg, self.headroom = q, cfg, headroom
+        self.soft = cfg.softening_sq if softening_sq is None else softening_sq
+        self.dt = cfg.dt if dt is None else dt
+        self.force = functools.partial(
+            hn.prevalidated(hn.sym_accelerations), q=q, cfg=cfg,
+            quantize_forces=quantize_forces, softening_sq=softening_sq,
+            uniform_gm=uniform_gm)
+        self.hi = self.log_max = None
+
+    def __call__(self, s: ParticleState) -> ParticleState:
+        dev = s.positions.device
+        if self.hi is None:
+            self.hi = torch.full((), float("-inf"), dtype=torch.float32,
+                                 device=dev)
+            self._headroom = torch.full((), self.headroom,
+                                        dtype=torch.float32, device=dev)
+            self._log_lo = dist_sq_log_bounds(self.q, self.hi, self.soft)[0]
+            self._stats = CACHED_BOUNDS_STATS.setdefault(
+                str(dev), torch.zeros(2, dtype=torch.int32, device=dev))
+        half_dt = self.dt * 0.5
+        vel = s.velocities + s.accelerations * half_dt
+        pos = s.positions + vel * self.dt
+        acc, max_d2 = self.force(pos, s.masses, log_lo=self._log_lo,
+                                 log_hi=self.hi, emit_max=True)
+        log_max = dist_sq_log_bounds(self.q, max_d2, self.soft)[1]
+        violated = ((log_max > self.hi)
+                    | (log_max < self.hi - 3.0 * self._headroom))
+        new_hi = log_max + self._headroom
+        redo = self.force(pos, s.masses, log_lo=self._log_lo, log_hi=new_hi,
+                          skip=(~violated).to(torch.int32),
+                          count=hn.redo_counter(dev))
+        acc = torch.where(violated, redo, acc)
+        self.hi = torch.where(violated, new_hi, self.hi)
+        self.log_max = log_max
+        self._stats += torch.stack([violated, log_max > self.hi]).to(
+            torch.int32)
+        vel = vel + acc * half_dt
+        return ParticleState(pos, vel, s.masses, acc, s.tick + 1)
+
+
 def _stepper(q: Quantizer, cfg: SimConfig, impl: str, quantize_forces: bool,
              n: int, dim: int, bounds_every: int = 1, dt=None,
-             softening_sq=None) -> Callable:
+             softening_sq=None, uniform_gm: bool = False,
+             bounds_mode: str = "exact", headroom: float = 0.05) -> Callable:
     """A ``step(state) -> state`` closure for the degraded modes.
 
     ``bounds_every=k>1`` (int-sim modes): the tensor-global log-grid
@@ -164,10 +272,20 @@ def _stepper(q: Quantizer, cfg: SimConfig, impl: str, quantize_forces: bool,
     scan; stale bounds can clip, a documented semantic delta). Only the
     paths that take external bounds allow it (``_BOUNDS_REUSE_IMPLS``, as
     in JAX). The step counter lives in the closure, so it runs on across
-    snapshot chunks of one history and restarts with each new stepper."""
+    snapshot chunks of one history and restarts with each new stepper.
+    ``bounds_mode='cached'`` (int-sim modes) is CachedBoundsStepper."""
     if bounds_every < 1:
         raise ValueError("bounds_every must be >= 1")
-    force = _force_fn(impl, n, dim)
+    if bounds_mode not in BOUNDS_MODES:
+        raise ValueError(f"unknown bounds_mode: {bounds_mode}; valid: "
+                         f"{BOUNDS_MODES}")
+    if bounds_mode == "cached" and not q.is_int:
+        raise ValueError("bounds_mode='cached' only applies to int-sim "
+                         "modes (float modes have no log grid)")
+    if bounds_mode == "cached":
+        return CachedBoundsStepper(q, cfg, impl, quantize_forces, n, dim,
+                                   headroom, dt, softening_sq, uniform_gm)
+    force = _force_fn(impl, n, dim, uniform_gm)
     if not (q.is_int and bounds_every > 1):
         return lambda s: leapfrog_step(s, q, cfg, force, quantize_forces,
                                        dt, softening_sq)
@@ -177,7 +295,7 @@ def _stepper(q: Quantizer, cfg: SimConfig, impl: str, quantize_forces: bool,
         raise ValueError(f"bounds_every > 1 is not supported for force "
                          f"impl '{resolved}' (no external-bounds hook); use "
                          f"one of {_BOUNDS_REUSE_IMPLS}")
-    max_pass = (hopper_nbody.max_pairwise_dist_sq_pruned
+    max_pass = (hn.max_pairwise_dist_sq_pruned
                 if resolved == "kernel" else forces.max_pairwise_dist_sq)
     soft = cfg.softening_sq if softening_sq is None else softening_sq
     dt = cfg.dt if dt is None else dt
@@ -202,13 +320,31 @@ def _stepper(q: Quantizer, cfg: SimConfig, impl: str, quantize_forces: bool,
     return step
 
 
+@hn.guard_uniform_gm(("masses", (0,)))
 def run_steps(state: ParticleState, q: Quantizer, cfg: SimConfig, impl: str,
               quantize_forces: bool, num_steps: int, dt=None,
-              softening_sq=None, bounds_every: int = 1) -> ParticleState:
+              softening_sq=None, bounds_every: int = 1,
+              uniform_gm: bool = False, bounds_mode: str = "exact",
+              headroom: float = 0.05) -> ParticleState:
     """num_steps leapfrog steps, state kept on the device. Optional
-    run-time dt/softening_sq (0-d tensors) replace cfg's."""
+    run-time dt/softening_sq (0-d tensors) replace cfg's.
+
+    Int-sim grid-bounds policies (JAX direct.py:299-352): ``bounds_mode=
+    'exact'`` takes the pruned max pass before every force evaluation;
+    ``'cached'`` speculates with the previous grid and verifies it with the
+    kernel's fused max (CachedBoundsStepper: no clipping, grid hi within
+    ``headroom`` log-units of exact; on the H100 it pays only where the
+    pruned max pass falls back to the full pass, a near-spherical shell,
+    and costs a few % a tick elsewhere); ``bounds_every=k>1`` reuses bounds
+    blindly for k steps. ``uniform_gm=True`` asserts equal masses
+    (checked here on the host, once, unless called through
+    ``hopper_nbody.prevalidated``)."""
+    if bounds_mode == "cached" and q.is_int and bounds_every != 1:
+        raise ValueError("bounds_mode='cached' and bounds_every>1 are "
+                         "mutually exclusive bounds policies")
     step = _stepper(q, cfg, impl, quantize_forces, *state.positions.shape,
-                    bounds_every, dt, softening_sq)
+                    bounds_every, dt, softening_sq, uniform_gm, bounds_mode,
+                    headroom)
     for _ in range(num_steps):
         state = step(state)
     return state
@@ -245,20 +381,24 @@ def _run_chunks(state, step: Callable, steps_per_chunk: int, num_chunks: int,
             torch.stack(frames).cpu().numpy())
 
 
+@hn.guard_uniform_gm(("masses", (0,)))
 def run_with_snapshots(state: ParticleState, q: Quantizer, cfg: SimConfig,
                        impl: str, quantize_forces: bool,
                        steps_per_chunk: int, num_chunks: int,
                        num_bins: int = 20, dt=None, softening_sq=None,
-                       bounds_every: int = 1):
+                       bounds_every: int = 1, uniform_gm: bool = False,
+                       bounds_mode: str = "exact", headroom: float = 0.05):
     """Run num_chunks * steps_per_chunk ticks; take a metrics Snapshot and
     a position frame after each chunk on the device. Returns
     (state, snapshots, frames): snapshots as a Snapshot of numpy arrays
     stacked over chunks, frames as a (num_chunks, N, D) numpy array, both
     copied to the host once at the end. Optional run-time dt/softening_sq
     drive the steps; the snapshots' potential energy uses cfg's softening,
-    as the JAX engine's fused snapshot does."""
+    as the JAX engine's fused snapshot does. ``bounds_every``,
+    ``uniform_gm``, ``bounds_mode`` and ``headroom`` follow run_steps."""
     step = _stepper(q, cfg, impl, quantize_forces, *state.positions.shape,
-                    bounds_every, dt, softening_sq)
+                    bounds_every, dt, softening_sq, uniform_gm, bounds_mode,
+                    headroom)
 
     def snap(s: ParticleState):
         return (metrics_lib.snapshot(s.positions, s.velocities, s.masses,
@@ -292,13 +432,16 @@ class DirectSimulation:
     """Stateful wrapper mirroring the reference's GalaxySimulation API
     (reference: simulation.py:12-196): step / run / get_state / energies.
 
-    ``device`` defaults to the positions' device for a tensor, else the
-    CPU. ``force_impl`` is one of ``IMPLS`` (module docstring); auto is
-    the sym_force kernel or, past its scratch budget, the chunked path
-    (their plain versions on a CPU tensor). ``dynamic_params=True`` keeps
-    dt and softening^2 as 0-d device tensors (``_dyn_dt``,
-    ``_dyn_soft_sq``); the kernels then mask the diagonal by id, as the
-    JAX kernels do for a traced softening.
+    The run is on ``device``: ``cuda`` unless the caller names one (pass
+    ``device="cpu"`` for the CPU; with no card the default raises).
+    ``force_impl`` is one of ``IMPLS`` (module docstring); auto is the
+    sym_force kernel or, past its scratch budget, the chunked path (their
+    plain versions on a CPU tensor). Equal masses are detected once, here
+    (one host read), and every run takes the sym kernels' equal-mass
+    variant (``_uniform_gm``, JAX direct.py:546-548).
+    ``dynamic_params=True`` keeps dt and softening^2 as 0-d device
+    tensors (``_dyn_dt``, ``_dyn_soft_sq``); the kernels then mask the
+    diagonal by id, as the JAX kernels do for a traced softening.
 
     ``mesh`` (a ``parallel.ring.ParticleMesh``) shards the particles over
     the ring, ``schedule`` picks its force schedule ('sym', the half
@@ -322,12 +465,9 @@ class DirectSimulation:
                  schedule: str = "sym",
                  bounds_every: int = 1,
                  ticks_per_dispatch: Optional[int] = None,
-                 bounds_mode: str = "exact",
                  device=None):
         _check_mesh_args(mesh, schedule, bounds_every, ticks_per_dispatch,
                          dynamic_params, force_impl)
-        if bounds_mode != "exact":
-            raise _not_ported(f"bounds_mode={bounds_mode!r}")
         if isinstance(precision, str):
             precision = Quantizer.from_string(precision, custom_levels)
         elif isinstance(precision, Precision):
@@ -337,12 +477,8 @@ class DirectSimulation:
             raise ValueError("dynamic_params is not supported for the "
                              "float64 baseline (it uses the static cfg); "
                              "sweep with static configs")
-        if mesh is not None:
-            device = mesh.devices[0]
-        elif device is None:
-            device = (positions.device if isinstance(positions, torch.Tensor)
-                      else "cpu")
-        self.device = torch.device(device)
+        self.device = (mesh.devices[0] if mesh is not None
+                       else _resolve_device(device))
         self._dyn_dt = None
         self._dyn_soft_sq = None
         if dynamic_params:
@@ -382,6 +518,8 @@ class DirectSimulation:
             self.state = make_state(positions, velocities, masses,
                                     self.device)
         self._n_total = self.state.positions.shape[0]
+        m = self.state.masses
+        self._uniform_gm = bool(m.numel() > 0 and (m == m[0]).all())
         # Mesh runs recompute the acceleration from the positions at the
         # entry of every call (a pure function of them), so the stored
         # zeros never reach the integrator.
@@ -390,7 +528,8 @@ class DirectSimulation:
                 acc = forces.baseline_accelerations(self.state.positions,
                                                     self.state.masses, cfg)
             else:
-                acc = _force_fn(force_impl, *self.state.positions.shape)(
+                acc = _force_fn(force_impl, *self.state.positions.shape,
+                                self._uniform_gm)(
                     self.state.positions, self.state.masses, self.quantizer,
                     cfg, quantize_forces=self.quantize_forces,
                     softening_sq=self._dyn_soft_sq)
@@ -434,19 +573,20 @@ class DirectSimulation:
                     self.state, self.cfg, self.mesh, num_steps,
                     gather=False, n_total=self._n_total)
             else:
-                self.state, _ = ring.run_steps_sharded(
+                self.state, _ = hn.prevalidated(ring.run_steps_sharded)(
                     self.state, self.quantizer, self.cfg, self.mesh,
                     num_steps, quantize_forces=self.quantize_forces,
                     gather=False, schedule=self.schedule,
-                    n_total=self._n_total, bounds_every=self.bounds_every)
+                    n_total=self._n_total, bounds_every=self.bounds_every,
+                    uniform_gm=self._uniform_gm)
         elif self.is_baseline:
             self.state = run_steps_baseline(self.state, self.cfg, num_steps)
         else:
-            self.state = run_steps(self.state, self.quantizer, self.cfg,
-                                   self.force_impl, self.quantize_forces,
-                                   num_steps, dt=self._dyn_dt,
-                                   softening_sq=self._dyn_soft_sq,
-                                   bounds_every=self.bounds_every)
+            self.state = hn.prevalidated(run_steps)(
+                self.state, self.quantizer, self.cfg, self.force_impl,
+                self.quantize_forces, num_steps, dt=self._dyn_dt,
+                softening_sq=self._dyn_soft_sq,
+                bounds_every=self.bounds_every, uniform_gm=self._uniform_gm)
 
     def run(self, num_ticks: int, callback: Optional[Callable] = None,
             callback_interval: int = 100):
@@ -478,11 +618,11 @@ class DirectSimulation:
             self.state, snaps, frames = run_with_snapshots_baseline(
                 self.state, self.cfg, steps, num_chunks, num_bins)
         else:
-            self.state, snaps, frames = run_with_snapshots(
+            self.state, snaps, frames = hn.prevalidated(run_with_snapshots)(
                 self.state, self.quantizer, self.cfg, self.force_impl,
                 self.quantize_forces, steps, num_chunks, num_bins,
                 dt=self._dyn_dt, softening_sq=self._dyn_soft_sq,
-                bounds_every=self.bounds_every)
+                bounds_every=self.bounds_every, uniform_gm=self._uniform_gm)
         remainder = num_ticks - steps * num_chunks
         if remainder > 0:
             self.step(remainder)
@@ -500,12 +640,13 @@ class DirectSimulation:
                     self.state, self.cfg, self.mesh, chunk_steps, n_chunks,
                     num_bins=num_bins, n_total=self._n_total)
             else:
-                st, sn, fr = ring.run_with_snapshots_sharded(
+                st, sn, fr = hn.prevalidated(ring.run_with_snapshots_sharded)(
                     self.state, self.quantizer, self.cfg, self.mesh,
                     chunk_steps, n_chunks,
                     quantize_forces=self.quantize_forces, num_bins=num_bins,
                     schedule=self.schedule, n_total=self._n_total,
-                    bounds_every=self.bounds_every)
+                    bounds_every=self.bounds_every,
+                    uniform_gm=self._uniform_gm)
             self.state = st
             return sn, fr
 
@@ -565,7 +706,8 @@ def run_comparison(positions, velocities, masses, modes,
                    num_ticks: int = 1000, snapshot_interval: int = 100,
                    **sim_kwargs):
     """Same ICs under several precision modes
-    (reference: simulation.py:199-250). Returns {mode_value: {...}}."""
+    (reference: simulation.py:199-250). Returns {mode_value: {...}}.
+    ``sim_kwargs`` go to DirectSimulation (``device="cpu"`` for the CPU)."""
     results = {}
     for mode in modes:
         sim = DirectSimulation(positions, velocities, masses,

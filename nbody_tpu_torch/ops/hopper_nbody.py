@@ -7,7 +7,8 @@ multi-device ring (``parallel/ring.py``):
 * ``sym_force`` — ``csrc/sym_force.cu``, replacing ``_force_kernel_sym`` /
   ``pallas_accelerations_sym`` (#1): softened all-pairs gravity, each
   unordered pair's weight evaluated once (Newton's third law), with the
-  precision hook in the tile.
+  precision hook in the tile; its equal-mass variant (``uniform``), its
+  fused max of raw d^2 (``max_out``) and a device skip flag.
 * ``max_d2`` — ``csrc/max_dist_sq.cu``, replacing ``_max_kernel`` /
   ``pallas_max_dist_sq`` (#2) and its streamed twin
   ``pallas_max_dist_sq_streamed`` (#3): the global max of the raw
@@ -24,7 +25,8 @@ multi-device ring (``parallel/ring.py``):
   accelerations due to sources, the ring's rows-schedule tile.
 * ``pair_sym_force`` — ``csrc/pair_sym_force.cu``, replacing
   ``_pair_force_sym_kernel`` / ``pallas_pair_force_sym`` (#6): two
-  disjoint sets, rows and reactions from one evaluation of each pair.
+  disjoint sets, rows and reactions from one evaluation of each pair; its
+  equal-mass variant (``uniform``).
 * ``pair_pe_rows`` — ``csrc/pair_pe_rows.cu``, replacing
   ``_pair_pe_kernel`` / ``pallas_pair_pe_rows`` (#7): per-receiver
   potential-energy row sums with an id mask, the ring's energy tile.
@@ -33,8 +35,18 @@ Each kernel has a plain PyTorch version of the same function and
 signature (``*_plain``). A wrapper launches the kernel for a CUDA tensor
 (or raises) and takes the plain version only for a CPU tensor; there is
 no fallback from a failed launch. Every launch adds one to
-``LAUNCHES[name]``, so a run can show that it went through the kernels.
-The kernel sources carry the notes on design and numerics.
+``LAUNCHES[name]``, each variant under its own name, so a run can show
+that it went through the kernels. The kernel sources carry the notes on
+design and numerics.
+
+Equal masses: ``uniform=True`` on the sym kernels' wrappers is the
+caller's assertion that every G*m is equal; the variant serves only sizes
+that are multiples of ``TILE`` and a wrapper takes the general kernel
+otherwise, bit for bit what it gives without the flag (the full-tile
+rule, the counterpart of the TPU wrappers' degrade-on-padding). The
+public functions that take ``uniform_gm`` check the assertion on the host
+first (``check_uniform_gm``); the engine checks once at set-up and calls
+their unguarded inner functions (``prevalidated``).
 
 The public functions are the counterparts of the JAX wrappers:
 ``sym_accelerations`` (#1), ``accelerations_rows`` (#8),
@@ -62,15 +74,23 @@ from nbody_tpu_torch.ops.precision import (
     quantize_force,
 )
 
-# Launches of each kernel in this process (reset by whoever reads them).
-LAUNCHES = {"sym_force": 0, "max_d2": 0, "row_force": 0,
-            "pair_sym_force": 0, "pair_force": 0, "pair_max": 0,
-            "pair_pe_rows": 0}
+# Launches of each kernel in this process (reset by whoever reads them);
+# the sym kernels count each variant apart: "_uniform" the equal-mass one,
+# "_max" a launch with the fused max.
+LAUNCHES = {"sym_force": 0, "sym_force_uniform": 0, "sym_force_max": 0,
+            "sym_force_uniform_max": 0, "max_d2": 0, "row_force": 0,
+            "pair_sym_force": 0, "pair_sym_force_uniform": 0,
+            "pair_force": 0, "pair_max": 0, "pair_pe_rows": 0}
 
 # Full-set max_d2 launches that ran (were not skipped) inside the pruned
 # bounds pass, per device: a device int32 the kernel increments, so the
 # count costs no launch and no host sync. Read with bounds_fallbacks().
 BOUNDS_FALLBACKS: dict = {}
+
+# sym_force launches given a skip flag that ran (were not skipped), per
+# device: the cached-bounds scan's redo launches, counted by the kernel in
+# a device int32 like BOUNDS_FALLBACKS. Read with redo_launches().
+REDO_LAUNCHES: dict = {}
 
 # Per-block maxima scratch of max_d2: the kernel's grid-stride loop uses
 # at most this many blocks.
@@ -203,6 +223,70 @@ def _library():
 
 def _int_args(q: Quantizer) -> tuple:
     return _mode_code(q), q.levels, _arg_cap(q), q.min_dist_sq
+
+
+def _opt_ptr(t: torch.Tensor | None):
+    return None if t is None else _ptr(t)
+
+
+# --------------------------------------------------------------------------
+# The equal-mass assertion
+# --------------------------------------------------------------------------
+
+def check_uniform_gm(values, what: str = "masses") -> None:
+    """Host-side guard of the equal-mass fast path (the counterpart of
+    ``pallas_nbody.check_uniform_gm``): the variants scale every pair by
+    the first entry's G*m, so unequal values with ``uniform_gm=True`` would
+    be wrong physics, not an error. Raises ValueError when the values
+    differ. It reads them on the host (a sync for a CUDA tensor), so the
+    engine checks once at set-up and never inside a tick."""
+    if values is None:
+        return
+    m = torch.as_tensor(values).reshape(-1)
+    if m.numel() and not bool((m == m[0]).all()):
+        raise ValueError(
+            f"uniform_gm=True asserts ALL {what} are equal, but the "
+            f"concrete {what} differ (min {float(m.min())!r}, max "
+            f"{float(m.max())!r}): the fast path would silently scale every "
+            f"pair by {what}[0]. Pass uniform_gm=False (the general kernel), "
+            f"or let DirectSimulation detect equal masses.")
+
+
+def guard_uniform_gm(*groups):
+    """Decorator of a public surface that takes ``uniform_gm``: when it is
+    passed True by keyword, check_uniform_gm runs on each group's value
+    before the call. A group is ``(label, lookups)``; the first lookup (a
+    keyword name, or a positional index) that is not None gives the value,
+    and a state gives its ``.masses``. A resident state padded past
+    ``n_total`` is not checked: the ring runners switch the fast path off
+    on phantom layouts. The undecorated function is ``prevalidated(fn)``."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            if kwargs.get("uniform_gm"):
+                n_total = kwargs.get("n_total")
+                for label, lookups in groups:
+                    val = None
+                    for lk in lookups:
+                        v = (kwargs.get(lk) if isinstance(lk, str)
+                             else (args[lk] if lk < len(args) else None))
+                        if v is not None:
+                            val = getattr(v, "masses", v)
+                            break
+                    if not (n_total is not None and val is not None
+                            and val.shape[0] != n_total):
+                        check_uniform_gm(val, what=label)
+            return fn(*args, **kwargs)
+        return wrapper
+    return deco
+
+
+def prevalidated(fn):
+    """The unguarded inner function of a guard_uniform_gm surface, for
+    callers that checked the masses once already (the engine at set-up,
+    a runner at its entry): the guard would read the device masses on the
+    host on every call."""
+    return getattr(fn, "__wrapped__", fn)
 
 
 # --------------------------------------------------------------------------
@@ -342,28 +426,107 @@ def pair_sym_force_plain(pos_a: torch.Tensor, gm_a: torch.Tensor,
     return rows, cols
 
 
+def sym_force_uniform_plain(pos: torch.Tensor, gm: torch.Tensor,
+                            bounds: torch.Tensor, q: Quantizer,
+                            self_masked: bool,
+                            block: int = 1024) -> torch.Tensor:
+    """Plain PyTorch version of sym_force's equal-mass variant:
+    acc_i = G m_0 sum_j w_ij (x_j - x_i), the sum taken before the single
+    scale (pallas_nbody.py:632-634)."""
+    return row_force_plain(pos, torch.ones_like(gm), bounds, q, self_masked,
+                           block=block) * gm[0]
+
+
+def pair_sym_force_uniform_plain(pos_a: torch.Tensor, gm_a: torch.Tensor,
+                                 pos_b: torch.Tensor, gm_b: torch.Tensor,
+                                 bounds: torch.Tensor, q: Quantizer,
+                                 block: int = 1024) -> tuple:
+    """Plain PyTorch version of pair_sym_force's equal-mass variant: the
+    sums of w_ij (x_j - x_i), rows scaled once by G m_b[0] and reactions by
+    G m_a[0] (pallas_nbody.py:1160-1161)."""
+    rows, cols = pair_sym_force_plain(pos_a, torch.ones_like(gm_a), pos_b,
+                                      torch.ones_like(gm_b), bounds, q,
+                                      block=block)
+    return rows * gm_b[0], cols * gm_a[0]
+
+
 # --------------------------------------------------------------------------
 # Kernel wrappers
 # --------------------------------------------------------------------------
 
+def _variant(name: str, uniform: bool, fused_max: bool = False) -> str:
+    """The LAUNCHES key of one launch of a sym kernel."""
+    return name + "_uniform" * uniform + "_max" * fused_max
+
+
+def _plain_skip(acc: torch.Tensor, skip, count) -> torch.Tensor:
+    """A skip flag and a run counter on a plain result, as the kernels
+    honour them: zeros when skipped, count + 1 when not."""
+    if count is not None:
+        count += 1 if skip is None else (skip == 0).to(torch.int32)
+    return acc if skip is None else torch.where(skip != 0, 0.0, acc)
+
+
 def sym_force(pos: torch.Tensor, gm: torch.Tensor, bounds: torch.Tensor,
-              q: Quantizer, self_masked: bool) -> torch.Tensor:
+              q: Quantizer, self_masked: bool, uniform: bool = False,
+              max_out: torch.Tensor | None = None,
+              skip: torch.Tensor | None = None,
+              count: torch.Tensor | None = None) -> torch.Tensor:
     """Kernel #1 wrapper: CUDA kernel for a CUDA tensor, the plain version
-    for a CPU tensor. Same arguments and result as sym_force_plain."""
+    for a CPU tensor. Same arguments and result as sym_force_plain.
+
+    ``uniform=True`` asserts that every gm is equal (unchecked here) and
+    takes the equal-mass variant (sym_force_uniform_plain) when N is a
+    multiple of TILE, else the general kernel. ``max_out``, an optional
+    0-d f32 on the device, receives the max of the raw pairwise d^2 from
+    the same launch, bitwise max_d2's (the forces are the same bits with or
+    without it). ``skip`` and ``count`` are optional int32 flags on the
+    device, as max_d2's: when *skip != 0 the launch returns at once with
+    zero forces (and a zero max); count gains 1 when it ran. A launch with
+    ``skip`` and no ``max_out`` walks the tile pairs with a capped grid,
+    so that a skipped launch costs microseconds (csrc/sym_force.cu)."""
     n, dim = _check_force_args(pos, gm, bounds)
+    # The engine's tick calls this with no flag and no fused max: that path
+    # pays for none of their checks.
+    extras = max_out is not None or skip is not None or count is not None
+    if extras:
+        _check_flag("skip", skip, pos.device)
+        _check_flag("count", count, pos.device)
+        if max_out is not None:
+            _check_f32("max_out", max_out, (), pos.device)
+            if not q.is_int:
+                raise ValueError("the fused max serves the int-sim modes "
+                                 "only")
+    uniform = uniform and n % TILE == 0
     if pos.device.type == "cpu":
-        return sym_force_plain(pos, gm, bounds, q, self_masked)
+        plain = sym_force_uniform_plain if uniform else sym_force_plain
+        acc = plain(pos, gm, bounds, q, self_masked)
+        if max_out is not None:
+            max_out.copy_(max_d2_plain(pos, skip))
+        return _plain_skip(acc, skip, count)
     lib = _library()
     tiles = _tiles(n)
     with torch.cuda.device(pos.device):
         part = torch.empty((tiles, tiles, TILE, dim), dtype=torch.float32,
                            device=pos.device)
         out = torch.empty_like(pos)
+        skip_p = count_p = tile_max_p = block_max_p = max_out_p = None
+        if extras:
+            skip_p, count_p = _opt_ptr(skip), _opt_ptr(count)
+            if max_out is not None:
+                tile_max = torch.empty(tiles * (tiles + 1) // 2,
+                                       dtype=torch.float32, device=pos.device)
+                block_max = torch.empty(MAX_D2_BLOCKS, dtype=torch.float32,
+                                        device=pos.device)
+                tile_max_p, block_max_p = _ptr(tile_max), _ptr(block_max)
+                max_out_p = _ptr(max_out)
         rc = lib.nbody_sym_force(
             _ptr(pos), _ptr(gm), _ptr(bounds), n, dim, *_int_args(q),
-            int(self_masked), _ptr(part), _ptr(out), _stream(pos.device))
+            int(self_masked), int(uniform), skip_p, count_p, _ptr(part),
+            tile_max_p, block_max_p, MAX_D2_BLOCKS, max_out_p, _ptr(out),
+            _stream(pos.device))
     _raise_on(rc, "sym_force")
-    LAUNCHES["sym_force"] += 1
+    LAUNCHES[_variant("sym_force", uniform, max_out is not None)] += 1
     return out
 
 
@@ -406,15 +569,22 @@ def _check_two_sets(receivers, sources, n_what: str = "sources") -> tuple:
 
 def pair_sym_force(pos_a: torch.Tensor, gm_a: torch.Tensor,
                    pos_b: torch.Tensor, gm_b: torch.Tensor,
-                   bounds: torch.Tensor, q: Quantizer) -> tuple:
+                   bounds: torch.Tensor, q: Quantizer,
+                   uniform: bool = False) -> tuple:
     """Kernel #6 wrapper: CUDA kernel for CUDA tensors, the plain version
     for CPU tensors. Same arguments and result (rows, cols) as
-    pair_sym_force_plain."""
+    pair_sym_force_plain. ``uniform=True`` asserts that each set's gm is
+    equal (unchecked here) and takes the equal-mass variant
+    (pair_sym_force_uniform_plain) when both set sizes are multiples of
+    TILE, else the general kernel."""
     _check_force_args(pos_a, gm_a, bounds)
     n_a, n_b, dim = _check_two_sets(pos_a, pos_b)
     _check_f32("gm_b", gm_b, (n_b,), pos_a.device)
+    uniform = uniform and n_a % TILE == 0 and n_b % TILE == 0
     if pos_a.device.type == "cpu":
-        return pair_sym_force_plain(pos_a, gm_a, pos_b, gm_b, bounds, q)
+        plain = (pair_sym_force_uniform_plain if uniform
+                 else pair_sym_force_plain)
+        return plain(pos_a, gm_a, pos_b, gm_b, bounds, q)
     lib = _library()
     ta, tb = _tiles(n_a), _tiles(n_b)
     nseg = -(-tb // PAIR_SEGMENT_TILES)
@@ -427,11 +597,11 @@ def pair_sym_force(pos_a: torch.Tensor, gm_a: torch.Tensor,
         cols = torch.empty_like(pos_b)
         rc = lib.nbody_pair_sym_force(
             _ptr(pos_a), _ptr(gm_a), n_a, _ptr(pos_b), _ptr(gm_b), n_b,
-            _ptr(bounds), dim, *_int_args(q), PAIR_SEGMENT_TILES,
-            _ptr(rpart), _ptr(cpart), _ptr(rows), _ptr(cols),
-            _stream(pos_a.device))
+            _ptr(bounds), dim, *_int_args(q), int(uniform),
+            PAIR_SEGMENT_TILES, _ptr(rpart), _ptr(cpart), _ptr(rows),
+            _ptr(cols), _stream(pos_a.device))
     _raise_on(rc, "pair_sym_force")
-    LAUNCHES["pair_sym_force"] += 1
+    LAUNCHES[_variant("pair_sym_force", uniform)] += 1
     return rows, cols
 
 
@@ -455,11 +625,7 @@ def max_d2_plain(pos: torch.Tensor, skip: torch.Tensor | None = None,
             dx = pos[None, :, d] - pi[:, d, None]
             d2 = d2 + dx * dx
         best = torch.maximum(best, d2.max())
-    if count is not None:
-        count += 1 if skip is None else (skip == 0).to(torch.int32)
-    if skip is not None:
-        best = torch.where(skip != 0, 0.0, best)
-    return best
+    return _plain_skip(best, skip, count)
 
 
 def _check_flag(name: str, t: torch.Tensor | None, device) -> None:
@@ -487,27 +653,41 @@ def max_d2(pos: torch.Tensor, skip: torch.Tensor | None = None,
                                 device=pos.device)
         out = torch.empty(1, dtype=torch.float32, device=pos.device)
         rc = lib.nbody_max_d2(
-            _ptr(pos), n, dim, None if skip is None else _ptr(skip),
-            None if count is None else _ptr(count), _ptr(block_max),
-            MAX_D2_BLOCKS, _ptr(out), _stream(pos.device))
+            _ptr(pos), n, dim, _opt_ptr(skip), _opt_ptr(count),
+            _ptr(block_max), MAX_D2_BLOCKS, _ptr(out), _stream(pos.device))
     _raise_on(rc, "max_d2")
     LAUNCHES["max_d2"] += 1
     return out[0]
 
 
-def bounds_fallbacks(device) -> int:
-    """How often the pruned bounds pass on ``device`` ran its full-set
-    max_d2 launch since BOUNDS_FALLBACKS was last cleared (host read)."""
-    count = BOUNDS_FALLBACKS.get(str(torch.device(device)))
+def _read_counter(registry: dict, device) -> int:
+    count = registry.get(str(torch.device(device)))
     return 0 if count is None else int(count)
 
 
-def _fallback_counter(device: torch.device) -> torch.Tensor:
+def _device_counter(registry: dict, device: torch.device) -> torch.Tensor:
     key = str(device)
-    if key not in BOUNDS_FALLBACKS:
-        BOUNDS_FALLBACKS[key] = torch.zeros((), dtype=torch.int32,
-                                            device=device)
-    return BOUNDS_FALLBACKS[key]
+    if key not in registry:
+        registry[key] = torch.zeros((), dtype=torch.int32, device=device)
+    return registry[key]
+
+
+def bounds_fallbacks(device) -> int:
+    """How often the pruned bounds pass on ``device`` ran its full-set
+    max_d2 launch since BOUNDS_FALLBACKS was last cleared (host read)."""
+    return _read_counter(BOUNDS_FALLBACKS, device)
+
+
+def redo_counter(device: torch.device) -> torch.Tensor:
+    """The device int32 of REDO_LAUNCHES for ``device``: pass it as
+    ``count`` with a skip flag."""
+    return _device_counter(REDO_LAUNCHES, device)
+
+
+def redo_launches(device) -> int:
+    """How many skip-flagged sym_force launches on ``device`` ran since
+    REDO_LAUNCHES was last cleared (host read)."""
+    return _read_counter(REDO_LAUNCHES, device)
 
 
 # --------------------------------------------------------------------------
@@ -593,7 +773,8 @@ def max_pairwise_dist_sq_pruned(positions: torch.Tensor, cfg: SimConfig,
     cand = pos.index_select(0, idx)
     cand_max = max_d2(cand)
     full_max = max_d2(pos, skip=enough,
-                      count=_fallback_counter(pos.device))
+                      count=_device_counter(BOUNDS_FALLBACKS,
+                                            pos.device))
     return torch.where(enough != 0, cand_max, full_max) + soft
 
 
@@ -638,24 +819,45 @@ def _finish(acc, q: Quantizer, quantize_forces: bool):
     return quantize_force(acc, q) if quantize_forces and q.is_int else acc
 
 
+@guard_uniform_gm(("masses", ("gm", "masses", 1)))
 def sym_accelerations(positions: torch.Tensor, masses, q: Quantizer,
                       cfg: SimConfig, quantize_forces: bool = True,
                       softening_sq=None, log_lo=None, log_hi=None,
-                      gm=None) -> torch.Tensor:
+                      gm=None, uniform_gm: bool = False,
+                      emit_max: bool = False, skip=None, count=None):
     """Softened all-pairs accelerations through the sym_force kernel.
 
-    Same semantics as ``nbody_tpu.ops.pallas_nbody.pallas_accelerations_sym``
-    on its general path: int-sim modes take their tensor-global grid
-    bounds from the candidate-pruned max pass unless ``log_lo``/``log_hi``
-    are given, then quantize the (N, D) result with ``quantize_force``.
-    ``softening_sq`` optionally replaces cfg's with a run-time (0-d
-    tensor) value. The diagonal is masked when softening is zero or given
-    at run time. ``gm`` (G * m) may replace ``masses``. Nothing here waits
-    on the host."""
+    Same semantics as ``nbody_tpu.ops.pallas_nbody.pallas_accelerations_sym``:
+    int-sim modes take their tensor-global grid bounds from the
+    candidate-pruned max pass unless ``log_lo``/``log_hi`` are given, then
+    quantize the (N, D) result with ``quantize_force``. ``softening_sq``
+    optionally replaces cfg's with a run-time (0-d tensor) value. The
+    diagonal is masked when softening is zero or given at run time. ``gm``
+    (G * m) may replace ``masses``. Nothing here waits on the host.
+
+    ``uniform_gm=True`` asserts equal masses (checked on the host unless
+    called through ``prevalidated``) and takes the equal-mass variant when
+    N is a multiple of TILE (the full-tile rule). ``emit_max=True`` (int-sim
+    modes, explicit log_lo/log_hi: the cached-bounds scan owns them) also
+    returns the max softened pairwise d^2 from the same launch:
+    ``(acc, max_d2 + eps^2)``. ``skip`` / ``count`` pass sym_force's device
+    flags through (the cached-bounds scan's redo launch)."""
+    if emit_max:
+        if not q.is_int:
+            raise ValueError("emit_max is only supported for int-sim modes "
+                             "(float modes have no log grid to bound)")
+        if log_lo is None or log_hi is None:
+            raise ValueError("emit_max requires explicit log_lo/log_hi (the "
+                             "cached-bounds scan owns them)")
     pos, gm = _prepare(positions, masses, cfg, gm)
     bounds = kernel_bounds(pos, q, cfg, softening_sq, log_lo, log_hi)
-    acc = sym_force(pos, gm, bounds, q, _self_masked(cfg, softening_sq))
-    return _finish(acc, q, quantize_forces)
+    max_out = (torch.empty((), dtype=torch.float32, device=pos.device)
+               if emit_max else None)
+    acc = sym_force(pos, gm, bounds, q, _self_masked(cfg, softening_sq),
+                    uniform=uniform_gm, max_out=max_out, skip=skip,
+                    count=count)
+    acc = _finish(acc, q, quantize_forces)
+    return (acc, max_out + bounds[2]) if emit_max else acc
 
 
 def accelerations_rows(positions: torch.Tensor, masses: torch.Tensor,
@@ -678,11 +880,12 @@ def accelerations_rows(positions: torch.Tensor, masses: torch.Tensor,
 accelerations_streamed = accelerations_rows
 
 
+@guard_uniform_gm(("masses", ("gm", "masses", 1)))
 def sym_accelerations_chunked(positions: torch.Tensor, masses, q: Quantizer,
                               cfg: SimConfig, quantize_forces: bool = True,
                               chunk: int | None = None, softening_sq=None,
-                              log_lo=None, log_hi=None,
-                              gm=None) -> torch.Tensor:
+                              log_lo=None, log_hi=None, gm=None,
+                              uniform_gm: bool = False) -> torch.Tensor:
     """Newton's-third-law accelerations past one sym_force launch's
     scratch budget: the counterpart of ``pallas_accelerations_sym_chunked``
     (#5).
@@ -694,7 +897,11 @@ def sym_accelerations_chunked(positions: torch.Tensor, masses, q: Quantizer,
     ~N^2/2 pair evaluations. Sums follow JAX's order: acc_i = diagonal +
     rows over j ascending, acc[j] += cols. Int-sim bounds are taken once
     over all N. Zero or run-time softening routes to the row sweep
-    (pallas_nbody.py:892-895): the pair tile has no self-mask."""
+    (pallas_nbody.py:892-895): the pair tile has no self-mask.
+    ``uniform_gm=True`` asserts equal masses and reaches every launch,
+    where the full-tile rule decides per chunk (pallas_nbody.py:930-945):
+    only a last chunk that is not a multiple of TILE takes the general
+    kernels."""
     if _self_masked(cfg, softening_sq):
         return accelerations_streamed(positions, masses, q, cfg,
                                       quantize_forces=quantize_forces,
@@ -706,10 +913,11 @@ def sym_accelerations_chunked(positions: torch.Tensor, masses, q: Quantizer,
     spans = [slice(a, min(a + chunk, n)) for a in range(0, n, chunk)]
     acc = torch.zeros_like(pos)
     for i, si in enumerate(spans):
-        acc_i = sym_force(pos[si], gm[si], bounds, q, False)
+        acc_i = sym_force(pos[si], gm[si], bounds, q, False,
+                          uniform=uniform_gm)
         for sj in spans[i + 1:]:
             rows, cols = pair_sym_force(pos[si], gm[si], pos[sj], gm[sj],
-                                        bounds, q)
+                                        bounds, q, uniform=uniform_gm)
             acc_i = acc_i + rows
             acc[sj] += cols
         acc[si] += acc_i

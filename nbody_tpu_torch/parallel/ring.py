@@ -42,6 +42,12 @@ picking a tile are not carried over. Sources are chunked where one pair
 tile's per-tile scratch would pass ``hopper_nbody.SCRATCH_BUDGET`` (the
 card's counterpart of the TPU's VMEM residency budget).
 
+Equal masses: ``uniform_gm=True`` (the sym schedule only) sends the
+diagonal and pair tiles to the sym kernels' equal-mass variants, where
+each launch's full-tile rule still decides; it is switched off whenever
+the padded layout has phantom rows (N % S != 0), which need G*m = 0 to
+stay inert (JAX ring.py:818-832).
+
 Zero softening: JAX routes the ring tiles to the id-masked broadcast
 tile. The kernel path computes the same function: the diagonal block goes
 to ``row_force`` with its self-mask, and blocks of two shards need no
@@ -264,12 +270,16 @@ def _tile_force(xi, ids_i, xj, gm_j, ids_j, q: Quantizer, cfg: SimConfig,
 
 
 def _tile_force_sym(xi, gm_i, ids_i, xj, gm_j, ids_j, q: Quantizer,
-                    cfg: SimConfig, log_lo, log_hi, impl: str) -> tuple:
+                    cfg: SimConfig, log_lo, log_hi, impl: str,
+                    uniform_gm: bool = False) -> tuple:
     """Newton's-third-law pair tile between two disjoint blocks: returns
     (acc_on_i, reaction_on_j) from ONE evaluation of the pair weights, the
     per-step tile of the half-ring schedule. The kernel path is
-    pair_sym_force (#6), source-chunked past the scratch budget; it needs
-    no id mask at any softening, since the blocks share no id."""
+    pair_sym_force (#6), source-chunked past the scratch budget, each
+    launch in its equal-mass variant under ``uniform_gm`` where the
+    full-tile rule allows; it needs no id mask at any softening, since the
+    blocks share no id. The 'jnp' tile ignores ``uniform_gm`` (the same
+    function)."""
     if _resolve_tile_impl(impl) == "auto":
         bounds = hn.kernel_bounds(xi, q, cfg, None, log_lo, log_hi)
         nj = xj.shape[0]
@@ -277,7 +287,8 @@ def _tile_force_sym(xi, gm_i, ids_i, xj, gm_j, ids_j, q: Quantizer,
         rows, cols = None, []
         for c0 in range(0, nj, chunk):
             sl = slice(c0, min(c0 + chunk, nj))
-            r, c = hn.pair_sym_force(xi, gm_i, xj[sl], gm_j[sl], bounds, q)
+            r, c = hn.pair_sym_force(xi, gm_i, xj[sl], gm_j[sl], bounds, q,
+                                     uniform=uniform_gm)
             rows = r if rows is None else rows + r
             cols.append(c)
         return rows, torch.cat(cols) if len(cols) > 1 else cols[0]
@@ -288,20 +299,20 @@ def _tile_force_sym(xi, gm_i, ids_i, xj, gm_j, ids_j, q: Quantizer,
 
 
 def _diagonal_sym(pos, gm, ids, q: Quantizer, cfg: SimConfig, log_lo,
-                  log_hi, impl: str) -> torch.Tensor:
+                  log_hi, impl: str, uniform_gm: bool = False) -> torch.Tensor:
     """A shard's intra-block accelerations for the sym schedule: sym_force
     (#1), or the chunked path (#5) past its scratch budget, with the
-    ring's global int bounds; zero softening takes the self-masked row
-    sweep."""
+    ring's global int bounds (and the equal-mass variants under
+    ``uniform_gm``, checked by the runner); zero softening takes the
+    self-masked row sweep."""
     if impl == "jnp" or cfg.softening_sq <= 0.0:
         return _tile_force(pos, ids, pos, gm, ids, q, cfg, log_lo, log_hi,
                            impl, diagonal=True)
-    if hn.sym_force_fits(*pos.shape):
-        return hn.sym_accelerations(pos, None, q, cfg, quantize_forces=False,
-                                    log_lo=log_lo, log_hi=log_hi, gm=gm)
-    return hn.sym_accelerations_chunked(pos, None, q, cfg,
-                                        quantize_forces=False, log_lo=log_lo,
-                                        log_hi=log_hi, gm=gm)
+    fn = (hn.sym_accelerations if hn.sym_force_fits(*pos.shape)
+          else hn.sym_accelerations_chunked)
+    return hn.prevalidated(fn)(pos, None, q, cfg, quantize_forces=False,
+                               log_lo=log_lo, log_hi=log_hi, gm=gm,
+                               uniform_gm=uniform_gm)
 
 
 # --------------------------------------------------------------------------
@@ -439,7 +450,8 @@ def _ring_accelerations_sym_local(mesh: ParticleMesh, pos: list, gm: list,
                                   ids: list, n_total: int, q: Quantizer,
                                   cfg: SimConfig, quantize_forces: bool,
                                   tile_impl: str = "auto",
-                                  ext_bounds=None) -> list:
+                                  ext_bounds=None,
+                                  uniform_gm: bool = False) -> list:
     """Half-ring Newton's-third-law schedule: every unordered pair once.
 
     Source blocks travel only HALF way around the ring (S//2 hops); each
@@ -451,7 +463,8 @@ def _ring_accelerations_sym_local(mesh: ParticleMesh, pos: list, gm: list,
     launches S sym_force and S(S-1)/2 pair_sym_force (unchunked). For an
     even ring the half-distance step is seen from both ends; only the
     lower half of the ring computes it. ``ext_bounds`` are per-shard
-    (log_lo, log_hi) lists owned by the caller (bounds reuse)."""
+    (log_lo, log_hi) lists owned by the caller (bounds reuse);
+    ``uniform_gm`` reaches every tile (phantom-free layouts only)."""
     n = mesh.size
     if ext_bounds is not None:
         log_lo, log_hi = ext_bounds
@@ -462,14 +475,14 @@ def _ring_accelerations_sym_local(mesh: ParticleMesh, pos: list, gm: list,
     impl = _resolve_tile_impl(tile_impl)
 
     acc = [_diagonal_sym(pos[s], gm[s], ids[s], q, cfg, log_lo[s],
-                         log_hi[s], impl) for s in range(n)]
+                         log_hi[s], impl, uniform_gm) for s in range(n)]
     racc = [torch.zeros_like(p) for p in pos]
     pos_j, gm_j, ids_j = pos, gm, ids
 
     def visit(s):
         d_acc, d_reac = _tile_force_sym(pos[s], gm[s], ids[s], pos_j[s],
                                         gm_j[s], ids_j[s], q, cfg, log_lo[s],
-                                        log_hi[s], impl)
+                                        log_hi[s], impl, uniform_gm)
         acc[s] = acc[s] + d_acc
         racc[s] = racc[s] + d_reac
 
@@ -538,10 +551,13 @@ def _padded(positions, velocities, masses, mesh: ParticleMesh) -> tuple:
 
 def _make_ring_force(mesh, q: Quantizer, cfg: SimConfig, gm, ids, n_total,
                      quantize_forces: bool, schedule: str,
-                     bounds_reuse: bool, pos) -> tuple:
+                     bounds_reuse: bool, pos,
+                     uniform_gm: bool = False) -> tuple:
     """(force, bounds_of, b0) for the sharded leapfrog loops. ``force(p,
     b)`` ignores ``b`` unless bounds reuse is active, where ``b`` is the
-    externally owned per-shard log-grid bounds; b0 is the entry force's."""
+    externally owned per-shard log-grid bounds; b0 is the entry force's.
+    ``uniform_gm`` reaches the sym schedule only (the rows schedule has no
+    equal-mass variant)."""
     def bounds_of(p):
         return _ring_log_bounds(mesh, p, ids, n_total, q, cfg)
 
@@ -549,7 +565,8 @@ def _make_ring_force(mesh, q: Quantizer, cfg: SimConfig, gm, ids, n_total,
         def force(p, b):
             return _ring_accelerations_sym_local(
                 mesh, p, gm, ids, n_total, q, cfg, quantize_forces,
-                ext_bounds=b if bounds_reuse else None)
+                ext_bounds=b if bounds_reuse else None,
+                uniform_gm=uniform_gm)
     else:
         def force(p, b):
             return _ring_accelerations_local(mesh, p, gm, ids, n_total, q,
@@ -579,34 +596,38 @@ def _make_ring_step(cfg: SimConfig, force, bounds_of, bounds_reuse: bool,
 
 
 def _start(state, q: Quantizer, cfg: SimConfig, mesh: ParticleMesh,
-           quantize_forces: bool, schedule: str, n_total, bounds_every: int):
+           quantize_forces: bool, schedule: str, n_total, bounds_every: int,
+           uniform_gm: bool):
     """Shard a ParticleState and build its step; returns (n_total, padded
     masses, per-shard masses and ids, one_step, carry with the entry
-    force)."""
+    force). ``uniform_gm`` is switched off on a layout with phantom rows."""
     _check_run_args(schedule, bounds_every)
     if n_total is None:
         n_total = state.positions.shape[0]
     pos, vel, masses, ids = _padded(state.positions, state.velocities,
                                     state.masses, mesh)
+    uniform_gm = uniform_gm and pos.shape[0] == n_total
     pos_l, vel_l, m_l, ids_l = (_shards(x, mesh)
                                 for x in (pos, vel, masses, ids))
     gm_l = _shards(cfg.G * masses, mesh)
     bounds_reuse = q.is_int and bounds_every > 1 and schedule == "sym"
     force, bounds_of, b0 = _make_ring_force(mesh, q, cfg, gm_l, ids_l,
                                             n_total, quantize_forces,
-                                            schedule, bounds_reuse, pos_l)
+                                            schedule, bounds_reuse, pos_l,
+                                            uniform_gm)
     one_step = _make_ring_step(cfg, force, bounds_of, bounds_reuse,
                                bounds_every)
     carry = (pos_l, vel_l, force(pos_l, b0), b0, 0)
     return n_total, masses, m_l, ids_l, one_step, carry
 
 
+@hn.guard_uniform_gm(("masses", (0,)))
 def run_steps_sharded(state: ParticleState, q: Quantizer, cfg: SimConfig,
                       mesh: ParticleMesh, num_steps: int,
                       quantize_forces: bool = False,
                       steps_per_chunk: int = 0, gather: bool = True,
                       schedule: str = "sym", n_total: int | None = None,
-                      bounds_every: int = 1):
+                      bounds_every: int = 1, uniform_gm: bool = False):
     """Sharded leapfrog run: the ring force inside a loop over ticks.
 
     Returns (final ParticleState, per-chunk EnergyStream). The state on
@@ -619,10 +640,13 @@ def run_steps_sharded(state: ParticleState, q: Quantizer, cfg: SimConfig,
     is the half-ring Newton's-third-law schedule, 'rows' the plain full
     ring. ``bounds_every=k`` (int-sim modes, sym schedule) recomputes the
     global bounds pass every k-th step; k=1 is the exact reference
-    semantics."""
+    semantics. ``uniform_gm=True`` asserts equal masses (checked on the
+    host unless called through ``hopper_nbody.prevalidated``): the sym
+    schedule's tiles take their equal-mass variants, switched off when
+    N % S != 0 (phantom rows)."""
     n_total, masses, m_l, ids_l, one_step, carry = _start(
         state, q, cfg, mesh, quantize_forces, schedule, n_total,
-        bounds_every)
+        bounds_every, uniform_gm)
     kinetic, potential = [], []
     chunk = min(steps_per_chunk, num_steps)
     n_chunks = num_steps // chunk if chunk else 0
@@ -668,22 +692,25 @@ def _stacked(snaps: list, frames: list) -> tuple:
             torch.stack(frames).cpu().numpy())
 
 
+@hn.guard_uniform_gm(("masses", (0,)))
 def run_with_snapshots_sharded(state: ParticleState, q: Quantizer,
                                cfg: SimConfig, mesh: ParticleMesh,
                                steps_per_chunk: int, num_chunks: int,
                                quantize_forces: bool = False,
                                num_bins: int = 20, schedule: str = "sym",
                                n_total: int | None = None,
-                               bounds_every: int = 1):
+                               bounds_every: int = 1,
+                               uniform_gm: bool = False):
     """Sharded history run, the multi-device ``models.direct.
     run_with_snapshots`` (reference: simulation.py:145-196,229-242): per
     chunk, ``steps_per_chunk`` ring-force leapfrog ticks, then a metrics
     Snapshot, PE from the energy ring. Returns (resident padded state,
     Snapshots of numpy arrays stacked over chunks, position frames
-    (num_chunks, n_total, D) as numpy), copied to the host once."""
+    (num_chunks, n_total, D) as numpy), copied to the host once.
+    ``uniform_gm`` follows run_steps_sharded."""
     n_total, masses, m_l, ids_l, one_step, carry = _start(
         state, q, cfg, mesh, quantize_forces, schedule, n_total,
-        bounds_every)
+        bounds_every, uniform_gm)
     m_full = masses.to(mesh.devices[0])[:n_total]
     snaps, frames = [], []
     for i in range(num_chunks):
@@ -720,24 +747,32 @@ def ring_potential_energy(positions, masses, cfg: SimConfig,
                           _shards(ids, mesh), n_total, cfg, compensated)
 
 
+@hn.guard_uniform_gm(("masses", ("masses", 1)))
 def ring_accelerations(positions, masses, q: Quantizer, cfg: SimConfig,
                        mesh: ParticleMesh, quantize_forces: bool = False,
-                       tile_impl: str = "auto",
-                       schedule: str = "sym") -> torch.Tensor:
+                       tile_impl: str = "auto", schedule: str = "sym",
+                       uniform_gm: bool = False) -> torch.Tensor:
     """One sharded force evaluation (library entry for tests and
     benchmarks): (N, D) f32 on the mesh's first device. ``tile_impl='jnp'``
     is the reference tile (see the module's notes). ``schedule='sym'``
-    is the half-ring schedule, 'rows' the plain ring."""
+    is the half-ring schedule, 'rows' the plain ring. ``uniform_gm``
+    follows run_steps_sharded (sym schedule only, off with phantom
+    rows)."""
     _check_run_args(schedule, 1)
     n_total = positions.shape[0]
     pos, _, m, ids = _padded(positions.to(torch.float32), None,
                              masses.to(torch.float32), mesh)
     pos_l, ids_l = _shards(pos, mesh), _shards(ids, mesh)
     gm_l = _shards(cfg.G * m, mesh)
-    run = (_ring_accelerations_sym_local if schedule == "sym"
-           else _ring_accelerations_local)
-    acc = run(mesh, pos_l, gm_l, ids_l, n_total, q, cfg, quantize_forces,
-              tile_impl=tile_impl)
+    if schedule == "sym":
+        acc = _ring_accelerations_sym_local(
+            mesh, pos_l, gm_l, ids_l, n_total, q, cfg, quantize_forces,
+            tile_impl=tile_impl,
+            uniform_gm=uniform_gm and pos.shape[0] == n_total)
+    else:
+        acc = _ring_accelerations_local(mesh, pos_l, gm_l, ids_l, n_total, q,
+                                        cfg, quantize_forces,
+                                        tile_impl=tile_impl)
     return _gather(acc, mesh)[:n_total]
 
 

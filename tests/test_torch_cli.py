@@ -144,3 +144,32 @@ def test_cli_names_the_force_path_from_the_launch_counts(tmp_path, capsys):
               "--snapshot-interval", "2", "--compare", "float32",
               "--output", str(tmp_path)])
     assert "force path: no force kernel launched" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("launched, schedule, want", [
+    ({"sym_force_uniform": 3}, None,
+     "single-launch sym_force, equal-mass variant (sym_force_uniform)"),
+    ({"sym_force_uniform": 5, "pair_sym_force_uniform": 10}, None,
+     "chunked Newton's-third-law (sym_force + pair_sym_force), equal-mass "
+     "variant (sym_force_uniform + pair_sym_force_uniform)"),
+    ({"sym_force": 1, "sym_force_uniform": 4, "pair_sym_force": 2,
+      "pair_sym_force_uniform": 6}, None,
+     "chunked Newton's-third-law (sym_force + pair_sym_force), equal-mass "
+     "variant (sym_force_uniform + pair_sym_force_uniform)"),
+    ({"sym_force": 3, "sym_force_uniform_max": 3}, None,
+     "single-launch sym_force, equal-mass variant (sym_force_uniform_max)"),
+    ({"sym_force_max": 3}, None,
+     "single-launch sym_force with the fused max"),
+    ({"sym_force_uniform": 3, "pair_sym_force_uniform": 3, "pair_max": 6,
+      "pair_pe_rows": 9}, "sym",
+     "ring, sym (half ring) schedule (sym_force_uniform + "
+     "pair_sym_force_uniform + pair_max + pair_pe_rows)"),
+])
+def test_cli_force_path_names_the_equal_mass_variant(launched, schedule,
+                                                     want):
+    """The equal-mass variants count apart (hopper_nbody.LAUNCHES), and
+    the force path names them; the general kernels' names stay as they
+    were."""
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+    counts = {**{k: 0 for k in hn.LAUNCHES}, **launched}
+    assert cli.force_path(counts, schedule) == want

@@ -2,7 +2,9 @@
 
 Both engines start from identical numpy ICs (N=128, 50 ticks, snapshots
 every 25 ticks); the JAX side runs its dense oracle force, the port its
-default path (the sym_force kernel's plain version on the CPU).
+default path on ``device="cpu"``: the equal masses of the disk and
+N = 2 x 64 take the sym_force kernel's equal-mass variant, its plain
+version here.
 
 Tolerances: float32 / bf16 / f16 positions rtol 1e-4, atol 1e-5 and
 snapshot energies rtol 1e-5; float64 positions and energies rtol 1e-6;
@@ -36,7 +38,8 @@ def ics():
 def _run_both(ics, mode, **kwargs):
     jsim = jd.DirectSimulation(*ics, precision=mode, force_impl="dense",
                                **kwargs)
-    tsim = td.DirectSimulation(*ics, precision=mode, **kwargs)
+    tsim = td.DirectSimulation(*ics, precision=mode, device="cpu",
+                               **kwargs)
     out = []
     for sim in (jsim, tsim):
         e0 = sim.get_total_energy()
@@ -90,8 +93,9 @@ def test_int_modes_match_jax(ics, mode, kwargs):
 def test_bounds_every_changes_int4_trajectory(ics):
     """bounds_every=4 reuses stale bounds: a different (documented)
     trajectory from the exact per-step bounds, on both engines."""
-    exact = td.DirectSimulation(*ics, precision="int4")
-    reuse = td.DirectSimulation(*ics, precision="int4", bounds_every=4)
+    exact = td.DirectSimulation(*ics, precision="int4", device="cpu")
+    reuse = td.DirectSimulation(*ics, precision="int4", bounds_every=4,
+                                device="cpu")
     exact.step(TICKS)
     reuse.step(TICKS)
     assert not torch.equal(exact.positions, reuse.positions)
@@ -132,7 +136,7 @@ def test_from_jax_numpy_particle_state(ics):
         assert t.dtype == torch.float32
         np.testing.assert_array_equal(t.numpy(), getattr(exported, field))
     # one more step from the imported state agrees with JAX's next step
-    sim = td.DirectSimulation(*ics, precision="float32")
+    sim = td.DirectSimulation(*ics, precision="float32", device="cpu")
     sim.state = state
     sim.step(1)
     jsim.step(1)
@@ -142,7 +146,8 @@ def test_from_jax_numpy_particle_state(ics):
 
 
 def test_engine_surface(ics):
-    sim = td.DirectSimulation(*ics, precision=Precision.FLOAT32)
+    sim = td.DirectSimulation(*ics, precision=Precision.FLOAT32,
+                              device="cpu")
     seen = []
     sim.run(30, callback=lambda s, tick: seen.append(tick),
             callback_interval=12)
@@ -161,18 +166,12 @@ def test_engine_surface(ics):
 
 def test_run_comparison(ics):
     res = td.run_comparison(*ics, modes=["float64", "int4"], num_ticks=20,
-                            snapshot_interval=10)
+                            snapshot_interval=10, device="cpu")
     assert set(res) == {"float64", "int4_sim"}
     for r in res.values():
         assert r["final_state"]["tick"] == 20
         assert len(r["snapshots"].tick) == 2
         assert np.isfinite(r["snapshots"].total).all()
-
-
-@pytest.mark.parametrize("kwargs", [{"bounds_mode": "cached"}])
-def test_unported_options_raise(ics, kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        td.DirectSimulation(*ics, precision="int4", **kwargs)
 
 
 def _virtual_mesh(n_shards):
@@ -206,12 +205,12 @@ def test_mesh_rules_raise_value_error(ics, rule):
     if "mesh" in kwargs:
         kwargs = {**kwargs, "mesh": _virtual_mesh(kwargs["mesh"])}
     with pytest.raises(ValueError, match=message):
-        td.DirectSimulation(*ics, precision="int4", **kwargs)
+        td.DirectSimulation(*ics, precision="int4", device="cpu", **kwargs)
 
 
 def test_unknown_force_impl_raises(ics):
     with pytest.raises(ValueError, match="unknown force impl"):
-        td.DirectSimulation(*ics, force_impl="pallas")
+        td.DirectSimulation(*ics, force_impl="pallas", device="cpu")
 
 
 # --------------------------------------------------------------------------
@@ -260,7 +259,8 @@ def test_named_kernel_paths_match_jax(ics, impl):
              "kernel_streamed": "pallas_streamed",
              "kernel_sym_chunked": "pallas_sym_chunked"}[impl]
     jsim = jd.DirectSimulation(*ics, precision="float32", force_impl=jimpl)
-    tsim = td.DirectSimulation(*ics, precision="float32", force_impl=impl)
+    tsim = td.DirectSimulation(*ics, precision="float32", force_impl=impl,
+                               device="cpu")
     jsim.step(10)
     tsim.step(10)
     np.testing.assert_allclose(tsim.positions.numpy(),
@@ -273,14 +273,15 @@ def test_bounds_every_rejected_on_paths_without_external_bounds(ics):
     take external int-sim bounds."""
     for impl in ("kernel_rows", "kernel_streamed", "kernel_sym_chunked"):
         sim = td.DirectSimulation(*ics, precision="int4", force_impl=impl,
-                                  bounds_every=4)
+                                  bounds_every=4, device="cpu")
         with pytest.raises(ValueError, match="bounds_every > 1"):
             sim.step(2)
 
 
 def test_dynamic_params_float64_raises_value_error(ics):
     with pytest.raises(ValueError, match="dynamic_params"):
-        td.DirectSimulation(*ics, precision="float64", dynamic_params=True)
+        td.DirectSimulation(*ics, precision="float64", dynamic_params=True,
+                            device="cpu")
 
 
 @pytest.mark.parametrize("mode", ["float32", "int4"])
@@ -291,7 +292,7 @@ def test_dynamic_params_drift_matches_jax(ics, mode):
     cfg's softening in both, as the JAX engine's fused snapshot does."""
     kw = dict(precision=mode, dynamic_params=True, softening=0.08, dt=0.005)
     jsim = jd.DirectSimulation(*ics, force_impl="dense", **kw)
-    tsim = td.DirectSimulation(*ics, **kw)
+    tsim = td.DirectSimulation(*ics, device="cpu", **kw)
     assert tsim._dyn_soft_sq.dtype == torch.float32
     assert float(tsim._dyn_soft_sq) == np.float32(0.08 * 0.08)
     je0, te0 = jsim.get_total_energy(), tsim.get_total_energy()
@@ -312,9 +313,9 @@ def test_dynamic_params_drift_matches_jax(ics, mode):
 def test_dynamic_params_equal_static_run_bitwise(ics):
     """The same values as run-time scalars or as cfg constants give the
     same bits: the launches see the same numbers."""
-    static = td.DirectSimulation(*ics, precision="int4")
+    static = td.DirectSimulation(*ics, precision="int4", device="cpu")
     dynamic = td.DirectSimulation(*ics, precision="int4",
-                                  dynamic_params=True)
+                                  dynamic_params=True, device="cpu")
     static.step(20)
     dynamic.step(20)
     assert torch.equal(static.positions, dynamic.positions)
@@ -323,7 +324,8 @@ def test_dynamic_params_equal_static_run_bitwise(ics):
 def test_energies_use_the_run_time_softening(ics):
     from nbody_tpu_torch.diagnostics import metrics as tm
     sim = td.DirectSimulation(*ics, precision="float32",
-                              dynamic_params=True, softening=0.3)
+                              dynamic_params=True, softening=0.3,
+                              device="cpu")
     want = tm.potential_energy(sim.positions, sim.masses, sim.cfg,
                                softening_sq=torch.tensor(0.09))
     assert sim.get_potential_energy() == pytest.approx(float(want),

@@ -325,3 +325,139 @@ def test_virtual_ring_on_card_matches_single_device(cuda, schedule, mode):
     pe = ring.ring_potential_energy(pt, m, cfg, mesh)
     assert float(pe) == pytest.approx(
         float(metrics.potential_energy(pt, m, cfg)), rel=1e-6)
+
+
+# --------------------------------------------------------------------------
+# The sym kernels' equal-mass variants, the fused max and the skip flag,
+# and the lab's variants of the equal-mass kernel
+# --------------------------------------------------------------------------
+
+def _equal(n, dim, seed, cuda):
+    pt = torch.from_numpy(_disk(n, dim, seed)).to(cuda)
+    return pt, torch.full((n,), 0.001, device=cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("n", [1024, 4096])
+def test_sym_force_uniform_kernel_matches_plain(cuda, mode, dim, n):
+    pt, gm = _equal(n, dim, 11, cuda)
+    q = tp.Quantizer.from_string(mode)
+    bounds = _bounds(q, pt, 0.01, cuda)
+    before = dict(hn.LAUNCHES)
+    got = hn.sym_force(pt, gm, bounds, q, False, uniform=True)
+    assert hn.LAUNCHES["sym_force_uniform"] == \
+        before["sym_force_uniform"] + 1
+    assert hn.LAUNCHES["sym_force"] == before["sym_force"]
+    _hold(got, hn.sym_force_uniform_plain(pt, gm, bounds, q, False), q)
+    assert torch.equal(got, hn.sym_force(pt, gm, bounds, q, False,
+                                         uniform=True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["float32", "int4"])
+def test_uniform_flag_off_the_tile_is_bitwise_general(cuda, mode):
+    """N=1000 and 300 x 1100 are not multiples of the tile: the flag gives
+    the general kernels' bits and counts as a general launch."""
+    pt, gm = _equal(1400, 2, 12, cuda)
+    q = tp.Quantizer.from_string(mode)
+    bounds = _bounds(q, pt, 0.01, cuda)
+    before = dict(hn.LAUNCHES)
+    assert torch.equal(hn.sym_force(pt[:1000], gm[:1000], bounds, q, False,
+                                    uniform=True),
+                       hn.sym_force(pt[:1000], gm[:1000], bounds, q, False))
+    args = (pt[:300], gm[:300], pt[300:], gm[300:], bounds, q)
+    flagged = hn.pair_sym_force(*args, uniform=True)
+    assert all(torch.equal(a, b)
+               for a, b in zip(flagged, hn.pair_sym_force(*args)))
+    assert hn.LAUNCHES["sym_force"] == before["sym_force"] + 2
+    assert hn.LAUNCHES["pair_sym_force"] == before["pair_sym_force"] + 2
+    assert hn.LAUNCHES["sym_force_uniform"] == before["sym_force_uniform"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("n_a,n_b", [(1024, 2048), (1024, 64)])
+def test_pair_sym_force_uniform_kernel_matches_plain(cuda, mode, dim, n_a,
+                                                     n_b):
+    pt, gm = _equal(n_a + n_b, dim, 13, cuda)
+    q = tp.Quantizer.from_string(mode)
+    bounds = _bounds(q, pt, 0.01, cuda)
+    args = (pt[:n_a], gm[:n_a], pt[n_a:], gm[n_a:], bounds, q)
+    before = hn.LAUNCHES["pair_sym_force_uniform"]
+    rows, cols = hn.pair_sym_force(*args, uniform=True)
+    assert hn.LAUNCHES["pair_sym_force_uniform"] == before + 1
+    want_r, want_c = hn.pair_sym_force_uniform_plain(*args)
+    _hold(rows, want_r, q)
+    _hold(cols, want_c, q)
+    rows2, cols2 = hn.pair_sym_force(*args, uniform=True)
+    assert torch.equal(rows, rows2) and torch.equal(cols, cols2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["int8", "int4", "custom"])
+@pytest.mark.parametrize("n,uniform", [(1000, False), (4096, True),
+                                       (4096, False)])
+def test_fused_max_bitwise_and_forces_unchanged(cuda, mode, n, uniform):
+    pt, gm = _equal(n, 2, 14, cuda)
+    q = tp.Quantizer.from_string(mode)
+    bounds = _bounds(q, pt, 0.01, cuda)
+    mx = torch.empty((), device=cuda)
+    key = hn._variant("sym_force", uniform, True)
+    before = hn.LAUNCHES[key]
+    got = hn.sym_force(pt, gm, bounds, q, False, uniform=uniform, max_out=mx)
+    assert hn.LAUNCHES[key] == before + 1
+    assert torch.equal(mx, hn.max_d2(pt))
+    assert torch.equal(mx, hn.max_d2_plain(pt))
+    assert torch.equal(got, hn.sym_force(pt, gm, bounds, q, False,
+                                         uniform=uniform))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,dim,mode,uniform,masked,fused", [
+    (2048, 2, "int4", True, False, False), (2048, 2, "int4", True, False, True),
+    (2050, 3, "float32", False, True, False),
+    (4100, 2, "bfloat16", False, False, False),
+    (64, 3, "int8", True, True, False)])
+def test_skip_flag_skips_the_launch(cuda, n, dim, mode, uniform, masked,
+                                    fused):
+    """skip != 0: zero forces, a zero max, and the run counter unchanged;
+    skip == 0: the launch runs, bitwise the unflagged one, and counts.
+    Without the fused max a flagged launch walks the tile pairs: ragged
+    tiles and the self-mask included."""
+    pt, gm = _equal(n, dim, 15, cuda)
+    q = tp.Quantizer.from_string(mode)
+    bounds = _bounds(q, pt, 0.0 if masked else 0.01, cuda)
+    count = torch.zeros((), dtype=torch.int32, device=cuda)
+    one = torch.ones((), dtype=torch.int32, device=cuda)
+    mx = torch.full((), 7.0, device=cuda) if fused else None
+    out = hn.sym_force(pt, gm, bounds, q, masked, uniform=uniform,
+                       max_out=mx, skip=one, count=count)
+    assert not bool(out.any()) and int(count) == 0
+    if fused:
+        assert float(mx) == 0.0
+    ran = hn.sym_force(pt, gm, bounds, q, masked, uniform=uniform,
+                       max_out=mx, skip=one * 0, count=count)
+    assert int(count) == 1
+    assert torch.equal(ran, hn.sym_force(pt, gm, bounds, q, masked,
+                                         uniform=uniform))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["float32", "int4"])
+@pytest.mark.parametrize("variant", ["seedsoft", "wide2", "wide3", "wide4"])
+def test_lab_kernels_match_plain(cuda, mode, variant):
+    from nbody_tpu_torch.lab import kernel_lab
+    pt, gm = _equal(4096, 2, 16, cuda)
+    q = tp.Quantizer.from_string(mode)
+    bounds = _bounds(q, pt, 0.01, cuda)
+    key = f"sym_force_lab_{variant}"
+    before = kernel_lab.LAUNCHES[key]
+    got = kernel_lab.sym_force_lab(pt, gm, bounds, q, False, variant)
+    assert kernel_lab.LAUNCHES[key] == before + 1
+    _hold(got, kernel_lab.sym_force_lab_plain(pt, gm, bounds, q, False,
+                                              variant), q)
+    assert torch.equal(got, kernel_lab.sym_force_lab(pt, gm, bounds, q,
+                                                     False, variant))

@@ -361,9 +361,9 @@ def test_budget_chunked_ring_matches_unchunked(monkeypatch, mode):
     calls = []
     real = hn.pair_sym_force
 
-    def spy(pos_a, gm_a, pos_b, gm_b, bounds, q):
+    def spy(pos_a, gm_a, pos_b, gm_b, bounds, q, **kw):
         calls.append((pos_a.shape[0], pos_b.shape[0]))
-        return real(pos_a, gm_a, pos_b, gm_b, bounds, q)
+        return real(pos_a, gm_a, pos_b, gm_b, bounds, q, **kw)
 
     monkeypatch.setattr(hn, "SCRATCH_BUDGET", 4000)
     monkeypatch.setattr(hn, "pair_sym_force", spy)

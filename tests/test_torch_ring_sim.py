@@ -123,7 +123,7 @@ def test_mesh_step_energies_and_resident_state(ics):
     np.testing.assert_allclose(
         sim.get_total_energy(),
         sim.get_kinetic_energy() + sim.get_potential_energy(), rtol=1e-12)
-    single = td.DirectSimulation(*ics, precision="float32")
+    single = td.DirectSimulation(*ics, precision="float32", device="cpu")
     single.step(7)
     np.testing.assert_allclose(sim.positions.numpy(),
                                single.positions.numpy(), rtol=1e-4,
