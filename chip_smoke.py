@@ -56,11 +56,16 @@ Phases (any failure exits non-zero before the last line is printed):
    skipped and running, bitwise the forces of the launch without it.
 10. lab: ``python -m nbody_tpu_torch.lab.kernel_lab``'s table, and each
    lab kernel against its plain version at N=131072.
+11. lab_r4: ``python -m nbody_tpu_torch.lab.kernel_lab_r4``'s table (the
+   round-4 lab at N=129024), every round-4 variant launched, and each
+   against its plain version at N=129024, float32 and int4, timed beside
+   sym_force_uniform in the same call.
 
 The kernels phase also holds the equal-mass variants (D in {2,3}, every
 mode, N in {4096, 32768}), the flag off the tile (N=4100, bitwise the
 general kernel), the fused max (bitwise max_d2, forces bitwise without
-it), the skip flag and the lab kernels; perf and large time each variant
+it), the skip flag and the lab kernels (the round-4 ones at N in
+{3072, 12288}, softening 0.1 and 0); perf and large time each variant
 beside its general twin at 131072 and at the N=1M chunk and pair shapes.
 
 Two more phases run only when asked for: ``--phases profile``, the main
@@ -91,7 +96,7 @@ import torch
 
 REPO = Path(__file__).resolve().parent
 PHASES = ("kernels", "main", "gate", "perf", "large", "ring", "cached",
-          "lab")  # default
+          "lab", "lab_r4")  # default
 EXTRA_PHASES = ("profile", "scale")
 MODES = ("float32", "bfloat16", "float16", "int8", "int4", "custom")
 STARS, TICKS, INTERVAL = 5000, 2000, 100
@@ -104,6 +109,7 @@ RUNTIME_SOFTENING = 0.05   # the kernels phase's run-time softening
 _PN = "nbody_tpu/ops/pallas_nbody.py"
 _SYM, _PAIR = "nbody_tpu_torch/csrc/sym_force.cu", \
     "nbody_tpu_torch/csrc/pair_sym_force.cu"
+_LAB, _R4 = "nbody_tpu_torch/csrc/sym_force_lab.cu", "tools/kernel_lab_r4.py"
 KERNELS = {
     "sym_force": {"source": _SYM, "replaces": f"{_PN}:260"},
     "sym_force_uniform": {"source": _SYM, "replaces": f"{_PN}:368"},
@@ -129,6 +135,13 @@ KERNELS = {
                             "replaces": "tools/kernel_lab.py:125"},
     "sym_force_lab_wide4": {"source": _SYM,
                             "replaces": "tools/kernel_lab.py:125"},
+    "sym_force_lab_base2": {"source": _SYM,
+                            "replaces": f"{_R4}:108"},
+    "sym_force_lab_rt2": {"source": _LAB, "replaces": f"{_R4}:433"},
+    "sym_force_lab_rt3": {"source": _LAB, "replaces": f"{_R4}:436"},
+    "sym_force_lab_wideacc": {"source": _LAB, "replaces": f"{_R4}:149"},
+    "sym_force_lab_base2_wideacc": {"source": _LAB,
+                                    "replaces": f"{_R4}:443"},
 }
 
 # The H100 SXM's published peaks: FP32 outside the tensor cores, and HBM3
@@ -154,8 +167,13 @@ def pair_ops(kind: str, dim: int, mode: str) -> int:
     into the rows and D subtracts and D fused multiply-adds into the
     reactions, and the general variant one G m multiply on each side; the
     row kernels' pairs are ordered (one G m multiply, D fused
-    multiply-adds); the fused max adds one max a pair."""
+    multiply-adds); the fused max adds one max a pair. "sym_t" is the
+    equal-mass t-form function's own count, whatever the kernel's design:
+    t = w diff (D multiplies) added into the rows (D adds) and subtracted
+    from the reactions (D adds), as the one-pass lab kernel does."""
     d2 = 3 * dim
+    if kind == "sym_t":
+        return d2 + weight_ops(mode) + 3 * dim
     if kind in ("sym", "sym_uniform", "sym_max", "sym_uniform_max"):
         ops = d2 + weight_ops(mode) + 5 * dim
         ops += 0 if "uniform" in kind else 2
@@ -554,6 +572,7 @@ def phase_kernels(dev, report: dict) -> None:
 
 
 EQUAL_NS = (4096, 32768)   # multiples of TILE: the equal-mass variants run
+R4_NS = (3072, 12288)      # multiples of 192 and 128: every round-4 variant
 RAGGED_N = 4100            # not one: the flag must give the general bits
 
 
@@ -711,6 +730,31 @@ def kernels_equal_mass(dev, report: dict) -> None:
                                                    torch.zeros_like(want), q)
                 same(f"lab {v} run to run {case}", got,
                      kernel_lab.sym_force_lab(pos, gm, bounds, q, False, v))
+    # The round-4 lab variants (D=2, equal masses, N a multiple of 192 and
+    # 128), softening 0.1 and zero (self-masked).
+    for n in R4_NS:
+        pos, m = make_inputs(n, 2, True, seed=n + 7, dev=dev)
+        gm = (cfg.G * m).contiguous()
+        for label, soft, masked in (("0.1", 0.01, False), ("0", 0.0, True)):
+            for mode in ("float32", "int4"):
+                q = Quantizer.from_string(mode)
+                bounds = force_bounds(q, pos, soft, dev)
+                case = f"{mode} D=2 N={n} soft={label}"
+                for v, spec in kernel_lab.R4_VARIANTS.items():
+                    if spec.base2 and not q.is_int:
+                        continue
+                    got = kernel_lab.sym_force_lab(pos, gm, bounds, q,
+                                                   masked, v)
+                    want = kernel_lab.sym_force_lab_plain(pos, gm, bounds, q,
+                                                          masked, v)
+                    scale = (lazy_scale(pos, gm, bounds, q, masked, got,
+                                        want) if masked
+                             else torch.zeros_like(want))
+                    tallies[f"sym_force_lab_{v}"].hold(case, got, want,
+                                                       scale, q)
+                    same(f"lab {v} run to run {case}", got,
+                         kernel_lab.sym_force_lab(pos, gm, bounds, q, masked,
+                                                  v))
     torch.cuda.synchronize()
     for name, tally in tallies.items():
         tally.report(name, report[name])
@@ -1924,9 +1968,11 @@ def phase_lab(dev, report: dict) -> None:
     launched = {**{k: v for k, v in hn.LAUNCHES.items() if v},
                 **kernel_lab.LAUNCHES}
     print(f"lab: launches {launched}")
-    for name, count in kernel_lab.LAUNCHES.items():
-        report[name]["launches"] = count
-        check(count > 0, f"{name} was never launched by the lab")
+    for v in kernel_lab.VARIANTS:
+        name = f"sym_force_lab_{v}"
+        report[name]["launches"] = kernel_lab.LAUNCHES[name]
+        check(report[name]["launches"] > 0,
+              f"{name} was never launched by the lab")
     check(launched.get("sym_force") and launched.get("sym_force_uniform"),
           "the lab did not run prod and uniform")
     for row in rows:
@@ -1956,6 +2002,84 @@ def phase_lab(dev, report: dict) -> None:
         set_timing(report[f"sym_force_lab_{v}"], ms, plain_ms,
                    f"N={BIG_N} D=2 float32", BIG_N * (BIG_N - 1) / 2,
                    pair_ops("sym_uniform", 2, "float32"), sym_bytes(BIG_N, 2))
+
+
+# --------------------------------------------------------------------------
+# Phase 11: the round-4 kernel lab
+# --------------------------------------------------------------------------
+
+def phase_lab_r4(dev, report: dict) -> None:
+    """``python -m nbody_tpu_torch.lab.kernel_lab_r4``'s table through its
+    entry point, with every launch count read around it; then each round-4
+    kernel against its plain version at the lab's N, float32 and int4,
+    timed by CUDA events beside sym_force_uniform in the same call."""
+    from nbody_tpu_torch.config import SimConfig
+    from nbody_tpu_torch.lab import kernel_lab, kernel_lab_r4
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+    from nbody_tpu_torch.ops.precision import Quantizer
+
+    reset_counters(hn)
+    rows = kernel_lab_r4.main(["--device", str(dev)])
+    launched = {**{k: v for k, v in hn.LAUNCHES.items() if v},
+                **{k: v for k, v in kernel_lab.LAUNCHES.items() if v}}
+    print(f"lab_r4: launches {launched}")
+    for v in kernel_lab.R4_VARIANTS:
+        name = f"sym_force_lab_{v}"
+        report[name]["launches"] = kernel_lab.LAUNCHES[name]
+        check(report[name]["launches"] > 0,
+              f"{name} was never launched by the round-4 lab")
+    check(launched.get("sym_force") and launched.get("sym_force_uniform")
+          and launched.get("sym_force_lab_wide2"),
+          "the round-4 lab did not run prod, uniform and wide2")
+    for row in rows:
+        check(np.isfinite(row["ms"]) and (row["mode"] != "float32"
+                                          or row["rel_vs_prod"] <= 1e-4),
+              f"lab_r4 row {row}")
+
+    n, cfg = kernel_lab_r4.N, SimConfig()
+    pos, m = make_inputs(n, 2, True, seed=42, dev=dev)
+    gm = (cfg.G * m).contiguous()
+    for mode in ("float32", "int4"):
+        q = Quantizer.from_string(mode)
+        bounds = force_bounds(q, pos, cfg.softening_sq, dev)
+        # Every variant, and sym_force_uniform beside them, computes one
+        # function: bound it by that function's own operations.
+        ops = pair_ops("sym_t", 2, mode)
+        bound_ms = bound(n * (n - 1) / 2, ops, sym_bytes(n, 2))[0]
+        uni_ms = cuda_ms(lambda: hn.sym_force(pos, gm, bounds, q, False,
+                                              uniform=True), 3)
+        print(f"lab_r4: sym_force_uniform N={n} D=2 {mode}: {uni_ms:.4f} "
+              f"ms, bound {bound_ms:.4f} ms ({ops} ops a pair)")
+        plains = {}   # plain function -> (its result, its ms)
+        for v, spec in kernel_lab.R4_VARIANTS.items():
+            if spec.base2 and not q.is_int:
+                continue
+            name = f"sym_force_lab_{v}"
+            key = spec.base2
+
+            def plain():
+                return kernel_lab.sym_force_lab_plain(pos, gm, bounds, q,
+                                                      False, v)
+            if key not in plains:
+                want = plain()
+                plains[key] = (want, cuda_ms(plain, 1, 0))
+            want, plain_ms = plains[key]
+            got = kernel_lab.sym_force_lab(pos, gm, bounds, q, False, v)
+            ms = cuda_ms(lambda: kernel_lab.sym_force_lab(pos, gm, bounds, q,
+                                                          False, v), 3)
+            tally = Tally()
+            tally.hold(f"{mode} D=2 N={n}", got, want,
+                       torch.zeros_like(want), q)
+            check(not tally.failures, f"{name} at N={n}: {tally.failures}")
+            err = tally.worst_err[0]
+            print(f"lab_r4: {name} N={n} D=2 {mode}: kernel {ms:.4f} ms "
+                  f"(sym_force_uniform {uni_ms:.4f} ms), plain "
+                  f"{plain_ms:.4f} ms, max abs err {err:.4e}")
+            # The JSON line keeps float32 where the variant has it.
+            if mode == "float32" or spec.base2:
+                set_timing(report[name], ms, plain_ms, f"N={n} D=2 {mode}",
+                           n * (n - 1) / 2, ops, sym_bytes(n, 2))
+                report[name]["max_abs_err"] = err
 
 
 # --------------------------------------------------------------------------
@@ -2133,6 +2257,8 @@ def main(argv=None) -> int:
                 phase_cached(dev, report)
             elif phase == "lab":
                 phase_lab(dev, report)
+            elif phase == "lab_r4":
+                phase_lab_r4(dev, report)
             elif phase == "profile":
                 phase_profile(dev, args.profile_out)
             elif phase == "scale":

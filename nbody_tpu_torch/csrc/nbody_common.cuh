@@ -18,6 +18,12 @@
 //     edges. The two multiply-adds round twice (mul, then add) as the JAX
 //     chain and the plain version do, so a kernel and its plain version
 //     agree bin for bin.
+//   * int-sim base 2 (MODE_INT_B2, the r4 lab's knob A only,
+//     tools/kernel_lab_r4.py:108-122): the same chain on log2f / exp2f
+//     (the accurate versions) with ln 2 folded into norm_a and log2(e)
+//     into arg_k and arg_0 (one f32 multiply each, as the TPU lab folds
+//     them); the caller passes arg_cap already folded. The fold moves a bin
+//     edge by up to an ulp, so it never replaces the production chain.
 
 #pragma once
 
@@ -34,7 +40,13 @@ namespace {
 // receivers, and per-tile partials hold BT rows (hopper_nbody.TILE).
 constexpr int BT = 64;
 
-enum Mode { MODE_F32 = 0, MODE_BF16 = 1, MODE_F16 = 2, MODE_INT = 3 };
+enum Mode {
+  MODE_F32 = 0,
+  MODE_BF16 = 1,
+  MODE_F16 = 2,
+  MODE_INT = 3,
+  MODE_INT_B2 = 4  // lab only: never taken by dispatch()
+};
 
 struct IntGrid {
   float norm_a, norm_b, arg_k, arg_0, arg_cap, min_d2;
@@ -58,6 +70,23 @@ __device__ __forceinline__ IntGrid int_grid(const float* bounds, int levels,
   return g;
 }
 
+// The grid scalars a block of mode MODE hoists: none for the float modes,
+// int_grid's for MODE_INT, and for MODE_INT_B2 int_grid's with the base-2
+// folds (arg_cap comes folded).
+template <int MODE>
+__device__ __forceinline__ IntGrid mode_grid(const float* bounds, int levels,
+                                             float arg_cap, float min_d2) {
+  IntGrid g{};
+  if (MODE == MODE_INT || MODE == MODE_INT_B2)
+    g = int_grid(bounds, levels, arg_cap, min_d2);
+  if (MODE == MODE_INT_B2) {
+    g.norm_a = __fmul_rn(g.norm_a, 0.693147180559945309f);  // ln 2
+    g.arg_k = __fmul_rn(g.arg_k, 1.442695040888963407f);    // log2(e)
+    g.arg_0 = __fmul_rn(g.arg_0, 1.442695040888963407f);
+  }
+  return g;
+}
+
 template <int D>
 __device__ __forceinline__ float raw_d2(const float (&dx)[D]) {
   float s = __fmul_rn(dx[0], dx[0]);
@@ -69,12 +98,13 @@ __device__ __forceinline__ float raw_d2(const float (&dx)[D]) {
 // w = quantized |r|^-3 of the softened d^2.
 template <int MODE>
 __device__ __forceinline__ float pair_w(float d2, const IntGrid& g) {
-  if (MODE == MODE_INT) {
-    const float log_d2 = logf(fmaxf(d2, g.min_d2));
+  if (MODE == MODE_INT || MODE == MODE_INT_B2) {
+    const float x = fmaxf(d2, g.min_d2);
+    const float log_d2 = MODE == MODE_INT_B2 ? log2f(x) : logf(x);
     const float k = rintf(__fadd_rn(__fmul_rn(log_d2, g.norm_a), g.norm_b));
     const float arg = fminf(__fadd_rn(__fmul_rn(k, g.arg_k), g.arg_0),
                             g.arg_cap);
-    return expf(arg);
+    return MODE == MODE_INT_B2 ? exp2f(arg) : expf(arg);
   }
   float d2q = d2;
   if (MODE == MODE_BF16) d2q = __bfloat162float(__float2bfloat16_rn(d2));
@@ -83,14 +113,15 @@ __device__ __forceinline__ float pair_w(float d2, const IntGrid& g) {
   return __fmul_rn(__fmul_rn(inv, inv), inv);
 }
 
-// out[row] = sum over b = 0..nb-1 of part[row / BT][b][row % BT], in that
-// order: part is (ceil(n / BT), nb, BT, D). A fixed order, so two runs give
+// out[row] = sum over b = 0..nb-1 of part[row / TS][b][row % TS], in that
+// order: part is (ceil(n / TS), nb, TS, D), TS the tile side (BT but for
+// the register-tiled lab variants). A fixed order, so two runs give
 // the same bits (the multiverse experiments read summation order as
 // physics). Optional device pointers: `scale` multiplies each sum once by
 // scale[0] (the equal-mass variants' G m_0, never read on the host); when
 // *skip != 0 the launch was skipped and out is zeros; `count` gains 1 when
 // it was not.
-template <int D>
+template <int D, int TS = BT>
 __global__ void reduce_partials(const float* __restrict__ part, int n, int nb,
                                 const float* __restrict__ scale,
                                 const int* __restrict__ skip,
@@ -104,10 +135,10 @@ __global__ void reduce_partials(const float* __restrict__ part, int n, int nb,
 #pragma unroll
   for (int d = 0; d < D; ++d) s[d] = 0.f;
   if (!skipped) {
-    const size_t a = row / BT;
-    const size_t r = row % BT;
+    const size_t a = row / TS;
+    const size_t r = row % TS;
     for (int b = 0; b < nb; ++b) {
-      const float* p = part + ((a * nb + b) * BT + r) * D;
+      const float* p = part + ((a * nb + b) * TS + r) * D;
 #pragma unroll
       for (int d = 0; d < D; ++d) s[d] = __fadd_rn(s[d], p[d]);
     }
@@ -121,11 +152,11 @@ __global__ void reduce_partials(const float* __restrict__ part, int n, int nb,
   for (int d = 0; d < D; ++d) out[(size_t)row * D + d] = s[d];
 }
 
-template <int D>
+template <int D, int TS = BT>
 void launch_reduce(const float* part, int n, int nb, float* out,
                    cudaStream_t stream, const float* scale = nullptr,
                    const int* skip = nullptr, int* count = nullptr) {
-  reduce_partials<D><<<(n + 255) / 256, 256, 0, stream>>>(
+  reduce_partials<D, TS><<<(n + 255) / 256, 256, 0, stream>>>(
       part, n, nb, scale, skip, count, out);
 }
 

@@ -62,6 +62,10 @@
 // reaction) accumulators per thread, pair k into accumulator k % U, joined
 // in order at the end of the tile: the cross-pair instruction-level
 // parallelism that the TPU kernel's 2- to 4-wide tile interleave buys.
+// Variant 5 (tools/kernel_lab_r4.py:108-122, the r4 lab's knob A, int modes
+// only) is the production equal-mass kernel with the base-2 chain
+// (MODE_INT_B2, csrc/nbody_common.cuh); the r4 lab's other variants live in
+// csrc/sym_force_lab.cu.
 //
 // Numerics: csrc/nbody_common.cuh.
 //
@@ -127,8 +131,7 @@ __device__ __forceinline__ void sym_tile_pair(
   }
 
   const float soft = bounds[2];
-  IntGrid g{};
-  if (MODE == MODE_INT) g = int_grid(bounds, levels, arg_cap, min_d2);
+  const IntGrid g = mode_grid<MODE>(bounds, levels, arg_cap, min_d2);
   __syncthreads();
 
   const bool diag = (I == J);
@@ -366,8 +369,10 @@ extern "C" int nbody_sym_force(const float* pos, const float* gm,
 
 // The lab variants of the equal-mass kernel, D = 2 only: variant 1 seeds
 // the softening into the d^2 chain, variant u in {2, 3, 4} keeps u row
-// accumulators per thread. mode is float32 (0) or an int mode (3); the
-// other arguments as nbody_sym_force's (no skip, count or fused max).
+// accumulators per thread, variant 5 takes the base-2 int chain (an int
+// mode only; arg_cap comes folded by log2(e)). mode is float32 (0) or an
+// int mode (3); the other arguments as nbody_sym_force's (no skip, count
+// or fused max).
 extern "C" int nbody_sym_force_lab(const float* pos, const float* gm,
                                    const float* bounds, int n, int mode,
                                    int levels, float arg_cap, float min_d2,
@@ -403,6 +408,14 @@ extern "C" int nbody_sym_force_lab(const float* pos, const float* gm,
                                          nullptr, nullptr, part, nullptr, out,
                                          s);
         return true;
+      case 5:
+        if constexpr (M == MODE_INT) {
+          launch_sym<MODE_INT_B2, 2, true, false, false, 1>(
+              pos, gm, bounds, n, T, levels, arg_cap, min_d2, self_masked,
+              nullptr, nullptr, part, nullptr, out, s);
+          return true;
+        }
+        return false;
       default:
         return false;
     }

@@ -461,3 +461,28 @@ def test_lab_kernels_match_plain(cuda, mode, variant):
                                               variant), q)
     assert torch.equal(got, kernel_lab.sym_force_lab(pt, gm, bounds, q,
                                                      False, variant))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("variant,mode", [
+    ("base2", "int4"), ("rt2", "float32"), ("rt2", "int4"),
+    ("rt3", "float32"), ("rt3", "int4"), ("wideacc", "float32"),
+    ("wideacc", "int4"), ("base2_wideacc", "int4")])
+def test_r4_lab_kernels_match_plain(cuda, variant, mode, masked):
+    """The round-4 lab variants (N = 3072, a multiple of every tile side),
+    softening 0.1 and zero; zero softening holds to the summed |terms|."""
+    from nbody_tpu_torch.lab import kernel_lab
+    pt, gm = _equal(3072, 2, 17, cuda)
+    q = tp.Quantizer.from_string(mode)
+    bounds = _bounds(q, pt, 0.0 if masked else 0.01, cuda)
+    key = f"sym_force_lab_{variant}"
+    before = kernel_lab.LAUNCHES[key]
+    got = kernel_lab.sym_force_lab(pt, gm, bounds, q, masked, variant)
+    assert kernel_lab.LAUNCHES[key] == before + 1
+    scale = (hn.sym_force_term_scale(pt, gm, bounds, q, masked) if masked
+             else None)
+    _hold(got, kernel_lab.sym_force_lab_plain(pt, gm, bounds, q, masked,
+                                              variant), q, scale)
+    assert torch.equal(got, kernel_lab.sym_force_lab(pt, gm, bounds, q,
+                                                     masked, variant))
