@@ -60,13 +60,21 @@ Phases (any failure exits non-zero before the last line is printed):
    round-4 lab at N=129024), every round-4 variant launched, and each
    against its plain version at N=129024, float32 and int4, timed beside
    sym_force_uniform in the same call.
+12. lab_r5: ``python -m nbody_tpu_torch.lab.kernel_lab_r5`` (the round-5
+   lab: the d^2 accuracy study on the card, then its table at N=129024),
+   each precision of the tensor-core kernel launched, the study's verdict
+   checked, and each precision against its plain version at N=129024,
+   D=2, timed beside sym_force_uniform in the same call.
 
 The kernels phase also holds the equal-mass variants (D in {2,3}, every
 mode, N in {4096, 32768}), the flag off the tile (N=4100, bitwise the
 general kernel), the fused max (bitwise max_d2, forces bitwise without
 it), the skip flag and the lab kernels (the round-4 ones at N in
-{3072, 12288}, softening 0.1 and 0); perf and large time each variant
-beside its general twin at 131072 and at the N=1M chunk and pair shapes.
+{3072, 12288}, softening 0.1 and 0; the round-5 tensor-core kernel at
+each precision, N in {3072, 12288}, D in {2,3}, softening 0.1, and a tile
+pair where one source alone carries the columns); perf and large time
+each variant beside its general twin at 131072 and at the N=1M chunk and
+pair shapes.
 
 Two more phases run only when asked for: ``--phases profile``, the main
 path under ``torch.profiler`` at 5000 and 131072 stars, per mode: wall,
@@ -96,7 +104,7 @@ import torch
 
 REPO = Path(__file__).resolve().parent
 PHASES = ("kernels", "main", "gate", "perf", "large", "ring", "cached",
-          "lab", "lab_r4")  # default
+          "lab", "lab_r4", "lab_r5")  # default
 EXTRA_PHASES = ("profile", "scale")
 MODES = ("float32", "bfloat16", "float16", "int8", "int4", "custom")
 STARS, TICKS, INTERVAL = 5000, 2000, 100
@@ -110,6 +118,7 @@ _PN = "nbody_tpu/ops/pallas_nbody.py"
 _SYM, _PAIR = "nbody_tpu_torch/csrc/sym_force.cu", \
     "nbody_tpu_torch/csrc/pair_sym_force.cu"
 _LAB, _R4 = "nbody_tpu_torch/csrc/sym_force_lab.cu", "tools/kernel_lab_r4.py"
+_MXU = "nbody_tpu_torch/csrc/sym_force_mxu.cu"
 KERNELS = {
     "sym_force": {"source": _SYM, "replaces": f"{_PN}:260"},
     "sym_force_uniform": {"source": _SYM, "replaces": f"{_PN}:368"},
@@ -142,11 +151,14 @@ KERNELS = {
     "sym_force_lab_wideacc": {"source": _LAB, "replaces": f"{_R4}:149"},
     "sym_force_lab_base2_wideacc": {"source": _LAB,
                                     "replaces": f"{_R4}:443"},
+    **{f"sym_force_mxu_{p}": {"source": _MXU,
+                              "replaces": "tools/kernel_lab_r5.py:163"}
+       for p in ("default", "high", "highest")},
 }
 
-# The H100 SXM's published peaks: FP32 outside the tensor cores, and HBM3
-# bandwidth.
-PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
+# The H100 SXM's published peaks: FP32 outside the tensor cores, HBM3
+# bandwidth, and dense bf16 on the tensor cores.
+PEAK_FP32, PEAK_BYTES, PEAK_BF16 = 67e12, 3.35e12, 989e12
 # The canonical gate's final drifts (%), bit for bit the same in PRs 1-3.
 GATE_ROWS = {"float32": -0.007852, "int4": 32.506357, "float64": -0.007517}
 
@@ -170,8 +182,12 @@ def pair_ops(kind: str, dim: int, mode: str) -> int:
     multiply-adds); the fused max adds one max a pair. "sym_t" is the
     equal-mass t-form function's own count, whatever the kernel's design:
     t = w diff (D multiplies) added into the rows (D adds) and subtracted
-    from the reactions (D adds), as the one-pass lab kernel does."""
+    from the reactions (D adds), as the one-pass lab kernel does. "mxu" is
+    the accumulation offload's FP32 share, d^2 and w alone (its sums are
+    tensor-core flops, ``mxu_tensor_flops``)."""
     d2 = 3 * dim
+    if kind == "mxu":
+        return d2 + weight_ops(mode)
     if kind == "sym_t":
         return d2 + weight_ops(mode) + 3 * dim
     if kind in ("sym", "sym_uniform", "sym_max", "sym_uniform_max"):
@@ -187,24 +203,38 @@ def pair_ops(kind: str, dim: int, mode: str) -> int:
     raise ValueError(kind)
 
 
-def bound(pairs: float, ops_per_pair: int, nbytes: float) -> tuple:
+def mxu_tensor_flops(dim: int, passes: int) -> int:
+    """Tensor-core flops per unordered pair of the accumulation offload:
+    two products (rows and columns), one multiply-add (2 flops) per column
+    of [x | 1] and bf16 pass (1, 3 or 6)."""
+    return 4 * (dim + 1) * passes
+
+
+def bound(pairs: float, ops_per_pair: int, nbytes: float,
+          tensor_flops_per_pair: int = 0) -> tuple:
     """(ms, "operations" or "bytes"): the least time the card could take,
-    the larger of the operations over the FP32 peak and the bytes (each
-    input read once, each output written once) over HBM's rate."""
-    ops_ms = pairs * ops_per_pair / PEAK_FP32 * 1e3
+    the largest of the FP32 operations over the FP32 peak, the tensor-core
+    flops over the dense bf16 peak, and the bytes (each input read once,
+    each output written once) over HBM's rate."""
+    ops_ms = max(pairs * ops_per_pair / PEAK_FP32,
+                 pairs * tensor_flops_per_pair / PEAK_BF16) * 1e3
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
                                    else "bytes")
 
 
 def set_timing(entry: dict, ms: float, plain_ms: float, timed_at: str,
-               pairs: float, ops_per_pair: int, nbytes: float) -> None:
+               pairs: float, ops_per_pair: int, nbytes: float,
+               tensor_flops_per_pair: int = 0) -> None:
     """A kernel's time, its plain version's, and its bound at the timed
     shape."""
-    bound_ms, bound_by = bound(pairs, ops_per_pair, nbytes)
+    bound_ms, bound_by = bound(pairs, ops_per_pair, nbytes,
+                               tensor_flops_per_pair)
     entry.update(ms=ms, plain_ms=plain_ms, timed_at=timed_at,
                  bound_ms=bound_ms, bound_by=bound_by,
                  ops=pairs * ops_per_pair, bytes=nbytes)
+    if tensor_flops_per_pair:
+        entry["tensor_flops"] = pairs * tensor_flops_per_pair
 
 
 def sym_bytes(n: int, dim: int, fused_max: bool = False) -> float:
@@ -569,6 +599,7 @@ def phase_kernels(dev, report: dict) -> None:
                   f"chunked != sym_force at N={BIG_N} {mode} chunk {chunk}")
     del pos, m, gm
     kernels_equal_mass(dev, report)
+    kernels_mxu(dev, report)
 
 
 EQUAL_NS = (4096, 32768)   # multiples of TILE: the equal-mass variants run
@@ -589,8 +620,9 @@ def kernels_equal_mass(dev, report: dict) -> None:
     from nbody_tpu_torch.ops.precision import Quantizer
 
     cfg = SimConfig()
-    tallies = {k: Tally() for k in report if k.startswith(("sym_force_",
-                                                           "pair_sym_force_"))}
+    tallies = {k: Tally() for k in report
+               if k.startswith(("sym_force_", "pair_sym_force_"))
+               and not k.startswith("sym_force_mxu_")}
     fails = []
 
     def same(what, a, b):
@@ -761,6 +793,57 @@ def kernels_equal_mass(dev, report: dict) -> None:
     print(f"kernels: the flag off the tile (N={RAGGED_N}), the fused max "
           f"(bitwise max_d2, forces bitwise without it), the skip flag and "
           f"every variant run to run: {len(fails)} failures")
+    check(not fails, "not bitwise: " + "; ".join(fails))
+
+
+MXU_NS = (3072, 12288)   # multiples of the tensor-core kernel's tile
+MXU_SOFT = 0.01          # eps^2 of softening 0.1
+
+
+def one_source_positions(dev) -> torch.Tensor:
+    """Two tiles: 64 receivers near the origin and 64 sources 1e4 away but
+    one (index 101) among the receivers, so the column product of the tile
+    pair is that one source's alone (the others' w is ~1e-12 of its): a
+    transposed or misplaced column fragment puts its sum on another row."""
+    gen = torch.Generator().manual_seed(3)
+    pos = torch.empty((128, 2))
+    pos[:64] = torch.randn((64, 2), generator=gen) * 0.3
+    pos[64:] = 1e4 + torch.arange(64.0)[:, None] * torch.tensor([1.0, 2.0])
+    pos[101] = torch.tensor([0.05, -0.02])
+    return pos.to(dev).contiguous()
+
+
+def kernels_mxu(dev, report: dict) -> None:
+    """The round-5 tensor-core kernel at each precision against its plain
+    version (N in MXU_NS, D in {2,3}, softening 0.1, and the one-source
+    tile pair), held by the float rule with s = the function's summed
+    |terms|; bitwise run to run."""
+    from nbody_tpu_torch.config import SimConfig
+    from nbody_tpu_torch.lab import kernel_lab_r5 as k5
+
+    cfg = SimConfig()
+    tallies = {p: Tally() for p in k5.PASSES}
+    fails = []
+    inputs = [(f"D={dim} N={n}", *make_inputs(n, dim, True, seed=n + dim + 9,
+                                               dev=dev))
+              for n in MXU_NS for dim in (2, 3)]
+    inputs.append(("one-source D=2 N=128", one_source_positions(dev),
+                   torch.ones(128, device=dev)))
+    for case, pos, m in inputs:
+        gm = (cfg.G * m[:1]).reshape(())
+        scale = k5.mxu_term_scale(pos, gm, MXU_SOFT)
+        for p, tally in tallies.items():
+            got = k5.sym_force_mxu(pos, gm, MXU_SOFT, p)
+            want = k5.sym_force_mxu_plain(pos, gm, MXU_SOFT, p)
+            tally.hold(case, got, want, scale)
+            if not torch.equal(got, k5.sym_force_mxu(pos, gm, MXU_SOFT, p)):
+                fails.append(f"sym_force_mxu_{p} run to run {case}")
+    torch.cuda.synchronize()
+    print("kernels: sym_force_mxu, s = G sum_j w_ij (|x_j| + |x_i|) per "
+          "coordinate (the function's summed |terms|, self-pair included)")
+    for p, tally in tallies.items():
+        tally.report(f"sym_force_mxu_{p}", report[f"sym_force_mxu_{p}"])
+    print(f"kernels: sym_force_mxu run to run: {len(fails)} failures")
     check(not fails, "not bitwise: " + "; ".join(fails))
 
 
@@ -1090,10 +1173,10 @@ def large_ics(dim: int, dev):
 
 
 def reset_counters(hn) -> None:
-    """Every launch count, the lab's too, and the device counters to 0."""
-    from nbody_tpu_torch.lab import kernel_lab
+    """Every launch count, the labs' too, and the device counters to 0."""
+    from nbody_tpu_torch.lab import kernel_lab, kernel_lab_r5
     from nbody_tpu_torch.models import direct
-    for counts in (hn.LAUNCHES, kernel_lab.LAUNCHES):
+    for counts in (hn.LAUNCHES, kernel_lab.LAUNCHES, kernel_lab_r5.LAUNCHES):
         for k in counts:
             counts[k] = 0
     for registry in (hn.BOUNDS_FALLBACKS, hn.REDO_LAUNCHES,
@@ -2083,6 +2166,78 @@ def phase_lab_r4(dev, report: dict) -> None:
 
 
 # --------------------------------------------------------------------------
+# Phase 12: the round-5 kernel lab
+# --------------------------------------------------------------------------
+
+def phase_lab_r5(dev, report: dict) -> None:
+    """``python -m nbody_tpu_torch.lab.kernel_lab_r5`` through its entry
+    point, with every launch count read around it: the d^2 study's verdict
+    on the card, then each precision of the tensor-core kernel against its
+    plain version at the lab's N, D=2, timed by CUDA events beside
+    sym_force_uniform in the same call."""
+    from nbody_tpu_torch.config import SimConfig
+    from nbody_tpu_torch.lab import kernel_lab_r5 as k5
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+    from nbody_tpu_torch.ops.precision import Quantizer
+
+    reset_counters(hn)
+    res = k5.main(["--device", str(dev)])
+    launched = {**{k: v for k, v in hn.LAUNCHES.items() if v},
+                **k5.LAUNCHES}
+    print(f"lab_r5: launches {launched}")
+    for name, count in k5.LAUNCHES.items():
+        report[name]["launches"] = count
+        check(count > 0, f"{name} was never launched by the round-5 lab")
+    check(launched.get("sym_force") and launched.get("sym_force_uniform"),
+          "the round-5 lab did not run prod and uniform")
+    for row in res["rows"]:
+        check(np.isfinite(row["ms"]) and np.isfinite(row["rel_vs_prod"])
+              and (row["variant"] != "uniform" or row["rel_vs_prod"] <= 1e-4),
+              f"lab_r5 row {row}")
+    print("lab_r5: d^2 accuracy study on the card, max abs err vs float64:")
+    for geometry, errs in res["study"].items():
+        print(f"lab_r5:   {geometry}: " + ", ".join(
+            f"{form} {err:.3e}" for form, err in errs.items()))
+    adv = res["study"]["adversarial: tight cluster at 200"]
+    check(adv["subtract-form"] < 1e-5 and adv["dot-form compensated"] > 1e-3,
+          f"the study's verdict does not hold on the card: {adv}")
+
+    n, dim, cfg = k5.N, 2, SimConfig()
+    pos, m = make_inputs(n, dim, True, seed=42, dev=dev)
+    gm = (cfg.G * m[:1]).reshape(())
+    q = Quantizer.from_string("float32")
+    bounds = force_bounds(q, pos, cfg.softening_sq, dev)
+    uni_ms = cuda_ms(lambda: hn.sym_force(pos, gm.expand(n).contiguous(),
+                                          bounds, q, False, uniform=True), 3)
+    scale = k5.mxu_term_scale(pos, gm, cfg.softening_sq)
+    pairs, ops = n * (n - 1) / 2, pair_ops("mxu", dim, "float32")
+    nbytes = 4 * (2 * n * dim + 1)   # positions and G m in, forces out
+    for p in k5.PASSES:
+        name = f"sym_force_mxu_{p}"
+
+        def plain():
+            return k5.sym_force_mxu_plain(pos, gm, cfg.softening_sq, p)
+        want = plain()
+        plain_ms = cuda_ms(plain, 1, 0)
+        got = k5.sym_force_mxu(pos, gm, cfg.softening_sq, p)
+        ms = cuda_ms(lambda: k5.sym_force_mxu(pos, gm, cfg.softening_sq, p),
+                     3)
+        tally = Tally()
+        tally.hold(f"float32 D={dim} N={n}", got, want, scale)
+        check(not tally.failures, f"{name} at N={n}: {tally.failures}")
+        tflops = mxu_tensor_flops(dim, len(k5.PASSES[p]))
+        set_timing(report[name], ms, plain_ms, f"N={n} D={dim} float32",
+                   pairs, ops, nbytes, tflops)
+        report[name]["max_abs_err"] = tally.worst_err[0]
+        print(f"lab_r5: {name} N={n} D={dim}: kernel {ms:.4f} ms "
+              f"(sym_force_uniform {uni_ms:.4f} ms), plain {plain_ms:.4f} ms,"
+              f" max abs err {tally.worst_err[0]:.4e} (err/bound "
+              f"{tally.worst_ratio[0]:.4f}); bound "
+              f"{report[name]['bound_ms']:.4f} ms ({ops} FP32 ops and "
+              f"{tflops} tensor flops a pair)")
+
+
+# --------------------------------------------------------------------------
 # Extra phase: each kernel against its plain version at the 1M shapes
 # --------------------------------------------------------------------------
 
@@ -2259,6 +2414,8 @@ def main(argv=None) -> int:
                 phase_lab(dev, report)
             elif phase == "lab_r4":
                 phase_lab_r4(dev, report)
+            elif phase == "lab_r5":
+                phase_lab_r5(dev, report)
             elif phase == "profile":
                 phase_profile(dev, args.profile_out)
             elif phase == "scale":

@@ -47,6 +47,9 @@ SIGNATURES = {
         "nbody_sym_force_lab_r4": [_P, _P, _P, _I, _I, _I, _F, _F, _I, _I,
                                    _P, _P, _P],
     },
+    "sym_force_mxu": {
+        "nbody_sym_force_mxu": [_P, _P, _I, _I, _F, _I, _P, _P, _P],
+    },
     "max_dist_sq": {
         "nbody_max_d2": [_P, _I, _I, _P, _P, _P, _I, _P, _P],
         "nbody_pair_max": [_P, _P, _I, _P, _P, _I, _I, _P, _I, _P, _P],

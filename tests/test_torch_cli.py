@@ -108,11 +108,15 @@ def test_cli_rejects_unknown_mode():
 
 
 def test_import_never_pulls_in_jax():
-    code = ("import sys, nbody_tpu_torch, nbody_tpu_torch.cli, "
-            "nbody_tpu_torch.models.direct, nbody_tpu_torch.ops.forces; "
-            "bad = [m for m in sys.modules if m == 'jax' or "
-            "m.startswith('jax.') or m == 'nbody_tpu' or "
-            "m.startswith('nbody_tpu.')]; "
+    """Every module of the port, and chip_smoke.py, imports neither JAX nor
+    the JAX package nor its tools."""
+    code = ("import importlib, pkgutil, sys, nbody_tpu_torch, chip_smoke\n"
+            "mods = [m.name for m in pkgutil.walk_packages("
+            "nbody_tpu_torch.__path__, 'nbody_tpu_torch.')]\n"
+            "for name in mods: importlib.import_module(name)\n"
+            "assert 'nbody_tpu_torch.lab.kernel_lab_r5' in mods, mods\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'nbody_tpu', 'tools')]\n"
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)

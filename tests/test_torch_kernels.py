@@ -486,3 +486,23 @@ def test_r4_lab_kernels_match_plain(cuda, variant, mode, masked):
                                               variant), q, scale)
     assert torch.equal(got, kernel_lab.sym_force_lab(pt, gm, bounds, q,
                                                      masked, variant))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("precision", ["default", "high", "highest"])
+def test_mxu_kernel_matches_plain(cuda, precision, dim):
+    """The round-5 tensor-core kernel (N = 3072) against its plain version
+    at each precision, the float rule on the function's summed |terms|
+    (its sums cancel down to |a|); bitwise run to run."""
+    from nbody_tpu_torch.lab import kernel_lab_r5 as k5
+    pt = torch.from_numpy(_disk(3072, dim, 18)).to(cuda)
+    gm = torch.full((), 1e-3, device=cuda)
+    key = f"sym_force_mxu_{precision}"
+    before = k5.LAUNCHES[key]
+    got = k5.sym_force_mxu(pt, gm, 0.01, precision)
+    assert k5.LAUNCHES[key] == before + 1
+    _hold(got, k5.sym_force_mxu_plain(pt, gm, 0.01, precision),
+          tp.Quantizer.from_string("float32"),
+          k5.mxu_term_scale(pt, gm, 0.01))
+    assert torch.equal(got, k5.sym_force_mxu(pt, gm, 0.01, precision))
