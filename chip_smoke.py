@@ -17,7 +17,10 @@ Phases (any failure exits non-zero before the last line is printed):
    and a run-time softening; pair_sym_force on disjoint sets of ragged
    sizes, rows and reactions; max_d2 bitwise; the pruned bounds pass
    bitwise equal to the full max on a disk and on a ring that takes the
-   fallback; sym_force, pair_sym_force and the chunked path bitwise equal
+   fallback; sym_force's triangular grid and max_d2's single launch
+   bitwise their earlier designs on every case, and over 100 consecutive
+   launches at N=5000 (max_d2 also at 1024), skip and count flags of both
+   designs; sym_force, pair_sym_force and the chunked path bitwise equal
    run to run; the chunked path at N=131072 in 2 and 3 chunks against
    single-launch sym_force.
 4. main: ``nbody_tpu_torch.cli.main`` at 5000 stars x 2000 ticks for
@@ -25,7 +28,13 @@ Phases (any failure exits non-zero before the last line is printed):
 5. gate: float32, int4 and float64 from the JAX package's committed ICs
    at 5000 x 2000, held to the torch-reference envelopes cached under
    tools/reference_cache/ (the rule of tools/reference_parity.py).
-6. perf: throughput at N=131072, kernel-vs-plain times, and
+6. perf: the main path's two kernels at its own shapes by device time
+   (``device_ms``: torch.profiler over 50 warm calls; a CUDA-graph replay
+   beside it), each beside its earlier design in turns (old, new, new,
+   old): sym_force at 5000 float32 and int4 and at the grid rule's edge,
+   max_d2 on the pruned pass's 1024 candidates and on 5000 skipped and
+   running; throughput at N=131072, kernel-vs-plain times (sym_force's
+   grids in turns at 131072 and the 1M chunk shapes), and
    ``dynamic_params`` runs at 5000 stars against static ones.
 7. large: N=1,048,576 through ``run_steps(..., "auto", ...)`` for 5 steps
    (D=2 disk and D=3 Plummer sphere, seed 43, float32 and int4), with the
@@ -297,6 +306,89 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+DEVICE_REPS = 50   # calls in device_ms's and graph_ms's warm window
+
+
+def kernel_name(key: str) -> str:
+    """A profiler kernel key without its namespace, return type and
+    parameter list: "sym_force_tri<0, 2, true>"."""
+    key = key.replace("(anonymous namespace)::", "").replace("void ", "")
+    return key.split("(")[0].strip()
+
+
+def device_ms(fn, reps: int = DEVICE_REPS, warmup: int = 3) -> tuple:
+    """Device time of a call of fn(), where the host could set cuda_ms's
+    pace (kernels that finish faster than Python issues their calls):
+    torch.profiler over a warm window of ``reps`` calls; each kernel's mean
+    self device time times its launches a call (the profiler's count over
+    ``reps``, rounded: the trace can drop an event of the window), summed.
+    Returns (ms a call, {kernel: (launches a call, ms a call)})."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    traced = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.count:
+            name = kernel_name(e.key)
+            count, us = traced.get(name, (0, 0.0))
+            traced[name] = (count + e.count, us + e.self_device_time_total)
+    kernels = {name: (round(count / reps), us / count / 1e3)
+               for name, (count, us) in traced.items()}
+    total = sum(n * ms for n, ms in kernels.values())
+    check(total > 0, "the profiler traced no device time")
+    return total, {k: (n, round(n * ms, 5)) for k, (n, ms) in kernels.items()}
+
+
+def graph_ms(fn, reps: int = DEVICE_REPS) -> float | None:
+    """Device time of a call of fn() by a CUDA graph of ``reps`` calls,
+    replayed three times between CUDA events: launch gaps included, the
+    host's issue excluded (device_ms's cross-check). None, with the reason
+    printed, where the calls cannot be captured."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        print(f"perf: CUDA-graph capture failed: {str(e).splitlines()[0]}")
+        return None
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (3 * reps)
+
+
+def ms_text(ms: float | None) -> str:
+    return "not measured" if ms is None else f"{ms:.5f} ms"
+
+
+def in_turns(time_fn, old, new) -> tuple:
+    """time_fn of a kernel's earlier design (old) and this one (new) in
+    turns, old, new, new, old, in one call: ([old turns], [new turns])."""
+    o1, n1, n2, o2 = time_fn(old), time_fn(new), time_fn(new), time_fn(old)
+    return [o1, o2], [n1, n2]
+
+
 # --------------------------------------------------------------------------
 # Inputs
 # --------------------------------------------------------------------------
@@ -466,7 +558,7 @@ def phase_kernels(dev, report: dict) -> None:
                   (f"run-time {RUNTIME_SOFTENING}", RUNTIME_SOFTENING ** 2,
                    True))
     sym, row, pair = Tally(), Tally(), Tally()
-    worst_max, max_failures = 0.0, []
+    worst_max, max_failures, parent_failures = 0.0, [], []
     for dim in (2, 3):
         for n in (5, 300, 4099, 5000):
             for equal in (False, True):
@@ -484,8 +576,11 @@ def phase_kernels(dev, report: dict) -> None:
                         scale = (hn.sym_force_term_scale(pos, gm, bounds, q,
                                                          masked)
                                  if soft == 0.0 else torch.zeros_like(want))
-                        sym.hold(case, hn.sym_force(pos, gm, bounds, q,
-                                                    masked), want, scale, q)
+                        got = hn.sym_force(pos, gm, bounds, q, masked)
+                        sym.hold(case, got, want, scale, q)
+                        if not torch.equal(got, hn.sym_force(
+                                pos, gm, bounds, q, masked, parent=True)):
+                            parent_failures.append(f"sym_force {case}")
                         row.hold(case, hn.row_force(pos, gm, bounds, q,
                                                     masked), want, scale, q)
                 k = hn.max_d2(pos)
@@ -494,6 +589,8 @@ def phase_kernels(dev, report: dict) -> None:
                 if not torch.equal(k, p):
                     max_failures.append(f"max_d2 D={dim} N={n}: "
                                         f"{k.item()!r} != plain {p.item()!r}")
+                if not torch.equal(k, hn.max_d2(pos, parent=True)):
+                    parent_failures.append(f"max_d2 D={dim} N={n}")
     # pair_sym_force: disjoint sets of ragged sizes (softening > 0).
     for dim in (2, 3):
         for n_a, n_b in ((300, 4099), (5000, 64), (4099, 300), (5, 1)):
@@ -522,19 +619,49 @@ def phase_kernels(dev, report: dict) -> None:
           f"{len(max_failures)} failures")
     check(not max_failures, "\n  ".join(max_failures))
     report["max_d2"].update(cases=16)
+    print(f"kernels: sym_force's routed grid ({hn.sym_schedule(STARS)} at "
+          f"N={STARS}) and max_d2's single launch bitwise their earlier "
+          f"designs (the T x T grid; two launches) on every case above: "
+          f"{len(parent_failures)} failures")
+    check(not parent_failures, "new and earlier designs differ: "
+          + "; ".join(parent_failures))
 
-    # max_d2: the skip and count flags, and the pruned pass against the
-    # full max.
+    # max_d2: the skip and count flags at the pruned pass's two shapes
+    # (1024 candidates, the full 5000), both designs, and the pruned
+    # pass against the full max.
     cfg = SimConfig()
     pos, _ = make_inputs(STARS, 2, True, seed=1, dev=dev)
     one = torch.ones((), dtype=torch.int32, device=dev)
-    count = torch.zeros((), dtype=torch.int32, device=dev)
-    check(hn.max_d2(pos, skip=one, count=count).item() == 0.0,
-          "max_d2 ignored skip=1")
-    check(torch.equal(hn.max_d2(pos, skip=one * 0, count=count),
-                      hn.max_d2_plain(pos)),
-          "max_d2 with skip=0 differs from plain")
-    check(count.item() == 1, f"max_d2 counted {count.item()} runs, not 1")
+    for x in (pos[:1024].contiguous(), pos):
+        for parent in (False, True):
+            what = (f"max_d2 N={x.shape[0]} "
+                    f"{'two launches' if parent else 'single launch'}")
+            count = torch.zeros((), dtype=torch.int32, device=dev)
+            check(hn.max_d2(x, skip=one, count=count,
+                            parent=parent).item() == 0.0,
+                  f"{what} ignored skip=1")
+            check(torch.equal(hn.max_d2(x, skip=one * 0, count=count,
+                                        parent=parent),
+                              hn.max_d2_plain(x)),
+                  f"{what} with skip=0 differs from plain")
+            check(count.item() == 1, f"{what} counted {count.item()} runs, "
+                                     f"not 1")
+    # 100 consecutive launches of each new design at the main path's
+    # shapes, bitwise: every max_d2 launch found its ticket back at 0.
+    for x in (pos[:1024].contiguous(), pos):
+        first = hn.max_d2(x)
+        check(all(torch.equal(hn.max_d2(x), first) for _ in range(100)),
+              f"max_d2 N={x.shape[0]}: not bitwise over 100 launches")
+    gm1 = torch.full((STARS,), cfg.G, device=dev)
+    for mode in ("float32", "int4"):
+        q = Quantizer.from_string(mode)
+        bounds = force_bounds(q, pos, cfg.softening_sq, dev)
+        first = hn.sym_force(pos, gm1, bounds, q, False)
+        check(all(torch.equal(hn.sym_force(pos, gm1, bounds, q, False), first)
+                  for _ in range(100)),
+              f"sym_force N={STARS} {mode}: not bitwise over 100 launches")
+    print("kernels: sym_force and max_d2 bitwise over 100 consecutive "
+          "launches at N=5000 (and max_d2 at 1024)")
     for name, geom in (("disk", pos), ("ring", ring_positions(STARS, dev)),
                        ("disk-3d", make_inputs(STARS, 3, True, 2, dev)[0])):
         pruned = hn.max_pairwise_dist_sq_pruned(geom, cfg)
@@ -652,6 +779,9 @@ def kernels_equal_mass(dev, report: dict) -> None:
                     same(f"sym_force_uniform run to run {case}", got,
                          hn.sym_force(pos, gm, bounds, q, masked,
                                       uniform=True))
+                    same(f"sym_force_uniform grids {case}", got,
+                         hn.sym_force(pos, gm, bounds, q, masked,
+                                      uniform=True, parent=True))
             half = n // 2
             pa, pb, ga, gb = pos[:half], pos[half:], gm[:half], gm[half:]
             for mode in MODES:
@@ -887,12 +1017,15 @@ def phase_main(dev, report: dict) -> None:
               f"force path: {path}")
     check(set(per_mode) == {"float64", "float32", "int4_sim"},
           f"modes run: {sorted(per_mode)}")
+    # One force evaluation at set-up and one a tick; two max_d2 launches an
+    # int4 evaluation (the candidates, the full set under its flag).
     for mode in ("float32", "int4_sim"):
-        check(per_mode[mode]["sym_force"] >= TICKS,
+        check(per_mode[mode]["sym_force"] == TICKS + 1,
               f"{mode}: sym_force launched {per_mode[mode]['sym_force']} "
               f"times in {TICKS} ticks")
-    check(per_mode["int4_sim"]["max_d2"] >= TICKS,
-          "int4: max_d2 not launched on every tick")
+    check(per_mode["int4_sim"]["max_d2"] == 2 * (TICKS + 1),
+          f"int4: max_d2 launched {per_mode['int4_sim']['max_d2']} times in "
+          f"{TICKS} ticks")
     for mode, h in histories.items():
         check(len(h.total_energy) == TICKS // INTERVAL + 1
               and np.isfinite(h.total_energy).all(),
@@ -973,6 +1106,145 @@ def gate_rule(mode: str, drifts, final_pos) -> tuple:
 # Phase 6: throughput and kernel times
 # --------------------------------------------------------------------------
 
+def perf_main_shapes(dev, report: dict) -> None:
+    """The main path's two kernels at its own shapes by device time
+    (device_ms, a CUDA-graph replay beside it), each kernel's earlier design
+    and this one in turns: sym_force over the canonical
+    5000 (the general kernel, off the tile), float32 and int4; max_d2 over
+    the pruned pass's 1024 candidates, over the 5000 under skip=1 (a tick
+    on the disk) and over the 5000 running (its fallback). The new
+    sym_force makes the triangular grid's tiles and the reduction a call,
+    the new max_d2 one launch."""
+    from nbody_tpu_torch.config import SimConfig
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+    from nbody_tpu_torch.ops.precision import Quantizer
+
+    cfg = SimConfig()
+    pos, m = make_inputs(STARS, 2, True, seed=7, dev=dev)
+    gm = (cfg.G * m).contiguous()
+
+    def launches_a_call(what, launched, kernels):
+        check(sorted(k.split("<")[0] for k in launched) == sorted(kernels)
+              and all(n == 1 for n, _ in launched.values()),
+              f"{what}: not one launch each of {kernels} a call: {launched}")
+
+    def turns_text(olds, news, old_name, new_name):
+        return (f"{old_name} {olds[0][0]:.5f} / {olds[1][0]:.5f} ms "
+                f"({olds[0][1]}), {new_name} {news[0][0]:.5f} / "
+                f"{news[1][0]:.5f} ms ({news[0][1]})")
+
+    route = hn.sym_schedule(STARS)
+    for mode in ("float32", "int4"):
+        q = Quantizer.from_string(mode)
+        bounds = force_bounds(q, pos, cfg.softening_sq, dev)
+
+        def old():
+            return hn.sym_force(pos, gm, bounds, q, False, parent=True)
+
+        def new():
+            return hn.sym_force(pos, gm, bounds, q, False)
+
+        check(torch.equal(old(), new()), f"sym_force N={STARS} {mode}: the "
+                                         f"grids differ")
+        olds, news = in_turns(device_ms, old, new)
+        old_ms = (olds[0][0] + olds[1][0]) / 2
+        ms = (news[0][0] + news[1][0]) / 2
+        launches_a_call(f"sym_force N={STARS} {mode}", news[0][1],
+                        ["sym_force_tri" if route == "triangle"
+                         else "sym_force_tiles", "reduce_partials"])
+        plain_ms = device_ms(
+            lambda: hn.sym_force_plain(pos, gm, bounds, q, False), 10)[0]
+        g_old, g_new = graph_ms(old), graph_ms(new)
+        work = (STARS * (STARS - 1) / 2, pair_ops("sym", 2, mode),
+                sym_bytes(STARS, 2))
+        b_ms = bound(*work)[0]
+        print(f"perf: sym_force N={STARS} D=2 {mode}, device time "
+              f"(profiler, {DEVICE_REPS} calls a turn): "
+              f"{turns_text(olds, news, 'square', route)}: "
+              f"{ms / old_ms - 1:+.2%}; CUDA-graph replay square "
+              f"{ms_text(g_old)}, {route} "
+              f"{ms_text(g_new)}; plain {plain_ms:.4f} ms; bound {b_ms:.5f} "
+              f"ms")
+        entry = report["sym_force"]
+        if mode == "float32":
+            set_timing(entry, ms, plain_ms, f"N={STARS} D=2 float32, device "
+                       f"time", *work)
+            entry.update(schedule=route, old_schedule="square",
+                         old_schedule_ms=old_ms, graph_ms=g_new,
+                         old_schedule_graph_ms=g_old)
+        else:
+            entry.update(int4_ms=ms, int4_old_schedule_ms=old_ms,
+                         int4_plain_ms=plain_ms, int4_bound_ms=b_ms)
+
+    # The grid rule's edge: the largest N the triangle serves (T = 256,
+    # N = 16384, equal masses: the equal-mass variant).
+    edge = hn.TRIANGLE_MAX_TILES * hn.TILE
+    pe, me = make_inputs(edge, 2, True, seed=7, dev=dev)
+    ge = (cfg.G * me).contiguous()
+    for mode in ("float32", "int4"):
+        q = Quantizer.from_string(mode)
+        bounds = force_bounds(q, pe, cfg.softening_sq, dev)
+        olds, news = in_turns(
+            device_ms,
+            lambda: hn.sym_force(pe, ge, bounds, q, False, uniform=True,
+                                 parent=True),
+            lambda: hn.sym_force(pe, ge, bounds, q, False, uniform=True))
+        old_ms, ms = (olds[0][0] + olds[1][0]) / 2, (news[0][0] + news[1][0]) / 2
+        print(f"perf: sym_force_uniform N={edge} D=2 {mode} (the grid rule's "
+              f"edge), device time: "
+              f"{turns_text(olds, news, 'square', hn.sym_schedule(edge))}: "
+              f"{ms / old_ms - 1:+.2%}")
+    del pe, me, ge
+
+    r = torch.linalg.vector_norm(pos - pos.mean(0), dim=1)
+    cand = pos.index_select(0, torch.topk(r, 1024).indices).contiguous()
+    one = torch.ones((), dtype=torch.int32, device=dev)
+    tick = {"ms": 0.0, "old": 0.0, "plain": 0.0}
+    for label, x, skip in (("1024 candidates", cand, None),
+                           (f"{STARS} under skip=1", pos, one),
+                           (f"{STARS} running", pos, None)):
+
+        def old():
+            return hn.max_d2(x, skip=skip, parent=True)
+
+        def new():
+            return hn.max_d2(x, skip=skip)
+
+        check(torch.equal(old(), new())
+              and torch.equal(new(), hn.max_d2_plain(x, skip)),
+              f"max_d2 {label}: the designs or the plain version differ")
+        olds, news = in_turns(device_ms, old, new)
+        launches_a_call(f"max_d2 {label}", news[0][1], ["max_d2_single"])
+        old_ms = (olds[0][0] + olds[1][0]) / 2
+        ms = (news[0][0] + news[1][0]) / 2
+        plain_ms = device_ms(lambda: hn.max_d2_plain(x, skip), 10)[0]
+        g_old, g_new = graph_ms(old), graph_ms(new)
+        n = x.shape[0]
+        # A skipped launch reads the flag and writes the 0.
+        work = ((0, 0, 8) if skip is not None
+                else (n * (n - 1) / 2, pair_ops("max", 2, ""), 4 * (2 * n + 1)))
+        print(f"perf: max_d2 {label} D=2, device time (profiler, "
+              f"{DEVICE_REPS} calls a turn): "
+              f"{turns_text(olds, news, 'two launches', 'single')}: "
+              f"{ms / old_ms - 1:+.2%}; CUDA-graph replay two launches "
+              f"{ms_text(g_old)}, single {ms_text(g_new)}; plain "
+              f"{plain_ms:.4f} ms; bound {bound(*work)[0]:.6f} ms")
+        if "running" not in label:
+            tick["ms"] += ms
+            tick["old"] += old_ms
+            tick["plain"] += plain_ms
+    n = cand.shape[0]
+    set_timing(report["max_d2"], tick["ms"], tick["plain"],
+               f"a tick of the pruned pass on the disk: {n} candidates + "
+               f"{STARS} under skip=1, device time", n * (n - 1) / 2,
+               pair_ops("max", 2, ""), 4 * (2 * n + 1) + 8)
+    report["max_d2"].update(schedule="single", old_schedule="two launches",
+                            old_schedule_ms=tick["old"])
+    print(f"perf: max_d2 a tick of the pruned pass ({n} candidates + {STARS} "
+          f"skipped): single {tick['ms']:.5f} ms against two launches "
+          f"{tick['old']:.5f} ms ({tick['ms'] / tick['old'] - 1:+.2%})")
+
+
 def phase_perf(dev, report: dict) -> None:
     from nbody_tpu_torch.config import SimConfig
     from nbody_tpu_torch.models.direct import DirectSimulation
@@ -981,17 +1253,17 @@ def phase_perf(dev, report: dict) -> None:
     from nbody_tpu_torch.utils.profiler import fence
 
     cfg = SimConfig()
-    # (kernel, N, mode) whose times go into the kernels line: the canonical
-    # compare's shape, 131072 and the cached-bounds scan's shapes.
-    timed = {("sym_force", STARS, "float32"),
-             ("sym_force_uniform", BIG_N, "float32"),
+    perf_main_shapes(dev, report)
+    # (kernel, N, mode) whose times go into the kernels line: 131072 and
+    # the cached-bounds scan's shapes (its 5000 by device time). Each
+    # unflagged variant also beside the earlier T x T grid.
+    timed = {("sym_force_uniform", BIG_N, "float32"),
              ("sym_force_max", STARS, "int4"),
              ("sym_force_uniform_max", BIG_N, "int4")}
     for n in (STARS, BIG_N):
         pos, m = make_inputs(n, 2, True, seed=7, dev=dev)
         gm = (cfg.G * m).contiguous()
         max_d2 = hn.max_d2(pos) + cfg.softening_sq
-        reps, plain_reps = (20, 20) if n == STARS else (3, 1)
         mx = torch.empty((), device=dev)
         for mode in ("float32", "int4"):
             q = Quantizer.from_string(mode)
@@ -1000,10 +1272,12 @@ def phase_perf(dev, report: dict) -> None:
                 lo = hi = max_d2 * 0
             bounds = torch.stack([lo, hi, max_d2 * 0 + cfg.softening_sq])
             # Each variant beside its general twin, in one call; the fused
-            # max's plain version is the plain force plus max_d2_plain.
+            # max's plain version is the plain force plus max_d2_plain. At
+            # 5000 only the fused max (the unflagged kernel is
+            # perf_main_shapes's), by device time.
             for uniform, fused in ((False, False), (True, False),
                                    (False, True), (True, True)):
-                if fused and not q.is_int:
+                if (fused and not q.is_int) or (n == STARS and not fused):
                     continue
                 key = hn._variant("sym_force", uniform, fused)
                 plain_fn = (hn.sym_force_uniform_plain if uniform
@@ -1014,32 +1288,54 @@ def phase_perf(dev, report: dict) -> None:
                     if fused:
                         hn.max_d2_plain(pos)
 
-                def kernel():
+                def kernel(parent=False):
                     hn.sym_force(pos, gm, bounds, q, False, uniform=uniform,
-                                 max_out=mx if fused else None)
+                                 max_out=mx if fused else None,
+                                 parent=parent)
 
-                plain_ms = cuda_ms(plain, plain_reps)
-                ms = cuda_ms(kernel, reps)
-                plain_ms2 = cuda_ms(plain, plain_reps)
+                if n == STARS:
+                    plain_ms = plain_ms2 = device_ms(plain, 10)[0]
+                    ms = device_ms(kernel)[0]
+                    line = ""
+                else:
+                    plain_ms = cuda_ms(plain, 1)
+                    if fused:
+                        ms, line = cuda_ms(kernel, 3), ""
+                    else:
+                        olds, news = in_turns(
+                            lambda f: cuda_ms(f, 3),
+                            lambda: kernel(True), kernel)
+                        ms = sum(news) / 2
+                        line = (f"; {hn.sym_schedule(n)} grid "
+                                f"{news[0]:.4f} / {news[1]:.4f} against the "
+                                f"square {olds[0]:.4f} / {olds[1]:.4f} "
+                                f"({ms / (sum(olds) / 2) - 1:+.2%})")
+                        if (key, n, mode) in timed:
+                            report[key].update(
+                                schedule=hn.sym_schedule(n),
+                                old_schedule="square",
+                                old_schedule_ms=sum(olds) / 2)
+                    plain_ms2 = cuda_ms(plain, 1)
                 work = (n * (n - 1) / 2,
                         pair_ops(key.replace("_force", ""), 2, mode),
                         sym_bytes(n, 2, fused))
                 print(f"perf: {key} N={n} D=2 {mode}: kernel {ms:.4f} ms, "
                       f"plain {min(plain_ms, plain_ms2):.4f} ms (plain "
                       f"runs {plain_ms:.4f} / {plain_ms2:.4f}), bound "
-                      f"{bound(*work)[0]:.4f} ms")
+                      f"{bound(*work)[0]:.4f} ms"
+                      f"{' (device time)' if n == STARS else ''}{line}")
                 if (key, n, mode) in timed:
                     set_timing(report[key], ms, min(plain_ms, plain_ms2),
                                f"N={n} D=2 {mode}", *work)
-        plain_ms = cuda_ms(lambda: hn.max_d2_plain(pos), reps)
-        ms = cuda_ms(lambda: hn.max_d2(pos), reps)
-        work = (n * (n - 1) / 2, pair_ops("max", 2, "float32"),
-                4 * (2 * n + 1))
-        print(f"perf: max_d2 N={n} D=2 full set: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, bound {bound(*work)[0]:.4f} ms")
-        if n == STARS:
-            set_timing(report["max_d2"], ms, plain_ms,
-                       f"N={STARS} D=2 full set", *work)
+                    if fused:   # the fused max runs on the T x T grid only
+                        report[key]["schedule"] = "square"
+        if n == BIG_N:
+            plain_ms = cuda_ms(lambda: hn.max_d2_plain(pos), 3)
+            ms = cuda_ms(lambda: hn.max_d2(pos), 3)
+            work = (n * (n - 1) / 2, pair_ops("max", 2, "float32"),
+                    4 * (2 * n + 1))
+            print(f"perf: max_d2 N={n} D=2 full set: kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, bound {bound(*work)[0]:.4f} ms")
         del pos, m, gm
 
     from nbody_tpu_torch.cli import force_path
@@ -1117,14 +1413,27 @@ def phase_perf(dev, report: dict) -> None:
                               else hn.pair_sym_force_plain)(
                                   pa, ga, pb, gb, bounds, q)))
                 for key, pairs, nbytes, kernel, plain in runs:
-                    ms = cuda_ms(kernel, 3)
                     shape = (f"{chunk}x{chunk}" if key.startswith("pair")
                              else f"N={chunk}")
                     ops = pair_ops("sym_uniform" if uniform else "sym", dim,
                                    mode)
+                    route = ""
+                    if key.startswith("pair"):
+                        ms = cuda_ms(kernel, 3)
+                    else:
+                        olds, news = in_turns(
+                            lambda f: cuda_ms(f, 3),
+                            lambda: hn.sym_force(pa, ga, bounds, q, False,
+                                                 uniform=uniform,
+                                                 parent=True), kernel)
+                        ms = sum(news) / 2
+                        route = (f" ({hn.sym_schedule(chunk)} grid "
+                                 f"{news[0]:.4f} / {news[1]:.4f} against the "
+                                 f"square {olds[0]:.4f} / {olds[1]:.4f}: "
+                                 f"{ms / (sum(olds) / 2) - 1:+.2%})")
                     line = (f"perf: {key} {shape} D={dim} {mode} (the N=1M "
-                            f"path's chunk shape): kernel {ms:.4f} ms, bound "
-                            f"{bound(pairs, ops, nbytes)[0]:.4f} ms")
+                            f"path's chunk shape): kernel {ms:.4f} ms{route}, "
+                            f"bound {bound(pairs, ops, nbytes)[0]:.4f} ms")
                     if with_plain:
                         plain_ms = min(cuda_ms(plain, 1, 0),
                                        cuda_ms(plain, 1, 0))
@@ -1362,14 +1671,22 @@ def bounds_pass_checks(hn, cfg, plummer, dev) -> None:
         hn.BOUNDS_FALLBACKS.clear()
         pruned = hn.max_pairwise_dist_sq_pruned(geom, cfg)
         took = hn.bounds_fallbacks(dev)
-        ms = cuda_ms(lambda: hn.max_d2(geom), 2)
+        olds, news = in_turns(lambda f: cuda_ms(f, 1),
+                              lambda: hn.max_d2(geom, parent=True),
+                              lambda: hn.max_d2(geom))
+        ms = sum(news) / 2
         full = hn.max_dist_sq(geom, cfg)
         b_ms = bound(LARGE_N * (LARGE_N - 1) / 2, pair_ops("max", 3, ""),
                      4 * (3 * LARGE_N + 1))[0]
         print(f"large: bounds pass D=3 {name}: pruned {pruned.item()!r}, "
               f"full max_d2 {full.item()!r} ({ms:.3f} ms a full launch, "
-              f"bound {b_ms:.3f}), fallback taken: {bool(took)}")
-        check(torch.equal(pruned, full), f"{name}: pruned != full max")
+              f"single {news[0]:.3f} / {news[1]:.3f} against two launches "
+              f"{olds[0]:.3f} / {olds[1]:.3f}: {ms / (sum(olds) / 2) - 1:+.2%};"
+              f" bound {b_ms:.3f}), fallback taken: {bool(took)}")
+        check(torch.equal(pruned, full)
+              and torch.equal(hn.max_d2(geom),
+                              hn.max_d2(geom, parent=True)),
+              f"{name}: pruned != full max, or the designs differ")
         if name == "shell":
             check(took == 1, "the shell did not take the fallback")
             r = torch.linalg.vector_norm(geom - geom.mean(0), dim=1)
@@ -2353,6 +2670,21 @@ def phase_profile(dev, out_path: Path) -> None:
     print(f"profile: written to {out_path}")
 
 
+def resident_lines() -> None:
+    """The sym kernels' resident warps a SM, D=2, general and equal-mass,
+    float32 and int: the T x T grid's tile kernel beside the triangular
+    grid's (64 threads, two warps, a block)."""
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+    lib = hn._library()
+    for mode, code in (("float32", 0), ("int", hn._MODE_INT)):
+        for uniform in (0, 1):
+            square, tri = (2 * lib.nbody_sym_force_resident(code, 2, uniform,
+                                                            t)
+                           for t in (0, 1))
+            print(f"build: sym_force {mode} D=2 uniform={uniform}: resident "
+                  f"warps a SM: T x T grid {square}, triangular grid {tri}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2388,6 +2720,7 @@ def main(argv=None) -> int:
         if ("registers" in line or "spill" in line or "Compiling" in line
                 or line.startswith("==")):
             print(f"build: {line.strip()}")
+    resident_lines()
 
     report = {k: {"name": k, "route": "cuda", **v, "launches": 0,
                   "max_abs_err": None, "ms": None, "plain_ms": None,

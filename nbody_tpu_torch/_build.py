@@ -38,8 +38,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "sym_force": {
         "nbody_sym_force_tile": [],
+        "nbody_sym_force_resident": [_I, _I, _I, _I],
         "nbody_sym_force": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _P,
-                            _P, _P, _P, _P, _I, _P, _P, _P],
+                            _P, _P, _P, _P, _I, _P, _I, _P, _P],
         "nbody_sym_force_lab": [_P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _P,
                                 _P, _P],
     },
@@ -51,7 +52,7 @@ SIGNATURES = {
         "nbody_sym_force_mxu": [_P, _P, _I, _I, _F, _I, _P, _P, _P],
     },
     "max_dist_sq": {
-        "nbody_max_d2": [_P, _I, _I, _P, _P, _P, _I, _P, _P],
+        "nbody_max_d2": [_P, _I, _I, _P, _P, _P, _I, _P, _I, _P, _P],
         "nbody_pair_max": [_P, _P, _I, _P, _P, _I, _I, _P, _I, _P, _P],
     },
     "row_force": {

@@ -5,26 +5,34 @@
 // that the int-sim log grid needs as its tensor-global upper bound. The
 // wrapper adds eps^2 in PyTorch afterwards.
 //
-// Design: particles are cut into tiles of MT; a grid of at most
-// `capacity` blocks walks the tile pairs (I, J) with I <= J in a
-// grid-stride loop (thread per receiver row, source tile staged in shared
-// memory), each block keeps its running max, and max_d2_reduce takes the
-// max over the per-block values (both helpers in max_reduce.cuh, shared
-// with sym_force.cu's fused max). Max is exact, so the result does not
-// depend on the order and is bitwise the plain version's.
+// Design: one launch (max_d2_single). Particles are cut into tiles of S
+// points, S = 64 for small N (the pruned bounds pass's 1024 candidates make
+// 136 tile pairs, about one a SM, where 256-point tiles made 10) and 256
+// beyond; a grid of at most `capacity` blocks walks the T (T + 1) / 2 tile
+// pairs I <= J in a grid-stride loop (thread per receiver row, source tile
+// staged in shared memory), each block keeps its running max and stores
+// it, and the block that takes the last integer ticket takes the max of
+// those values in the same launch and resets the ticket. Max is exact, so
+// the result does not depend on the order and is bitwise the plain
+// version's. The earlier schedule, max_d2_tiles over all T x T pairs of
+// 256-point tiles and then max_d2_reduce (both helpers in max_reduce.cuh,
+// shared with sym_force.cu's fused max and pair_max), stays reachable
+// (a null ticket) to compare the two.
 //
 // d^2 is subtract-form and never contracted into an FMA:
 // __fadd_rn(__fmul_rn(dx,dx), __fmul_rn(dy,dy)) (+ dz^2), op for op what
 // PyTorch's eager ops and the force kernel compute, so the bound the grid
 // gets is the max of the d^2 the force kernel quantizes.
 //
-// `skip` (nullable, on the device) makes both kernels return at once when
-// *skip != 0 (the reduce then writes 0): the candidate-pruned bounds pass
+// `skip` (nullable, on the device) makes every block return at once when
+// *skip != 0 (block 0 writes the 0): the candidate-pruned bounds pass
 // launches the full set unconditionally and lets the device decide
 // whether the candidates already sufficed, so the step never waits on the
-// host. `count` (nullable, on the device) is incremented by the reduce
-// whenever the launch ran, so a run can read afterwards how often the
-// pruned pass took its full-set fallback.
+// host. With 256-point tiles a skipped launch over 5000 points reads the
+// flag in 210 blocks (the earlier schedule: 400, then a second launch).
+// `count` (nullable, on the device) gains 1 whenever the launch ran, so a
+// run can read afterwards how often the pruned pass took its full-set
+// fallback.
 //
 // Large N: this kernel also replaces _max_kernel_streamed /
 // pallas_max_dist_sq_streamed (TPU kernel #3), the fallback past 8 MB of
@@ -35,8 +43,10 @@
 //
 // What bounds it on the H100: arithmetic, ~6 fp32 ops per pair over
 // N^2/2 pairs; positions are O(N) bytes. On the main path it runs on the
-// 1024 candidates (~0.5M pairs) and the full-set launch exits at once
-// unless the geometry defeats the candidates.
+// 1024 candidates (~0.5M pairs, a bound of 0.05 us) and the full-set
+// launch exits at once unless the geometry defeats the candidates: there
+// the fixed costs of a launch set its time, hence one launch that spreads
+// over the card.
 //
 // Two sets: nbody_pair_max replaces _pair_max_kernel / pallas_pair_max
 // (TPU kernel #9), the tile of the multi-device ring's bounds pass: the
@@ -52,6 +62,7 @@
 // S * (S/2 + 1) shard pairs, N^2 / 2 pairs and more in all).
 
 #include "max_reduce.cuh"
+#include "nbody_common.cuh"
 
 namespace {
 
@@ -96,6 +107,87 @@ max_d2_tiles(const float* __restrict__ pos, int n, const int* __restrict__ skip,
     }
   }
   store_block_max<MT>(best, block_max + blockIdx.x);
+}
+
+// The single launch: tiles of S receivers and S sources, a grid of at most
+// `capacity` blocks walking the T (T + 1) / 2 tile pairs I <= J (J-major,
+// tri_tile), each pair's d^2 formed op for op as in max_d2_tiles; then each
+// block stores its max, takes an integer ticket, and the block that takes
+// the last one folds the per-block maxima into out (max is exact: any
+// block, any order, the same bits), counts the run and leaves the ticket 0.
+// A skipped launch returns at once in every block; block 0 writes the 0.
+template <int D, int S>
+__global__ void __launch_bounds__(S)
+max_d2_single(const float* __restrict__ pos, int n, const int* __restrict__ skip,
+              int* __restrict__ count, float* __restrict__ block_max,
+              int* __restrict__ ticket, float* __restrict__ out) {
+  const int t = threadIdx.x;
+  if (skip != nullptr && *skip != 0) {
+    if (blockIdx.x == 0 && t == 0) out[0] = 0.f;
+    return;
+  }
+  const long long T = (n + S - 1) / S;
+  __shared__ float xj_s[D][S];
+  float best = 0.f;
+  for (long long k = blockIdx.x; k < T * (T + 1) / 2; k += gridDim.x) {
+    int I, J;
+    tri_tile(k, I, J);
+    const int j0 = J * S;
+    const int jcnt = min(S, n - j0);
+    __syncthreads();  // the previous pair's readers are done with xj_s
+    if (t < jcnt) {
+#pragma unroll
+      for (int d = 0; d < D; ++d) xj_s[d][t] = pos[(size_t)(j0 + t) * D + d];
+    }
+    __syncthreads();
+    const int i = I * S + t;
+    if (i < n) {
+      float xi[D];
+#pragma unroll
+      for (int d = 0; d < D; ++d) xi[d] = pos[(size_t)i * D + d];
+      for (int j = 0; j < jcnt; ++j) {
+        const float dx0 = __fsub_rn(xj_s[0][j], xi[0]);
+        float d2 = __fmul_rn(dx0, dx0);
+#pragma unroll
+        for (int d = 1; d < D; ++d) {
+          const float dx = __fsub_rn(xj_s[d][j], xi[d]);
+          d2 = __fadd_rn(d2, __fmul_rn(dx, dx));
+        }
+        best = fmaxf(best, d2);
+      }
+    }
+  }
+  store_block_max<S>(best, block_max + blockIdx.x);
+  __shared__ int last;
+  if (t == 0) {
+    __threadfence();  // this block's max, before its ticket
+    last = atomicAdd(ticket, 1) == (int)gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;  // block-uniform
+  __threadfence();
+  float b = 0.f;
+  for (int k = t; k < (int)gridDim.x; k += S) b = fmaxf(b, __ldcg(block_max + k));
+  store_block_max<S>(b, out);
+  if (t == 0) {
+    if (count != nullptr) *count += 1;
+    *ticket = 0;
+  }
+}
+
+template <int D>
+void launch_single(const float* pos, int n, int tile, const int* skip,
+                   int* count, float* block_max, int capacity, int* ticket,
+                   float* out, cudaStream_t s) {
+  const long long T = (n + tile - 1) / tile;
+  const long long pairs = T * (T + 1) / 2;
+  const int nb = (int)(pairs < capacity ? pairs : capacity);
+  if (tile == 64)
+    max_d2_single<D, 64><<<nb, 64, 0, s>>>(pos, n, skip, count, block_max,
+                                           ticket, out);
+  else
+    max_d2_single<D, MT><<<nb, MT, 0, s>>>(pos, n, skip, count, block_max,
+                                           ticket, out);
 }
 
 // One block's max of pair d^2 over valid pairs of receivers pa (validity
@@ -150,13 +242,26 @@ pair_max_tiles(const float* __restrict__ pa, const unsigned char* __restrict__ v
 
 // pos (n, dim) f32 on the device; skip, count: nullable device ints;
 // block_max: scratch of `capacity` floats; out: one float, the raw max d^2
-// (0 when skipped). Returns cudaGetLastError().
+// (0 when skipped). `ticket` (nullable; one device int, 0) takes the
+// single launch with tiles of `tile` (64 or 256) points and leaves it 0;
+// null takes the two-launch schedule (max_d2_tiles, then max_d2_reduce).
+// Returns cudaGetLastError().
 extern "C" int nbody_max_d2(const float* pos, int n, int dim, const int* skip,
                             int* count, float* block_max, int capacity,
-                            float* out, void* stream) {
-  if (n <= 0 || (dim != 2 && dim != 3) || capacity <= 0)
+                            int* ticket, int tile, float* out, void* stream) {
+  if (n <= 0 || (dim != 2 && dim != 3) || capacity <= 0 ||
+      (ticket != nullptr && tile != 64 && tile != MT))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ticket != nullptr) {
+    if (dim == 2)
+      launch_single<2>(pos, n, tile, skip, count, block_max, capacity, ticket,
+                       out, s);
+    else
+      launch_single<3>(pos, n, tile, skip, count, block_max, capacity, ticket,
+                       out, s);
+    return (int)cudaGetLastError();
+  }
   const long long T = (n + MT - 1) / MT;
   const int nb = (int)(T * T < capacity ? T * T : capacity);
   if (dim == 2)

@@ -4,8 +4,9 @@
 // A kernel keeps each block's running max and stores it with
 // store_block_max; max_stage folds any number of such values into at most
 // `capacity` per-block maxima (a capped grid-stride loop); max_d2_reduce
-// takes the max of those in one block. Max is exact, so the result does not
-// depend on the order: the fused max of sym_force is bitwise max_d2's.
+// takes the max of those in one block (max_d2's single launch takes it in
+// its last block instead). Max is exact, so the result does not depend on
+// the order: the fused max of sym_force is bitwise max_d2's.
 
 #pragma once
 

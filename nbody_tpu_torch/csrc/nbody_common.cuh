@@ -87,6 +87,20 @@ __device__ __forceinline__ IntGrid mode_grid(const float* bounds, int levels,
   return g;
 }
 
+// Index of tile pair (I, J), I <= J, in the upper triangle (J-major), and
+// back.
+__device__ __forceinline__ long long tri_index(int I, int J) {
+  return (long long)J * (J + 1) / 2 + I;
+}
+
+__device__ __forceinline__ void tri_tile(long long k, int& I, int& J) {
+  long long j = (long long)((sqrt(8.0 * (double)k + 1.0) - 1.0) * 0.5);
+  while (j * (j + 1) / 2 > k) --j;
+  while ((j + 1) * (j + 2) / 2 <= k) ++j;
+  J = (int)j;
+  I = (int)(k - j * (j + 1) / 2);
+}
+
 template <int D>
 __device__ __forceinline__ float raw_d2(const float (&dx)[D]) {
   float s = __fmul_rn(dx[0], dx[0]);

@@ -32,6 +32,28 @@
 //   that hopper_nbody.sym_force_scratch_bytes reckons and the "auto"
 //   routing holds to a budget (the chunked path takes larger N).
 //
+// Two grids for an unflagged launch (no skip, count or fused max: the
+// engine's tick), the same tile pairs, the same bits:
+//   * the T x T grid (above), whose T (T - 1) / 2 blocks with I > J exit at
+//     once: the earlier design, kept for the flagged and lab variants and
+//     for large T;
+//   * the triangular grid (`triangle`; sym_force_tri): one block per tile
+//     pair I <= J. At N=5000 (T = 79) the 3081 empty blocks are ~10% of
+//     the T x T grid's device time; at T in the thousands they cost
+//     nothing and the triangle was up to 2% slower (PERF.md, PR 8).
+//   Both are followed by reduce_partials; the wrapper picks the grid by a
+//   fixed rule of T (hopper_nbody.sym_schedule): the triangle for
+//   T <= 256 (N <= 16384), the T x T grid beyond.
+// One launch with the reduction inside, the fixed order kept, was built
+// and measured on the H100 and not kept (PERF.md, PR 8): the block that
+// takes a tile's T-th integer ticket summed its rows, so every block
+// fenced and took tickets, and the last tiles' sums (chains of T adds
+// over loads from L2) finished after every tile pair; it was slower than
+// the second launch at every N measured. A cooperative launch whose
+// resident blocks walk the tile pairs and meet at one grid barrier, and
+// w kept in shared memory 32 columns at a time (32 resident warps a SM
+// instead of 24), were slower still.
+
 // Equal masses (`uniform`, all G m equal; pallas_nbody.py:287-292): rows
 // take sum_j w diff and reactions -sum_i w diff, the same product t = w
 // diff on both sides with no G m loaded per pair; reduce_partials sums the
@@ -85,19 +107,6 @@ namespace {
 
 // Blocks of a walk per block the card holds at once (see the notes above).
 constexpr int WALK_WAVES = 32;
-
-// Index of tile pair (I, J), I <= J, in the upper triangle, and back.
-__device__ __forceinline__ long long tri_index(int I, int J) {
-  return (long long)J * (J + 1) / 2 + I;
-}
-
-__device__ __forceinline__ void tri_tile(long long k, int& I, int& J) {
-  long long j = (long long)((sqrt(8.0 * (double)k + 1.0) - 1.0) * 0.5);
-  while (j * (j + 1) / 2 > k) --j;
-  while ((j + 1) * (j + 2) / 2 <= k) ++j;
-  J = (int)j;
-  I = (int)(k - j * (j + 1) / 2);
-}
 
 // One tile pair (I, J), I <= J, by one block: row partials into
 // part[I][J], reactions into part[J][I], the block's max into tile_max.
@@ -245,6 +254,22 @@ sym_force_tiles(const float* __restrict__ pos, const float* __restrict__ gm,
                                              self_masked, part, tile_max);
 }
 
+// The tiles of the triangular grid: block k takes the k-th tile pair
+// I <= J (tri_tile, column by column), each sym_tile_pair as in the T x T
+// grid (the same partials); no block exits at once.
+template <int MODE, int D, bool UNI>
+__global__ void __launch_bounds__(BT)
+sym_force_tri(const float* __restrict__ pos, const float* __restrict__ gm,
+              const float* __restrict__ bounds, int n, int T, int levels,
+              float arg_cap, float min_d2, int self_masked,
+              float* __restrict__ part) {
+  int I, J;
+  tri_tile(blockIdx.x, I, J);
+  sym_tile_pair<MODE, D, UNI, false, false, 1>(pos, gm, bounds, n, T, I, J,
+                                               levels, arg_cap, min_d2,
+                                               self_masked, part, nullptr);
+}
+
 // The walk over tile pairs k = blockIdx.x, blockIdx.x + gridDim.x, ...
 template <int MODE, int D, bool UNI>
 __global__ void __launch_bounds__(BT)
@@ -276,6 +301,16 @@ void launch_sym(const float* pos, const float* gm, const float* bounds, int n,
 }
 
 template <int M, int D, bool UNI>
+void launch_tri(const float* pos, const float* gm, const float* bounds, int n,
+                int T, int levels, float arg_cap, float min_d2,
+                int self_masked, float* part, float* out, cudaStream_t s) {
+  const long long pairs = (long long)T * (T + 1) / 2;
+  sym_force_tri<M, D, UNI><<<(unsigned)pairs, BT, 0, s>>>(
+      pos, gm, bounds, n, T, levels, arg_cap, min_d2, self_masked, part);
+  launch_reduce<D>(part, n, T, out, s, UNI ? gm : nullptr);
+}
+
+template <int M, int D, bool UNI>
 void launch_walk(const float* pos, const float* gm, const float* bounds, int n,
                  int T, int levels, float arg_cap, float min_d2,
                  int self_masked, const int* skip, int* count, float* part,
@@ -301,30 +336,73 @@ void launch_walk(const float* pos, const float* gm, const float* bounds, int n,
 
 extern "C" int nbody_sym_force_tile() { return BT; }
 
+// Blocks of one kernel instance that a SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor): the T x T grid's
+// sym_force_tiles, or with `triangle` sym_force_tri; -1 for an instance
+// that does not exist.
+extern "C" int nbody_sym_force_resident(int mode, int dim, int uniform,
+                                        int triangle) {
+  int blocks = -1;
+  dispatch(mode, dim, [&](auto m, auto d) {
+    constexpr int M = decltype(m)::value;
+    constexpr int DD = decltype(d)::value;
+    auto query = [&](auto kernel) {
+      if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, BT,
+                                                        0) != cudaSuccess)
+        blocks = -1;
+    };
+    auto by_uni = [&](auto uni) {
+      constexpr bool U = decltype(uni)::value;
+      if (triangle)
+        query(sym_force_tri<M, DD, U>);
+      else
+        query(sym_force_tiles<M, DD, U, false, false, 1>);
+    };
+    if (uniform)
+      by_uni(std::true_type{});
+    else
+      by_uni(std::false_type{});
+  });
+  return blocks;
+}
+
 // pos (n, dim) f32, gm (n,) f32 = G * m, bounds (3,) f32 = [log_lo,
 // log_hi, eps^2] on the device; uniform != 0 asserts all gm equal (the
 // result is scaled by gm[0]); skip, count: nullable device ints; part
 // (T, T, BT, dim) f32 scratch with T = ceil(n / BT); out (n, dim) f32.
 // Fused max: tile_max (T (T + 1) / 2 floats) and block_max (`capacity`
 // floats) scratch and max_out (one float, the raw max d^2), all null for
-// none. A skip flag without the fused max takes the walk. Returns
-// cudaGetLastError().
+// none. A skip flag without the fused max takes the walk. `triangle`
+// takes the triangular grid: only for a launch with no skip, count or
+// fused max. Returns cudaGetLastError().
 extern "C" int nbody_sym_force(const float* pos, const float* gm,
                                const float* bounds, int n, int dim, int mode,
                                int levels, float arg_cap, float min_d2,
                                int self_masked, int uniform, const int* skip,
                                int* count, float* part, float* tile_max,
                                float* block_max, int capacity, float* max_out,
-                               float* out, void* stream) {
+                               int triangle, float* out, void* stream) {
   const int T = (n + BT - 1) / BT;
   if (n <= 0 || T > 65535) return (int)cudaErrorInvalidValue;
   if (tile_max != nullptr && (mode != MODE_INT || block_max == nullptr ||
                               max_out == nullptr || capacity <= 0))
     return (int)cudaErrorInvalidValue;
+  if (triangle &&
+      (skip != nullptr || count != nullptr || tile_max != nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool known = dispatch(mode, dim, [&](auto m, auto d) {
     constexpr int M = decltype(m)::value;
     constexpr int DD = decltype(d)::value;
+    if (triangle) {
+      if (uniform)
+        launch_tri<M, DD, true>(pos, gm, bounds, n, T, levels, arg_cap,
+                                min_d2, self_masked, part, out, s);
+      else
+        launch_tri<M, DD, false>(pos, gm, bounds, n, T, levels, arg_cap,
+                                 min_d2, self_masked, part, out, s);
+      return;
+    }
     auto run = [&](auto uni, auto emit) {
       launch_sym<M, DD, decltype(uni)::value, decltype(emit)::value, false,
                  1>(pos, gm, bounds, n, T, levels, arg_cap, min_d2,

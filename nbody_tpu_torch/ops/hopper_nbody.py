@@ -8,7 +8,8 @@ multi-device ring (``parallel/ring.py``):
   ``pallas_accelerations_sym`` (#1): softened all-pairs gravity, each
   unordered pair's weight evaluated once (Newton's third law), with the
   precision hook in the tile; its equal-mass variant (``uniform``), its
-  fused max of raw d^2 (``max_out``) and a device skip flag.
+  fused max of raw d^2 (``max_out``) and a device skip flag. An unflagged
+  launch runs one block per tile pair I <= J (``sym_schedule``).
 * ``max_d2`` — ``csrc/max_dist_sq.cu``, replacing ``_max_kernel`` /
   ``pallas_max_dist_sq`` (#2) and its streamed twin
   ``pallas_max_dist_sq_streamed`` (#3): the global max of the raw
@@ -95,9 +96,23 @@ REDO_LAUNCHES: dict = {}
 # Per-block maxima scratch of max_d2: the kernel's grid-stride loop uses
 # at most this many blocks.
 MAX_D2_BLOCKS = 1024
+# max_d2's tile side: 64 points up to this N, so that the pruned pass's
+# 1024 candidates spread over 136 tile pairs (blocks) instead of 10; 256
+# beyond, the tile of the large-N passes.
+MAX_D2_SMALL_N = 4096
+
+# max_d2's integer ticket, per device: zeroed once when allocated, left
+# at 0 by every launch (csrc/max_dist_sq.cu). Two launches that share it
+# must not run at once on different streams; the port launches only on the
+# current stream.
+TICKETS: dict = {}
 
 # BT of csrc/nbody_common.cuh: the tile of the Newton's-third-law kernels.
 TILE = 64
+# An unflagged sym_force launch over at most this many tiles (N <= 16384)
+# takes the triangular grid; larger ones the T x T grid: at T of 2048 to
+# 3277 the triangle was no faster on the H100 (csrc/sym_force.cu's header).
+TRIANGLE_MAX_TILES = 256
 # Source tiles one block of pair_sym_force walks (its row partials are
 # per segment of this many tiles).
 PAIR_SEGMENT_TILES = 32
@@ -125,6 +140,26 @@ def _arg_cap(q: Quantizer) -> float:
 
 def _tiles(n: int) -> int:
     return -(-n // TILE)
+
+
+def sym_schedule(n: int) -> str:
+    """The grid of an unflagged sym_force launch over n particles, a fixed
+    function of T = ceil(n / TILE): "triangle" (one block per tile pair
+    I <= J) up to TRIANGLE_MAX_TILES, else "square" (the T x T grid, the
+    earlier design). Both are followed by the same fixed-order reduction
+    and give the same bits."""
+    return "triangle" if _tiles(n) <= TRIANGLE_MAX_TILES else "square"
+
+
+def max_d2_tile(n: int) -> int:
+    """Tile side of max_d2's single launch over n points."""
+    return 64 if n <= MAX_D2_SMALL_N else 256
+
+
+def ticket(device: torch.device) -> torch.Tensor:
+    """The device's max_d2 ticket (TICKETS), zeroed when allocated: here,
+    at a first call, never inside a launch."""
+    return _device_counter(TICKETS, device)
 
 
 def sym_force_scratch_bytes(n: int, dim: int) -> int:
@@ -471,7 +506,8 @@ def sym_force(pos: torch.Tensor, gm: torch.Tensor, bounds: torch.Tensor,
               q: Quantizer, self_masked: bool, uniform: bool = False,
               max_out: torch.Tensor | None = None,
               skip: torch.Tensor | None = None,
-              count: torch.Tensor | None = None) -> torch.Tensor:
+              count: torch.Tensor | None = None,
+              parent: bool = False) -> torch.Tensor:
     """Kernel #1 wrapper: CUDA kernel for a CUDA tensor, the plain version
     for a CPU tensor. Same arguments and result as sym_force_plain.
 
@@ -484,7 +520,11 @@ def sym_force(pos: torch.Tensor, gm: torch.Tensor, bounds: torch.Tensor,
     device, as max_d2's: when *skip != 0 the launch returns at once with
     zero forces (and a zero max); count gains 1 when it ran. A launch with
     ``skip`` and no ``max_out`` walks the tile pairs with a capped grid,
-    so that a skipped launch costs microseconds (csrc/sym_force.cu)."""
+    so that a skipped launch costs microseconds (csrc/sym_force.cu).
+
+    An unflagged launch takes ``sym_schedule(N)``'s grid; ``parent=True``
+    takes the T x T grid (the earlier design, the same bits) to compare
+    them."""
     n, dim = _check_force_args(pos, gm, bounds)
     # The engine's tick calls this with no flag and no fused max: that path
     # pays for none of their checks.
@@ -511,6 +551,8 @@ def sym_force(pos: torch.Tensor, gm: torch.Tensor, bounds: torch.Tensor,
                            device=pos.device)
         out = torch.empty_like(pos)
         skip_p = count_p = tile_max_p = block_max_p = max_out_p = None
+        triangle = (not extras and not parent
+                    and sym_schedule(n) == "triangle")
         if extras:
             skip_p, count_p = _opt_ptr(skip), _opt_ptr(count)
             if max_out is not None:
@@ -523,8 +565,8 @@ def sym_force(pos: torch.Tensor, gm: torch.Tensor, bounds: torch.Tensor,
         rc = lib.nbody_sym_force(
             _ptr(pos), _ptr(gm), _ptr(bounds), n, dim, *_int_args(q),
             int(self_masked), int(uniform), skip_p, count_p, _ptr(part),
-            tile_max_p, block_max_p, MAX_D2_BLOCKS, max_out_p, _ptr(out),
-            _stream(pos.device))
+            tile_max_p, block_max_p, MAX_D2_BLOCKS, max_out_p,
+            int(triangle), _ptr(out), _stream(pos.device))
     _raise_on(rc, "sym_force")
     LAUNCHES[_variant("sym_force", uniform, max_out is not None)] += 1
     return out
@@ -636,12 +678,15 @@ def _check_flag(name: str, t: torch.Tensor | None, device) -> None:
 
 
 def max_d2(pos: torch.Tensor, skip: torch.Tensor | None = None,
-           count: torch.Tensor | None = None) -> torch.Tensor:
+           count: torch.Tensor | None = None,
+           parent: bool = False) -> torch.Tensor:
     """Kernel #2 / #3 wrapper: CUDA kernel for a CUDA tensor, the plain
     version for a CPU tensor. ``skip`` is an optional int32 flag on the
     same device: when nonzero the launch returns at once with 0. ``count``
     is an optional int32 on the same device that gains 1 when the launch
-    was not skipped."""
+    was not skipped. One launch, tiles of ``max_d2_tile(N)`` points;
+    ``parent=True`` takes the earlier two launches (the same bits) to
+    compare them."""
     n, dim = _check_positions(pos)
     _check_flag("skip", skip, pos.device)
     _check_flag("count", count, pos.device)
@@ -654,7 +699,9 @@ def max_d2(pos: torch.Tensor, skip: torch.Tensor | None = None,
         out = torch.empty(1, dtype=torch.float32, device=pos.device)
         rc = lib.nbody_max_d2(
             _ptr(pos), n, dim, _opt_ptr(skip), _opt_ptr(count),
-            _ptr(block_max), MAX_D2_BLOCKS, _ptr(out), _stream(pos.device))
+            _ptr(block_max), MAX_D2_BLOCKS,
+            None if parent else _ptr(ticket(pos.device)), max_d2_tile(n),
+            _ptr(out), _stream(pos.device))
     _raise_on(rc, "max_d2")
     LAUNCHES["max_d2"] += 1
     return out[0]
