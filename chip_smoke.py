@@ -33,12 +33,17 @@ Phases (any failure exits non-zero before the last line is printed):
    beside it), each beside its earlier design in turns (old, new, new,
    old): sym_force at 5000 float32 and int4 and at the grid rule's edge,
    max_d2 on the pruned pass's 1024 candidates and on 5000 skipped and
-   running; throughput at N=131072, kernel-vs-plain times (sym_force's
-   grids in turns at 131072 and the 1M chunk shapes), and
-   ``dynamic_params`` runs at 5000 stars against static ones.
+   running; throughput at N=131072, kernel-vs-plain times, the
+   equal-mass variants' two designs (the earlier two-pass tile and the
+   one-pass design) in turns at 131072 and at the 1M chunk and pair shapes
+   (209728, 209728^2 at D=2; 174784, 174784^2 at D=3), float32 and int4,
+   each held to its plain version, with the bound by the function's own
+   operations and both designs' scratch bytes, and ``dynamic_params`` runs
+   at 5000 stars against static ones.
 7. large: N=1,048,576 through ``run_steps(..., "auto", ...)`` for 5 steps
    (D=2 disk and D=3 Plummer sphere, seed 43, float32 and int4), with the
-   general kernels and with ``uniform_gm``: the chunked path's launch
+   general kernels and with ``uniform_gm`` (the equal-mass step in both
+   designs, in turns): the chunked path's launch
    counts, pairs/s, one force evaluation chunked (both variants) against
    the row kernel over all rows and all against the plain version on
    sampled rows; zero softening routed to the row kernel; the pruned
@@ -48,7 +53,9 @@ Phases (any failure exits non-zero before the last line is printed):
    version at (5000, 5000) one set, (32768, 32771), (1, 1000) and prime
    sizes, all seven modes, D in {2,3} (pair_max bitwise), and timed and
    held at the --mesh path's 131072^2; ``cli.main`` at 131072 stars x
-   200 ticks with ``--mesh`` for both schedules, float32 and int4, launch counts exact; virtual shards
+   200 ticks with ``--mesh`` for both schedules (the sym schedule in both
+   designs of its equal-mass tile), float32 and int4, launch counts
+   exact; virtual shards
    (S in {1, 3, 4} on the one card, N in {5000, 131072, 131075}): forces
    against single-device sym_force, max d^2 bitwise, energies against the
    plain metric, launch counts exact; the reference gate through a mesh of
@@ -76,7 +83,9 @@ Phases (any failure exits non-zero before the last line is printed):
    D=2, timed beside sym_force_uniform in the same call.
 
 The kernels phase also holds the equal-mass variants (D in {2,3}, every
-mode, N in {4096, 32768}), the flag off the tile (N=4100, bitwise the
+mode, N in {4096, 32768}; the one-pass design at odd multiples of 64, N in
+{192, 320, 448} and pairs 192 x 320, and at ragged 256-receiver tails,
+N in {16448, 16576}), the flag off the tile (N=4100, bitwise the
 general kernel), the fused max (bitwise max_d2, forces bitwise without
 it), the skip flag and the lab kernels (the round-4 ones at N in
 {3072, 12288}, softening 0.1 and 0; the round-5 tensor-core kernel at
@@ -99,6 +108,7 @@ last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import io
 import json
 import math
@@ -328,17 +338,26 @@ def device_ms(fn, reps: int = DEVICE_REPS, warmup: int = 3) -> tuple:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    traced = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.count:
-            name = kernel_name(e.key)
-            count, us = traced.get(name, (0, 0.0))
-            traced[name] = (count + e.count, us + e.self_device_time_total)
+    # A window whose trace came back without a device event (seen once on
+    # the card, in the ninth window of a run) is traced again, twice at
+    # most; each retry is printed.
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        traced = {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and e.count:
+                name = kernel_name(e.key)
+                count, us = traced.get(name, (0, 0.0))
+                traced[name] = (count + e.count,
+                                us + e.self_device_time_total)
+        if traced:
+            break
+        print(f"perf: the profiler traced no device event in window "
+              f"{attempt + 1} of 3; tracing it again")
     kernels = {name: (round(count / reps), us / count / 1e3)
                for name, (count, us) in traced.items()}
     total = sum(n * ms for n, ms in kernels.values())
@@ -518,6 +537,16 @@ class Tally:
                      err_over_bound=self.worst_ratio[0], cases=self.cases)
         check(not self.failures, f"{name} disagreements:\n  "
               + "\n  ".join(self.failures))
+
+
+def bitwise(a, b) -> bool:
+    """The same bits (a NaN equals the same NaN, unlike torch.equal)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.contiguous().view(torch.int32), b.contiguous().view(
+            torch.int32)
+    return torch.equal(a, b)
 
 
 def lazy_scale(pos, gm, bounds, q, masked, got, want, rows=None):
@@ -753,7 +782,7 @@ def kernels_equal_mass(dev, report: dict) -> None:
     fails = []
 
     def same(what, a, b):
-        if not torch.equal(a, b):
+        if not bitwise(a, b):
             fails.append(what)
 
     for dim in (2, 3):
@@ -779,9 +808,15 @@ def kernels_equal_mass(dev, report: dict) -> None:
                     same(f"sym_force_uniform run to run {case}", got,
                          hn.sym_force(pos, gm, bounds, q, masked,
                                       uniform=True))
-                    same(f"sym_force_uniform grids {case}", got,
-                         hn.sym_force(pos, gm, bounds, q, masked,
-                                      uniform=True, parent=True))
+                    old = hn.sym_force(pos, gm, bounds, q, masked,
+                                       uniform=True, parent=True)
+                    if hn.sym_design(n, dim, q, True) == "one_pass":
+                        # another summation order: the earlier design is
+                        # held to the plain version as a kernel of its own
+                        tallies["sym_force_uniform"].hold(
+                            case + " two-pass", old, want, scale, q)
+                    else:   # the triangle and the T x T grid: bitwise
+                        same(f"sym_force_uniform grids {case}", got, old)
             half = n // 2
             pa, pb, ga, gb = pos[:half], pos[half:], gm[:half], gm[half:]
             for mode in MODES:
@@ -844,9 +879,10 @@ def kernels_equal_mass(dev, report: dict) -> None:
                     got = hn.sym_force(pos, gm, bounds, q, False,
                                        uniform=uniform, max_out=mx)
                     same(f"fused max {case}", mx, want_max)
+                    # the unflagged launch of the same two-pass tile
                     same(f"forces with the fused max {case}", got,
                          hn.sym_force(pos, gm, bounds, q, False,
-                                      uniform=uniform))
+                                      uniform=uniform, parent=True))
                     plain = (hn.sym_force_uniform_plain if uniform
                              and n % hn.TILE == 0 else hn.sym_force_plain)
                     tallies[key].hold(case, got, plain(pos, gm, bounds, q,
@@ -917,6 +953,7 @@ def kernels_equal_mass(dev, report: dict) -> None:
                     same(f"lab {v} run to run {case}", got,
                          kernel_lab.sym_force_lab(pos, gm, bounds, q, masked,
                                                   v))
+    one_pass_shapes(dev, tallies, same)
     torch.cuda.synchronize()
     for name, tally in tallies.items():
         tally.report(name, report[name])
@@ -924,6 +961,103 @@ def kernels_equal_mass(dev, report: dict) -> None:
           f"(bitwise max_d2, forces bitwise without it), the skip flag and "
           f"every variant run to run: {len(fails)} failures")
     check(not fails, "not bitwise: " + "; ".join(fails))
+
+
+ODD_NS = (192, 320, 448)      # 3, 5, 7 tiles: ragged 256-receiver tails
+ODD_PAIRS = ((192, 320), (320, 192))
+RAGGED_TAILS = (16448, 16576)  # 257 and 259 tiles: past the rule's edge
+RAGGED_PAIRS = ((16448, 320), (16576, 16448))
+
+
+@contextlib.contextmanager
+def equal_mass_design(hn, design: str):
+    """Runs the equal-mass launches inside in ``design``: "one_pass" (the
+    wrapper's rule, hn.uniform_design) or "two_pass" (the earlier design
+    everywhere, every route emptied), for an A/B of a whole path."""
+    saved = hn.ONE_PASS_ROUTES
+    if design == "two_pass":
+        hn.ONE_PASS_ROUTES = frozenset()
+    try:
+        yield
+    finally:
+        hn.ONE_PASS_ROUTES = saved
+
+
+def one_pass_shapes(dev, tallies: dict, same) -> None:
+    """The one-pass design of sym_force_uniform and pair_sym_force_uniform
+    against their plain versions at odd multiples of 64 (N in ODD_NS and
+    the pairs 192 x 320, 320 x 192, the rule's edge lowered to 0 tiles so
+    that the design serves them) and at ragged 256-receiver tails under
+    the rule (N in RAGGED_TAILS, the pairs RAGGED_PAIRS), every
+    mode, D in {2,3}, softening 0.1 (and 0 for sym), the design served in
+    every mode and D; bitwise run to run."""
+    from nbody_tpu_torch.config import SimConfig
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+    from nbody_tpu_torch.ops.precision import Quantizer
+
+    cfg = SimConfig()
+    saved = hn.ONE_PASS_MIN_TILES, hn.ONE_PASS_ROUTES
+    hn.ONE_PASS_ROUTES = frozenset((f, d) for f in ("float", "int")
+                                   for d in (2, 3))
+    try:
+        for dim in (2, 3):
+            pos, m = make_inputs(2 * max(RAGGED_TAILS), dim, True,
+                                 seed=dim + 23, dev=dev)
+            gm = (cfg.G * m).contiguous()
+            for lowered, ns, pairs in ((True, ODD_NS, ODD_PAIRS),
+                                       (False, RAGGED_TAILS, RAGGED_PAIRS)):
+                hn.ONE_PASS_MIN_TILES = 0 if lowered else saved[0]
+                for mode in MODES:
+                    q = Quantizer.from_string(mode)
+                    for n in ns:
+                        p1, g1 = pos[:n], gm[:n]
+                        check(hn.sym_design(n, dim, q, True) == "one_pass",
+                              f"N={n}: not routed to the one-pass design")
+                        for label, soft, masked in (("0.1", 0.01, False),
+                                                    ("0", 0.0, True)):
+                            case = (f"one-pass {mode} D={dim} N={n} "
+                                    f"soft={label}")
+                            bounds = force_bounds(q, p1, soft, dev)
+                            got = hn.sym_force(p1, g1, bounds, q, masked,
+                                               uniform=True)
+                            want = hn.sym_force_uniform_plain(p1, g1, bounds,
+                                                              q, masked)
+                            scale = lazy_scale(p1, g1, bounds, q, masked,
+                                               got, want)
+                            tallies["sym_force_uniform"].hold(case, got, want,
+                                                              scale, q)
+                            same(f"sym_force_uniform run to run {case}", got,
+                                 hn.sym_force(p1, g1, bounds, q, masked,
+                                              uniform=True))
+                    bounds = force_bounds(q, pos, 0.01, dev)
+                    for n_a, n_b in pairs:
+                        pa, pb = pos[:n_a], pos[n_a:n_a + n_b]
+                        ga, gb = gm[:n_a], gm[n_a:n_a + n_b]
+                        check(hn.pair_design(n_a, n_b, dim, q, True)
+                              == "one_pass", f"{n_a}x{n_b}: not routed to "
+                                             f"the one-pass design")
+                        case = f"one-pass {mode} D={dim} {n_a}x{n_b}"
+                        rows, cols = hn.pair_sym_force(pa, ga, pb, gb, bounds,
+                                                       q, uniform=True)
+                        rw, cw = hn.pair_sym_force_uniform_plain(
+                            pa, ga, pb, gb, bounds, q)
+                        tally = tallies["pair_sym_force_uniform"]
+                        tally.hold(case + " rows", rows, rw,
+                                   torch.zeros_like(rw), q)
+                        tally.hold(case + " cols", cols, cw,
+                                   torch.zeros_like(cw), q)
+                        same(f"pair_sym_force_uniform run to run {case}",
+                             torch.cat([rows, cols]),
+                             torch.cat(hn.pair_sym_force(pa, ga, pb, gb,
+                                                         bounds, q,
+                                                         uniform=True)))
+            del pos, m, gm
+    finally:
+        hn.ONE_PASS_MIN_TILES, hn.ONE_PASS_ROUTES = saved
+    print(f"kernels: the one-pass design at odd multiples of 64 {ODD_NS} "
+          f"(pairs {ODD_PAIRS}) and ragged 256-receiver tails "
+          f"{RAGGED_TAILS} (pairs {RAGGED_PAIRS}), every mode, D in {{2,3}}:"
+          f" held in the equal-mass tallies")
 
 
 MXU_NS = (3072, 12288)   # multiples of the tensor-core kernel's tile
@@ -1245,6 +1379,88 @@ def perf_main_shapes(dev, report: dict) -> None:
           f"{tick['old']:.5f} ms ({tick['ms'] / tick['old'] - 1:+.2%})")
 
 
+def design_ab(report: dict, key: str, shape: str, args: tuple, mode: str,
+              dim: int) -> tuple:
+    """An equal-mass variant at one timed shape, ``args`` its wrapper's
+    positional arguments (sym_force: pos, gm, bounds, q, self_masked;
+    pair_sym_force: pos_a, gm_a, pos_b, gm_b, bounds, q): the earlier
+    two-pass design and the one-pass design in turns (old, new, new, old;
+    CUDA events, 3 calls a turn), each held to the plain version (the
+    float rule with the summed-|terms| scale where |a| alone does not hold;
+    int8/int4 the flip rule after quantize_force), the one-pass design
+    bitwise run to run; the bound by the function's own operations
+    (pair_ops("sym_t")), both designs' scratch bytes. Appends the row to
+    report[key]["designs"]; returns (one-pass ms, plain ms, the bound's
+    (pairs, ops a pair, bytes))."""
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+    pair = key.startswith("pair")
+    fn = hn.pair_sym_force if pair else hn.sym_force
+    q = args[5] if pair else args[3]
+
+    def old():
+        return fn(*args, uniform=True, parent=True)
+
+    def new():
+        return fn(*args, uniform=True)
+
+    if pair:
+        pa, ga, pb, gb, bounds = args[:5]
+        n_a, n_b = pa.shape[0], pb.shape[0]
+        work = (n_a * n_b, pair_ops("sym_t", dim, mode),
+                sym_bytes(n_a, dim) + sym_bytes(n_b, dim))
+        design = hn.pair_design(n_a, n_b, dim, q, True)
+        scratch = (hn.pair_sym_force_scratch_bytes(n_a, n_b, dim),
+                   hn.pair_one_pass_scratch(n_a, n_b, dim))
+    else:
+        n = args[0].shape[0]
+        work = (n * (n - 1) / 2, pair_ops("sym_t", dim, mode),
+                sym_bytes(n, dim))
+        design = hn.sym_design(n, dim, q, True)
+        scratch = (hn.sym_force_scratch_bytes(n, dim),
+                   hn.sym_one_pass_scratch(n, dim))
+    scratch = (scratch[0], sum(4 * math.prod(s) for s in scratch[1]))
+    check(design == "one_pass", f"{key} {shape}: the rule routes {design}")
+    t0 = time.time()
+    want = (hn.pair_sym_force_uniform_plain if pair
+            else hn.sym_force_uniform_plain)(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    tally = Tally()
+    for label, got in (("two-pass", old()), ("one-pass", new())):
+        if pair:
+            for part, g, w, xi, xj, gmj in (
+                    ("rows", got[0], want[0], pa, pb, gb),
+                    ("cols", got[1], want[1], pb, pa, ga)):
+                tally.hold(f"{label} {part}", g, w,
+                           lazy_pair_scale(xi, xj, gmj, bounds, q, g, w), q)
+        else:
+            tally.hold(label, got, want,
+                       lazy_scale(*args[:4], False, got, want), q)
+    first, again = new(), new()
+    check(all(bitwise(x, y) for x, y in
+              zip(first if pair else (first,), again if pair else (again,))),
+          f"{key} {shape}: the one-pass design not bitwise run to run")
+    check(not tally.failures, f"{key} {shape} vs plain:\n  "
+          + "\n  ".join(tally.failures))
+    olds, news = in_turns(lambda f: cuda_ms(f, 3), old, new)
+    old_ms, ms = sum(olds) / 2, sum(news) / 2
+    b_ms = bound(*work)[0]
+    print(f"perf: {key} {shape} {mode}: two-pass {olds[0]:.4f} / "
+          f"{olds[1]:.4f} ms, one-pass {news[0]:.4f} / {news[1]:.4f} ms "
+          f"({ms / old_ms - 1:+.2%}); bound {b_ms:.4f} ms ({work[1]} ops a "
+          f"pair, pair_ops sym_t; {b_ms / old_ms:.1%} / {b_ms / ms:.1%} of "
+          f"it); plain {plain_ms:.1f} ms (wall); vs plain worst err "
+          f"{tally.worst_err[0]:.3e}, err/bound {tally.worst_ratio[0]:.4f}, "
+          f"quantize_force flips {tally.flips}; scratch two-pass "
+          f"{scratch[0]} B, one-pass {scratch[1]} B")
+    report[key].setdefault("designs", []).append(
+        {"shape": shape, "mode": mode, "two_pass_ms": old_ms,
+         "one_pass_ms": ms, "bound_ms": b_ms, "plain_wall_ms": plain_ms,
+         "err_over_bound": tally.worst_ratio[0],
+         "scratch_bytes": {"two_pass": scratch[0], "one_pass": scratch[1]}})
+    return ms, plain_ms, work
+
+
 def phase_perf(dev, report: dict) -> None:
     from nbody_tpu_torch.config import SimConfig
     from nbody_tpu_torch.models.direct import DirectSimulation
@@ -1280,8 +1496,20 @@ def phase_perf(dev, report: dict) -> None:
                 if (fused and not q.is_int) or (n == STARS and not fused):
                     continue
                 key = hn._variant("sym_force", uniform, fused)
-                plain_fn = (hn.sym_force_uniform_plain if uniform
-                            else hn.sym_force_plain)
+                if uniform and not fused:   # N=131072: both designs
+                    ms, plain_ms, work = design_ab(
+                        report, key, f"N={n} D=2", (pos, gm, bounds, q,
+                                                    False), mode, 2)
+                    if (key, n, mode) in timed:
+                        set_timing(report[key], ms, plain_ms,
+                                   f"N={n} D=2 {mode}", *work)
+                        report[key].update(
+                            design="one_pass", old_design="two_pass",
+                            old_design_ms=report[key]["designs"][-1][
+                                "two_pass_ms"])
+                    continue
+                plain_fn = hn.sym_force_uniform_plain if uniform \
+                    else hn.sym_force_plain
 
                 def plain():
                     plain_fn(pos, gm, bounds, q, False)
@@ -1367,8 +1595,9 @@ def phase_perf(dev, report: dict) -> None:
     # The row sweep at N=131072 (its plain version at the 1M path's shape
     # takes minutes; --phases scale has it), then the N=1M path's chunk
     # shapes: sym_force on one chunk and the pair tile on a chunk pair
-    # (D=2 chunk 209728 and D=3 174784), each variant beside its general
-    # twin in this call; plain versions at D=2 float32.
+    # (D=2 chunk 209728 and D=3 174784), the general kernels (plain
+    # versions at D=2 float32) and the equal-mass variants in both designs
+    # (design_ab: in turns, each held to its plain version).
     pos, m = make_inputs(BIG_N, 2, True, seed=7, dev=dev)
     gm = (cfg.G * m).contiguous()
     q = Quantizer.from_string("float32")
@@ -1396,53 +1625,43 @@ def phase_perf(dev, report: dict) -> None:
             q = Quantizer.from_string(mode)
             bounds = force_bounds(q, pos, cfg.softening_sq, dev)
             with_plain = dim == 2 and mode == "float32"
-            for uniform in (False, True):
-                runs = (
-                    (hn._variant("sym_force", uniform), chunk * (chunk - 1)
-                     / 2, sym_bytes(chunk, dim),
-                     lambda: hn.sym_force(pa, ga, bounds, q, False,
-                                          uniform=uniform),
-                     lambda: (hn.sym_force_uniform_plain if uniform
-                              else hn.sym_force_plain)(pa, ga, bounds, q,
-                                                       False)),
-                    (hn._variant("pair_sym_force", uniform), chunk * chunk,
-                     2 * sym_bytes(chunk, dim),
-                     lambda: hn.pair_sym_force(pa, ga, pb, gb, bounds, q,
-                                               uniform=uniform),
-                     lambda: (hn.pair_sym_force_uniform_plain if uniform
-                              else hn.pair_sym_force_plain)(
-                                  pa, ga, pb, gb, bounds, q)))
-                for key, pairs, nbytes, kernel, plain in runs:
-                    shape = (f"{chunk}x{chunk}" if key.startswith("pair")
-                             else f"N={chunk}")
-                    ops = pair_ops("sym_uniform" if uniform else "sym", dim,
-                                   mode)
-                    route = ""
+            ops = pair_ops("sym", dim, mode)
+            runs = (
+                ("sym_force", chunk * (chunk - 1) / 2, sym_bytes(chunk, dim),
+                 lambda: hn.sym_force(pa, ga, bounds, q, False),
+                 lambda: hn.sym_force_plain(pa, ga, bounds, q, False)),
+                ("pair_sym_force", chunk * chunk, 2 * sym_bytes(chunk, dim),
+                 lambda: hn.pair_sym_force(pa, ga, pb, gb, bounds, q),
+                 lambda: hn.pair_sym_force_plain(pa, ga, pb, gb, bounds, q)))
+            for key, pairs, nbytes, kernel, plain in runs:
+                shape = (f"{chunk}x{chunk}" if key.startswith("pair")
+                         else f"N={chunk}")
+                ms = cuda_ms(kernel, 3)
+                line = (f"perf: {key} {shape} D={dim} {mode} (the N=1M "
+                        f"path's chunk shape): kernel {ms:.4f} ms, bound "
+                        f"{bound(pairs, ops, nbytes)[0]:.4f} ms")
+                if with_plain:
+                    plain_ms = min(cuda_ms(plain, 1, 0), cuda_ms(plain, 1, 0))
+                    line += f", plain {plain_ms:.4f} ms"
                     if key.startswith("pair"):
-                        ms = cuda_ms(kernel, 3)
-                    else:
-                        olds, news = in_turns(
-                            lambda f: cuda_ms(f, 3),
-                            lambda: hn.sym_force(pa, ga, bounds, q, False,
-                                                 uniform=uniform,
-                                                 parent=True), kernel)
-                        ms = sum(news) / 2
-                        route = (f" ({hn.sym_schedule(chunk)} grid "
-                                 f"{news[0]:.4f} / {news[1]:.4f} against the "
-                                 f"square {olds[0]:.4f} / {olds[1]:.4f}: "
-                                 f"{ms / (sum(olds) / 2) - 1:+.2%})")
-                    line = (f"perf: {key} {shape} D={dim} {mode} (the N=1M "
-                            f"path's chunk shape): kernel {ms:.4f} ms{route}, "
-                            f"bound {bound(pairs, ops, nbytes)[0]:.4f} ms")
-                    if with_plain:
-                        plain_ms = min(cuda_ms(plain, 1, 0),
-                                       cuda_ms(plain, 1, 0))
-                        line += f", plain {plain_ms:.4f} ms"
-                        if key.startswith("pair"):
-                            set_timing(report[key], ms, plain_ms,
-                                       f"{shape} D=2 float32", pairs, ops,
-                                       nbytes)
-                    print(line)
+                        set_timing(report[key], ms, plain_ms,
+                                   f"{shape} D=2 float32", pairs, ops,
+                                   nbytes)
+                print(line)
+            for key, shape, args in (
+                    ("sym_force_uniform", f"N={chunk} D={dim}",
+                     (pa, ga, bounds, q, False)),
+                    ("pair_sym_force_uniform", f"{chunk}x{chunk} D={dim}",
+                     (pa, ga, pb, gb, bounds, q))):
+                ms, plain_ms, work = design_ab(report, key, shape, args, mode,
+                                               dim)
+                if key.startswith("pair") and with_plain:
+                    set_timing(report[key], ms, plain_ms,
+                               f"{shape} float32 (plain: wall)", *work)
+                    report[key].update(
+                        design="one_pass", old_design="two_pass",
+                        old_design_ms=report[key]["designs"][-1][
+                            "two_pass_ms"])
         del pos, m, gm, pa, pb, ga, gb
 
     # dt and softening as run-time device scalars against the same run
@@ -1537,13 +1756,17 @@ def phase_large(dev, report: dict) -> None:
         check(impl == "kernel_sym_chunked", f"D={dim}: auto picked {impl}")
         for mode in ("float32", "int4"):
             q = Quantizer.from_string(mode)
-            # The general kernels, then the equal-mass variants, from the
-            # same ICs. Every chunk is a multiple of TILE (209728 / 209664
-            # at D=2, 174784 / 174656 at D=3), so uniform_gm takes the
-            # variants throughout.
-            finals = {}
-            for uniform in (False, True):
-                label = "equal-mass" if uniform else "general"
+            # The general kernels, then the equal-mass variants in their
+            # two designs in turns (two-pass, one-pass, one-pass, two-pass),
+            # from the same ICs. Every chunk is a multiple of TILE (209728 /
+            # 209664 at D=2, 174784 / 174656 at D=3), so uniform_gm takes
+            # the variants throughout.
+            finals, walls = {}, {"two_pass": [], "one_pass": []}
+            for uniform, design in ((False, "one_pass"),
+                                    (True, "two_pass"), (True, "one_pass"),
+                                    (True, "one_pass"), (True, "two_pass")):
+                label = (f"equal-mass {design.replace('_', '-')}" if uniform
+                         else "general")
                 sym = hn._variant("sym_force", uniform)
                 pair = hn._variant("pair_sym_force", uniform)
                 state = make_state(pos0, vel0, m0, dev)
@@ -1551,10 +1774,13 @@ def phase_large(dev, report: dict) -> None:
                 fence(state.positions)
                 reset_counters(hn)
                 t0 = time.time()
-                state = run_steps(state, q, cfg, "auto", q.is_int,
-                                  LARGE_STEPS, uniform_gm=uniform)
-                fence(state.positions)
+                with equal_mass_design(hn, design):
+                    state = run_steps(state, q, cfg, "auto", q.is_int,
+                                      LARGE_STEPS, uniform_gm=uniform)
+                    fence(state.positions)
                 wall = time.time() - t0
+                if uniform:
+                    walls[design].append(wall / LARGE_STEPS * 1e3)
                 launched = dict(hn.LAUNCHES)
                 fallbacks = hn.bounds_fallbacks(dev)
                 peak = torch.cuda.max_memory_allocated(dev) / 1e9
@@ -1579,7 +1805,17 @@ def phase_large(dev, report: dict) -> None:
                 check(bool(torch.isfinite(state.positions).all()
                            and torch.isfinite(state.velocities).all()),
                       f"D={dim} {mode} {label}: non-finite state")
-                finals[uniform] = state
+                if design == "one_pass":
+                    finals[uniform] = state
+            old_ms, new_ms = (sum(walls[d]) / 2 for d in ("two_pass",
+                                                          "one_pass"))
+            print(f"large: D={dim} {mode} equal-mass step, two-pass "
+                  f"{walls['two_pass'][0]:.1f} / {walls['two_pass'][1]:.1f} ms,"
+                  f" one-pass {walls['one_pass'][0]:.1f} / "
+                  f"{walls['one_pass'][1]:.1f} ms ({new_ms / old_ms - 1:+.2%})")
+            report["sym_force_uniform"].setdefault("step_ms_1M", []).append(
+                {"dim": dim, "mode": mode, "two_pass_ms": old_ms,
+                 "one_pass_ms": new_ms})
 
             # One evaluation on the general run's final positions: the
             # chunked path, general and equal-mass, and the row kernel over
@@ -1599,7 +1835,7 @@ def phase_large(dev, report: dict) -> None:
                 fence(chunked[uniform])
                 t_chunked = time.time() - t0
                 b_sym = bound(LARGE_N * (LARGE_N - 1) / 2,
-                              pair_ops("sym_uniform" if uniform else "sym",
+                              pair_ops("sym_t" if uniform else "sym",
                                        dim, mode), sym_bytes(LARGE_N, dim))[0]
                 label = "equal-mass" if uniform else "general"
                 print(f"large: D={dim} {mode}: one evaluation, chunked "
@@ -1909,14 +2145,17 @@ def ring_cli(dev, report: dict) -> None:
     float32,int4 --mesh`` and its ``--schedule rows`` twin through
     cli.main, with the launch counters read around each: a mesh of the one
     card, so per mode 201 force evaluations (the entry force and 200
-    ticks) and 2 energy passes, each of one tile."""
+    ticks) and 2 energy passes, each of one tile. The sym schedule runs in
+    both designs of its equal-mass tile, the earlier two-pass one first."""
     from nbody_tpu_torch import cli
     from nbody_tpu_torch.ops import hopper_nbody as hn
 
     evals, passes = RING_TICKS + 1, RING_TICKS // RING_INTERVAL
     totals = {"sym_force_uniform": 0, "pair_force": 0, "pair_max": 0,
               "pair_pe_rows": 0}
-    for schedule in ("sym", "rows"):
+    rates = {}
+    for schedule, design in (("sym", "two_pass"), ("sym", "one_pass"),
+                             ("rows", "one_pass")):
         argv = ["--device", str(dev), "--stars", str(BIG_N), "--ticks",
                 str(RING_TICKS), "--snapshot-interval", str(RING_INTERVAL),
                 "--mesh", "--schedule", schedule, "--compare",
@@ -1927,7 +2166,8 @@ def ring_cli(dev, report: dict) -> None:
         tee = Tee(sys.stdout)
         old, sys.stdout = sys.stdout, tee
         try:
-            histories = cli.main(argv)
+            with equal_mass_design(hn, design):
+                histories = cli.main(argv)
         finally:
             sys.stdout = old
         for k in totals:
@@ -1950,9 +2190,12 @@ def ring_cli(dev, report: dict) -> None:
             # schedule's diagonal is the equal-mass variant.
             want["sym_force_uniform" if schedule == "sym"
                  else "pair_force"] = evals
-            print(f"ring: --schedule {schedule} {mode}: {rate.group(1)} "
-                  f"ticks in {rate.group(2)}s ({rate.group(3)} ticks/s); "
-                  f"launches {launched}; force path: {path}")
+            print(f"ring: --schedule {schedule} ({design}) {mode}: "
+                  f"{rate.group(1)} ticks in {rate.group(2)}s "
+                  f"({rate.group(3)} ticks/s); launches {launched}; force "
+                  f"path: {path}")
+            if schedule == "sym":
+                rates[(design, mode)] = float(rate.group(3))
             check(launched == want, f"{schedule} {mode}: launches "
                                     f"{launched}, expected {want}")
             check(path.startswith(f"ring, {'rows' if schedule == 'rows' else 'sym'}"),
@@ -1964,6 +2207,14 @@ def ring_cli(dev, report: dict) -> None:
     for k, n in totals.items():
         report[k]["launches"] += n
         check(n > 0, f"{k} was never launched on the mesh path")
+    modes = sorted({m for _, m in rates})
+    print("ring: --mesh 131072 x 200, sym schedule ticks/s, two-pass -> "
+          "one-pass: " + ", ".join(
+              f"{m} {rates[('two_pass', m)]} -> {rates[('one_pass', m)]}"
+              for m in modes))
+    report["sym_force_uniform"]["mesh_ticks_per_s"] = {
+        m: {d: rates[(d, m)] for d in ("two_pass", "one_pass")}
+        for m in modes}
 
 
 def ring_virtual(dev, report: dict) -> None:
@@ -2326,15 +2577,17 @@ def phase_cached(dev, report: dict) -> None:
         ex, ca = min(out["exact"]), out["cached"][0]
         # What a tick without a violation pays for its redo: one walk
         # launch whose every block reads the skip flag and returns; and a
-        # redo that runs against the same launch without the flag (one
-        # block per tile pair), bitwise the same forces.
+        # redo that runs against the same two-pass tile without the flag
+        # (one block per tile pair, parent=True: the unflagged launch's
+        # one-pass design sums in another order), bitwise the same forces.
         one = torch.ones((), dtype=torch.int32, device=dev)
         gm = (cfg.G * state.masses).contiguous()
         bounds = hn.kernel_bounds(state.positions, q, cfg)
 
         def redo(flag):
             return hn.sym_force(state.positions, gm, bounds, q, False,
-                                uniform=uniform, skip=flag)
+                                uniform=uniform, skip=flag,
+                                parent=flag is None)
 
         skip_ms = cuda_ms(lambda: redo(one), 5)
         run_ms, grid_ms = cuda_ms(lambda: redo(one * 0), 5), cuda_ms(
@@ -2673,7 +2926,8 @@ def phase_profile(dev, out_path: Path) -> None:
 def resident_lines() -> None:
     """The sym kernels' resident warps a SM, D=2, general and equal-mass,
     float32 and int: the T x T grid's tile kernel beside the triangular
-    grid's (64 threads, two warps, a block)."""
+    grid's; and the one-pass design's, D in {2,3} (every block 64 threads,
+    two warps)."""
     from nbody_tpu_torch.ops import hopper_nbody as hn
     lib = hn._library()
     for mode, code in (("float32", 0), ("int", hn._MODE_INT)):
@@ -2683,6 +2937,15 @@ def resident_lines() -> None:
                            for t in (0, 1))
             print(f"build: sym_force {mode} D=2 uniform={uniform}: resident "
                   f"warps a SM: T x T grid {square}, triangular grid {tri}")
+        for dim in (2, 3):
+            sym, pair = (2 * f(code, dim) for f in (
+                lib.nbody_sym_force_one_pass_resident,
+                lib.nbody_pair_sym_force_one_pass_resident))
+            print(f"build: one-pass design {mode} D={dim}: resident warps a "
+                  f"SM: sym_force_uniform {sym}, pair_sym_force_uniform "
+                  f"{pair}")
+            check(min(sym, pair) >= 24, f"one-pass {mode} D={dim}: fewer "
+                                        f"than 24 resident warps a SM")
 
 
 def main(argv=None) -> int:
@@ -2716,17 +2979,25 @@ def main(argv=None) -> int:
     _build.library()
     print(f"build: nvcc {' '.join(_build.NVCC_FLAGS)} in "
           f"{time.time() - t0:.1f}s")
+    entry, spilled = "", []
     for line in _build.BUILD_LOG.splitlines():
         if ("registers" in line or "spill" in line or "Compiling" in line
                 or line.startswith("==")):
             print(f"build: {line.strip()}")
-    resident_lines()
+        if "Compiling entry function" in line:
+            entry = line
+        if "one_pass" in entry and "spill" in line and not line.strip(
+                ).startswith("0 bytes stack frame, 0 bytes spill stores"):
+            spilled.append(f"{entry.strip()}: {line.strip()}")
 
     report = {k: {"name": k, "route": "cuda", **v, "launches": 0,
                   "max_abs_err": None, "ms": None, "plain_ms": None,
                   "bound_ms": None, "bound_by": None, "library_ms": None}
               for k, v in KERNELS.items()}
     try:
+        resident_lines()
+        check(not spilled, "the one-pass design spills:\n  "
+              + "\n  ".join(spilled))
         for phase in phases:
             t = time.time()
             if phase == "kernels":

@@ -43,6 +43,10 @@ SIGNATURES = {
                             _P, _P, _P, _P, _I, _P, _I, _P, _P],
         "nbody_sym_force_lab": [_P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _P,
                                 _P, _P],
+        "nbody_sym_force_one_pass": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _I,
+                                     _I, _P, _P, _P, _P],
+        "nbody_one_pass_receivers": [],
+        "nbody_sym_force_one_pass_resident": [_I, _I],
     },
     "sym_force_lab": {
         "nbody_sym_force_lab_r4": [_P, _P, _P, _I, _I, _I, _F, _F, _I, _I,
@@ -62,6 +66,9 @@ SIGNATURES = {
     "pair_sym_force": {
         "nbody_pair_sym_force": [_P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _F,
                                  _F, _I, _I, _P, _P, _P, _P, _P],
+        "nbody_pair_sym_force_one_pass": [_P, _P, _I, _P, _P, _I, _P, _I, _I,
+                                          _I, _F, _F, _I, _P, _P, _P, _P, _P],
+        "nbody_pair_sym_force_one_pass_resident": [_I, _I],
     },
     "pair_pe_rows": {
         "nbody_pair_pe_rows": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P,

@@ -35,6 +35,31 @@
 // serves it only when both set sizes are multiples of BT (the full-tile
 // rule, the counterpart of the TPU wrapper's degrade-on-padding).
 //
+// The equal-mass variant's one-pass design (nbody_pair_sym_force_one_pass;
+// csrc/one_pass.cuh), for the chunked path's chunk pairs and the ring's
+// pair tiles past 256 receiver tiles. It replaces the same TPU kernel under
+// uniform_gm (pallas_nbody.py:1066 / _pair_force_sym_kernel :956, its
+// equal-mass body :1022-1031) and computes what it computes, in that body's
+// one pass. What bounds it on the H100: issue slots (one warp instruction a
+// clock per SM sub-partition, the FP32 rate); the function needs 15 fp32
+// ops a pair (21 int4) at D = 2. The tile above held it back three ways:
+//   1. two passes: w stored to shared memory, then the reaction pass
+//      reloads it with D positions and recomputes D subtracts and FMAs.
+//      One pass forms t = w diff once and adds it into the row sums and the
+//      reaction partials in the same iteration;
+//   2. few warps (a 16.6 KB w tile a 64-thread block). Each lane holds 4
+//      receivers and C = 8 (D = 3: 4) source columns of reaction partials,
+//      folded across the warp after each batch by a reduce-scatter without
+//      selects: 80 registers, 24 resident warps a SM, no w tile;
+//   3. partials through HBM twice: cpart (Tb, Ta, 64, D) is 5.5 GB at
+//      209728^2. A block owns 256 receivers and walks 16 source tiles:
+//      reaction partials (Tb, TI, 64, D), TI = ceil(Ta / 4), 4x smaller,
+//      stored negated so that reduce_partials sums both as above.
+// Which launch takes it: hopper_nbody.uniform_design of the receiver tiles
+// (T > 256) and (mode family, D); parent=True takes the tile above. A
+// ragged last receiver tile (Ta not a multiple of 4: 209728 is 3277 tiles)
+// skips its rows past na, so every multiple of BT is served.
+//
 // Requires eps^2 > 0 (bounds[2]), as the TPU kernel does: the sets are
 // disjoint, so no pair is masked, and a coincident pair at zero softening
 // would be 0 * inf. The chunked path routes zero and run-time softening to
@@ -42,12 +67,14 @@
 //
 // Numerics: csrc/nbody_common.cuh.
 //
-// What bounds it on the H100: arithmetic, as the sym kernel: ~21 fp32 ops
-// (~19 with equal masses; csrc counts, D = 2) plus one rsqrt or logf +
-// expf per pair, na * nb pairs, against O(na + nb) positions and
-// 4 * D * BT bytes of partials per block and source tile.
+// What bounds the two-pass tile on the H100: arithmetic, as the sym
+// kernel: ~21 fp32 ops (~19 with equal masses, against the function's own
+// 15; csrc counts, D = 2) plus one rsqrt or logf + expf per pair, na * nb
+// pairs, against O(na + nb) positions and 4 * D * BT bytes of partials per
+// block and source tile.
 
 #include "nbody_common.cuh"
+#include "one_pass.cuh"
 
 namespace {
 
@@ -174,4 +201,43 @@ extern "C" int nbody_pair_sym_force(const float* pa, const float* gma, int na,
   });
   if (!known) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+// The one-pass design of the equal-mass variant (csrc/one_pass.cuh): na and
+// nb multiples of BT; gma, gmb read at [0] only (rows scaled by gmb[0],
+// reactions by gma[0]); seg >= 1 source tiles a block; scratch rpart (TI,
+// nseg, OP_RW, dim) and cpart (Tb, TI, BT, dim) f32 with Ta = na / BT,
+// Tb = nb / BT, TI = ceil(Ta / OP_SUB), nseg = ceil(Tb / seg); rows (na,
+// dim), cols (nb, dim) f32. Returns cudaGetLastError().
+extern "C" int nbody_pair_sym_force_one_pass(
+    const float* pa, const float* gma, int na, const float* pb,
+    const float* gmb, int nb, const float* bounds, int dim, int mode,
+    int levels, float arg_cap, float min_d2, int seg, float* rpart,
+    float* cpart, float* rows, float* cols, void* stream) {
+  if (na <= 0 || nb <= 0 || na % BT != 0 || nb % BT != 0 || seg <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int TI = (na / BT + OP_SUB - 1) / OP_SUB;
+  const int nseg = (nb / BT + seg - 1) / seg;
+  if (TI > 65535) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool known = dispatch(mode, dim, [&](auto m, auto d) {
+    constexpr int M = decltype(m)::value;
+    constexpr int DD = decltype(d)::value;
+    pair_one_pass<M, DD><<<dim3(nseg, TI), OP_THREADS, 0, s>>>(
+        pa, na, pb, nb, bounds, levels, arg_cap, min_d2, seg, rpart, cpart);
+    launch_reduce<DD, OP_RW>(rpart, na, nseg, rows, s, gmb);
+    launch_reduce<DD>(cpart, nb, TI, cols, s, gma);
+  });
+  if (!known) return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// Blocks of pair_one_pass<mode, dim> a SM holds at once (-1: no instance).
+extern "C" int nbody_pair_sym_force_one_pass_resident(int mode, int dim) {
+  int blocks = -1;
+  dispatch(mode, dim, [&](auto m, auto d) {
+    blocks = op_resident(
+        pair_one_pass<decltype(m)::value, decltype(d)::value>);
+  });
+  return blocks;
 }

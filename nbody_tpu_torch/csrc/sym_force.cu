@@ -62,6 +62,41 @@
 // it only when N is a multiple of BT (hopper_nbody.sym_force's full-tile
 // rule, the counterpart of the TPU wrapper's degrade-on-padding).
 //
+// The equal-mass variant's one-pass design (nbody_sym_force_one_pass;
+// csrc/one_pass.cuh), for an unflagged launch past T = 256 tiles, the
+// engine's tick at N >= 16448, the chunked path's 1M chunks and the ring's
+// diagonal. It replaces the same TPU kernel under uniform_gm
+// (pallas_nbody.py:454 / _force_kernel_sym :260, its equal-mass body
+// :287-292) and computes what it computes, in the TPU body's one pass.
+// What bounds it on the H100: issue slots. The FP32 rate is one warp
+// instruction a clock per SM sub-partition, so every shared load, shuffle
+// and address computation costs a pair as much as an add; the function
+// needs 15 fp32 ops a pair (21 int4) at D = 2, the int chain's accurate
+// logf / expf take ~40 slots. The two-pass tile above held the design back
+// three ways, and the one-pass design answers each:
+//   1. two passes over every 64 x 64 tile: w stored to shared memory, then
+//      reloaded with D positions to recompute the D subtracts and FMAs of
+//      the reactions (~22 slots a pair float32 against 15). One pass forms
+//      t = w diff once and adds it into the receiver's row sums and the
+//      source's reaction partials in the same iteration (~16.6 slots);
+//   2. few warps (64-thread blocks holding a 16.6 KB w tile; 24 resident
+//      warps a SM, and the earlier one-pass lab kernel wideacc held 64
+//      reaction partials a thread at 128 registers and 12 warps). Here
+//      each lane holds 4 receivers (register tiling: one source load
+//      serves 4 pairs, 4 independent chains) and only C = 8 source columns
+//      of reaction partials (4 at D = 3), folded across the 32 lanes after
+//      each batch by a reduce-scatter without selects (~1.1 slots a pair):
+//      80 registers, 24 resident warps, no w tile, no spills;
+//   3. partials that cross HBM twice: part (T, T, 64, D) is 2.15 GB at
+//      131072. A block owns 256 receivers and walks 16 source tiles, so the
+//      row partials shrink 16x and the reaction partials 4x (0.67 GB at
+//      131072); sym_one_pass_reduce sums them in a fixed order.
+// Which launch takes it: hopper_nbody.uniform_design, a fixed rule of
+// (T, mode, D): T > ONE_PASS_MIN_TILES (256, the triangle's edge) and the
+// (mode family, D) in ONE_PASS_ROUTES; parent=True takes the T x T grid of
+// the two-pass tile. Flagged (skip, count, fused max), walk, lab and
+// general launches keep the two-pass tile, bit for bit.
+//
 // Fused max (`tile_max` set; emit_max, pallas_nbody.py:294-303): a variant
 // built for the int modes only (the kernels without it carry no trace of
 // it), whose every block also takes the max of the raw d^2 of the pairs it
@@ -91,8 +126,9 @@
 //
 // Numerics: csrc/nbody_common.cuh.
 //
-// What bounds it on the H100: arithmetic. Each pair costs ~21 fp32 ops
-// (~19 with equal masses; csrc counts, D = 2) plus one rsqrt (float
+// What bounds the two-pass tile on the H100: arithmetic, in issue slots.
+// Each pair costs ~21 fp32 ops (~19 with equal masses; csrc counts, D = 2;
+// the function itself needs 15 with equal masses) plus one rsqrt (float
 // modes) or a logf + expf (int modes) against 8-12 bytes of
 // shared-memory traffic; device memory sees only O(N) positions plus the
 // part buffer (read once by the reduce).
@@ -102,6 +138,7 @@
 
 #include "max_reduce.cuh"
 #include "nbody_common.cuh"
+#include "one_pass.cuh"
 
 namespace {
 
@@ -502,4 +539,48 @@ extern "C" int nbody_sym_force_lab(const float* pos, const float* gm,
                                       : run(Const<MODE_INT>{});
   if (!known) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+// The one-pass design of the equal-mass variant (csrc/one_pass.cuh) for an
+// unflagged launch: pos (n, dim) f32 with n a multiple of BT, gm (n,) f32
+// (only gm[0] is read, on the device), bounds (3,) f32 = [log_lo, log_hi,
+// eps^2]; seg >= 1 source tiles a block; scratch rpart (TI, nsegmax, OP_RW,
+// dim) and cpart (T, TI, BT, dim) f32 with T = n / BT, TI = ceil(T / OP_SUB),
+// nsegmax = ceil(T / seg); out (n, dim) f32. Returns cudaGetLastError().
+extern "C" int nbody_sym_force_one_pass(const float* pos, const float* gm,
+                                        const float* bounds, int n, int dim,
+                                        int mode, int levels, float arg_cap,
+                                        float min_d2, int self_masked,
+                                        int seg, float* rpart, float* cpart,
+                                        float* out, void* stream) {
+  if (n <= 0 || n % BT != 0 || seg <= 0) return (int)cudaErrorInvalidValue;
+  const int T = n / BT;
+  const int TI = (T + OP_SUB - 1) / OP_SUB;
+  const int nsegmax = (T + seg - 1) / seg;
+  if (TI > 65535) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool known = dispatch(mode, dim, [&](auto m, auto d) {
+    constexpr int M = decltype(m)::value;
+    constexpr int DD = decltype(d)::value;
+    sym_one_pass<M, DD><<<dim3(nsegmax, TI), OP_THREADS, 0, s>>>(
+        pos, bounds, n, levels, arg_cap, min_d2, self_masked, seg, rpart,
+        cpart);
+    sym_one_pass_reduce<DD><<<(n + 255) / 256, 256, 0, s>>>(
+        rpart, cpart, n, TI, nsegmax, seg, gm, out);
+  });
+  if (!known) return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// Receivers a block of the one-pass design (hopper_nbody.ONE_PASS_RECEIVERS).
+extern "C" int nbody_one_pass_receivers() { return OP_RW; }
+
+// Blocks of sym_one_pass<mode, dim> a SM holds at once (-1: no instance).
+extern "C" int nbody_sym_force_one_pass_resident(int mode, int dim) {
+  int blocks = -1;
+  dispatch(mode, dim, [&](auto m, auto d) {
+    blocks = op_resident(
+        sym_one_pass<decltype(m)::value, decltype(d)::value>);
+  });
+  return blocks;
 }

@@ -9,7 +9,9 @@ multi-device ring (``parallel/ring.py``):
   unordered pair's weight evaluated once (Newton's third law), with the
   precision hook in the tile; its equal-mass variant (``uniform``), its
   fused max of raw d^2 (``max_out``) and a device skip flag. An unflagged
-  launch runs one block per tile pair I <= J (``sym_schedule``).
+  launch runs one block per tile pair I <= J (``sym_schedule``); an
+  unflagged equal-mass one past that grid's edge the one-pass design
+  (``uniform_design``, ``csrc/one_pass.cuh``).
 * ``max_d2`` — ``csrc/max_dist_sq.cu``, replacing ``_max_kernel`` /
   ``pallas_max_dist_sq`` (#2) and its streamed twin
   ``pallas_max_dist_sq_streamed`` (#3): the global max of the raw
@@ -27,7 +29,7 @@ multi-device ring (``parallel/ring.py``):
 * ``pair_sym_force`` — ``csrc/pair_sym_force.cu``, replacing
   ``_pair_force_sym_kernel`` / ``pallas_pair_force_sym`` (#6): two
   disjoint sets, rows and reactions from one evaluation of each pair; its
-  equal-mass variant (``uniform``).
+  equal-mass variant (``uniform``), in the one-pass design at large N.
 * ``pair_pe_rows`` — ``csrc/pair_pe_rows.cu``, replacing
   ``_pair_pe_kernel`` / ``pallas_pair_pe_rows`` (#7): per-receiver
   potential-energy row sums with an id mask, the ring's energy tile.
@@ -116,6 +118,17 @@ TRIANGLE_MAX_TILES = 256
 # Source tiles one block of pair_sym_force walks (its row partials are
 # per segment of this many tiles).
 PAIR_SEGMENT_TILES = 32
+# The one-pass design of the equal-mass variants (csrc/one_pass.cuh):
+# receivers a block (OP_RW), and source tiles a block walks.
+ONE_PASS_RECEIVERS = 256
+ONE_PASS_SEGMENT_TILES = 16
+# (mode family, D) whose unflagged equal-mass launches over more than
+# ONE_PASS_MIN_TILES receiver tiles take the one-pass design
+# (``uniform_design``); the others keep the two-pass tile. The edge is the
+# triangle's: sym_force at T <= 256 keeps the triangular grid.
+ONE_PASS_MIN_TILES = TRIANGLE_MAX_TILES
+ONE_PASS_ROUTES = frozenset({("float", 2), ("float", 3), ("int", 2),
+                             ("int", 3)})
 # Bytes of per-tile partials one force evaluation may hold on the card:
 # sym_force alone while its scratch fits (the "auto" routing), else the
 # chunked path's diagonal sym_force plus one pair tile together. 16 GB of
@@ -151,6 +164,72 @@ def sym_schedule(n: int) -> str:
     return "triangle" if _tiles(n) <= TRIANGLE_MAX_TILES else "square"
 
 
+def uniform_design(tiles: int, q: Quantizer, dim: int) -> str:
+    """The design of an unflagged equal-mass launch (sym_force_uniform over
+    ``tiles`` tiles, or pair_sym_force_uniform over ``tiles`` receiver
+    tiles), a fixed function of (T, mode, D): "one_pass" (csrc/one_pass.cuh:
+    t = w diff formed once, added into the rows and the reactions in the same
+    iteration) past ONE_PASS_MIN_TILES for the (mode family, D) in
+    ONE_PASS_ROUTES, else "two_pass" (the earlier design: the w tile in
+    shared memory, a reaction pass after the row pass)."""
+    family = "int" if q.is_int else "float"
+    return ("one_pass" if tiles > ONE_PASS_MIN_TILES
+            and (family, dim) in ONE_PASS_ROUTES else "two_pass")
+
+
+def sym_design(n: int, dim: int, q: Quantizer, uniform: bool = False,
+               flagged: bool = False, parent: bool = False) -> str:
+    """What a sym_force launch over n particles runs on the card:
+    "one_pass" (an unflagged equal-mass launch that uniform_design routes
+    there), "triangle" (an unflagged launch that sym_schedule routes
+    there), else "square": the T x T grid of the two-pass tile, which a
+    flagged launch (skip, count, fused max) always takes, walking the tile
+    pairs under a skip flag without the fused max (csrc/sym_force.cu).
+    ``uniform`` counts only where n is a multiple of TILE."""
+    if flagged or parent:
+        return "square"
+    if (uniform and n % TILE == 0
+            and uniform_design(_tiles(n), q, dim) == "one_pass"):
+        return "one_pass"
+    return sym_schedule(n)
+
+
+def pair_design(n_a: int, n_b: int, dim: int, q: Quantizer,
+                uniform: bool = False, parent: bool = False) -> str:
+    """What a pair_sym_force launch runs on the card: "one_pass" (an
+    equal-mass launch on sets that are multiples of TILE that
+    uniform_design routes there by its receiver tiles), else "two_pass"."""
+    if (uniform and not parent and n_a % TILE == 0 and n_b % TILE == 0
+            and uniform_design(_tiles(n_a), q, dim) == "one_pass"):
+        return "one_pass"
+    return "two_pass"
+
+
+def _one_pass_tiles(receiver_tiles: int) -> int:
+    return -(-receiver_tiles // (ONE_PASS_RECEIVERS // TILE))
+
+
+def sym_one_pass_scratch(n: int, dim: int) -> tuple:
+    """Shapes of the one-pass sym_force_uniform's scratch over n
+    particles: row partials (TI, nsegmax, ONE_PASS_RECEIVERS, dim) and
+    reaction partials (T, TI, TILE, dim) f32, T = n / TILE,
+    TI = ceil(T / 4), nsegmax = ceil(T / ONE_PASS_SEGMENT_TILES)."""
+    t = _tiles(n)
+    ti = _one_pass_tiles(t)
+    return ((ti, -(-t // ONE_PASS_SEGMENT_TILES), ONE_PASS_RECEIVERS, dim),
+            (t, ti, TILE, dim))
+
+
+def pair_one_pass_scratch(n_a: int, n_b: int, dim: int) -> tuple:
+    """Shapes of the one-pass pair_sym_force_uniform's scratch: row
+    partials (TI, nseg, ONE_PASS_RECEIVERS, dim) and reaction partials
+    (Tb, TI, TILE, dim) f32, TI = ceil(Ta / 4),
+    nseg = ceil(Tb / ONE_PASS_SEGMENT_TILES)."""
+    ti, tb = _one_pass_tiles(_tiles(n_a)), _tiles(n_b)
+    return ((ti, -(-tb // ONE_PASS_SEGMENT_TILES), ONE_PASS_RECEIVERS, dim),
+            (tb, ti, TILE, dim))
+
+
 def max_d2_tile(n: int) -> int:
     """Tile side of max_d2's single launch over n points."""
     return 64 if n <= MAX_D2_SMALL_N else 256
@@ -164,14 +243,17 @@ def ticket(device: torch.device) -> torch.Tensor:
 
 def sym_force_scratch_bytes(n: int, dim: int) -> int:
     """Per-tile partials of one sym_force launch over n particles:
-    (T, T, TILE, dim) f32 with T = ceil(n / TILE)."""
+    (T, T, TILE, dim) f32 with T = ceil(n / TILE), the two-pass design's
+    and an upper bound of the one-pass design's (sym_one_pass_scratch)."""
     t = _tiles(n)
     return 4 * dim * t * t * TILE
 
 
 def pair_sym_force_scratch_bytes(n_a: int, n_b: int, dim: int) -> int:
     """Per-tile partials of one pair_sym_force launch: row partials
-    (Ta, nseg, TILE, dim) and reaction partials (Tb, Ta, TILE, dim) f32."""
+    (Ta, nseg, TILE, dim) and reaction partials (Tb, Ta, TILE, dim) f32,
+    the two-pass design's and an upper bound of the one-pass design's
+    wherever uniform_design routes to it (pair_one_pass_scratch)."""
     ta, tb = _tiles(n_a), _tiles(n_b)
     nseg = -(-tb // PAIR_SEGMENT_TILES)
     return 4 * dim * TILE * (ta * nseg + tb * ta)
@@ -253,6 +335,11 @@ def _library():
     if lib.nbody_sym_force_tile() != TILE:
         raise RuntimeError(f"csrc tile {lib.nbody_sym_force_tile()} != "
                            f"hopper_nbody.TILE {TILE}")
+    if lib.nbody_one_pass_receivers() != ONE_PASS_RECEIVERS:
+        raise RuntimeError(f"csrc one-pass receivers "
+                           f"{lib.nbody_one_pass_receivers()} != "
+                           f"hopper_nbody.ONE_PASS_RECEIVERS "
+                           f"{ONE_PASS_RECEIVERS}")
     return lib
 
 
@@ -522,9 +609,11 @@ def sym_force(pos: torch.Tensor, gm: torch.Tensor, bounds: torch.Tensor,
     ``skip`` and no ``max_out`` walks the tile pairs with a capped grid,
     so that a skipped launch costs microseconds (csrc/sym_force.cu).
 
-    An unflagged launch takes ``sym_schedule(N)``'s grid; ``parent=True``
-    takes the T x T grid (the earlier design, the same bits) to compare
-    them."""
+    An unflagged launch takes ``sym_schedule(N)``'s grid, and an unflagged
+    equal-mass one ``uniform_design``'s design; ``parent=True`` takes the
+    T x T grid of the two-pass tile (the earlier designs: the same bits as
+    the triangle, another summation order than the one-pass design) to
+    compare them."""
     n, dim = _check_force_args(pos, gm, bounds)
     # The engine's tick calls this with no flag and no fused max: that path
     # pays for none of their checks.
@@ -546,13 +635,26 @@ def sym_force(pos: torch.Tensor, gm: torch.Tensor, bounds: torch.Tensor,
         return _plain_skip(acc, skip, count)
     lib = _library()
     tiles = _tiles(n)
+    design = sym_design(n, dim, q, uniform, extras, parent)
+    if design == "one_pass":
+        with torch.cuda.device(pos.device):
+            rpart, cpart = (torch.empty(shape, dtype=torch.float32,
+                                        device=pos.device)
+                            for shape in sym_one_pass_scratch(n, dim))
+            out = torch.empty_like(pos)
+            rc = lib.nbody_sym_force_one_pass(
+                _ptr(pos), _ptr(gm), _ptr(bounds), n, dim, *_int_args(q),
+                int(self_masked), ONE_PASS_SEGMENT_TILES, _ptr(rpart),
+                _ptr(cpart), _ptr(out), _stream(pos.device))
+        _raise_on(rc, "sym_force")
+        LAUNCHES["sym_force_uniform"] += 1
+        return out
     with torch.cuda.device(pos.device):
         part = torch.empty((tiles, tiles, TILE, dim), dtype=torch.float32,
                            device=pos.device)
         out = torch.empty_like(pos)
         skip_p = count_p = tile_max_p = block_max_p = max_out_p = None
-        triangle = (not extras and not parent
-                    and sym_schedule(n) == "triangle")
+        triangle = design == "triangle"
         if extras:
             skip_p, count_p = _opt_ptr(skip), _opt_ptr(count)
             if max_out is not None:
@@ -612,13 +714,16 @@ def _check_two_sets(receivers, sources, n_what: str = "sources") -> tuple:
 def pair_sym_force(pos_a: torch.Tensor, gm_a: torch.Tensor,
                    pos_b: torch.Tensor, gm_b: torch.Tensor,
                    bounds: torch.Tensor, q: Quantizer,
-                   uniform: bool = False) -> tuple:
+                   uniform: bool = False, parent: bool = False) -> tuple:
     """Kernel #6 wrapper: CUDA kernel for CUDA tensors, the plain version
     for CPU tensors. Same arguments and result (rows, cols) as
     pair_sym_force_plain. ``uniform=True`` asserts that each set's gm is
     equal (unchecked here) and takes the equal-mass variant
     (pair_sym_force_uniform_plain) when both set sizes are multiples of
-    TILE, else the general kernel."""
+    TILE, else the general kernel; the variant takes
+    ``uniform_design(ceil(n_a / TILE), q, dim)``'s design, and
+    ``parent=True`` the two-pass tile (the earlier design) to compare
+    them."""
     _check_force_args(pos_a, gm_a, bounds)
     n_a, n_b, dim = _check_two_sets(pos_a, pos_b)
     _check_f32("gm_b", gm_b, (n_b,), pos_a.device)
@@ -628,6 +733,21 @@ def pair_sym_force(pos_a: torch.Tensor, gm_a: torch.Tensor,
                  else pair_sym_force_plain)
         return plain(pos_a, gm_a, pos_b, gm_b, bounds, q)
     lib = _library()
+    if pair_design(n_a, n_b, dim, q, uniform, parent) == "one_pass":
+        with torch.cuda.device(pos_a.device):
+            rpart, cpart = (torch.empty(shape, dtype=torch.float32,
+                                        device=pos_a.device)
+                            for shape in pair_one_pass_scratch(n_a, n_b, dim))
+            rows = torch.empty_like(pos_a)
+            cols = torch.empty_like(pos_b)
+            rc = lib.nbody_pair_sym_force_one_pass(
+                _ptr(pos_a), _ptr(gm_a), n_a, _ptr(pos_b), _ptr(gm_b), n_b,
+                _ptr(bounds), dim, *_int_args(q), ONE_PASS_SEGMENT_TILES,
+                _ptr(rpart), _ptr(cpart), _ptr(rows), _ptr(cols),
+                _stream(pos_a.device))
+        _raise_on(rc, "pair_sym_force")
+        LAUNCHES["pair_sym_force_uniform"] += 1
+        return rows, cols
     ta, tb = _tiles(n_a), _tiles(n_b)
     nseg = -(-tb // PAIR_SEGMENT_TILES)
     with torch.cuda.device(pos_a.device):
