@@ -62,13 +62,18 @@ SIGNATURES = {
     "row_force": {
         "nbody_row_force": [_P, _I, _P, _P, _I, _P, _I, _I, _I, _F, _F, _I,
                             _P, _P],
+        "nbody_row_force_tiled": [_P, _I, _P, _P, _I, _P, _I, _I, _I, _F, _F,
+                                  _I, _I, _P, _P, _P],
+        "nbody_row_force_geometry": [],
+        "nbody_row_force_tiled_resident": [_I, _I, _I],
     },
     "pair_sym_force": {
         "nbody_pair_sym_force": [_P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _F,
                                  _F, _I, _I, _P, _P, _P, _P, _P],
         "nbody_pair_sym_force_one_pass": [_P, _P, _I, _P, _P, _I, _P, _I, _I,
-                                          _I, _F, _F, _I, _P, _P, _P, _P, _P],
-        "nbody_pair_sym_force_one_pass_resident": [_I, _I],
+                                          _I, _F, _F, _I, _I, _P, _P, _P, _P,
+                                          _P],
+        "nbody_pair_sym_force_one_pass_resident": [_I, _I, _I],
     },
     "pair_pe_rows": {
         "nbody_pair_pe_rows": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P,

@@ -37,6 +37,20 @@
 //
 // Numerics: csrc/nbody_common.cuh; t = __fmul_rn(w, dx) and both sums by
 // __fadd_rn, so nothing is contracted into an FMA.
+//
+// Masses carried per particle (GM, pair_one_pass only: the general
+// pair_sym_force, pallas_nbody.py:1032-1039). The same body with G m beside
+// each position: a source's G m_j rides in the staged float4 (its .w at
+// D = 3, its .z at D = 2, where the staged Vec widens from a float2 to a
+// float4 {x, y, G m, 0}: still one shared load a source), and each lane
+// holds its 4 receivers' G m_i in registers. A pair takes fr = G m_j w and
+// fc = G m_i w, then row += fr dx and v += fc dx by fmaf, as the two-pass
+// tile sums them: 2 multiplies and 2 D FMAs, as many issue slots as the
+// t-form's D multiplies and 2 D adds. The reactions fold and are stored
+// negated as in the equal-mass body; the reduction scales nothing. Four
+// more live registers than the equal-mass body: its instances take 96
+// registers at most (OP_MIN_BLOCKS_GM, 20 resident warps a SM) so that none
+// spills.
 
 #pragma once
 
@@ -50,37 +64,59 @@ constexpr int OP_R = 4;                       // receivers a lane
 constexpr int OP_RW = OP_THREADS * OP_R;      // receivers a block: 256
 constexpr int OP_SUB = OP_RW / BT;            // base tiles a receiver tile
 constexpr int OP_MIN_BLOCKS = 12;             // 24 resident warps a SM
+constexpr int OP_MIN_BLOCKS_GM = 10;          // masses per particle: 20
 static_assert(OP_THREADS == BT, "one thread a source stages and combines");
 
-// Sources a batch, and the source layout in shared memory (D = 3 padded to
-// a float4, one 16-byte load a source).
-template <int D>
+// Sources a batch, and the source layout in shared memory: D = 3 padded to
+// a float4, one 16-byte load a source, G m in its .w when GM; D = 2 a
+// float2, or a float4 {x, y, G m, 0} when GM.
+template <int D, bool GM = false>
 struct OpTraits;
 template <>
-struct OpTraits<2> {
+struct OpTraits<2, false> {
   static constexpr int C = 8;
   using Vec = float2;
 };
 template <>
-struct OpTraits<3> {
+struct OpTraits<2, true> {
+  static constexpr int C = 8;
+  using Vec = float4;
+};
+template <bool GM>
+struct OpTraits<3, GM> {
   static constexpr int C = 4;
   using Vec = float4;
 };
 
-__device__ __forceinline__ void vec_get(const float2& s, float (&x)[2]) {
+__device__ __forceinline__ void vec_get(const float2& s, float (&x)[2],
+                                        float& gm) {
   x[0] = s.x;
   x[1] = s.y;
+  gm = 0.f;
 }
-__device__ __forceinline__ void vec_get(const float4& s, float (&x)[3]) {
+__device__ __forceinline__ void vec_get(const float4& s, float (&x)[2],
+                                        float& gm) {
+  x[0] = s.x;
+  x[1] = s.y;
+  gm = s.z;
+}
+__device__ __forceinline__ void vec_get(const float4& s, float (&x)[3],
+                                        float& gm) {
   x[0] = s.x;
   x[1] = s.y;
   x[2] = s.z;
+  gm = s.w;
 }
-__device__ __forceinline__ float2 vec_make(const float (&x)[2]) {
-  return make_float2(x[0], x[1]);
+template <typename Vec>
+__device__ __forceinline__ Vec vec_make(const float (&x)[2], float gm) {
+  if constexpr (std::is_same<Vec, float2>::value)
+    return make_float2(x[0], x[1]);
+  else
+    return make_float4(x[0], x[1], gm, 0.f);
 }
-__device__ __forceinline__ float4 vec_make(const float (&x)[3]) {
-  return make_float4(x[0], x[1], x[2], 0.f);
+template <typename Vec>
+__device__ __forceinline__ Vec vec_make(const float (&x)[3], float gm) {
+  return make_float4(x[0], x[1], x[2], gm);
 }
 
 // Lane l's source order within a batch: slot c holds source c ^ op_perm(l),
@@ -129,13 +165,15 @@ enum OpKind { OP_BOTH = 0, OP_ROWS = 1, OP_NONE = 2 };
 // One source tile against the lane's R receivers; the warp's reaction sums
 // of the tile's BT sources go to colw[BT][D]. GENERIC honours kind[r] (the
 // diagonal band and a ragged receiver tile); otherwise every row is OP_BOTH.
-template <int MODE, int D, bool GENERIC>
+// GM: masses per particle, the source's G m staged with it and the
+// receivers' in gmi.
+template <int MODE, int D, bool GENERIC, bool GM>
 __device__ __forceinline__ void op_tile(
-    const typename OpTraits<D>::Vec* __restrict__ xs,
-    const float (&xi)[OP_R][D], float (&row)[OP_R][D], float soft,
-    const IntGrid& g, int lane, const int (&kind)[OP_R], int self_masked,
-    float* __restrict__ colw) {
-  constexpr int C = OpTraits<D>::C;
+    const typename OpTraits<D, GM>::Vec* __restrict__ xs,
+    const float (&xi)[OP_R][D], const float (&gmi)[OP_R],
+    float (&row)[OP_R][D], float soft, const IntGrid& g, int lane,
+    const int (&kind)[OP_R], int self_masked, float* __restrict__ colw) {
+  constexpr int C = OpTraits<D, GM>::C;
   const int f = op_perm<C>(lane);
 #pragma unroll 1
   for (int cb = 0; cb < BT; cb += C) {
@@ -143,8 +181,8 @@ __device__ __forceinline__ void op_tile(
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       const int src = cb + (c ^ f);
-      float xj[D];
-      vec_get(xs[src], xj);
+      float xj[D], gmj;
+      vec_get(xs[src], xj, gmj);
 #pragma unroll
       for (int d = 0; d < D; ++d) v[c][d] = 0.f;
 #pragma unroll
@@ -157,16 +195,29 @@ __device__ __forceinline__ void op_tile(
         if (GENERIC && kind[r] == OP_ROWS) {
           // The receiver's index in the tile is 32 (r & 1) + lane.
           if (self_masked && src == 32 * (r & 1) + lane) continue;
+          const float fr = GM ? __fmul_rn(gmj, w) : w;
 #pragma unroll
           for (int d = 0; d < D; ++d)
-            row[r][d] = __fadd_rn(row[r][d], __fmul_rn(w, dx[d]));
+            row[r][d] = GM ? fmaf(fr, dx[d], row[r][d])
+                           : __fadd_rn(row[r][d], __fmul_rn(w, dx[d]));
           continue;
         }
+        if constexpr (GM) {
+          const float fr = __fmul_rn(gmj, w);
+          const float fc = __fmul_rn(gmi[r], w);
 #pragma unroll
-        for (int d = 0; d < D; ++d) {
-          const float t = __fmul_rn(w, dx[d]);
-          row[r][d] = __fadd_rn(row[r][d], t);
-          v[c][d] = (GENERIC || r > 0) ? __fadd_rn(v[c][d], t) : t;
+          for (int d = 0; d < D; ++d) {
+            row[r][d] = fmaf(fr, dx[d], row[r][d]);
+            v[c][d] = (GENERIC || r > 0) ? fmaf(fc, dx[d], v[c][d])
+                                         : __fmul_rn(fc, dx[d]);
+          }
+        } else {
+#pragma unroll
+          for (int d = 0; d < D; ++d) {
+            const float t = __fmul_rn(w, dx[d]);
+            row[r][d] = __fadd_rn(row[r][d], t);
+            v[c][d] = (GENERIC || r > 0) ? __fadd_rn(v[c][d], t) : t;
+          }
         }
       }
     }
@@ -178,14 +229,16 @@ __device__ __forceinline__ void op_tile(
   }
 }
 
-// Source tile J's positions, one per thread (t < BT).
-template <int D>
-__device__ __forceinline__ typename OpTraits<D>::Vec op_load_src(
-    const float* __restrict__ src, int J, int t) {
+// Source tile J's positions (and G m when GM), one per thread (t < BT).
+template <int D, bool GM>
+__device__ __forceinline__ typename OpTraits<D, GM>::Vec op_load_src(
+    const float* __restrict__ src, const float* __restrict__ gm, int J,
+    int t) {
+  const size_t j = (size_t)J * BT + t;
   float x[D];
 #pragma unroll
-  for (int d = 0; d < D; ++d) x[d] = src[((size_t)J * BT + t) * D + d];
-  return vec_make(x);
+  for (int d = 0; d < D; ++d) x[d] = src[j * D + d];
+  return vec_make<typename OpTraits<D, GM>::Vec>(x, GM ? gm[j] : 0.f);
 }
 
 // The block body shared by both kernels: receiver tile I (OP_RW receivers
@@ -194,15 +247,17 @@ __device__ __forceinline__ typename OpTraits<D>::Vec op_load_src(
 // source tile J to cpart[J][I] (negated when NEG). kind_of(r_tile, J) gives
 // a row's OpKind from its base tile index and J; `generic_until` is the
 // first J past the diagonal band (-1 for none), `ragged` whether some row of
-// this receiver tile falls past n_recv.
-template <int MODE, int D, bool NEG, typename KindOf>
+// this receiver tile falls past n_recv. GM: gm_recv and gm_src hold the
+// sets' G m (unread otherwise).
+template <int MODE, int D, bool NEG, bool GM, typename KindOf>
 __device__ __forceinline__ void op_block(
-    const float* __restrict__ recv, int n_recv, const float* __restrict__ src,
-    const float* __restrict__ bounds, int levels, float arg_cap,
-    float min_d2, int self_masked, int I, int S, int TI, int nsegmax, int Jb,
-    int Je, int generic_until, bool ragged, KindOf kind_of,
-    float* __restrict__ rpart, float* __restrict__ cpart) {
-  using Vec = typename OpTraits<D>::Vec;
+    const float* __restrict__ recv, const float* __restrict__ gm_recv,
+    int n_recv, const float* __restrict__ src,
+    const float* __restrict__ gm_src, const float* __restrict__ bounds,
+    int levels, float arg_cap, float min_d2, int self_masked, int I, int S,
+    int TI, int nsegmax, int Jb, int Je, int generic_until, bool ragged,
+    KindOf kind_of, float* __restrict__ rpart, float* __restrict__ cpart) {
+  using Vec = typename OpTraits<D, GM>::Vec;
   __shared__ Vec xs[2][BT];
   __shared__ float colbuf[2][OP_WARPS][BT * D];
 
@@ -212,10 +267,11 @@ __device__ __forceinline__ void op_block(
   const int i_first = I * OP_RW + warp * 32 * OP_R;
   const int T0 = I * OP_SUB;  // base tile of the receiver tile's first row
 
-  float xi[OP_R][D], row[OP_R][D];
+  float xi[OP_R][D], row[OP_R][D], gmi[OP_R];
 #pragma unroll
   for (int r = 0; r < OP_R; ++r) {
     const int i = i_first + 32 * r + lane;
+    gmi[r] = GM && i < n_recv ? gm_recv[i] : 0.f;
 #pragma unroll
     for (int d = 0; d < D; ++d) {
       xi[r][d] = i < n_recv ? recv[(size_t)i * D + d] : 0.f;
@@ -225,24 +281,24 @@ __device__ __forceinline__ void op_block(
   const float soft = bounds[2];
   const IntGrid g = mode_grid<MODE>(bounds, levels, arg_cap, min_d2);
 
-  xs[0][t] = op_load_src<D>(src, Jb, t);
+  xs[0][t] = op_load_src<D, GM>(src, gm_src, Jb, t);
   __syncthreads();
   for (int J = Jb, k = 0; J < Je; ++J, ++k) {
     const int buf = k & 1;
     Vec nxt{};
-    if (J + 1 < Je) nxt = op_load_src<D>(src, J + 1, t);
+    if (J + 1 < Je) nxt = op_load_src<D, GM>(src, gm_src, J + 1, t);
     float* colw = colbuf[buf][warp];
     if (J < generic_until || ragged) {
       int kind[OP_R];
 #pragma unroll
       for (int r = 0; r < OP_R; ++r)
         kind[r] = kind_of(T0 + (warp * 32 * OP_R + 32 * r) / BT, J);
-      op_tile<MODE, D, true>(xs[buf], xi, row, soft, g, lane, kind,
-                             self_masked, colw);
+      op_tile<MODE, D, true, GM>(xs[buf], xi, gmi, row, soft, g, lane, kind,
+                                 self_masked, colw);
     } else {
       const int none[OP_R] = {};
-      op_tile<MODE, D, false>(xs[buf], xi, row, soft, g, lane, none, 0,
-                              colw);
+      op_tile<MODE, D, false, GM>(xs[buf], xi, gmi, row, soft, g, lane, none,
+                                  0, colw);
     }
     xs[buf ^ 1][t] = nxt;
     __syncthreads();
@@ -285,19 +341,23 @@ sym_one_pass(const float* __restrict__ pos, const float* __restrict__ bounds,
   auto kind_of = [T](int a, int J) {
     return a >= T || a > J ? OP_NONE : (a == J ? OP_ROWS : OP_BOTH);
   };
-  op_block<MODE, D, false>(pos, n, pos, bounds, levels, arg_cap, min_d2,
-                           self_masked, I, S, gridDim.y, gridDim.x, Jb, Je,
-                           T0 + OP_SUB, false, kind_of, rpart, cpart);
+  op_block<MODE, D, false, false>(pos, nullptr, n, pos, nullptr, bounds,
+                                  levels, arg_cap, min_d2, self_masked, I, S,
+                                  gridDim.y, gridDim.x, Jb, Je, T0 + OP_SUB,
+                                  false, kind_of, rpart, cpart);
 }
 
-// Two disjoint sets (pair_sym_force_uniform): receiver tile I = blockIdx.y
-// of A against segment S = blockIdx.x of B's tiles; a ragged last receiver
-// tile skips its rows past na. Reaction partials are stored negated, so
-// reduce_partials sums them as the general kernel's.
-template <int MODE, int D>
-__global__ void __launch_bounds__(OP_THREADS, OP_MIN_BLOCKS)
-pair_one_pass(const float* __restrict__ pa, int na,
-              const float* __restrict__ pb, int nb,
+// Two disjoint sets (pair_sym_force_uniform, or with GM the general
+// pair_sym_force): receiver tile I = blockIdx.y of A against segment
+// S = blockIdx.x of B's tiles; a ragged last receiver tile skips its rows
+// past na. Reaction partials are stored negated, so reduce_partials sums
+// them as the two-pass tile's.
+template <int MODE, int D, bool GM>
+__global__ void __launch_bounds__(OP_THREADS,
+                                  GM ? OP_MIN_BLOCKS_GM : OP_MIN_BLOCKS)
+pair_one_pass(const float* __restrict__ pa, const float* __restrict__ gma,
+              int na, const float* __restrict__ pb,
+              const float* __restrict__ gmb, int nb,
               const float* __restrict__ bounds, int levels, float arg_cap,
               float min_d2, int seg, float* __restrict__ rpart,
               float* __restrict__ cpart) {
@@ -307,9 +367,10 @@ pair_one_pass(const float* __restrict__ pa, int na,
   const int Jb = S * seg;
   const int Je = min(nb / BT, Jb + seg);
   auto kind_of = [Ta](int a, int) { return a < Ta ? OP_BOTH : OP_NONE; };
-  op_block<MODE, D, true>(pa, na, pb, bounds, levels, arg_cap, min_d2, 0, I,
-                          S, gridDim.y, gridDim.x, Jb, Je, -1,
-                          (I + 1) * OP_SUB > Ta, kind_of, rpart, cpart);
+  op_block<MODE, D, true, GM>(pa, gma, na, pb, gmb, bounds, levels, arg_cap,
+                              min_d2, 0, I, S, gridDim.y, gridDim.x, Jb, Je,
+                              -1, (I + 1) * OP_SUB > Ta, kind_of, rpart,
+                              cpart);
 }
 
 // sym_one_pass's fixed-order reduction: particle p sums its receiver

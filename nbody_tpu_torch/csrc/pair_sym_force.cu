@@ -60,6 +60,20 @@
 // ragged last receiver tile (Ta not a multiple of 4: 209728 is 3277 tiles)
 // skips its rows past na, so every multiple of BT is served.
 //
+// The general function in the same one-pass design (nbody_pair_sym_force_
+// one_pass with uniform = 0; pair_one_pass<MODE, D, true>): it replaces
+// the TPU kernel's general branch (pallas_nbody.py:1032-1039, fr = G m_j w
+// on the rows and fc = G m_i w on the reactions) and computes what that
+// branch computes. Each source's G m rides in its staged float4 and each
+// lane holds its receivers' G m_i, so a pair costs 2 multiplies and 2 D
+// FMAs on top of d^2 and w: 19 fp32 ops a pair at D = 2 float32
+// (pair_ops "sym_gm"), against ~21 plus the w tile's store and reload on
+// the two-pass tile below. No scale in the reduction. The same rule routes
+// it (hopper_nbody.pair_design, uniform or not): both sets multiples of
+// BT, more than 256 receiver tiles and (mode family, D) in ONE_PASS_ROUTES;
+// ragged or phantom sets (the ring's 131075) keep the two-pass tile, and
+// parent=True reaches it.
+//
 // Requires eps^2 > 0 (bounds[2]), as the TPU kernel does: the sets are
 // disjoint, so no pair is masked, and a coincident pair at zero softening
 // would be 0 * inf. The chunked path routes zero and run-time softening to
@@ -203,17 +217,18 @@ extern "C" int nbody_pair_sym_force(const float* pa, const float* gma, int na,
   return (int)cudaGetLastError();
 }
 
-// The one-pass design of the equal-mass variant (csrc/one_pass.cuh): na and
-// nb multiples of BT; gma, gmb read at [0] only (rows scaled by gmb[0],
-// reactions by gma[0]); seg >= 1 source tiles a block; scratch rpart (TI,
-// nseg, OP_RW, dim) and cpart (Tb, TI, BT, dim) f32 with Ta = na / BT,
-// Tb = nb / BT, TI = ceil(Ta / OP_SUB), nseg = ceil(Tb / seg); rows (na,
-// dim), cols (nb, dim) f32. Returns cudaGetLastError().
+// The one-pass design (csrc/one_pass.cuh): na and nb multiples of BT;
+// uniform != 0 is the equal-mass variant (gma, gmb read at [0] only: rows
+// scaled by gmb[0], reactions by gma[0]), uniform == 0 the general function
+// (every G m read, nothing scaled); seg >= 1 source tiles a block; scratch
+// rpart (TI, nseg, OP_RW, dim) and cpart (Tb, TI, BT, dim) f32 with
+// Ta = na / BT, Tb = nb / BT, TI = ceil(Ta / OP_SUB), nseg = ceil(Tb / seg);
+// rows (na, dim), cols (nb, dim) f32. Returns cudaGetLastError().
 extern "C" int nbody_pair_sym_force_one_pass(
     const float* pa, const float* gma, int na, const float* pb,
     const float* gmb, int nb, const float* bounds, int dim, int mode,
-    int levels, float arg_cap, float min_d2, int seg, float* rpart,
-    float* cpart, float* rows, float* cols, void* stream) {
+    int levels, float arg_cap, float min_d2, int uniform, int seg,
+    float* rpart, float* cpart, float* rows, float* cols, void* stream) {
   if (na <= 0 || nb <= 0 || na % BT != 0 || nb % BT != 0 || seg <= 0)
     return (int)cudaErrorInvalidValue;
   const int TI = (na / BT + OP_SUB - 1) / OP_SUB;
@@ -223,21 +238,33 @@ extern "C" int nbody_pair_sym_force_one_pass(
   const bool known = dispatch(mode, dim, [&](auto m, auto d) {
     constexpr int M = decltype(m)::value;
     constexpr int DD = decltype(d)::value;
-    pair_one_pass<M, DD><<<dim3(nseg, TI), OP_THREADS, 0, s>>>(
-        pa, na, pb, nb, bounds, levels, arg_cap, min_d2, seg, rpart, cpart);
-    launch_reduce<DD, OP_RW>(rpart, na, nseg, rows, s, gmb);
-    launch_reduce<DD>(cpart, nb, TI, cols, s, gma);
+    const dim3 grid(nseg, TI);
+    if (uniform)
+      pair_one_pass<M, DD, false><<<grid, OP_THREADS, 0, s>>>(
+          pa, gma, na, pb, gmb, nb, bounds, levels, arg_cap, min_d2, seg,
+          rpart, cpart);
+    else
+      pair_one_pass<M, DD, true><<<grid, OP_THREADS, 0, s>>>(
+          pa, gma, na, pb, gmb, nb, bounds, levels, arg_cap, min_d2, seg,
+          rpart, cpart);
+    launch_reduce<DD, OP_RW>(rpart, na, nseg, rows, s,
+                             uniform ? gmb : nullptr);
+    launch_reduce<DD>(cpart, nb, TI, cols, s, uniform ? gma : nullptr);
   });
   if (!known) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
-// Blocks of pair_one_pass<mode, dim> a SM holds at once (-1: no instance).
-extern "C" int nbody_pair_sym_force_one_pass_resident(int mode, int dim) {
+// Blocks of pair_one_pass<mode, dim, !uniform> a SM holds at once (-1: no
+// instance).
+extern "C" int nbody_pair_sym_force_one_pass_resident(int mode, int dim,
+                                                      int uniform) {
   int blocks = -1;
   dispatch(mode, dim, [&](auto m, auto d) {
-    blocks = op_resident(
-        pair_one_pass<decltype(m)::value, decltype(d)::value>);
+    constexpr int M = decltype(m)::value;
+    constexpr int DD = decltype(d)::value;
+    blocks = uniform ? op_resident(pair_one_pass<M, DD, false>)
+                     : op_resident(pair_one_pass<M, DD, true>);
   });
   return blocks;
 }

@@ -21,10 +21,11 @@
 // diff = 0, an exact zero term, and the ring gives zero softening's
 // diagonal block to the self-masked one-set form.
 //
-// Design: one thread per receiver row, RB rows per block. The block walks
-// all sources in tiles of RB staged in shared memory, j ascending; each
-// tile's terms are summed with fmaf in registers and the tile sum is then
-// added to the row: a fixed order, so two runs give the same bits. The
+// The earlier design (row_force_kernel, parent=True): one thread per
+// receiver row, RB rows per block. The block walks all sources in tiles of
+// RB staged in shared memory, j ascending; each tile's terms are summed
+// with fmaf in registers and the tile sum is then added to the row: a
+// fixed order, so two runs give the same bits. The
 // two-level sum keeps the rounding error near that of the sym kernel's
 // per-tile partials: one fmaf chain over all N terms rounded ~5x worse
 // where terms cancel (softening 0.05, N = 5000), beyond the plain
@@ -33,13 +34,48 @@
 //
 // Numerics: csrc/nbody_common.cuh.
 //
-// What bounds it on the H100: arithmetic, N^2 pair evaluations (twice the
-// sym kernel's N^2 / 2) of ~20 fp32 ops plus an rsqrt (float modes) or a
-// logf + expf (int modes). Every thread of a block reads the same source
-// from shared memory (a broadcast); device memory sees N / RB passes over
-// the (N, D) positions and G*m, which at N = 1M is ~16 MB a pass, held in
-// the 50 MB L2. Receivers and sources are separate pointers and counts,
-// so the two-set form costs nothing over the one-set form.
+// What bounds either design on the H100: arithmetic, N^2 pair evaluations
+// (twice the sym kernel's N^2 / 2) of 14 fp32 ops (D = 2 float32) plus an
+// rsqrt (float modes) or a logf + expf (int modes). Every thread of a
+// block reads the same source from shared memory (a broadcast); device
+// memory sees N / RB passes over the (N, D) positions and G*m, which at
+// N = 1M is ~16 MB a pass, held in the 50 MB L2. Receivers and sources are
+// separate pointers and counts, so the two-set form costs nothing over the
+// one-set form.
+
+// The register-tiled design (row_tiled; nbody_row_force_tiled), the
+// wrappers' default since the earlier one-thread-a-receiver kernel above
+// (row_force_kernel; nbody_row_force, reached by parent=True) spent ~23
+// issue slots a pair against the function's ~12 instructions (14 fp32 ops,
+// pair_ops "rows", D = 2 float32): D + 1 shared loads a pair and the
+// self-mask's index test on every pair of every launch, #10's too. What it
+// does about each:
+//   * R = ROW_R = 4 receivers a thread, ROW_THREADS = 128 threads a block
+//     (512 receivers: thread t holds b 512 + 128 r + t), in registers with
+//     their sums: one shared load a source serves 4 pairs;
+//   * each source staged once as a float4 {x, y, (z), G m} (D = 2:
+//     {x, y, G m, 0}): one broadcast load a source, double-buffered, one
+//     barrier a tile of ROW_TILE = 128 sources;
+//   * the self-mask a template parameter, applied only on the source tiles
+//     that overlap the block's receivers (4 of a segment's tiles at most; a
+//     block-uniform branch into a masked copy of the tile loop, where a
+//     select zeroes w of the pair j == i before G m multiplies it, so a
+//     zero-softening self pair is never 0 * inf). Every other tile, and
+//     every #10 launch, runs with no per-pair test;
+//   * 4 receivers a thread leave ~8 warps a SM at 131072 receivers, so the
+//     sources are cut into segments of consecutive tiles: a grid of
+//     receiver blocks x segments (hopper_nbody.row_segments, a fixed
+//     function of (n_i, n_j) that aims at ROW_TARGET_BLOCKS blocks), each
+//     block writing its rows' segment sums to rpart (ceil(n_i / 512), nseg,
+//     512, D) f32, which reduce_partials sums over the segments in order
+//     (one segment: the block writes the rows themselves, no reduction).
+// The accuracy structure stays: each 128-source tile's terms are summed by
+// fmaf in registers, then added to the row's sum (one long chain fails the
+// plain version's tolerance, as above). A ragged last source tile is
+// padded in shared memory with inert far sentinels (x = 2e18, the TPU
+// kernels' far sentinel, G m = 0: d^2 ~ 8e36 stays finite and its w and
+// its term are 0); receivers past
+// n_i compute and are never written.
 
 #include "nbody_common.cuh"
 
@@ -102,6 +138,115 @@ row_force_kernel(const float* __restrict__ pos_i, int n_i,
   }
 }
 
+constexpr int ROW_R = 4;          // receivers a thread
+constexpr int ROW_THREADS = 128;  // threads a block
+constexpr int ROW_RW = ROW_R * ROW_THREADS;  // receivers a block: 512
+constexpr int ROW_TILE = 128;     // sources a staged tile (the inner sum)
+constexpr float ROW_SENTINEL = 2e18f;  // pallas_nbody.py:55-64's
+static_assert(ROW_TILE == ROW_THREADS, "one thread a source stages");
+
+// Source j of pos_j / gm as the staged float4, or the inert sentinel.
+template <int D>
+__device__ __forceinline__ float4 row_load_src(const float* __restrict__ pos,
+                                               const float* __restrict__ gm,
+                                               int n, int j) {
+  if (j >= n) return make_float4(ROW_SENTINEL, ROW_SENTINEL, 0.f, 0.f);
+  const float* p = pos + (size_t)j * D;
+  return D == 2 ? make_float4(p[0], p[1], gm[j], 0.f)
+                : make_float4(p[0], p[1], p[D - 1], gm[j]);
+}
+
+// One staged tile of ROW_TILE sources (first index j0) against a thread's
+// ROW_R receivers (indices i0 + 128 r): the tile's terms summed by fmaf
+// in j order, then added to acc. MASK zeroes w of the pair j == i.
+template <int MODE, int D, bool MASK>
+__device__ __forceinline__ void row_tile(const float4* __restrict__ xs,
+                                         const float (&xi)[ROW_R][D],
+                                         float (&acc)[ROW_R][D], float soft,
+                                         const IntGrid& g, int j0, int i0) {
+  float part[ROW_R][D];
+#pragma unroll
+  for (int r = 0; r < ROW_R; ++r)
+#pragma unroll
+    for (int d = 0; d < D; ++d) part[r][d] = 0.f;
+#pragma unroll 4
+  for (int j = 0; j < ROW_TILE; ++j) {
+    const float4 sj = xs[j];
+    const float xj[3] = {sj.x, sj.y, sj.z};
+    const float gmj = D == 2 ? sj.z : sj.w;
+#pragma unroll
+    for (int r = 0; r < ROW_R; ++r) {
+      float dx[D];
+#pragma unroll
+      for (int d = 0; d < D; ++d) dx[d] = __fsub_rn(xj[d], xi[r][d]);
+      float w = pair_w<MODE>(__fadd_rn(raw_d2<D>(dx), soft), g);
+      if (MASK) w = j0 + j == i0 + ROW_THREADS * r ? 0.f : w;
+      const float fr = __fmul_rn(gmj, w);
+#pragma unroll
+      for (int d = 0; d < D; ++d) part[r][d] = fmaf(fr, dx[d], part[r][d]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < ROW_R; ++r)
+#pragma unroll
+    for (int d = 0; d < D; ++d) acc[r][d] = __fadd_rn(acc[r][d], part[r][d]);
+}
+
+// Receiver block b = blockIdx.x (receivers b 512 .. b 512 + 511) against
+// segment S = blockIdx.y (source tiles S seg .. S seg + seg - 1); the rows'
+// segment sums to rpart[b][S][512][D] (with one segment: out itself).
+template <int MODE, int D, bool MASKED>
+__global__ void __launch_bounds__(ROW_THREADS)
+row_tiled(const float* __restrict__ pos_i, int n_i,
+          const float* __restrict__ pos_j, const float* __restrict__ gm,
+          int n_j, const float* __restrict__ bounds, int levels,
+          float arg_cap, float min_d2, int seg, float* __restrict__ rpart) {
+  __shared__ float4 xs[2][ROW_TILE];
+  const int t = threadIdx.x;
+  const int b = blockIdx.x;
+  const int S = blockIdx.y;
+  const int i_lo = b * ROW_RW;
+  const int tiles = (n_j + ROW_TILE - 1) / ROW_TILE;
+  const int Jb = S * seg;
+  const int Je = min(tiles, Jb + seg);
+
+  const float soft = bounds[2];
+  const IntGrid g = mode_grid<MODE>(bounds, levels, arg_cap, min_d2);
+  float xi[ROW_R][D], acc[ROW_R][D];
+#pragma unroll
+  for (int r = 0; r < ROW_R; ++r) {
+    const int i = i_lo + ROW_THREADS * r + t;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      xi[r][d] = i < n_i ? pos_i[(size_t)i * D + d] : 0.f;
+      acc[r][d] = 0.f;
+    }
+  }
+  xs[0][t] = row_load_src<D>(pos_j, gm, n_j, Jb * ROW_TILE + t);
+  __syncthreads();
+  for (int J = Jb, k = 0; J < Je; ++J, ++k) {
+    const int buf = k & 1;
+    float4 nxt{};
+    if (J + 1 < Je)
+      nxt = row_load_src<D>(pos_j, gm, n_j, (J + 1) * ROW_TILE + t);
+    const int j0 = J * ROW_TILE;
+    if (MASKED && j0 < i_lo + ROW_RW && j0 + ROW_TILE > i_lo)  // block-uniform
+      row_tile<MODE, D, true>(xs[buf], xi, acc, soft, g, j0, i_lo + t);
+    else
+      row_tile<MODE, D, false>(xs[buf], xi, acc, soft, g, j0, i_lo + t);
+    xs[buf ^ 1][t] = nxt;
+    __syncthreads();
+  }
+  float* out = rpart + ((size_t)b * gridDim.y + S) * ROW_RW * D;
+#pragma unroll
+  for (int r = 0; r < ROW_R; ++r) {
+    if (i_lo + ROW_THREADS * r + t >= n_i) continue;
+#pragma unroll
+    for (int d = 0; d < D; ++d)
+      out[(ROW_THREADS * r + t) * D + d] = acc[r][d];
+  }
+}
+
 }  // namespace
 
 // Receivers pos_i (n_i, dim), sources pos_j (n_j, dim) with gm (n_j,) =
@@ -125,4 +270,60 @@ extern "C" int nbody_row_force(const float* pos_i, int n_i, const float* pos_j,
   });
   if (!known) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+// The register-tiled design: the same arguments as nbody_row_force, plus
+// seg >= 1 source tiles (of ROW_TILE) a segment, nseg = ceil(ceil(n_j /
+// ROW_TILE) / seg) segments, and rpart: (ceil(n_i / ROW_RW), nseg, ROW_RW,
+// dim) f32 scratch, unused (may be null) when nseg == 1. One launch, or two
+// with the fixed-order reduction over the segments. Returns
+// cudaGetLastError().
+extern "C" int nbody_row_force_tiled(const float* pos_i, int n_i,
+                                     const float* pos_j, const float* gm,
+                                     int n_j, const float* bounds, int dim,
+                                     int mode, int levels, float arg_cap,
+                                     float min_d2, int self_masked, int seg,
+                                     float* rpart, float* out, void* stream) {
+  if (n_i <= 0 || n_j <= 0 || seg <= 0) return (int)cudaErrorInvalidValue;
+  const int tiles = (n_j + ROW_TILE - 1) / ROW_TILE;
+  const int nseg = (tiles + seg - 1) / seg;
+  if (nseg > 65535 || (nseg > 1 && rpart == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((n_i + ROW_RW - 1) / ROW_RW, nseg);
+  float* part = nseg == 1 ? out : rpart;
+  const bool known = dispatch(mode, dim, [&](auto m, auto d) {
+    constexpr int M = decltype(m)::value;
+    constexpr int DD = decltype(d)::value;
+    if (self_masked)
+      row_tiled<M, DD, true><<<grid, ROW_THREADS, 0, s>>>(
+          pos_i, n_i, pos_j, gm, n_j, bounds, levels, arg_cap, min_d2, seg,
+          part);
+    else
+      row_tiled<M, DD, false><<<grid, ROW_THREADS, 0, s>>>(
+          pos_i, n_i, pos_j, gm, n_j, bounds, levels, arg_cap, min_d2, seg,
+          part);
+    if (nseg > 1) launch_reduce<DD, ROW_RW>(rpart, n_i, nseg, out, s);
+  });
+  if (!known) return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// Receivers a block, sources a tile of the register-tiled design
+// (hopper_nbody.ROW_BLOCK_RECEIVERS, ROW_SOURCE_TILE): rw * 65536 + tile.
+extern "C" int nbody_row_force_geometry() { return ROW_RW * 65536 + ROW_TILE; }
+
+// Blocks of row_tiled<mode, dim, masked> a SM holds at once (-1: none).
+extern "C" int nbody_row_force_tiled_resident(int mode, int dim, int masked) {
+  int blocks = -1;
+  dispatch(mode, dim, [&](auto m, auto d) {
+    constexpr int M = decltype(m)::value;
+    constexpr int DD = decltype(d)::value;
+    auto k = masked ? &row_tiled<M, DD, true> : &row_tiled<M, DD, false>;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k,
+                                                      ROW_THREADS, 0) !=
+        cudaSuccess)
+      blocks = -1;
+  });
+  return blocks;
 }

@@ -22,14 +22,16 @@ multi-device ring (``parallel/ring.py``):
 * ``row_force`` — ``csrc/row_force.cu``, replacing ``_force_kernel`` /
   ``pallas_accelerations`` (#8) and ``_force_kernel_streamed`` /
   ``pallas_accelerations_streamed`` (#4): every ordered pair, the path of
-  zero and run-time softening.
+  zero and run-time softening; register-tiled, the sources cut into
+  segments by ``row_segments``.
 * ``pair_force`` — the same ``csrc/row_force.cu`` kernel on two sets,
   replacing ``_force_kernel`` / ``pallas_pair_force`` (#10): receivers'
   accelerations due to sources, the ring's rows-schedule tile.
 * ``pair_sym_force`` — ``csrc/pair_sym_force.cu``, replacing
   ``_pair_force_sym_kernel`` / ``pallas_pair_force_sym`` (#6): two
-  disjoint sets, rows and reactions from one evaluation of each pair; its
-  equal-mass variant (``uniform``), in the one-pass design at large N.
+  disjoint sets, rows and reactions from one evaluation of each pair, with
+  unequal masses or its equal-mass variant (``uniform``), either in the
+  one-pass design at large N (``pair_design``).
 * ``pair_pe_rows`` — ``csrc/pair_pe_rows.cu``, replacing
   ``_pair_pe_kernel`` / ``pallas_pair_pe_rows`` (#7): per-receiver
   potential-energy row sums with an id mask, the ring's energy tile.
@@ -118,17 +120,32 @@ TRIANGLE_MAX_TILES = 256
 # Source tiles one block of pair_sym_force walks (its row partials are
 # per segment of this many tiles).
 PAIR_SEGMENT_TILES = 32
-# The one-pass design of the equal-mass variants (csrc/one_pass.cuh):
-# receivers a block (OP_RW), and source tiles a block walks.
+# The one-pass design of the equal-mass variants and of the general pair
+# tile (csrc/one_pass.cuh): receivers a block (OP_RW), and source tiles a
+# block walks.
 ONE_PASS_RECEIVERS = 256
 ONE_PASS_SEGMENT_TILES = 16
-# (mode family, D) whose unflagged equal-mass launches over more than
-# ONE_PASS_MIN_TILES receiver tiles take the one-pass design
-# (``uniform_design``); the others keep the two-pass tile. The edge is the
+# (mode family, D) whose unflagged equal-mass launches, and whose
+# pair_sym_force launches of either kind, over more than ONE_PASS_MIN_TILES
+# receiver tiles take the one-pass design (``uniform_design``,
+# ``pair_design``); the others keep the two-pass tile. The edge is the
 # triangle's: sym_force at T <= 256 keeps the triangular grid.
 ONE_PASS_MIN_TILES = TRIANGLE_MAX_TILES
 ONE_PASS_ROUTES = frozenset({("float", 2), ("float", 3), ("int", 2),
                              ("int", 3)})
+# The register-tiled row sweep (csrc/row_force.cu's row_tiled): receivers a
+# block (4 a thread, 128 threads), sources a staged tile (the inner sum),
+# and the blocks that row_segments aims the grid at (receiver blocks x
+# source segments: ~12 waves of the H100's 1320 resident blocks at D=2
+# float32, so that the last wave's idle share stays small, where 4096
+# blocks would leave a tenth-full fourth wave).
+ROW_BLOCK_RECEIVERS = 512
+ROW_SOURCE_TILE = 128
+ROW_TARGET_BLOCKS = 16384
+# The row sweep's design for every launch that does not pass parent=True:
+# "tiled" (row_tiled), or "per_receiver" (the earlier kernel, one thread a
+# receiver), which an A/B of a whole path sets for that path's run.
+ROW_DESIGN = "tiled"
 # Bytes of per-tile partials one force evaluation may hold on the card:
 # sym_force alone while its scratch fits (the "auto" routing), else the
 # chunked path's diagonal sym_force plus one pair tile together. 16 GB of
@@ -195,11 +212,13 @@ def sym_design(n: int, dim: int, q: Quantizer, uniform: bool = False,
 
 
 def pair_design(n_a: int, n_b: int, dim: int, q: Quantizer,
-                uniform: bool = False, parent: bool = False) -> str:
-    """What a pair_sym_force launch runs on the card: "one_pass" (an
-    equal-mass launch on sets that are multiples of TILE that
-    uniform_design routes there by its receiver tiles), else "two_pass"."""
-    if (uniform and not parent and n_a % TILE == 0 and n_b % TILE == 0
+                parent: bool = False) -> str:
+    """What a pair_sym_force launch runs on the card, either kind:
+    "one_pass" (sets that are multiples of TILE that uniform_design routes
+    there by their receiver tiles: the equal-mass variant's one-pass body,
+    or with unequal masses the same body with G m per particle), else
+    "two_pass", which ``parent=True`` always takes."""
+    if (not parent and n_a % TILE == 0 and n_b % TILE == 0
             and uniform_design(_tiles(n_a), q, dim) == "one_pass"):
         return "one_pass"
     return "two_pass"
@@ -221,13 +240,44 @@ def sym_one_pass_scratch(n: int, dim: int) -> tuple:
 
 
 def pair_one_pass_scratch(n_a: int, n_b: int, dim: int) -> tuple:
-    """Shapes of the one-pass pair_sym_force_uniform's scratch: row
+    """Shapes of the one-pass pair_sym_force's scratch, either kind: row
     partials (TI, nseg, ONE_PASS_RECEIVERS, dim) and reaction partials
     (Tb, TI, TILE, dim) f32, TI = ceil(Ta / 4),
     nseg = ceil(Tb / ONE_PASS_SEGMENT_TILES)."""
     ti, tb = _one_pass_tiles(_tiles(n_a)), _tiles(n_b)
     return ((ti, -(-tb // ONE_PASS_SEGMENT_TILES), ONE_PASS_RECEIVERS, dim),
             (tb, ti, TILE, dim))
+
+
+def row_segments(n_i: int, n_j: int) -> tuple:
+    """(segments, source tiles a segment) of a register-tiled row_force /
+    pair_force launch over n_i receivers and n_j sources, a fixed function
+    of the two: the ceil(n_j / ROW_SOURCE_TILE) source tiles are cut into
+    as many segments as bring ceil(n_i / ROW_BLOCK_RECEIVERS) receiver
+    blocks up to ROW_TARGET_BLOCKS blocks, at most one a tile. 131072^2:
+    64 segments of 16 tiles (16384 blocks); 1M^2: 8 of 1024."""
+    blocks = -(-n_i // ROW_BLOCK_RECEIVERS)
+    tiles = -(-n_j // ROW_SOURCE_TILE)
+    want = min(tiles, max(1, -(-ROW_TARGET_BLOCKS // blocks)))
+    seg = -(-tiles // want)
+    return -(-tiles // seg), seg
+
+
+def row_scratch(n_i: int, n_j: int, dim: int) -> tuple | None:
+    """Shape of the register-tiled row sweep's segment sums,
+    (ceil(n_i / ROW_BLOCK_RECEIVERS), segments, ROW_BLOCK_RECEIVERS, dim)
+    f32, or None for one segment (the kernel writes the rows itself)."""
+    nseg, _ = row_segments(n_i, n_j)
+    if nseg == 1:
+        return None
+    return (-(-n_i // ROW_BLOCK_RECEIVERS), nseg, ROW_BLOCK_RECEIVERS, dim)
+
+
+def row_scratch_bytes(n_i: int, n_j: int, dim: int) -> int:
+    """Bytes of row_scratch: 67.1 MB at 131072^2 (D=2), 100.7 MB at 1M^2
+    (D=3), far inside SCRATCH_BUDGET."""
+    shape = row_scratch(n_i, n_j, dim)
+    return 0 if shape is None else 4 * math.prod(shape)
 
 
 def max_d2_tile(n: int) -> int:
@@ -340,6 +390,11 @@ def _library():
                            f"{lib.nbody_one_pass_receivers()} != "
                            f"hopper_nbody.ONE_PASS_RECEIVERS "
                            f"{ONE_PASS_RECEIVERS}")
+    geometry = divmod(lib.nbody_row_force_geometry(), 65536)
+    if geometry != (ROW_BLOCK_RECEIVERS, ROW_SOURCE_TILE):
+        raise RuntimeError(f"csrc row_tiled (receivers a block, tile) "
+                           f"{geometry} != hopper_nbody's "
+                           f"{(ROW_BLOCK_RECEIVERS, ROW_SOURCE_TILE)}")
     return lib
 
 
@@ -675,28 +730,45 @@ def sym_force(pos: torch.Tensor, gm: torch.Tensor, bounds: torch.Tensor,
 
 
 def row_force(pos: torch.Tensor, gm: torch.Tensor, bounds: torch.Tensor,
-              q: Quantizer, self_masked: bool) -> torch.Tensor:
+              q: Quantizer, self_masked: bool,
+              parent: bool = False) -> torch.Tensor:
     """Kernels #4 / #8 wrapper: CUDA kernel for a CUDA tensor, the plain
     version for a CPU tensor. Same arguments and result as
-    row_force_plain (all rows)."""
+    row_force_plain (all rows). The register-tiled design (its segment
+    reduction included: one count a call); ``parent=True`` takes the
+    earlier kernel, one thread a receiver, to compare them."""
     n, dim = _check_force_args(pos, gm, bounds)
     if pos.device.type == "cpu":
         return row_force_plain(pos, gm, bounds, q, self_masked)
-    out = _launch_rows(pos, pos, gm, bounds, q, self_masked, "row_force")
+    out = _launch_rows(pos, pos, gm, bounds, q, self_masked, "row_force",
+                       parent)
     LAUNCHES["row_force"] += 1
     return out
 
 
 def _launch_rows(recv, src, gm, bounds, q: Quantizer, self_masked: bool,
-                 what: str) -> torch.Tensor:
-    """One launch of csrc/row_force.cu: recv's accelerations due to src."""
+                 what: str, parent: bool) -> torch.Tensor:
+    """One call of csrc/row_force.cu: recv's accelerations due to src, in
+    the register-tiled design (ROW_DESIGN, unless ``parent``) or the
+    earlier kernel."""
     lib = _library()
+    n_i, n_j, dim = recv.shape[0], src.shape[0], recv.shape[1]
     with torch.cuda.device(recv.device):
         out = torch.empty_like(recv)
-        rc = lib.nbody_row_force(
-            _ptr(recv), recv.shape[0], _ptr(src), _ptr(gm), src.shape[0],
-            _ptr(bounds), recv.shape[1], *_int_args(q), int(self_masked),
-            _ptr(out), _stream(recv.device))
+        if parent or ROW_DESIGN != "tiled":
+            rc = lib.nbody_row_force(
+                _ptr(recv), n_i, _ptr(src), _ptr(gm), n_j, _ptr(bounds), dim,
+                *_int_args(q), int(self_masked), _ptr(out),
+                _stream(recv.device))
+        else:
+            shape = row_scratch(n_i, n_j, dim)
+            rpart = (None if shape is None else
+                     torch.empty(shape, dtype=torch.float32,
+                                 device=recv.device))
+            rc = lib.nbody_row_force_tiled(
+                _ptr(recv), n_i, _ptr(src), _ptr(gm), n_j, _ptr(bounds), dim,
+                *_int_args(q), int(self_masked), row_segments(n_i, n_j)[1],
+                _opt_ptr(rpart), _ptr(out), _stream(recv.device))
     _raise_on(rc, what)
     return out
 
@@ -720,8 +792,9 @@ def pair_sym_force(pos_a: torch.Tensor, gm_a: torch.Tensor,
     pair_sym_force_plain. ``uniform=True`` asserts that each set's gm is
     equal (unchecked here) and takes the equal-mass variant
     (pair_sym_force_uniform_plain) when both set sizes are multiples of
-    TILE, else the general kernel; the variant takes
-    ``uniform_design(ceil(n_a / TILE), q, dim)``'s design, and
+    TILE, else the general kernel. Either kind takes ``pair_design``'s
+    design (the one-pass body for sets that are multiples of TILE past
+    ONE_PASS_MIN_TILES receiver tiles, by ``uniform_design``), and
     ``parent=True`` the two-pass tile (the earlier design) to compare
     them."""
     _check_force_args(pos_a, gm_a, bounds)
@@ -733,7 +806,7 @@ def pair_sym_force(pos_a: torch.Tensor, gm_a: torch.Tensor,
                  else pair_sym_force_plain)
         return plain(pos_a, gm_a, pos_b, gm_b, bounds, q)
     lib = _library()
-    if pair_design(n_a, n_b, dim, q, uniform, parent) == "one_pass":
+    if pair_design(n_a, n_b, dim, q, parent) == "one_pass":
         with torch.cuda.device(pos_a.device):
             rpart, cpart = (torch.empty(shape, dtype=torch.float32,
                                         device=pos_a.device)
@@ -742,11 +815,11 @@ def pair_sym_force(pos_a: torch.Tensor, gm_a: torch.Tensor,
             cols = torch.empty_like(pos_b)
             rc = lib.nbody_pair_sym_force_one_pass(
                 _ptr(pos_a), _ptr(gm_a), n_a, _ptr(pos_b), _ptr(gm_b), n_b,
-                _ptr(bounds), dim, *_int_args(q), ONE_PASS_SEGMENT_TILES,
-                _ptr(rpart), _ptr(cpart), _ptr(rows), _ptr(cols),
-                _stream(pos_a.device))
+                _ptr(bounds), dim, *_int_args(q), int(uniform),
+                ONE_PASS_SEGMENT_TILES, _ptr(rpart), _ptr(cpart), _ptr(rows),
+                _ptr(cols), _stream(pos_a.device))
         _raise_on(rc, "pair_sym_force")
-        LAUNCHES["pair_sym_force_uniform"] += 1
+        LAUNCHES[_variant("pair_sym_force", uniform)] += 1
         return rows, cols
     ta, tb = _tiles(n_a), _tiles(n_b)
     nseg = -(-tb // PAIR_SEGMENT_TILES)
@@ -1127,13 +1200,15 @@ def pair_force_term_scale(receivers: torch.Tensor, sources: torch.Tensor,
 
 def pair_force(receivers: torch.Tensor, sources: torch.Tensor,
                gm_sources: torch.Tensor, q: Quantizer, cfg: SimConfig,
-               log_lo=None, log_hi=None) -> torch.Tensor:
+               log_lo=None, log_hi=None,
+               parent: bool = False) -> torch.Tensor:
     """Kernel #10 wrapper, the counterpart of ``pallas_pair_force``:
     accelerations of ``receivers`` due to ``sources`` (disjoint or equal
     sets) with ``gm_sources`` = G * m_j, through csrc/row_force.cu for CUDA
     tensors and pair_force_plain for CPU tensors. eps^2 is cfg's; int-sim
     modes need the global ``log_lo``/``log_hi`` (ValueError otherwise).
-    Nothing here waits on the host."""
+    Nothing here waits on the host. ``parent=True`` takes the earlier
+    kernel, as row_force's."""
     n_i, n_j, dim = _check_two_sets(receivers, sources)
     _check_f32("gm_sources", gm_sources, (n_j,), receivers.device)
     if receivers.device.type == "cpu":
@@ -1141,7 +1216,7 @@ def pair_force(receivers: torch.Tensor, sources: torch.Tensor,
                                 log_lo, log_hi)
     bounds = _pair_bounds(receivers, q, cfg, log_lo, log_hi)
     out = _launch_rows(receivers, sources, gm_sources, bounds, q, False,
-                       "pair_force")
+                       "pair_force", parent)
     LAUNCHES["pair_force"] += 1
     return out
 

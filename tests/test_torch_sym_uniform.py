@@ -121,15 +121,17 @@ def test_flagged_general_and_parent_launches_keep_their_routes(n, mode):
             "square"
         # off the tile the flag is void: the general kernel
         assert hn.sym_design(n + 1, dim, q, uniform=True) == "square"
-        assert hn.pair_design(n, n, dim, q) == "two_pass"
-        assert hn.pair_design(n, n, dim, q, uniform=True, parent=True) == \
-            "two_pass"
-        assert hn.pair_design(n, n + 1, dim, q, uniform=True) == "two_pass"
-        assert hn.pair_design(n + 1, n, dim, q, uniform=True) == "two_pass"
         routed = hn.uniform_design(-(-n // hn.TILE), q, dim)
+        # the general pair tile follows the same rule as the equal-mass one
+        # (its one-pass body carries G m per particle)
+        assert hn.pair_design(n, n, dim, q) == routed
+        assert hn.pair_design(n, n, dim, q, parent=True) == \
+            "two_pass"
+        assert hn.pair_design(n, n + 1, dim, q) == "two_pass"
+        assert hn.pair_design(n + 1, n, dim, q) == "two_pass"
         assert hn.sym_design(n, dim, q, uniform=True) == (
             "one_pass" if routed == "one_pass" else "square")
-        assert hn.pair_design(n, 64, dim, q, uniform=True) == routed
+        assert hn.pair_design(n, 64, dim, q) == routed
 
 
 @pytest.mark.parametrize("n", [64, 5000, 16384])
@@ -138,8 +140,8 @@ def test_small_n_keeps_the_triangle_and_the_two_pass_pair(n):
         for dim in (2, 3):
             for uniform in (False, True):
                 assert hn.sym_design(n, dim, _q(mode), uniform) == "triangle"
-                assert hn.pair_design(n - n % 64 or 64, 4096, dim, _q(mode),
-                                      uniform) == "two_pass"
+                assert hn.pair_design(n - n % 64 or 64, 4096, dim,
+                                      _q(mode)) == "two_pass"
 
 
 # --------------------------------------------------------------------------
@@ -411,7 +413,7 @@ def test_one_pass_pair_against_plain(cuda, monkeypatch, n_a, n_b, dim, mode):
                         frozenset({("float", dim), ("int", dim)}))
     pos, gm, bounds, q = _card_inputs(n_a + n_b, dim, mode, cuda)
     pa, pb, ga, gb = pos[:n_a], pos[n_a:], gm[:n_a], gm[n_a:]
-    assert hn.pair_design(n_a, n_b, dim, q, uniform=True) == "one_pass"
+    assert hn.pair_design(n_a, n_b, dim, q) == "one_pass"
     rows, cols = hn.pair_sym_force(pa, ga, pb, gb, bounds, q, uniform=True)
     rw, cw = hn.pair_sym_force_uniform_plain(pa, ga, pb, gb, bounds, q)
     _card_rule(rows, rw, q)
