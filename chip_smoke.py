@@ -28,16 +28,27 @@ Phases (any failure exits non-zero before the last line is printed):
    earlier kernel on every case above and at N=32832 (many segments),
    bitwise run to run; the general pair_sym_force in the one-pass design
    past the 256-tile edge (16448 x 16576, 16576 x 16448) and at odd
-   multiples of 64, every mode, D in {2,3}, beside its two-pass tile.
+   multiples of 64, every mode, D in {2,3}, beside its two-pass tile;
+   sym_force's general route on the one-pass body at N in {16448, 16576,
+   131072}, every mode, D in {2,3}, and its fused max there (int8, int4,
+   custom; unequal and equal masses: the max bitwise max_d2's, the forces
+   bitwise the unflagged launch's); pair_max's register-tiled launch
+   bitwise its plain version and its earlier two launches (131072 all
+   valid, the 131075-over-S=4 phantoms, scattered invalid rows, none
+   valid); each new design bitwise over 100 consecutive launches.
 4. main: ``nbody_tpu_torch.cli.main`` at 5000 stars x 2000 ticks for
    float64, float32 and int4, with the launch counters read around it.
-5. gate: float32, int4 and float64 from the JAX package's committed ICs
-   at 5000 x 2000, held to the torch-reference envelopes cached under
-   tools/reference_cache/ (the rule of tools/reference_parity.py).
+5. gate: every mode of the ladder (float32, int4, float64, bfloat16,
+   float16, int8, custom) from the JAX package's committed ICs at 5000 x
+   2000, held to the torch-reference envelopes cached under
+   tools/reference_cache/ (the rule of tools/reference_parity.py) and to
+   its recorded row (GATE_ROWS) bit for bit.
 6. perf: the main path's two kernels at its own shapes by device time
    (``device_ms``: torch.profiler over 50 warm calls; a CUDA-graph replay
    beside it), each beside its earlier design in turns (old, new, new,
    old): sym_force at 5000 float32 and int4 and at the grid rule's edge,
+   the general sym_force's two designs (the T x T grid, the one-pass
+   body) at 131072 and at the 1M chunk shapes, the fused max's at 131072,
    max_d2 on the pruned pass's 1024 candidates and on 5000 skipped and
    running; throughput at N=131072, kernel-vs-plain times, the
    equal-mass variants' two designs (the earlier two-pass tile and the
@@ -51,8 +62,10 @@ Phases (any failure exits non-zero before the last line is printed):
    stars against static ones.
 7. large: N=1,048,576 through ``run_steps(..., "auto", ...)`` for 5 steps
    (D=2 disk and D=3 Plummer sphere, seed 43, float32 and int4), with the
-   general kernels (5 steps) and with ``uniform_gm`` (2 steps), each step
-   in both designs of its pair tile, in turns: the chunked path's launch
+   general kernels (5 steps; the parent's routes, sym_force on the T x T
+   grid, against the one-pass body) and with ``uniform_gm`` (2 steps; both
+   kernels' two-pass tile against the one-pass body), in turns: the
+   chunked path's launch
    counts, pairs/s, one force evaluation chunked (both variants) against
    the row kernel over all rows (the row sweep timed in both designs, in
    turns) and all against the plain version on sampled rows; zero
@@ -62,21 +75,24 @@ Phases (any failure exits non-zero before the last line is printed):
    (#10), pair_max (#9) and pair_pe_rows (#7): each tile against its plain
    version at (5000, 5000) one set, (32768, 32771), (1, 1000) and prime
    sizes, all seven modes, D in {2,3} (pair_max bitwise), and timed and
-   held at the --mesh path's 131072^2 (pair_force in both designs, in
-   turns); ``cli.main`` at 131072 stars x 200 ticks with ``--mesh`` for
-   both schedules (the sym schedule in both designs of its equal-mass
-   tile, the rows schedule in both designs of pair_force), float32 and
-   int4, launch counts exact; virtual shards
+   held at the --mesh path's 131072^2 (pair_force and pair_max in both
+   designs, in turns; pair_max also at the S=4 shard shape 32769^2);
+   ``cli.main`` at 131072 stars x 200 ticks with ``--mesh`` for both
+   schedules, each with pair_max in both designs in turns (int4; float32
+   once), launch counts exact; virtual shards
    (S in {1, 3, 4} on the one card, N in {5000, 131072, 131075}): forces
    against single-device sym_force, max d^2 bitwise, energies against the
    plain metric, launch counts exact; the reference gate through a mesh of
-   one; N=1,048,576 through ``DirectSimulation(mesh=...)`` on a mesh of one
+   one (float32, int4, float64); N=1,048,576 through
+   ``DirectSimulation(mesh=...)`` on a mesh of one
    (float32 and int4) and on two virtual shards (budget-chunked pair tile).
    Equal masses take the sym tiles' equal-mass variants (timed beside the
    general ones); phantom layouts keep the general tiles bitwise.
 9. cached: int4 ``run_with_snapshots(bounds_mode="cached")`` at 5000 x
    2000 (the canonical ICs) and at 131072 x 50 on a disk and on a shell
-   that defeats the pruned bounds pass, beside the exact path: no tick's
+   that defeats the pruned bounds pass, beside the exact path (at 131072
+   the fused max in both designs in turns: the T x T grid, the one-pass
+   body): no tick's
    grid clipped, the redo launches that ran equal the violations, no
    max_d2 launch; ms a tick, violation rate, the canonical final drift
    against the int4 reference envelope (reported); the redo's walk timed
@@ -120,6 +136,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import io
 import json
 import math
@@ -190,8 +207,18 @@ KERNELS = {
 # The H100 SXM's published peaks: FP32 outside the tensor cores, HBM3
 # bandwidth, and dense bf16 on the tensor cores.
 PEAK_FP32, PEAK_BYTES, PEAK_BF16 = 67e12, 3.35e12, 989e12
-# The canonical gate's final drifts (%), bit for bit the same in PRs 1-3.
-GATE_ROWS = {"float32": -0.007852, "int4": 32.506357, "float64": -0.007517}
+# The canonical gate's final drifts (%) on the card: float32, int4 and
+# float64 bit for bit the same since the port's first run; the other four
+# modes of the ladder from their first gated run on the card.
+GATE_ROWS = {"float32": -0.007852, "int4": 32.506357, "float64": -0.007517,
+             "bfloat16": -0.006740, "float16": -0.008095, "int8": 0.038130,
+             "custom": 0.145221}
+# Every mode of the ladder the gate runs, and the mesh-of-one gate's three.
+GATE_MODES = ("float32", "int4", "float64", "bfloat16", "float16", "int8",
+              "custom")
+RING_GATE_MODES = GATE_MODES[:3]
+# A mode's name in tools/reference_cache/'s file stems.
+CACHE_STEMS = {"bfloat16": "bf16"}
 
 
 def weight_ops(mode: str) -> int:
@@ -558,8 +585,13 @@ class Tally:
               f" int8/int4 components one grid step apart after "
               f"quantize_force: {self.flips}; cases holding non-finite "
               f"forces (equal in both): {self.nonfinite}")
-        entry.update(max_abs_err=self.worst_err[0],
-                     err_over_bound=self.worst_ratio[0], cases=self.cases)
+        # several tallies may hold one kernel: the entry keeps the worst
+        entry.update(
+            max_abs_err=max(entry.get("max_abs_err") or 0.0,
+                            self.worst_err[0]),
+            err_over_bound=max(entry.get("err_over_bound") or 0.0,
+                               self.worst_ratio[0]),
+            cases=(entry.get("cases") or 0) + self.cases)
         check(not self.failures, f"{name} disagreements:\n  "
               + "\n  ".join(self.failures))
 
@@ -670,6 +702,8 @@ def phase_kernels(dev, report: dict) -> None:
                 pair.hold(case + " cols", cols, cw, torch.zeros_like(cw), q)
     row_segmented(dev, row, row_runs)
     general_runs = kernels_general_one_pass(dev, pair)
+    kernels_sym_one_pass(dev, report)
+    kernels_pair_max(dev, report)
     torch.cuda.synchronize()
     print(f"kernels: elementwise rule |err| <= {ATOL} + {RTOL} max(|a|, s), "
           f"s = summed |terms| at zero softening and 0 otherwise; int8/int4 "
@@ -898,6 +932,199 @@ def kernels_general_one_pass(dev, tally) -> list:
     return fails
 
 
+ONE_PASS_NS = (16448, 16576, BIG_N)  # 257, 259 tiles (ragged tails); 131072
+FUSED_MODES = ("int8", "int4", "custom")
+LAUNCH_RUNS = 100   # consecutive launches of a new design, bitwise
+
+
+def same_over_launches(fn, what: str) -> None:
+    """fn() LAUNCH_RUNS times in a row, every result bitwise the first's
+    (fn returns a tuple of tensors)."""
+    first = fn()
+    for k in range(LAUNCH_RUNS - 1):
+        check(all(bitwise(a, b) for a, b in zip(fn(), first)),
+              f"{what}: launch {k + 2} of {LAUNCH_RUNS} not bitwise the "
+              f"first")
+
+
+def kernels_sym_one_pass(dev, report: dict) -> None:
+    """sym_force's general route and its fused max on the one-pass body
+    (one_pass.cuh's GM and EMIT) at ONE_PASS_NS, D in {2,3}: the general
+    route in every mode against sym_force_plain (softening 0.1, and 0
+    self-masked below 131072), one sym_force count a launch; the fused max
+    in FUSED_MODES for unequal and equal masses, its max bitwise max_d2's
+    and the plain max's, its forces bitwise the unflagged launch's and held
+    to the plain version, one sym_force_max / sym_force_uniform_max count
+    a launch; each bitwise run to run, and over LAUNCH_RUNS launches at
+    131072 int4."""
+    from nbody_tpu_torch.config import SimConfig
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+    from nbody_tpu_torch.ops.precision import Quantizer
+
+    cfg = SimConfig()
+    tallies = {k: Tally() for k in ("sym_force", "sym_force_max",
+                                    "sym_force_uniform_max")}
+    fails = []
+
+    def same(what, a, b):
+        if not bitwise(a, b):
+            fails.append(what)
+
+    def launched(key, fn):
+        """fn()'s result, checked to count one launch of ``key`` alone."""
+        before = dict(hn.LAUNCHES)
+        out = fn()
+        delta = {k: v - before[k] for k, v in hn.LAUNCHES.items()
+                 if v != before[k]}
+        check(delta == {key: 1}, f"not one {key} launch: {delta}")
+        return out
+
+    for dim in (2, 3):
+        for n in ONE_PASS_NS:
+            pos, m = make_inputs(n, dim, False, seed=n + dim + 41, dev=dev)
+            gm = (cfg.G * m).contiguous()
+            gm1 = torch.full_like(gm, cfg.G)
+            want_max = hn.max_d2_plain(pos)
+            same(f"max_d2 D={dim} N={n}", hn.max_d2(pos), want_max)
+            softenings = (("0.1", 0.01, False),) + (
+                (("0", 0.0, True),) if n < BIG_N else ())
+            for label, soft, masked in softenings:
+                for mode in MODES:
+                    q = Quantizer.from_string(mode)
+                    case = f"one-pass {mode} D={dim} N={n} soft={label}"
+                    check(hn.sym_design(n, dim, q) == "one_pass",
+                          f"{case}: not routed to the one-pass body")
+                    bounds = force_bounds(q, pos, soft, dev)
+                    got = launched("sym_force", lambda: hn.sym_force(
+                        pos, gm, bounds, q, masked))
+                    want = hn.sym_force_plain(pos, gm, bounds, q, masked)
+                    tallies["sym_force"].hold(case, got, want, lazy_scale(
+                        pos, gm, bounds, q, masked, got, want), q)
+                    same(f"sym_force run to run {case}", got,
+                         hn.sym_force(pos, gm, bounds, q, masked))
+                    if mode not in FUSED_MODES or masked:
+                        continue
+                    for uniform, g in ((False, gm), (True, gm1)):
+                        key = hn._variant("sym_force", uniform, True)
+                        check(hn.sym_design(n, dim, q, fused_max=True)
+                              == "one_pass",
+                              f"{case}: the fused max not routed one-pass")
+                        mx, mx2 = (torch.empty((), device=dev)
+                                   for _ in range(2))
+                        fused = launched(key, lambda: hn.sym_force(
+                            pos, g, bounds, q, False, uniform=uniform,
+                            max_out=mx))
+                        kind = f"{case} uniform={uniform}"
+                        same(f"fused max vs max_d2 {kind}", mx, want_max)
+                        unflagged = (got if not uniform else hn.sym_force(
+                            pos, g, bounds, q, False, uniform=True))
+                        same(f"forces with the fused max {kind}", fused,
+                             unflagged)
+                        plain = (hn.sym_force_uniform_plain(
+                            pos, g, bounds, q, False) if uniform else want)
+                        tallies[key].hold(kind, fused, plain, lazy_scale(
+                            pos, g, bounds, q, False, fused, plain), q)
+                        again = hn.sym_force(pos, g, bounds, q, False,
+                                             uniform=uniform, max_out=mx2)
+                        same(f"fused run to run {kind}",
+                             torch.cat([again.flatten(), mx2[None]]),
+                             torch.cat([fused.flatten(), mx[None]]))
+            del pos, m, gm, gm1
+    pos, m = make_inputs(BIG_N, 2, False, seed=5, dev=dev)
+    gm = (cfg.G * m).contiguous()
+    q = Quantizer.from_string("int4")
+    bounds = force_bounds(q, pos, cfg.softening_sq, dev)
+    mx = torch.empty((), device=dev)
+    for what, fn in (
+            ("sym_force", lambda: (hn.sym_force(pos, gm, bounds, q,
+                                                False),)),
+            ("sym_force_max", lambda: (hn.sym_force(
+                pos, gm, bounds, q, False, max_out=mx), mx.clone())),
+            ("sym_force_uniform_max", lambda: (hn.sym_force(
+                pos, gm * 0 + cfg.G, bounds, q, False, uniform=True,
+                max_out=mx), mx.clone()))):
+        same_over_launches(fn, f"{what} N={BIG_N} int4")
+    torch.cuda.synchronize()
+    for name, tally in tallies.items():
+        tally.report(f"{name} (one-pass body)", report[name])
+    print(f"kernels: the one-pass general sym_force and fused max at "
+          f"{ONE_PASS_NS}, D in {{2,3}}: fused max bitwise max_d2, forces "
+          f"bitwise the unflagged launch, run to run: {len(fails)} "
+          f"failures; bitwise over {LAUNCH_RUNS} launches at N={BIG_N} int4")
+    check(not fails, "not bitwise: " + "; ".join(fails))
+
+
+PAIR_MAX_SETS = (32768, 32771)   # disjoint sets for the scattered layout
+
+
+def kernels_pair_max(dev, report: dict) -> None:
+    """pair_max's register-tiled launch bitwise its plain version and its
+    earlier two launches (parent=True), D in {2,3}, on the layouts the ring
+    gives it: one set of 131072, all valid (and bitwise max_d2); the
+    131075-over-S=4 phantom layout (shards of 32769, the phantom at the
+    last shard's tail), every shard pair that touches the last shard;
+    disjoint sets with a third of the rows invalid at random; no valid
+    receiver, and no valid source (0). Bitwise over LAUNCH_RUNS launches at
+    131072^2."""
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+    from nbody_tpu_torch.parallel import ring
+
+    fails, cases = [], 0
+    gen = torch.Generator().manual_seed(17)
+    for dim in (2, 3):
+        pos, _ = make_inputs(BIG_N, dim, False, seed=dim + 51, dev=dev)
+        ones = torch.ones(BIG_N, dtype=torch.bool, device=dev)
+        runs = [("131072 one set, all valid", pos, pos, ones, ones)]
+        n_total, shards = BIG_N + 3, 4
+        extra, _ = make_inputs(3, dim, False, seed=dim, dev=dev)
+        padded = ring._pad_to_shards(torch.cat([pos, extra]), shards,
+                                     fill=ring._PAD_FAR)
+        valid = torch.arange(padded.shape[0], device=dev) < n_total
+        size = padded.shape[0] // shards
+        sh = [(padded[k * size:(k + 1) * size], valid[k * size:(k + 1) * size])
+              for k in range(shards)]
+        for a, b in ((3, 3), (3, 0), (0, 3), (1, 3)):
+            runs.append((f"{n_total} over S={shards}, shards {a}x{b}",
+                         sh[a][0], sh[b][0], sh[a][1], sh[b][1]))
+        n_i, n_j = PAIR_MAX_SETS
+        xi, xj = pos[:n_i], pos[n_i:n_i + n_j]
+        vi = (torch.rand(n_i, generator=gen) < 0.67).to(dev)
+        vj = (torch.rand(n_j, generator=gen) < 0.67).to(dev)
+        none_i = torch.zeros(n_i, dtype=torch.bool, device=dev)
+        none_j = torch.zeros(n_j, dtype=torch.bool, device=dev)
+        runs += [(f"{n_i}x{n_j} scattered invalid rows", xi, xj, vi, vj),
+                 (f"{n_i}x{n_j} no valid receiver", xi, xj, none_i, vj),
+                 (f"{n_i}x{n_j} no valid source", xi, xj, vi, none_j)]
+        for label, a, b, va, vb in runs:
+            case = f"pair_max D={dim} {label}"
+            cases += 1
+            before = hn.LAUNCHES["pair_max"]
+            got = hn.pair_max(a, b, va, vb)
+            check(hn.LAUNCHES["pair_max"] == before + 1,
+                  f"{case}: not one pair_max count")
+            want = hn.pair_max_plain(a, b, va, vb)
+            old = hn.pair_max(a, b, va, vb, parent=True)
+            if not (bitwise(got, want) and bitwise(got, old)):
+                fails.append(f"{case}: {got.item()!r}, plain "
+                             f"{want.item()!r}, earlier {old.item()!r}")
+            if "no valid" in label and got.item() != 0.0:
+                fails.append(f"{case}: {got.item()!r} != 0")
+        if not bitwise(hn.pair_max(pos, pos, ones, ones), hn.max_d2(pos)):
+            fails.append(f"pair_max D={dim} 131072 one set vs max_d2")
+        del pos, padded, sh, xi, xj
+    pos, _ = make_inputs(BIG_N, 2, False, seed=53, dev=dev)
+    ones = torch.ones(BIG_N, dtype=torch.bool, device=dev)
+    same_over_launches(lambda: (hn.pair_max(pos, pos, ones, ones),),
+                       f"pair_max {BIG_N}^2")
+    print(f"kernels: pair_max register-tiled bitwise its plain version and "
+          f"its earlier two launches in {cases} cases (all valid, the "
+          f"131075-over-S=4 phantoms, scattered invalid rows, none valid; "
+          f"D in {{2,3}}): {len(fails)} failures; bitwise over "
+          f"{LAUNCH_RUNS} launches at {BIG_N}^2")
+    check(not fails, "\n  ".join(fails))
+    report["pair_max"].update(max_abs_err=0.0, cases=cases)
+
+
 EQUAL_NS = (4096, 32768)   # multiples of TILE: the equal-mass variants run
 R4_NS = (3072, 12288)      # multiples of 192 and 128: every round-4 variant
 RAGGED_N = 4100            # not one: the flag must give the general bits
@@ -950,7 +1177,7 @@ def kernels_equal_mass(dev, report: dict) -> None:
                                       uniform=True))
                     old = hn.sym_force(pos, gm, bounds, q, masked,
                                        uniform=True, parent=True)
-                    if hn.sym_design(n, dim, q, True) == "one_pass":
+                    if hn.sym_design(n, dim, q) == "one_pass":
                         # another summation order: the earlier design is
                         # held to the plain version as a kernel of its own
                         tallies["sym_force_uniform"].hold(
@@ -1019,10 +1246,13 @@ def kernels_equal_mass(dev, report: dict) -> None:
                     got = hn.sym_force(pos, gm, bounds, q, False,
                                        uniform=uniform, max_out=mx)
                     same(f"fused max {case}", mx, want_max)
-                    # the unflagged launch of the same two-pass tile
+                    # the unflagged launch of the same design (the
+                    # one-pass body past 256 tiles, else the T x T grid's
+                    # tile, bitwise the triangle's)
+                    unflagged = hn.sym_force(pos, gm, bounds, q, False,
+                                             uniform=uniform)
                     same(f"forces with the fused max {case}", got,
-                         hn.sym_force(pos, gm, bounds, q, False,
-                                      uniform=uniform, parent=True))
+                         unflagged)
                     plain = (hn.sym_force_uniform_plain if uniform
                              and n % hn.TILE == 0 else hn.sym_force_plain)
                     tallies[key].hold(case, got, plain(pos, gm, bounds, q,
@@ -1044,7 +1274,10 @@ def kernels_equal_mass(dev, report: dict) -> None:
                                        uniform=uniform, skip=one * 0,
                                        count=count)
                     check(count.item() == 1, f"skip=0 not counted: {case}")
-                    same(f"skip=0 forces {case}", ran, got)
+                    # the walk: the two-pass tile's bits
+                    same(f"skip=0 forces {case}", ran,
+                         hn.sym_force(pos, gm, bounds, q, False,
+                                      uniform=uniform, parent=True))
             acc, mxs = hn.sym_accelerations(
                 pos, m, Quantizer.from_string("int4"), cfg,
                 log_lo=bounds[0], log_hi=bounds[1], uniform_gm=True,
@@ -1136,6 +1369,47 @@ def row_design(hn, design: str):
         hn.ROW_DESIGN = saved
 
 
+@contextlib.contextmanager
+def pair_max_design(hn, design: str):
+    """Runs the pair_max launches inside in ``design``: "tiled" (the
+    register-tiled launch, the wrapper's default) or "two_launch" (the
+    earlier design, parent=True), for an A/B of a whole path."""
+    saved = hn.pair_max
+    if design == "two_launch":
+        hn.pair_max = functools.partial(saved, parent=True)
+    try:
+        yield
+    finally:
+        hn.pair_max = saved
+
+
+@contextlib.contextmanager
+def sym_design_routes(hn, design: str):
+    """Runs the sym_force launches inside in ``design``: "one_pass" (the
+    wrapper's rule) or "two_pass" (the earlier routes: a general or
+    fused-max launch that the rule sends to the one-pass body takes the
+    T x T grid of the two-pass tile, parent=True; the equal-mass
+    unflagged launches keep the one-pass body), for an A/B of a whole
+    path against its parent's routes."""
+    saved = hn.sym_force
+    if design == "two_pass":
+        def sym_force(pos, gm, bounds, q, self_masked, uniform=False,
+                      max_out=None, skip=None, count=None, parent=False):
+            n, dim = pos.shape
+            equal = uniform and n % hn.TILE == 0
+            moved = (max_out is not None or not equal) and hn.sym_design(
+                n, dim, q, skip is not None or count is not None,
+                fused_max=max_out is not None) == "one_pass"
+            return saved(pos, gm, bounds, q, self_masked, uniform=uniform,
+                         max_out=max_out, skip=skip, count=count,
+                         parent=parent or moved)
+        hn.sym_force = sym_force
+    try:
+        yield
+    finally:
+        hn.sym_force = saved
+
+
 def one_pass_shapes(dev, tallies: dict, same) -> None:
     """The one-pass design of sym_force_uniform and pair_sym_force_uniform
     against their plain versions at odd multiples of 64 (N in ODD_NS and
@@ -1164,7 +1438,7 @@ def one_pass_shapes(dev, tallies: dict, same) -> None:
                     q = Quantizer.from_string(mode)
                     for n in ns:
                         p1, g1 = pos[:n], gm[:n]
-                        check(hn.sym_design(n, dim, q, True) == "one_pass",
+                        check(hn.sym_design(n, dim, q) == "one_pass",
                               f"N={n}: not routed to the one-pass design")
                         for label, soft, masked in (("0.1", 0.01, False),
                                                     ("0", 0.0, True)):
@@ -1332,14 +1606,17 @@ def radius90(pos) -> float:
     return float(np.percentile(r, 90))
 
 
-def phase_gate(dev, mesh=None, label: str = "gate") -> None:
-    """The reference gate, single-device or (``mesh``) on the ring."""
+def phase_gate(dev, mesh=None, label: str = "gate",
+               modes=GATE_MODES) -> None:
+    """The reference gate, single-device or (``mesh``) on the ring, each
+    mode held to its cached torch-reference run and to its row in
+    GATE_ROWS."""
     from nbody_tpu_torch.models.direct import DirectSimulation
     from nbody_tpu_torch.models.galaxy import load_disk_fixture
 
     pos, vel, m = load_disk_fixture(STARS, 42, device=dev)
     fails = []
-    for mode in ("float32", "int4", "float64"):
+    for mode in modes:
         t0 = time.time()
         sim = DirectSimulation(pos, vel, m, precision=mode, device=dev,
                                mesh=mesh)
@@ -1351,10 +1628,11 @@ def phase_gate(dev, mesh=None, label: str = "gate") -> None:
         print(f"{label}: {mode}: drift per snapshot (%) ours "
               f"{[round(float(d), 6) for d in drifts]}")
         agree, text = gate_rule(mode, drifts, our_pos)
-        same = f"{drifts[-1]:+.6f}" == f"{GATE_ROWS[mode]:+.6f}"
+        row = GATE_ROWS.get(mode)
+        same = row is not None and f"{drifts[-1]:+.6f}" == f"{row:+.6f}"
         print(f"{label}: {mode}: {text}; {wall:.1f}s; "
-              f"{'bit for bit' if same else 'NOT'} the row of PRs 1-3 "
-              f"({GATE_ROWS[mode]:+.6f}%)")
+              f"{'bit for bit' if same else 'NOT'} its recorded row ("
+              f"{'none' if row is None else f'{row:+.6f}%'})")
         if not (agree and same):
             fails.append(mode)
     check(not fails, f"{label}: reference gate DISAGREE or rows moved for "
@@ -1365,7 +1643,8 @@ def gate_rule(mode: str, drifts, final_pos) -> tuple:
     """The rule of tools/reference_parity.py:258-269 against the cached
     torch-reference run of ``mode`` at 5000 x 2000: (agree, summary)."""
     cache = REPO / "tools" / "reference_cache"
-    stem = f"ref_s{STARS}_t{TICKS}_i{INTERVAL}_seed42_{mode}"
+    stem = (f"ref_s{STARS}_t{TICKS}_i{INTERVAL}_seed42_"
+            f"{CACHE_STEMS.get(mode, mode)}")
     ref = json.loads((cache / f"{stem}.json").read_text())
     perm_path = cache / f"{stem}_perm.json"
     ref_perm = (json.loads(perm_path.read_text())
@@ -1535,7 +1814,7 @@ def perf_main_shapes(dev, report: dict) -> None:
 def design_ab(report: dict, key: str, shape: str, args: tuple, mode: str,
               dim: int) -> tuple:
     """A sym kernel that has a one-pass design (the equal-mass variants,
-    and the general pair_sym_force) at one timed shape, ``args`` its
+    the general sym_force and pair_sym_force) at one timed shape, ``args`` its
     wrapper's positional arguments (sym_force: pos, gm, bounds, q,
     self_masked; pair_sym_force: pos_a, gm_a, pos_b, gm_b, bounds, q): the
     earlier two-pass design and the one-pass design in turns (old, new,
@@ -1570,7 +1849,7 @@ def design_ab(report: dict, key: str, shape: str, args: tuple, mode: str,
         n = args[0].shape[0]
         work = (n * (n - 1) / 2, pair_ops(OWN_OPS[key], dim, mode),
                 sym_bytes(n, dim))
-        design = hn.sym_design(n, dim, q, uniform)
+        design = hn.sym_design(n, dim, q)
         scratch = (hn.sym_force_scratch_bytes(n, dim),
                    hn.sym_one_pass_scratch(n, dim))
     scratch = (scratch[0], sum(4 * math.prod(s) for s in scratch[1]))
@@ -1578,6 +1857,7 @@ def design_ab(report: dict, key: str, shape: str, args: tuple, mode: str,
     t0 = time.time()
     want = {"pair_sym_force": hn.pair_sym_force_plain,
             "pair_sym_force_uniform": hn.pair_sym_force_uniform_plain,
+            "sym_force": hn.sym_force_plain,
             "sym_force_uniform": hn.sym_force_uniform_plain}[key](*args)
     torch.cuda.synchronize()
     plain_ms = (time.time() - t0) * 1e3
@@ -1725,7 +2005,7 @@ def phase_perf(dev, report: dict) -> None:
                 if (fused and not q.is_int) or (n == STARS and not fused):
                     continue
                 key = hn._variant("sym_force", uniform, fused)
-                if uniform and not fused:   # N=131072: both designs
+                if not fused:   # N=131072: both designs
                     ms, plain_ms, work = design_ab(
                         report, key, f"N={n} D=2", (pos, gm, bounds, q,
                                                     False), mode, 2)
@@ -1742,50 +2022,53 @@ def phase_perf(dev, report: dict) -> None:
 
                 def plain():
                     plain_fn(pos, gm, bounds, q, False)
-                    if fused:
-                        hn.max_d2_plain(pos)
+                    hn.max_d2_plain(pos)
 
                 def kernel(parent=False):
-                    hn.sym_force(pos, gm, bounds, q, False, uniform=uniform,
-                                 max_out=mx if fused else None,
-                                 parent=parent)
+                    return hn.sym_force(pos, gm, bounds, q, False,
+                                        uniform=uniform, max_out=mx,
+                                        parent=parent)
 
-                if n == STARS:
-                    plain_ms = plain_ms2 = device_ms(plain, 10)[0]
-                    ms = device_ms(kernel)[0]
-                    line = ""
-                else:
-                    plain_ms = cuda_ms(plain, 1)
-                    if fused:
-                        ms, line = cuda_ms(kernel, 3), ""
-                    else:
-                        olds, news = in_turns(
-                            lambda f: cuda_ms(f, 3),
-                            lambda: kernel(True), kernel)
-                        ms = sum(news) / 2
-                        line = (f"; {hn.sym_schedule(n)} grid "
-                                f"{news[0]:.4f} / {news[1]:.4f} against the "
-                                f"square {olds[0]:.4f} / {olds[1]:.4f} "
-                                f"({ms / (sum(olds) / 2) - 1:+.2%})")
-                        if (key, n, mode) in timed:
-                            report[key].update(
-                                schedule=hn.sym_schedule(n),
-                                old_schedule="square",
-                                old_schedule_ms=sum(olds) / 2)
-                    plain_ms2 = cuda_ms(plain, 1)
                 work = (n * (n - 1) / 2,
                         pair_ops(OWN_OPS[key], 2, mode),
                         sym_bytes(n, 2, fused))
+                b_ms = bound(*work)[0]
+                line = ""
+                if n == STARS:
+                    plain_ms = plain_ms2 = device_ms(plain, 10)[0]
+                    ms = device_ms(kernel)[0]
+                else:   # both designs in turns, the one-pass body's
+                    # max bitwise max_d2's, its forces the unflagged's
+                    check(bitwise(kernel(), hn.sym_force(
+                        pos, gm, bounds, q, False, uniform=uniform))
+                          and bitwise(mx, hn.max_d2(pos)),
+                          f"{key} N={n}: the fused max or its forces")
+                    plain_ms = cuda_ms(plain, 1)
+                    olds, news = in_turns(lambda f: cuda_ms(f, 3),
+                                          lambda: kernel(True), kernel)
+                    ms, old_ms = sum(news) / 2, sum(olds) / 2
+                    line = (f"; {hn.sym_design(n, 2, q, fused_max=True)}"
+                            f" {news[0]:.4f} / {news[1]:.4f} against the "
+                            f"square {olds[0]:.4f} / {olds[1]:.4f} "
+                            f"({ms / old_ms - 1:+.2%}); share of the bound "
+                            f"{b_ms / old_ms:.1%} -> {b_ms / ms:.1%}")
+                    if (key, n, mode) in timed:
+                        report[key].update(
+                            design="one_pass", old_design="square",
+                            old_design_ms=old_ms)
+                    report[key].setdefault("designs", []).append(
+                        {"shape": f"N={n} D=2", "mode": mode,
+                         "two_pass_ms": old_ms, "one_pass_ms": ms,
+                         "bound_ms": b_ms})
+                    plain_ms2 = cuda_ms(plain, 1)
                 print(f"perf: {key} N={n} D=2 {mode}: kernel {ms:.4f} ms, "
                       f"plain {min(plain_ms, plain_ms2):.4f} ms (plain "
                       f"runs {plain_ms:.4f} / {plain_ms2:.4f}), bound "
-                      f"{bound(*work)[0]:.4f} ms"
+                      f"{b_ms:.4f} ms"
                       f"{' (device time)' if n == STARS else ''}{line}")
                 if (key, n, mode) in timed:
                     set_timing(report[key], ms, min(plain_ms, plain_ms2),
                                f"N={n} D=2 {mode}", *work)
-                    if fused:   # the fused max runs on the T x T grid only
-                        report[key]["schedule"] = "square"
         if n == BIG_N:
             plain_ms = cuda_ms(lambda: hn.max_d2_plain(pos), 3)
             ms = cuda_ms(lambda: hn.max_d2(pos), 3)
@@ -1824,10 +2107,9 @@ def phase_perf(dev, report: dict) -> None:
     # The row sweep at N=131072 in both designs (its plain version at the
     # 1M path's shape takes minutes; --phases scale has it), then the N=1M
     # path's chunk shapes: sym_force on one chunk and the pair tile on a
-    # chunk pair (D=2 chunk 209728 and D=3 174784), the general sym_force
-    # (its plain version at D=2 float32), the general pair tile and the
-    # equal-mass variants in both designs (design_ab: in turns, each held
-    # to its plain version).
+    # chunk pair (D=2 chunk 209728 and D=3 174784), the general sym_force,
+    # the general pair tile and the equal-mass variants in both designs
+    # (design_ab: in turns, each held to its plain version).
     row_ab(dev, report)
     for dim in (2, 3):
         chunk = hn.sym_chunk_size(LARGE_N, dim)
@@ -1838,24 +2120,14 @@ def phase_perf(dev, report: dict) -> None:
             q = Quantizer.from_string(mode)
             bounds = force_bounds(q, pos, cfg.softening_sq, dev)
             with_plain = dim == 2 and mode == "float32"
-            ops = pair_ops("sym_gm", dim, mode)
-            pairs, nbytes = chunk * (chunk - 1) / 2, sym_bytes(chunk, dim)
-            ms = cuda_ms(lambda: hn.sym_force(pa, ga, bounds, q, False), 3)
-            line = (f"perf: sym_force N={chunk} D={dim} {mode} (the N=1M "
-                    f"path's chunk shape): kernel {ms:.4f} ms, bound "
-                    f"{bound(pairs, ops, nbytes)[0]:.4f} ms (pair_ops "
-                    f"sym_gm)")
-            if with_plain:
-                plain_ms = min(cuda_ms(lambda: hn.sym_force_plain(
-                    pa, ga, bounds, q, False), 1, 0) for _ in range(2))
-                line += f", plain {plain_ms:.4f} ms"
-            print(line)
-            # The general pair tile with unequal masses (the chunk pair's
+            # The general kernels with unequal masses (the chunk pair's
             # own G m), then the equal-mass variants.
             gu = (cfg.G * (1.0 + torch.rand(
                 2 * chunk, generator=torch.Generator().manual_seed(dim)))
                   ).to(dev).contiguous()
             for key, shape, args in (
+                    ("sym_force", f"N={chunk} D={dim}",
+                     (pa, gu[:chunk], bounds, q, False)),
                     ("pair_sym_force", f"{chunk}x{chunk} D={dim}",
                      (pa, gu[:chunk], pb, gu[chunk:], bounds, q)),
                     ("sym_force_uniform", f"N={chunk} D={dim}",
@@ -1969,10 +2241,13 @@ def phase_large(dev, report: dict) -> None:
             # The general kernels, then the equal-mass variants, each in
             # their two designs in turns (two-pass, one-pass, one-pass,
             # two-pass), from the same ICs: the general ones for
-            # LARGE_STEPS steps, the equal-mass ones for EQUAL_AB_STEPS
-            # (the run's time limit). Every chunk is a multiple of
-            # TILE (209728 / 209664 at D=2, 174784 / 174656 at D=3), so
-            # the one-pass rule takes every pair tile of either kind.
+            # LARGE_STEPS steps, their "two-pass" the earlier routes of
+            # sym_force alone (the T x T grid; sym_design_routes), the
+            # pair tile one-pass in both; the equal-mass ones for
+            # EQUAL_AB_STEPS (the run's time limit), their "two-pass" both
+            # kernels' two-pass tile (equal_mass_design). Every chunk is a
+            # multiple of TILE (209728 / 209664 at D=2, 174784 / 174656 at
+            # D=3), so the one-pass rule takes every launch of either kind.
             finals, walls = {}, {}
             for uniform in (False, True):
                 steps = EQUAL_AB_STEPS if uniform else LARGE_STEPS
@@ -1987,7 +2262,9 @@ def phase_large(dev, report: dict) -> None:
                     fence(state.positions)
                     reset_counters(hn)
                     t0 = time.time()
-                    with equal_mass_design(hn, design):
+                    routes = (equal_mass_design if uniform
+                              else sym_design_routes)
+                    with routes(hn, design):
                         state = run_steps(state, q, cfg, "auto", q.is_int,
                                           steps, uniform_gm=uniform)
                         fence(state.positions)
@@ -2010,8 +2287,9 @@ def phase_large(dev, report: dict) -> None:
                                             f"{want}")
                     print(f"large: D={dim} {mode} {label}: force path "
                           f"{force_path(launched)}")
-                    for k in (sym, pair):
-                        report[k]["launches"] += launched[k]
+                    if design == "one_pass":
+                        for k in (sym, pair):
+                            report[k]["launches"] += launched[k]
                     if q.is_int:
                         print(f"large: D={dim} {mode} {label}: the pruned "
                               f"bounds pass took its full-set fallback in "
@@ -2022,7 +2300,7 @@ def phase_large(dev, report: dict) -> None:
                     if design == "one_pass":
                         finals[uniform] = state
                     del state
-                key = "sym_force_uniform" if uniform else "pair_sym_force"
+                key = "sym_force_uniform" if uniform else "sym_force"
                 kind = "equal-mass" if uniform else "general"
                 old, new = walls[(uniform, "two_pass")], walls[(uniform,
                                                                 "one_pass")]
@@ -2332,7 +2610,23 @@ def ring_tiles(dev, report: dict) -> None:
         for name, kernel, plain in runs:
             plain_ms = cuda_ms(keep(plain, "plain"), 1)
             line = ""
-            if name == "pair_force":   # both designs in turns
+            if name == "pair_max":   # both designs in turns
+                olds, news = in_turns(
+                    lambda f: cuda_ms(f, 5),
+                    keep(lambda: hn.pair_max(pos, pos, ones, ones,
+                                             parent=True), "earlier"),
+                    keep(kernel, "kernel"))
+                ms, old_ms = sum(news) / 2, sum(olds) / 2
+                b_ms = bound(BIG_N ** 2, pair_ops("max", 2, mode),
+                             4 * 4 * BIG_N + 2 * BIG_N + 4)[0]
+                line = (f"; two launches {olds[0]:.4f} / {olds[1]:.4f} ms, "
+                        f"register-tiled {news[0]:.4f} / {news[1]:.4f} ms "
+                        f"({ms / old_ms - 1:+.2%}); bound {b_ms:.4f} ms "
+                        f"({b_ms / old_ms:.1%} / {b_ms / ms:.1%} of it)")
+                report[name].update(design="tiled",
+                                    old_design="two_launch",
+                                    old_design_ms=old_ms)
+            elif name == "pair_force":   # both designs in turns
                 olds, news = in_turns(
                     lambda f: cuda_ms(f, 3),
                     keep(lambda: hn.pair_force(pos, pos, gm, q, cfg, lo, hi,
@@ -2375,19 +2669,23 @@ def ring_tiles(dev, report: dict) -> None:
             elif name == "pair_max":
                 hold_max(f"{shape} vs plain", got, want)
                 hold_max(f"{shape} vs max_d2", got, hn.max_d2(pos))
+                hold_max(f"{shape} two launches", out["earlier"], want)
             else:
                 hold_pe(f"{shape} eps^2={cfg.softening_sq}", got, want,
                         BIG_N)
             out.clear()
             del got, want
     del pos, m, gm, ones, ids
+    pair_max_shard_ab(dev, report)
 
     torch.cuda.synchronize()
     force.report("pair_force", report["pair_force"])
     print(f"ring: pair_max bitwise vs plain (and vs max_d2 on one set) in "
           f"{max_cases} cases: {len(max_fail)} failures")
     check(not max_fail, "\n  ".join(max_fail))
-    report["pair_max"].update(max_abs_err=0.0, cases=max_cases)
+    report["pair_max"].update(
+        max_abs_err=0.0,
+        cases=(report["pair_max"].get("cases") or 0) + max_cases)
     print(f"ring: pair_pe_rows vs plain in {pe_cases} cases, |err| <= "
           f"2 (128 + tiles + 4) 2^-24 |row|: {len(pe_fail)} failures; worst "
           f"err/bound {pe_worst[0]:.4f} ({pe_worst[1]})")
@@ -2397,15 +2695,49 @@ def ring_tiles(dev, report: dict) -> None:
                                   cases=pe_cases)
 
 
+def pair_max_shard_ab(dev, report: dict) -> None:
+    """pair_max at the shard shape of 131075 over S=4 (32769^2, the
+    phantom at the last shard's tail), D=2: the earlier two launches and
+    the register-tiled launch in turns (CUDA events), bitwise each other
+    and the plain version; the bound by the valid pairs."""
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+    from nbody_tpu_torch.parallel import ring
+
+    n_total, shards = BIG_N + 3, 4
+    pos, _ = make_inputs(n_total, 2, False, seed=61, dev=dev)
+    padded = ring._pad_to_shards(pos, shards, fill=ring._PAD_FAR)
+    size = padded.shape[0] // shards
+    valid = torch.arange(padded.shape[0], device=dev) < n_total
+    a, b = padded[:size], padded[-size:]
+    va, vb = valid[:size], valid[-size:]
+    old, new = (lambda: hn.pair_max(a, b, va, vb, parent=True),
+                lambda: hn.pair_max(a, b, va, vb))
+    check(bitwise(old(), new()) and bitwise(new(), hn.pair_max_plain(
+        a, b, va, vb)), "pair_max at the S=4 shard shape: designs differ")
+    olds, news = in_turns(lambda f: cuda_ms(f, 20), old, new)
+    ms, old_ms = sum(news) / 2, sum(olds) / 2
+    pairs = int(va.sum()) * int(vb.sum())
+    b_ms = bound(pairs, pair_ops("max", 2, ""), 4 * 4 * size + 2 * size + 4)[0]
+    print(f"ring: time pair_max {size}x{size} D=2 (shards 0 x {shards - 1} "
+          f"of {n_total} over S={shards}): two launches {olds[0]:.4f} / "
+          f"{olds[1]:.4f} ms, register-tiled {news[0]:.4f} / {news[1]:.4f} "
+          f"ms ({ms / old_ms - 1:+.2%}); bound {b_ms:.4f} ms ("
+          f"{b_ms / old_ms:.1%} / {b_ms / ms:.1%} of it); grid "
+          f"{hn.pair_max_segments(size, size)}")
+    report["pair_max"]["shard_ab"] = {
+        "shape": f"{size}x{size}", "two_launch_ms": old_ms, "tiled_ms": ms,
+        "bound_ms": b_ms}
+
+
 def ring_cli(dev, report: dict) -> None:
     """``python -m nbody_tpu_torch --stars 131072 --ticks 200 --compare
     float32,int4 --mesh`` and its ``--schedule rows`` twin through
     cli.main, with the launch counters read around each: a mesh of the one
     card, so per mode 201 force evaluations (the entry force and 200
-    ticks) and 2 energy passes, each of one tile. The sym schedule runs in
-    both designs of its equal-mass tile, the earlier two-pass one first;
-    the rows schedule in both designs of pair_force, the earlier kernel
-    first."""
+    ticks) and 2 energy passes, each of one tile. Each schedule runs in
+    both designs of pair_max (the int modes' bounds pass) in turns: the
+    earlier two launches, the register-tiled launch (float32 and int4),
+    the register-tiled launch and the earlier two launches (int4)."""
     from nbody_tpu_torch import cli
     from nbody_tpu_torch.ops import hopper_nbody as hn
 
@@ -2413,70 +2745,75 @@ def ring_cli(dev, report: dict) -> None:
     totals = {"sym_force_uniform": 0, "pair_force": 0, "pair_max": 0,
               "pair_pe_rows": 0}
     rates = {}
-    for schedule, design in (("sym", "two_pass"), ("sym", "one_pass"),
-                             ("rows", "per_receiver"), ("rows", "tiled")):
-        argv = ["--device", str(dev), "--stars", str(BIG_N), "--ticks",
-                str(RING_TICKS), "--snapshot-interval", str(RING_INTERVAL),
-                "--mesh", "--schedule", schedule, "--compare",
-                "float32,int4", "--output",
-                str(REPO / "output" / "chip_smoke_ring")]
-        print(f"ring: nbody_tpu_torch.cli.main({argv})")
-        reset_counters(hn)
-        tee = Tee(sys.stdout)
-        old, sys.stdout = sys.stdout, tee
-        try:
-            with equal_mass_design(hn, "two_pass" if design == "two_pass"
-                                   else "one_pass"), \
-                    row_design(hn, "per_receiver" if design == "per_receiver"
-                               else "tiled"):
-                histories = cli.main(argv)
-        finally:
-            sys.stdout = old
-        for k in totals:
-            totals[k] += hn.LAUNCHES[k]
-        text = tee.buf.getvalue()
-        check(f"Mesh: 1 device(s), schedule={schedule}" in text,
-              f"{schedule}: no mesh line")
-        for block in text.split("Running simulation: ")[1:]:
-            mode = block.split()[0]
-            launched = json.loads(re.search(r"kernel launches: (\{.*\})",
-                                            block).group(1))
-            rate = re.search(r"(\d+) ticks in ([\d.]+)s \(([\d.]+) ticks/s",
-                             block)
-            path = re.search(r"force path: (.*)", block).group(1)
-            is_int = mode == "int4_sim"
-            want = dict.fromkeys(hn.LAUNCHES, 0)
-            want["pair_pe_rows"] = passes
-            want["pair_max"] = evals if is_int else 0
-            # Equal masses, N % 1 == 0 and 131072 % 64 == 0: the sym
-            # schedule's diagonal is the equal-mass variant.
-            want["sym_force_uniform" if schedule == "sym"
-                 else "pair_force"] = evals
-            print(f"ring: --schedule {schedule} ({design}) {mode}: "
-                  f"{rate.group(1)} ticks in {rate.group(2)}s "
-                  f"({rate.group(3)} ticks/s); launches {launched}; force "
-                  f"path: {path}")
-            rates[(design, mode)] = float(rate.group(3))
-            check(launched == want, f"{schedule} {mode}: launches "
-                                    f"{launched}, expected {want}")
-            check(path.startswith(f"ring, {'rows' if schedule == 'rows' else 'sym'}"),
-                  f"{schedule} {mode}: force path {path!r}")
-        for mode, h in histories.items():
-            check(len(h.total_energy) == passes + 1
-                  and np.isfinite(h.total_energy).all(),
-                  f"{schedule} {mode}: history not finite / wrong length")
+    for schedule in ("sym", "rows"):
+        for turn, design in enumerate(("two_launch", "tiled", "tiled",
+                                       "two_launch")):
+            modes = "float32,int4" if turn == 1 else "int4"
+            argv = ["--device", str(dev), "--stars", str(BIG_N), "--ticks",
+                    str(RING_TICKS), "--snapshot-interval",
+                    str(RING_INTERVAL), "--mesh", "--schedule", schedule,
+                    "--compare", modes, "--output",
+                    str(REPO / "output" / "chip_smoke_ring")]
+            print(f"ring: nbody_tpu_torch.cli.main({argv}), pair_max "
+                  f"{design}")
+            reset_counters(hn)
+            tee = Tee(sys.stdout)
+            old, sys.stdout = sys.stdout, tee
+            try:
+                with pair_max_design(hn, design):
+                    histories = cli.main(argv)
+            finally:
+                sys.stdout = old
+            for k in totals:
+                if k != "pair_max" or design == "tiled":
+                    totals[k] += hn.LAUNCHES[k]
+            text = tee.buf.getvalue()
+            check(f"Mesh: 1 device(s), schedule={schedule}" in text,
+                  f"{schedule}: no mesh line")
+            for block in text.split("Running simulation: ")[1:]:
+                mode = block.split()[0]
+                launched = json.loads(re.search(
+                    r"kernel launches: (\{.*\})", block).group(1))
+                rate = re.search(r"(\d+) ticks in ([\d.]+)s \(([\d.]+) "
+                                 r"ticks/s", block)
+                path = re.search(r"force path: (.*)", block).group(1)
+                is_int = mode == "int4_sim"
+                want = dict.fromkeys(hn.LAUNCHES, 0)
+                want["pair_pe_rows"] = passes
+                want["pair_max"] = evals if is_int else 0
+                # Equal masses, N % 1 == 0 and 131072 % 64 == 0: the sym
+                # schedule's diagonal is the equal-mass variant.
+                want["sym_force_uniform" if schedule == "sym"
+                     else "pair_force"] = evals
+                print(f"ring: --schedule {schedule} (pair_max {design}) "
+                      f"{mode}: {rate.group(1)} ticks in {rate.group(2)}s "
+                      f"({rate.group(3)} ticks/s); launches {launched}; "
+                      f"force path: {path}")
+                rates.setdefault((schedule, design, mode), []).append(
+                    float(rate.group(3)))
+                check(launched == want, f"{schedule} {mode}: launches "
+                                        f"{launched}, expected {want}")
+                check(path.startswith(f"ring, {schedule}"),
+                      f"{schedule} {mode}: force path {path!r}")
+            for mode, h in histories.items():
+                check(len(h.total_energy) == passes + 1
+                      and np.isfinite(h.total_energy).all(),
+                      f"{schedule} {mode}: history not finite / wrong "
+                      f"length")
     for k, n in totals.items():
         report[k]["launches"] += n
         check(n > 0, f"{k} was never launched on the mesh path")
-    modes = sorted({m for _, m in rates})
-    for key, (old, new) in (("sym_force_uniform", ("two_pass", "one_pass")),
-                            ("pair_force", ("per_receiver", "tiled"))):
-        print(f"ring: --mesh 131072 x 200, {key}'s schedule ticks/s, {old} "
-              f"-> {new}: " + ", ".join(
-                  f"{m} {rates[(old, m)]} -> {rates[(new, m)]}"
-                  for m in modes))
-        report[key]["mesh_ticks_per_s"] = {
-            m: {d: rates[(d, m)] for d in (old, new)} for m in modes}
+    ticks = {}
+    for schedule in ("sym", "rows"):
+        old, new = (rates[(schedule, d, "int4_sim")]
+                    for d in ("two_launch", "tiled"))
+        print(f"ring: --mesh {BIG_N} x {RING_TICKS} --schedule {schedule} "
+              f"int4 ticks/s, pair_max two launches {old[0]} / {old[1]}, "
+              f"register-tiled {new[0]} / {new[1]}; float32 "
+              f"{rates[(schedule, 'tiled', 'float32')][0]}")
+        ticks[schedule] = {"two_launch": sum(old) / 2,
+                           "tiled": sum(new) / 2}
+    report["pair_max"]["mesh_int4_ticks_per_s"] = ticks
 
 
 def ring_virtual(dev, report: dict) -> None:
@@ -2735,7 +3072,7 @@ def phase_ring(dev, report: dict) -> None:
                        ("equal masses", lambda: ring_equal_mass(dev)),
                        ("gate", lambda: phase_gate(
                            dev, ring.make_particle_mesh(1, dev),
-                           "ring: gate, mesh of 1")),
+                           "ring: gate, mesh of 1", RING_GATE_MODES)),
                        ("large", lambda: ring_large(dev))):
         t = time.time()
         part()
@@ -2804,11 +3141,21 @@ def phase_cached(dev, report: dict) -> None:
         e0 = float(metrics.total_energy(state.positions, state.velocities,
                                         state.masses, cfg))
         out = {}
-        for mode in ("exact", "cached", "exact"):
-            st, snaps, wall, launched = cached_run(state, q, cfg, ticks,
-                                                   interval, mode, dev)
+        # Past 256 tiles the fused max runs on the one-pass body: cached
+        # bounds in both designs in turns (sym_design_routes), the
+        # earlier T x T grid's fused max first.
+        runs = (("exact", "one_pass"),) + (
+            (("cached", "one_pass"),) if n <= hn.TRIANGLE_MAX_TILES * hn.TILE
+            else tuple(("cached", d) for d in ("two_pass", "one_pass",
+                                               "one_pass", "two_pass"))
+        ) + (("exact", "one_pass"),)
+        for mode, design in runs:
+            with sym_design_routes(hn, design):
+                st, snaps, wall, launched = cached_run(state, q, cfg, ticks,
+                                                       interval, mode, dev)
             drift = (float(snaps.total[-1]) - e0) / abs(e0) * 100.0
-            out.setdefault(mode, []).append(wall)
+            out.setdefault(mode if mode == "exact" else design,
+                           []).append(wall)
             if mode == "exact":
                 fallbacks = hn.bounds_fallbacks(dev)
                 continue
@@ -2816,7 +3163,8 @@ def phase_cached(dev, report: dict) -> None:
             redo = hn.redo_launches(dev)
             fused = hn._variant("sym_force", uniform, True)
             plain = hn._variant("sym_force", uniform)
-            print(f"cached: {name} N={n} x {ticks}: violations {viol} "
+            print(f"cached: {name} N={n} x {ticks} ({design} fused max): "
+                  f"violations {viol} "
                   f"({viol / ticks:.2%} of ticks), redo launches that ran "
                   f"{redo}, ticks whose grid clipped {clipped}; launches "
                   f"{ {k: v for k, v in launched.items() if v} }; final "
@@ -2830,13 +3178,14 @@ def phase_cached(dev, report: dict) -> None:
             check(np.isfinite(np.asarray(snaps.total)).all()
                   and bool(torch.isfinite(st.positions).all()),
                   f"cached {name}: non-finite output")
-            report[fused]["launches"] += launched[fused]
+            if design == "one_pass":   # the earlier design's are not its
+                report[fused]["launches"] += launched[fused]
             if name == "canonical":
                 _, text = gate_rule("int4", [drift],
                                     st.positions.cpu().numpy())
                 print(f"cached: canonical int4 with cached bounds: {text} "
                       f"(reported, not a gate)")
-        ex, ca = min(out["exact"]), out["cached"][0]
+        ex, ca = min(out["exact"]), out["one_pass"]
         # What a tick without a violation pays for its redo: one walk
         # launch whose every block reads the skip flag and returns; and a
         # redo that runs against the same two-pass tile without the flag
@@ -2856,8 +3205,14 @@ def phase_cached(dev, report: dict) -> None:
             lambda: redo(None), 5)
         check(torch.equal(redo(one * 0), redo(None)),
               f"cached {name}: the walk's forces differ from the grid's")
-        print(f"cached: {name} N={n}: {ca / ticks * 1e3:.3f} ms a tick "
-              f"cached vs {ex / ticks * 1e3:.3f} exact (best of "
+        def per_tick(walls):
+            return " / ".join(f"{w / ticks * 1e3:.3f}" for w in walls)
+
+        earlier = ("" if "two_pass" not in out else
+                   f" (the T x T grid's fused max "
+                   f"{per_tick(out['two_pass'])})")
+        print(f"cached: {name} N={n}: {per_tick(ca)} ms a tick cached"
+              f"{earlier} vs {ex / ticks * 1e3:.3f} exact (best of "
               f"{len(out['exact'])}; the exact path's pruned pass fell back "
               f"to the full max_d2 in {fallbacks} of {ticks} ticks); a "
               f"skipped redo launch {skip_ms:.4f} ms, one that runs "
@@ -3189,8 +3544,9 @@ def resident_lines() -> None:
     """The sym kernels' resident warps a SM, D=2, general and equal-mass,
     float32 and int: the T x T grid's tile kernel beside the triangular
     grid's; the one-pass design's, D in {2,3} (every block 64 threads, two
-    warps), the pair tile's general body beside the equal-mass one; the
-    register-tiled row_force's (128 threads, four warps), masked and not;
+    warps): sym_force's equal-mass and general bodies and, int modes, their
+    fused max, the pair tile's general body beside the equal-mass one; the
+    register-tiled row_force's and pair_max's (128 threads, four warps);
     then the scratch bytes of the redesigned launches at the paths'
     shapes."""
     from nbody_tpu_torch.ops import hopper_nbody as hn
@@ -3203,21 +3559,41 @@ def resident_lines() -> None:
             print(f"build: sym_force {mode} D=2 uniform={uniform}: resident "
                   f"warps a SM: T x T grid {square}, triangular grid {tri}")
         for dim in (2, 3):
-            sym = 2 * lib.nbody_sym_force_one_pass_resident(code, dim)
+            sym, sym_general = (
+                2 * lib.nbody_sym_force_one_pass_resident(code, dim, u, 0)
+                for u in (1, 0))
             pair, general = (2 * lib.nbody_pair_sym_force_one_pass_resident(
                 code, dim, uniform) for uniform in (1, 0))
             rows, masked = (4 * lib.nbody_row_force_tiled_resident(
                 code, dim, m) for m in (0, 1))
+            fused = ""
+            if code == hn._MODE_INT:
+                f_uni, f_gen = (
+                    2 * lib.nbody_sym_force_one_pass_resident(code, dim, u, 1)
+                    for u in (1, 0))
+                fused = (f", sym_force_uniform_max {f_uni}, sym_force_max "
+                         f"(general) {f_gen}")
+                check(f_uni >= 24 and f_gen >= 20,
+                      f"one-pass fused max D={dim}: too few resident warps")
             print(f"build: one-pass design {mode} D={dim}: resident warps a "
-                  f"SM: sym_force_uniform {sym}, pair_sym_force_uniform "
+                  f"SM: sym_force_uniform {sym}, sym_force (general) "
+                  f"{sym_general}{fused}, pair_sym_force_uniform "
                   f"{pair}, pair_sym_force (general) {general}")
             print(f"build: row_force register-tiled {mode} D={dim}: resident "
                   f"warps a SM: {rows}, self-masked {masked}")
             check(min(sym, pair) >= 24, f"one-pass {mode} D={dim}: fewer "
                                         f"than 24 resident warps a SM")
-            check(general >= 20 and min(rows, masked) >= 16,
-                  f"{mode} D={dim}: the general one-pass pair or the "
+            check(min(general, sym_general) >= 20
+                  and min(rows, masked) >= 16,
+                  f"{mode} D={dim}: a general one-pass body or the "
                   f"register-tiled row_force holds too few warps a SM")
+    for dim in (2, 3):
+        warps = 4 * lib.nbody_pair_max_tiled_resident(dim)
+        grid = hn.pair_max_segments(BIG_N, BIG_N)
+        print(f"build: pair_max register-tiled D={dim}: resident warps a SM "
+              f"{warps}; grid at {BIG_N}^2 {grid} (segments, tiles a "
+              f"segment)")
+        check(warps >= 32, f"pair_max D={dim}: fewer than 32 resident warps")
     for dim, n in ((2, hn.sym_chunk_size(LARGE_N, 2)),
                    (3, hn.sym_chunk_size(LARGE_N, 3))):
         one = sum(4 * math.prod(x) for x in hn.pair_one_pass_scratch(n, n,
@@ -3271,7 +3647,8 @@ def main(argv=None) -> int:
             print(f"build: {line.strip()}")
         if "Compiling entry function" in line:
             entry = line
-        if (("one_pass" in entry or "row_tiled" in entry) and "spill" in line
+        if (("one_pass" in entry or "row_tiled" in entry
+             or "pair_max_tiled" in entry) and "spill" in line
                 and not line.strip().startswith(
                     "0 bytes stack frame, 0 bytes spill stores")):
             spilled.append(f"{entry.strip()}: {line.strip()}")
@@ -3282,8 +3659,8 @@ def main(argv=None) -> int:
               for k, v in KERNELS.items()}
     try:
         resident_lines()
-        check(not spilled, "the one-pass design or the register-tiled "
-              "row_force spills:\n  " + "\n  ".join(spilled))
+        check(not spilled, "the one-pass design or a register-tiled "
+              "kernel spills:\n  " + "\n  ".join(spilled))
         for phase in phases:
             t = time.time()
             if phase == "kernels":

@@ -44,9 +44,9 @@ SIGNATURES = {
         "nbody_sym_force_lab": [_P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _P,
                                 _P, _P],
         "nbody_sym_force_one_pass": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _I,
-                                     _I, _P, _P, _P, _P],
+                                     _I, _I, _P, _P, _P, _P, _P, _P, _P],
         "nbody_one_pass_receivers": [],
-        "nbody_sym_force_one_pass_resident": [_I, _I],
+        "nbody_sym_force_one_pass_resident": [_I, _I, _I, _I],
     },
     "sym_force_lab": {
         "nbody_sym_force_lab_r4": [_P, _P, _P, _I, _I, _I, _F, _F, _I, _I,
@@ -58,6 +58,10 @@ SIGNATURES = {
     "max_dist_sq": {
         "nbody_max_d2": [_P, _I, _I, _P, _P, _P, _I, _P, _I, _P, _P],
         "nbody_pair_max": [_P, _P, _I, _P, _P, _I, _I, _P, _I, _P, _P],
+        "nbody_pair_max_tiled": [_P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P,
+                                 _P],
+        "nbody_pair_max_geometry": [],
+        "nbody_pair_max_tiled_resident": [_I],
     },
     "row_force": {
         "nbody_row_force": [_P, _I, _P, _P, _I, _P, _I, _I, _I, _F, _F, _I,

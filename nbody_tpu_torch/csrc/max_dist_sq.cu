@@ -59,7 +59,36 @@
 // and the same per-block maxima and reduction, so its max of one set
 // against itself, all valid, is bitwise max_d2's. What bounds it is the
 // same: ~6 fp32 ops per pair, na * nb pairs (the ring's pass visits
-// S * (S/2 + 1) shard pairs, N^2 / 2 pairs and more in all).
+// S * (S/2 + 1) shard pairs, N^2 / 2 pairs and more in all). That design
+// (pair_max_tiles, then max_d2_reduce; nbody_pair_max) stays reachable
+// through the wrapper's parent=True.
+//
+// The register-tiled design (pair_max_tiled; nbody_pair_max_tiled), the
+// wrapper's default. The first design took two launches, a thread held one
+// receiver and reloaded it from device memory for every tile pair of its
+// walk, and every pair passed a validity branch: 7.79 ms at 131072^2
+// against max_d2's 2.19 for half the pairs, ~1.8x slower a pair
+// (PERF.md). What this one does about each:
+//   * one launch: each block stores its max and the block that takes the
+//     last ticket folds them (fold_by_ticket, as max_d2_single does; the
+//     ticket is max_d2's, hopper_nbody.TICKETS);
+//   * PM_R = 4 receivers a thread in registers, 128 threads a block (512
+//     receivers), each source of a 128-point tile staged once in shared
+//     memory as one vector (float2, or float4 at D = 3) and read as a
+//     broadcast: one shared load serves 4 pairs, 4 independent max chains;
+//   * validity off the pair loop: an invalid receiver or source (and a
+//     point past the end of its set) is loaded as NaN, so each of its d^2
+//     is NaN, which fmaxf drops (it returns the other operand). A valid
+//     pair's d^2 is finite for finite positions, so the max is that of the
+//     valid pairs, 0 when there is none, with no test in the loop and no
+//     masked copy of it for the tiles that hold the ring's phantoms;
+//   * a grid of receiver blocks x source segments, a fixed function of
+//     (na, nb) (hopper_nbody.pair_max_segments, beside row_segments) that
+//     aims at PAIR_MAX_TARGET_BLOCKS blocks: 256 x 64 at 131072^2.
+// Per pair D subtracts, D multiplies, D - 1 adds and a max, none of which
+// may fuse (subtract-form d^2), so at D = 2 six issue slots a pair and a
+// quarter of a shared load: ~3.2 ms at 131072^2 by the FP32 issue rate,
+// twice pair_ops' bound, whose 67 TFLOP/s peak counts an FMA as two ops.
 
 #include "max_reduce.cuh"
 #include "nbody_common.cuh"
@@ -157,22 +186,8 @@ max_d2_single(const float* __restrict__ pos, int n, const int* __restrict__ skip
       }
     }
   }
-  store_block_max<S>(best, block_max + blockIdx.x);
-  __shared__ int last;
-  if (t == 0) {
-    __threadfence();  // this block's max, before its ticket
-    last = atomicAdd(ticket, 1) == (int)gridDim.x - 1;
-  }
-  __syncthreads();
-  if (!last) return;  // block-uniform
-  __threadfence();
-  float b = 0.f;
-  for (int k = t; k < (int)gridDim.x; k += S) b = fmaxf(b, __ldcg(block_max + k));
-  store_block_max<S>(b, out);
-  if (t == 0) {
-    if (count != nullptr) *count += 1;
-    *ticket = 0;
-  }
+  fold_by_ticket<S>(best, block_max, blockIdx.x, gridDim.x, ticket, count,
+                    out);
 }
 
 template <int D>
@@ -238,6 +253,94 @@ pair_max_tiles(const float* __restrict__ pa, const unsigned char* __restrict__ v
   store_block_max<MT>(best, block_max + blockIdx.x);
 }
 
+// The register-tiled pair_max (pair_max_tiled), one launch.
+constexpr int PM_R = 4;                      // receivers a thread
+constexpr int PM_THREADS = 128;              // threads a block
+constexpr int PM_RW = PM_R * PM_THREADS;     // receivers a block: 512
+constexpr int PM_TILE = 128;                 // sources a staged tile
+static_assert(PM_TILE == PM_THREADS, "one thread a source stages");
+
+// A staged source: D = 2 a float2, D = 3 a float4 (one 16-byte load).
+template <int D>
+using PmVec = typename std::conditional<D == 2, float2, float4>::type;
+
+// Point j of p as the staged vector, or NaNs where it is invalid or past
+// n: its every d^2 is then NaN, which fmaxf drops.
+template <int D>
+__device__ __forceinline__ PmVec<D> pm_load(const float* __restrict__ p,
+                                            const unsigned char* __restrict__ v,
+                                            int n, int j) {
+  const float nan = __int_as_float(0x7fffffff);
+  const bool ok = j < n && v[j];
+  const float* q = p + (size_t)j * D;
+  if constexpr (D == 2)
+    return ok ? make_float2(q[0], q[1]) : make_float2(nan, nan);
+  else
+    return ok ? make_float4(q[0], q[1], q[2], 0.f)
+              : make_float4(nan, nan, nan, nan);
+}
+
+// Receiver block b = blockIdx.x (receivers b 512 + 128 r + t, r = 0..3, in
+// registers) against segment S = blockIdx.y (source tiles S seg .. S seg +
+// seg - 1, each staged once, double-buffered, one barrier a tile); each
+// pair's raw d^2 as max_d2_tiles forms it, into one running max a
+// receiver; then the fold by ticket over the gridDim.x gridDim.y blocks.
+template <int D>
+__global__ void __launch_bounds__(PM_THREADS)
+pair_max_tiled(const float* __restrict__ pa,
+               const unsigned char* __restrict__ va, int na,
+               const float* __restrict__ pb,
+               const unsigned char* __restrict__ vb, int nb, int seg,
+               float* __restrict__ block_max, int* __restrict__ ticket,
+               float* __restrict__ out) {
+  __shared__ PmVec<D> xs[2][PM_TILE];
+  const int t = threadIdx.x;
+  const int i_lo = blockIdx.x * PM_RW;
+  const int tiles = (nb + PM_TILE - 1) / PM_TILE;
+  const int Jb = blockIdx.y * seg;
+  const int Je = min(tiles, Jb + seg);
+
+  float xi[PM_R][D], best[PM_R];
+#pragma unroll
+  for (int r = 0; r < PM_R; ++r) {
+    const PmVec<D> p = pm_load<D>(pa, va, na, i_lo + PM_THREADS * r + t);
+    xi[r][0] = p.x;
+    xi[r][1] = p.y;
+    if constexpr (D == 3) xi[r][D - 1] = p.z;
+    best[r] = 0.f;
+  }
+  xs[0][t] = pm_load<D>(pb, vb, nb, Jb * PM_TILE + t);
+  __syncthreads();
+  for (int J = Jb, k = 0; J < Je; ++J, ++k) {
+    const int buf = k & 1;
+    PmVec<D> nxt{};
+    if (J + 1 < Je) nxt = pm_load<D>(pb, vb, nb, (J + 1) * PM_TILE + t);
+#pragma unroll 8
+    for (int j = 0; j < PM_TILE; ++j) {
+      const PmVec<D> sj = xs[buf][j];
+      float xj[D];
+      xj[0] = sj.x;
+      xj[1] = sj.y;
+      if constexpr (D == 3) xj[D - 1] = sj.z;
+#pragma unroll
+      for (int r = 0; r < PM_R; ++r) {
+        float dx[D];
+#pragma unroll
+        for (int d = 0; d < D; ++d) dx[d] = __fsub_rn(xj[d], xi[r][d]);
+        best[r] = fmaxf(best[r], raw_d2<D>(dx));
+      }
+    }
+    xs[buf ^ 1][t] = nxt;
+    __syncthreads();
+  }
+  float m = best[0];
+#pragma unroll
+  for (int r = 1; r < PM_R; ++r) m = fmaxf(m, best[r]);
+  fold_by_ticket<PM_THREADS>(m, block_max,
+                             blockIdx.y * gridDim.x + blockIdx.x,
+                             gridDim.x * gridDim.y, ticket, nullptr, out);
+}
+
 }  // namespace
 
 // pos (n, dim) f32 on the device; skip, count: nullable device ints;
@@ -292,4 +395,48 @@ extern "C" int nbody_pair_max(const float* pa, const unsigned char* va, int na,
     pair_max_tiles<3><<<grid, MT, 0, s>>>(pa, va, na, pb, vb, nb, block_max);
   max_d2_reduce<<<1, MT, 0, s>>>(block_max, grid, nullptr, nullptr, out);
   return (int)cudaGetLastError();
+}
+
+// The register-tiled design: the same sets as nbody_pair_max, seg >= 1
+// source tiles (of PM_TILE) a segment, nseg = ceil(ceil(nb / PM_TILE) /
+// seg) segments, grid (ceil(na / PM_RW), nseg); block_max: scratch of one
+// float a block; ticket: one device int, 0, left 0 (shared with
+// nbody_max_d2's single launch: the two must run on one stream). One
+// launch. Returns cudaGetLastError().
+extern "C" int nbody_pair_max_tiled(const float* pa, const unsigned char* va,
+                                    int na, const float* pb,
+                                    const unsigned char* vb, int nb, int dim,
+                                    int seg, float* block_max, int* ticket,
+                                    float* out, void* stream) {
+  if (na <= 0 || nb <= 0 || (dim != 2 && dim != 3) || seg <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int tiles = (nb + PM_TILE - 1) / PM_TILE;
+  const int nseg = (tiles + seg - 1) / seg;
+  if (nseg > 65535) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((na + PM_RW - 1) / PM_RW, nseg);
+  if (dim == 2)
+    pair_max_tiled<2><<<grid, PM_THREADS, 0, s>>>(pa, va, na, pb, vb, nb, seg,
+                                                  block_max, ticket, out);
+  else
+    pair_max_tiled<3><<<grid, PM_THREADS, 0, s>>>(pa, va, na, pb, vb, nb, seg,
+                                                  block_max, ticket, out);
+  return (int)cudaGetLastError();
+}
+
+// Receivers a block, sources a tile of the register-tiled pair_max
+// (hopper_nbody.PAIR_MAX_RECEIVERS, PAIR_MAX_SOURCE_TILE): rw * 65536 + tile.
+extern "C" int nbody_pair_max_geometry() { return PM_RW * 65536 + PM_TILE; }
+
+// Blocks of pair_max_tiled<dim> a SM holds at once (-1: none).
+extern "C" int nbody_pair_max_tiled_resident(int dim) {
+  int blocks = -1;
+  cudaError_t rc = cudaErrorInvalidValue;
+  if (dim == 2)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, pair_max_tiled<2>, PM_THREADS, 0);
+  else if (dim == 3)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, pair_max_tiled<3>, PM_THREADS, 0);
+  return rc == cudaSuccess ? blocks : -1;
 }

@@ -4,9 +4,11 @@
 // A kernel keeps each block's running max and stores it with
 // store_block_max; max_stage folds any number of such values into at most
 // `capacity` per-block maxima (a capped grid-stride loop); max_d2_reduce
-// takes the max of those in one block (max_d2's single launch takes it in
-// its last block instead). Max is exact, so the result does not depend on
-// the order: the fused max of sym_force is bitwise max_d2's.
+// takes the max of those in one block. The one-launch kernels (max_d2's
+// single launch, pair_max's register-tiled one and the one-pass sym_force's
+// fused max) fold theirs in the block that takes the last ticket instead
+// (fold_by_ticket). Max is exact, so the result does not depend on the
+// order: the fused max of sym_force is bitwise max_d2's.
 
 #pragma once
 
@@ -31,6 +33,40 @@ __device__ __forceinline__ void store_block_max(float best,
     __syncthreads();
   }
   if (t == 0) *slot = red[0];
+}
+
+// The fold by ticket of a kernel's per-block maxima, in the kernel itself:
+// the block stores its max in block_max[slot] and takes an integer ticket;
+// the block that takes the last of `blocks` tickets folds block_max[0 ..
+// blocks) into *out, counts the run (`count` nullable) and leaves the
+// ticket 0 for the next launch. Max is exact, so the bits do not depend on
+// which block folds. Every thread of the block calls it; `ticket` must not
+// be shared with a launch running at the same time.
+template <int NT>
+__device__ __forceinline__ void fold_by_ticket(float best,
+                                               float* __restrict__ block_max,
+                                               int slot, int blocks,
+                                               int* __restrict__ ticket,
+                                               int* __restrict__ count,
+                                               float* __restrict__ out) {
+  const int t = threadIdx.x;
+  store_block_max<NT>(best, block_max + slot);
+  __shared__ int last;
+  if (t == 0) {
+    __threadfence();  // this block's max, before its ticket
+    last = atomicAdd(ticket, 1) == blocks - 1;
+  }
+  __syncthreads();
+  if (!last) return;  // block-uniform
+  __threadfence();
+  float b = 0.f;
+#pragma unroll 8
+  for (int k = t; k < blocks; k += NT) b = fmaxf(b, __ldcg(block_max + k));
+  store_block_max<NT>(b, out);
+  if (t == 0) {
+    if (count != nullptr) *count += 1;
+    *ticket = 0;
+  }
 }
 
 // block_max[blockIdx.x] = the max of in[k] over this block's grid-stride

@@ -38,8 +38,9 @@
 // Numerics: csrc/nbody_common.cuh; t = __fmul_rn(w, dx) and both sums by
 // __fadd_rn, so nothing is contracted into an FMA.
 //
-// Masses carried per particle (GM, pair_one_pass only: the general
-// pair_sym_force, pallas_nbody.py:1032-1039). The same body with G m beside
+// Masses carried per particle (GM: the general pair_sym_force,
+// pallas_nbody.py:1032-1039, and the general sym_force past 256 tiles,
+// pallas_nbody.py:294-303's unflagged body). The same body with G m beside
 // each position: a source's G m_j rides in the staged float4 (its .w at
 // D = 3, its .z at D = 2, where the staged Vec widens from a float2 to a
 // float4 {x, y, G m, 0}: still one shared load a source), and each lane
@@ -51,9 +52,16 @@
 // more live registers than the equal-mass body: its instances take 96
 // registers at most (OP_MIN_BLOCKS_GM, 20 resident warps a SM) so that none
 // spills.
+//
+// The fused max (EMIT, sym_one_pass only, int modes: emit_max,
+// pallas_nbody.py:294-303): each lane also keeps the max of the raw d^2 of
+// the pairs it evaluates, one fmaxf a pair, and the launch folds the
+// blocks' maxima by ticket (max_reduce.cuh), so a fused launch is the
+// force launch and its reduction, where the two-pass tile took four.
 
 #pragma once
 
+#include "max_reduce.cuh"
 #include "nbody_common.cuh"
 
 namespace {
@@ -166,13 +174,15 @@ enum OpKind { OP_BOTH = 0, OP_ROWS = 1, OP_NONE = 2 };
 // of the tile's BT sources go to colw[BT][D]. GENERIC honours kind[r] (the
 // diagonal band and a ragged receiver tile); otherwise every row is OP_BOTH.
 // GM: masses per particle, the source's G m staged with it and the
-// receivers' in gmi.
-template <int MODE, int D, bool GENERIC, bool GM>
+// receivers' in gmi. EMIT: best takes the max of the raw d^2 of every pair
+// evaluated (an OP_NONE row evaluates none).
+template <int MODE, int D, bool GENERIC, bool GM, bool EMIT>
 __device__ __forceinline__ void op_tile(
     const typename OpTraits<D, GM>::Vec* __restrict__ xs,
     const float (&xi)[OP_R][D], const float (&gmi)[OP_R],
     float (&row)[OP_R][D], float soft, const IntGrid& g, int lane,
-    const int (&kind)[OP_R], int self_masked, float* __restrict__ colw) {
+    const int (&kind)[OP_R], int self_masked, float* __restrict__ colw,
+    float& best) {
   constexpr int C = OpTraits<D, GM>::C;
   const int f = op_perm<C>(lane);
 #pragma unroll 1
@@ -191,7 +201,9 @@ __device__ __forceinline__ void op_tile(
         float dx[D];
 #pragma unroll
         for (int d = 0; d < D; ++d) dx[d] = __fsub_rn(xj[d], xi[r][d]);
-        const float w = pair_w<MODE>(__fadd_rn(raw_d2<D>(dx), soft), g);
+        const float r2 = raw_d2<D>(dx);
+        if (EMIT) best = fmaxf(best, r2);
+        const float w = pair_w<MODE>(__fadd_rn(r2, soft), g);
         if (GENERIC && kind[r] == OP_ROWS) {
           // The receiver's index in the tile is 32 (r & 1) + lane.
           if (self_masked && src == 32 * (r & 1) + lane) continue;
@@ -248,9 +260,10 @@ __device__ __forceinline__ typename OpTraits<D, GM>::Vec op_load_src(
 // a row's OpKind from its base tile index and J; `generic_until` is the
 // first J past the diagonal band (-1 for none), `ragged` whether some row of
 // this receiver tile falls past n_recv. GM: gm_recv and gm_src hold the
-// sets' G m (unread otherwise).
-template <int MODE, int D, bool NEG, bool GM, typename KindOf>
-__device__ __forceinline__ void op_block(
+// sets' G m (unread otherwise). Returns the lane's max of the raw d^2 of
+// the pairs it evaluated under EMIT, else 0.
+template <int MODE, int D, bool NEG, bool GM, bool EMIT, typename KindOf>
+__device__ __forceinline__ float op_block(
     const float* __restrict__ recv, const float* __restrict__ gm_recv,
     int n_recv, const float* __restrict__ src,
     const float* __restrict__ gm_src, const float* __restrict__ bounds,
@@ -280,6 +293,7 @@ __device__ __forceinline__ void op_block(
   }
   const float soft = bounds[2];
   const IntGrid g = mode_grid<MODE>(bounds, levels, arg_cap, min_d2);
+  float best = 0.f;
 
   xs[0][t] = op_load_src<D, GM>(src, gm_src, Jb, t);
   __syncthreads();
@@ -293,12 +307,12 @@ __device__ __forceinline__ void op_block(
 #pragma unroll
       for (int r = 0; r < OP_R; ++r)
         kind[r] = kind_of(T0 + (warp * 32 * OP_R + 32 * r) / BT, J);
-      op_tile<MODE, D, true, GM>(xs[buf], xi, gmi, row, soft, g, lane, kind,
-                                 self_masked, colw);
+      op_tile<MODE, D, true, GM, EMIT>(xs[buf], xi, gmi, row, soft, g, lane,
+                                       kind, self_masked, colw, best);
     } else {
       const int none[OP_R] = {};
-      op_tile<MODE, D, false, GM>(xs[buf], xi, gmi, row, soft, g, lane, none,
-                                  0, colw);
+      op_tile<MODE, D, false, GM, EMIT>(xs[buf], xi, gmi, row, soft, g, lane,
+                                        none, 0, colw, best);
     }
     xs[buf ^ 1][t] = nxt;
     __syncthreads();
@@ -318,33 +332,57 @@ __device__ __forceinline__ void op_block(
   for (int r = 0; r < OP_R; ++r)
 #pragma unroll
     for (int d = 0; d < D; ++d) out[32 * r * D + d] = row[r][d];
+  return best;
 }
 
-// One set (sym_force_uniform): receiver tile I = blockIdx.y walks source
-// tiles J from T0 = OP_SUB I (its diagonal band first) to T - 1, in
-// segments of `seg` tiles, S = blockIdx.x; blocks past the last segment
-// exit. Band rows: a row of base tile a against J takes both sums for
-// a < J, the full row sums at a == J, nothing for a > J (that pair is the
-// row's reaction from tile J's rows) or a >= T.
-template <int MODE, int D>
-__global__ void __launch_bounds__(OP_THREADS, OP_MIN_BLOCKS)
-sym_one_pass(const float* __restrict__ pos, const float* __restrict__ bounds,
-             int n, int levels, float arg_cap, float min_d2, int self_masked,
-             int seg, float* __restrict__ rpart, float* __restrict__ cpart) {
+// One set (sym_force_uniform, or with GM the general sym_force):
+// receiver tile I = blockIdx.y walks source tiles J from T0 = OP_SUB I (its
+// diagonal band first) to T - 1, in segments of `seg` tiles,
+// S = blockIdx.x; blocks past the last segment evaluate nothing. Band
+// rows: a row of base tile a against J takes both sums for a < J, the full
+// row sums at a == J, nothing for a > J (that pair is the row's reaction
+// from tile J's rows) or a >= T. Only the last receiver tile can hold rows
+// past T (a >= T, when T is not a multiple of OP_SUB), and it visits only
+// J < T < T0 + OP_SUB, the band, so the non-generic tile never meets them.
+//
+// EMIT (the fused max, int modes): every unordered pair is evaluated once
+// by the walk above (a row against its own tile's sources includes the
+// self pair, whose d^2 is 0); each lane keeps the max of the raw d^2 it
+// formed, op for op as max_dist_sq.cu forms it (x_j - x_i: the subtraction
+// is antisymmetric in IEEE arithmetic, so either order gives the same
+// square), and the block's max goes to fold_by_ticket over all gridDim.x
+// gridDim.y blocks, those past the last segment with 0: *max_out is
+// bitwise max_d2's, and the forces are the same bits as without it.
+template <int MODE, int D, bool GM, bool EMIT>
+__global__ void __launch_bounds__(OP_THREADS,
+                                  GM ? OP_MIN_BLOCKS_GM : OP_MIN_BLOCKS)
+sym_one_pass(const float* __restrict__ pos, const float* __restrict__ gm,
+             const float* __restrict__ bounds, int n, int levels,
+             float arg_cap, float min_d2, int self_masked, int seg,
+             float* __restrict__ rpart, float* __restrict__ cpart,
+             float* __restrict__ block_max, int* __restrict__ ticket,
+             float* __restrict__ max_out) {
   const int S = blockIdx.x;
   const int I = blockIdx.y;
   const int T = n / BT;
   const int T0 = I * OP_SUB;
   const int Jb = T0 + S * seg;
-  if (Jb >= T) return;  // block-uniform
-  const int Je = min(T, Jb + seg);
-  auto kind_of = [T](int a, int J) {
-    return a >= T || a > J ? OP_NONE : (a == J ? OP_ROWS : OP_BOTH);
-  };
-  op_block<MODE, D, false, false>(pos, nullptr, n, pos, nullptr, bounds,
-                                  levels, arg_cap, min_d2, self_masked, I, S,
-                                  gridDim.y, gridDim.x, Jb, Je, T0 + OP_SUB,
-                                  false, kind_of, rpart, cpart);
+  float best = 0.f;
+  if (Jb < T) {  // block-uniform
+    const int Je = min(T, Jb + seg);
+    auto kind_of = [T](int a, int J) {
+      return a >= T || a > J ? OP_NONE : (a == J ? OP_ROWS : OP_BOTH);
+    };
+    best = op_block<MODE, D, false, GM, EMIT>(
+        pos, gm, n, pos, gm, bounds, levels, arg_cap, min_d2, self_masked, I,
+        S, gridDim.y, gridDim.x, Jb, Je, T0 + OP_SUB, false, kind_of, rpart,
+        cpart);
+  }
+  if constexpr (EMIT)
+    fold_by_ticket<OP_THREADS>(best, block_max,
+                               blockIdx.y * gridDim.x + blockIdx.x,
+                               gridDim.x * gridDim.y, ticket, nullptr,
+                               max_out);
 }
 
 // Two disjoint sets (pair_sym_force_uniform, or with GM the general
@@ -367,16 +405,18 @@ pair_one_pass(const float* __restrict__ pa, const float* __restrict__ gma,
   const int Jb = S * seg;
   const int Je = min(nb / BT, Jb + seg);
   auto kind_of = [Ta](int a, int) { return a < Ta ? OP_BOTH : OP_NONE; };
-  op_block<MODE, D, true, GM>(pa, gma, na, pb, gmb, bounds, levels, arg_cap,
-                              min_d2, 0, I, S, gridDim.y, gridDim.x, Jb, Je,
-                              -1, (I + 1) * OP_SUB > Ta, kind_of, rpart,
-                              cpart);
+  op_block<MODE, D, true, GM, false>(pa, gma, na, pb, gmb, bounds, levels,
+                                     arg_cap, min_d2, 0, I, S, gridDim.y,
+                                     gridDim.x, Jb, Je, -1,
+                                     (I + 1) * OP_SUB > Ta, kind_of, rpart,
+                                     cpart);
 }
 
 // sym_one_pass's fixed-order reduction: particle p sums its receiver
 // tile's row partials over the segments, in order, then subtracts the
 // reaction partials of its source tile J from receiver tiles 0..J / OP_SUB,
-// in order; the sum is scaled once by G m_0 (scale[0], on the device).
+// in order; the equal-mass sum is scaled once by G m_0 (scale[0], on the
+// device), the general one (scale null: G m rode in the pairs) not at all.
 template <int D>
 __global__ void sym_one_pass_reduce(const float* __restrict__ rpart,
                                     const float* __restrict__ cpart, int n,
@@ -402,9 +442,13 @@ __global__ void sym_one_pass_reduce(const float* __restrict__ rpart,
 #pragma unroll
     for (int d = 0; d < D; ++d) s[d] = __fsub_rn(s[d], q[d]);
   }
-  const float gm0 = scale[0];
+  if (scale != nullptr) {
+    const float gm0 = scale[0];
 #pragma unroll
-  for (int d = 0; d < D; ++d) out[(size_t)p * D + d] = __fmul_rn(s[d], gm0);
+    for (int d = 0; d < D; ++d) s[d] = __fmul_rn(s[d], gm0);
+  }
+#pragma unroll
+  for (int d = 0; d < D; ++d) out[(size_t)p * D + d] = s[d];
 }
 
 // Blocks of an instance a SM holds at once (-1 if the query fails).

@@ -91,22 +91,29 @@
 //      131072. A block owns 256 receivers and walks 16 source tiles, so the
 //      row partials shrink 16x and the reaction partials 4x (0.67 GB at
 //      131072); sym_one_pass_reduce sums them in a fixed order.
-// Which launch takes it: hopper_nbody.uniform_design, a fixed rule of
-// (T, mode, D): T > ONE_PASS_MIN_TILES (256, the triangle's edge) and the
-// (mode family, D) in ONE_PASS_ROUTES; parent=True takes the T x T grid of
-// the two-pass tile. Flagged (skip, count, fused max), walk, lab and
-// general launches keep the two-pass tile, bit for bit.
+// Which launch takes it: hopper_nbody.sym_design, by uniform_design's
+// fixed rule of (T, mode, D): T > ONE_PASS_MIN_TILES (256, the triangle's
+// edge) and the (mode family, D) in ONE_PASS_ROUTES; parent=True takes the
+// T x T grid of the two-pass tile. The same body with G m per particle
+// (one_pass.cuh's GM) serves the general launch under the same rule, and
+// its EMIT flag the fused max of either kind: the T x T grid's two-pass
+// tile for unequal masses held ~23% / 15% of its bound (float32 / int4)
+// at 131072, and its fused max took four launches whose partials crossed
+// HBM twice (2.15 GB at 131072, D = 2). Ragged N, launches with
+// skip or count (the cached redo's walk), the fused max at T <= 256, walk
+// and lab launches keep the two-pass tile, bit for bit.
 //
-// Fused max (`tile_max` set; emit_max, pallas_nbody.py:294-303): a variant
-// built for the int modes only (the kernels without it carry no trace of
-// it), whose every block also takes the max of the raw d^2 of the pairs it
-// visits, formed op for op as max_dist_sq.cu forms it (diagonal tiles
-// included: i == j gives 0, harmless since the max starts at 0), and stores
-// it in tile_max[J (J + 1) / 2 + I]; max_stage and max_d2_reduce
-// (max_reduce.cuh, max_dist_sq.cu's own reduction) fold the T (T + 1) / 2
-// values, so the result is bitwise max_d2's. The forces are the same bits with or
-// without it. No pair is padded here, so the TPU wrapper's padding with
-// duplicates of particle 0 has no counterpart.
+// Fused max on the T x T grid (`tile_max` set; emit_max,
+// pallas_nbody.py:294-303; past 256 tiles the one-pass design's EMIT
+// instead): a variant built for the int modes only (the kernels without it
+// carry no trace of it), whose every block also takes the max of the raw
+// d^2 of the pairs it visits, formed op for op as max_dist_sq.cu forms it
+// (diagonal tiles included: i == j gives 0, harmless since the max starts
+// at 0), and stores it in tile_max[J (J + 1) / 2 + I]; max_stage and
+// max_d2_reduce (max_reduce.cuh, max_dist_sq.cu's own reduction) fold the
+// T (T + 1) / 2 values, so the result is bitwise max_d2's. The forces are
+// the same bits with or without it. No pair is padded here, so the TPU
+// wrapper's padding with duplicates of particle 0 has no counterpart.
 //
 // `skip` (nullable, on the device): when *skip != 0 every pass returns at
 // once, out is zeros and the max 0, so a step can launch a redo
@@ -541,32 +548,61 @@ extern "C" int nbody_sym_force_lab(const float* pos, const float* gm,
   return (int)cudaGetLastError();
 }
 
-// The one-pass design of the equal-mass variant (csrc/one_pass.cuh) for an
-// unflagged launch: pos (n, dim) f32 with n a multiple of BT, gm (n,) f32
-// (only gm[0] is read, on the device), bounds (3,) f32 = [log_lo, log_hi,
-// eps^2]; seg >= 1 source tiles a block; scratch rpart (TI, nsegmax, OP_RW,
-// dim) and cpart (T, TI, BT, dim) f32 with T = n / BT, TI = ceil(T / OP_SUB),
-// nsegmax = ceil(T / seg); out (n, dim) f32. Returns cudaGetLastError().
+// The one-pass design (csrc/one_pass.cuh) of an unflagged launch or one
+// with the fused max alone: pos (n, dim) f32 with n a multiple of BT, gm
+// (n,) f32 (uniform != 0: only gm[0] is read, on the device, the sums
+// scaled by it; uniform == 0: every G m read in the pairs, nothing
+// scaled), bounds (3,) f32 = [log_lo, log_hi, eps^2]; seg >= 1 source
+// tiles a block; scratch rpart (TI, nsegmax, OP_RW, dim) and cpart (T, TI,
+// BT, dim) f32 with T = n / BT, TI = ceil(T / OP_SUB), nsegmax =
+// ceil(T / seg); out (n, dim) f32. The fused max (int mode only): max_out
+// (one float, the raw max d^2), block_max (TI nsegmax floats) and ticket
+// (one device int, 0, left 0: max_d2's, so the launches share a stream),
+// all null for none. Two launches: the body and its reduction. Returns
+// cudaGetLastError().
 extern "C" int nbody_sym_force_one_pass(const float* pos, const float* gm,
                                         const float* bounds, int n, int dim,
                                         int mode, int levels, float arg_cap,
                                         float min_d2, int self_masked,
-                                        int seg, float* rpart, float* cpart,
+                                        int uniform, int seg, float* rpart,
+                                        float* cpart, float* block_max,
+                                        int* ticket, float* max_out,
                                         float* out, void* stream) {
   if (n <= 0 || n % BT != 0 || seg <= 0) return (int)cudaErrorInvalidValue;
+  const bool fused = max_out != nullptr;
+  if (fused && (mode != MODE_INT || block_max == nullptr || ticket == nullptr))
+    return (int)cudaErrorInvalidValue;
   const int T = n / BT;
   const int TI = (T + OP_SUB - 1) / OP_SUB;
   const int nsegmax = (T + seg - 1) / seg;
   if (TI > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(nsegmax, TI);
   const bool known = dispatch(mode, dim, [&](auto m, auto d) {
     constexpr int M = decltype(m)::value;
     constexpr int DD = decltype(d)::value;
-    sym_one_pass<M, DD><<<dim3(nsegmax, TI), OP_THREADS, 0, s>>>(
-        pos, bounds, n, levels, arg_cap, min_d2, self_masked, seg, rpart,
-        cpart);
+    auto run = [&](auto gm_flag, auto emit) {
+      sym_one_pass<M, DD, decltype(gm_flag)::value, decltype(emit)::value>
+          <<<grid, OP_THREADS, 0, s>>>(pos, gm, bounds, n, levels, arg_cap,
+                                       min_d2, self_masked, seg, rpart, cpart,
+                                       block_max, ticket, max_out);
+    };
+    auto by_gm = [&](auto emit) {
+      if (uniform)
+        run(std::false_type{}, emit);
+      else
+        run(std::true_type{}, emit);
+    };
+    if constexpr (M == MODE_INT) {
+      if (fused)
+        by_gm(std::true_type{});
+      else
+        by_gm(std::false_type{});
+    } else {
+      by_gm(std::false_type{});
+    }
     sym_one_pass_reduce<DD><<<(n + 255) / 256, 256, 0, s>>>(
-        rpart, cpart, n, TI, nsegmax, seg, gm, out);
+        rpart, cpart, n, TI, nsegmax, seg, uniform ? gm : nullptr, out);
   });
   if (!known) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
@@ -575,12 +611,28 @@ extern "C" int nbody_sym_force_one_pass(const float* pos, const float* gm,
 // Receivers a block of the one-pass design (hopper_nbody.ONE_PASS_RECEIVERS).
 extern "C" int nbody_one_pass_receivers() { return OP_RW; }
 
-// Blocks of sym_one_pass<mode, dim> a SM holds at once (-1: no instance).
-extern "C" int nbody_sym_force_one_pass_resident(int mode, int dim) {
+// Blocks of sym_one_pass<mode, dim, !uniform, fused> a SM holds at once
+// (-1: no instance; the fused max exists for the int mode only).
+extern "C" int nbody_sym_force_one_pass_resident(int mode, int dim,
+                                                 int uniform, int fused) {
   int blocks = -1;
   dispatch(mode, dim, [&](auto m, auto d) {
-    blocks = op_resident(
-        sym_one_pass<decltype(m)::value, decltype(d)::value>);
+    constexpr int M = decltype(m)::value;
+    constexpr int DD = decltype(d)::value;
+    auto query = [&](auto gm_flag, auto emit) {
+      blocks = op_resident(sym_one_pass<M, DD, decltype(gm_flag)::value,
+                                        decltype(emit)::value>);
+    };
+    auto by_gm = [&](auto emit) {
+      if (uniform)
+        query(std::false_type{}, emit);
+      else
+        query(std::true_type{}, emit);
+    };
+    if (!fused)
+      by_gm(std::false_type{});
+    else if constexpr (M == MODE_INT)
+      by_gm(std::true_type{});
   });
   return blocks;
 }

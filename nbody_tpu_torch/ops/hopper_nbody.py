@@ -9,16 +9,18 @@ multi-device ring (``parallel/ring.py``):
   unordered pair's weight evaluated once (Newton's third law), with the
   precision hook in the tile; its equal-mass variant (``uniform``), its
   fused max of raw d^2 (``max_out``) and a device skip flag. An unflagged
-  launch runs one block per tile pair I <= J (``sym_schedule``); an
-  unflagged equal-mass one past that grid's edge the one-pass design
-  (``uniform_design``, ``csrc/one_pass.cuh``).
+  launch runs one block per tile pair I <= J (``sym_schedule``); past that
+  grid's edge a launch over a multiple of TILE without skip or count, of
+  either kind of masses and with or without the fused max, the one-pass
+  design (``sym_design``, ``csrc/one_pass.cuh``).
 * ``max_d2`` — ``csrc/max_dist_sq.cu``, replacing ``_max_kernel`` /
   ``pallas_max_dist_sq`` (#2) and its streamed twin
   ``pallas_max_dist_sq_streamed`` (#3): the global max of the raw
   pairwise d^2, the int-sim log grid's upper bound.
 * ``pair_max`` — a second entry of ``csrc/max_dist_sq.cu``, replacing
   ``_pair_max_kernel`` / ``pallas_pair_max`` (#9): the max of raw d^2
-  between two sets over valid pairs, the ring's bounds tile.
+  between two sets over valid pairs, the ring's bounds tile; one
+  register-tiled launch, its source segments by ``pair_max_segments``.
 * ``row_force`` — ``csrc/row_force.cu``, replacing ``_force_kernel`` /
   ``pallas_accelerations`` (#8) and ``_force_kernel_streamed`` /
   ``pallas_accelerations_streamed`` (#4): every ordered pair, the path of
@@ -106,9 +108,10 @@ MAX_D2_BLOCKS = 1024
 MAX_D2_SMALL_N = 4096
 
 # max_d2's integer ticket, per device: zeroed once when allocated, left
-# at 0 by every launch (csrc/max_dist_sq.cu). Two launches that share it
-# must not run at once on different streams; the port launches only on the
-# current stream.
+# at 0 by every launch (csrc/max_dist_sq.cu). The register-tiled pair_max
+# and the one-pass sym_force's fused max fold by the same ticket. Two
+# launches that share it must not run at once on different streams; the
+# port launches only on the current stream.
 TICKETS: dict = {}
 
 # BT of csrc/nbody_common.cuh: the tile of the Newton's-third-law kernels.
@@ -125,11 +128,13 @@ PAIR_SEGMENT_TILES = 32
 # block walks.
 ONE_PASS_RECEIVERS = 256
 ONE_PASS_SEGMENT_TILES = 16
-# (mode family, D) whose unflagged equal-mass launches, and whose
+# (mode family, D) whose sym_force launches without skip or count (either
+# kind of masses, with or without the fused max), and whose
 # pair_sym_force launches of either kind, over more than ONE_PASS_MIN_TILES
-# receiver tiles take the one-pass design (``uniform_design``,
+# receiver tiles take the one-pass design (``sym_design``,
 # ``pair_design``); the others keep the two-pass tile. The edge is the
-# triangle's: sym_force at T <= 256 keeps the triangular grid.
+# triangle's: sym_force at T <= 256 keeps the triangular grid (the fused
+# max there the T x T grid).
 ONE_PASS_MIN_TILES = TRIANGLE_MAX_TILES
 ONE_PASS_ROUTES = frozenset({("float", 2), ("float", 3), ("int", 2),
                              ("int", 3)})
@@ -142,6 +147,13 @@ ONE_PASS_ROUTES = frozenset({("float", 2), ("float", 3), ("int", 2),
 ROW_BLOCK_RECEIVERS = 512
 ROW_SOURCE_TILE = 128
 ROW_TARGET_BLOCKS = 16384
+# The register-tiled pair_max (csrc/max_dist_sq.cu's pair_max_tiled): the
+# same geometry as the row sweep's, 512 receivers a block and 128-source
+# tiles, its segments by pair_max_segments toward this many blocks (7.8
+# waves of the 2112 resident 128-thread blocks at 131072^2).
+PAIR_MAX_RECEIVERS = 512
+PAIR_MAX_SOURCE_TILE = 128
+PAIR_MAX_TARGET_BLOCKS = 16384
 # The row sweep's design for every launch that does not pass parent=True:
 # "tiled" (row_tiled), or "per_receiver" (the earlier kernel, one thread a
 # receiver), which an A/B of a whole path sets for that path's run.
@@ -194,21 +206,24 @@ def uniform_design(tiles: int, q: Quantizer, dim: int) -> str:
             and (family, dim) in ONE_PASS_ROUTES else "two_pass")
 
 
-def sym_design(n: int, dim: int, q: Quantizer, uniform: bool = False,
-               flagged: bool = False, parent: bool = False) -> str:
-    """What a sym_force launch over n particles runs on the card:
-    "one_pass" (an unflagged equal-mass launch that uniform_design routes
-    there), "triangle" (an unflagged launch that sym_schedule routes
-    there), else "square": the T x T grid of the two-pass tile, which a
-    flagged launch (skip, count, fused max) always takes, walking the tile
-    pairs under a skip flag without the fused max (csrc/sym_force.cu).
-    ``uniform`` counts only where n is a multiple of TILE."""
+def sym_design(n: int, dim: int, q: Quantizer, flagged: bool = False,
+               parent: bool = False, fused_max: bool = False) -> str:
+    """What a sym_force launch over n particles runs on the card, a fixed
+    function of (n, mode family, D) and its flags: "one_pass" (n a multiple
+    of TILE that uniform_design routes there, either kind of masses, with
+    or without the fused max: csrc/one_pass.cuh's body, with G m per
+    particle for unequal masses), "triangle" (any other launch without
+    the fused max that sym_schedule routes there), else "square": the
+    T x T grid of the two-pass tile, which a ``flagged`` launch (skip or
+    count: the cached redo, walking the tile pairs under a skip flag
+    without the fused max) and ``parent=True`` always take, and the fused
+    max at T <= 256 (csrc/sym_force.cu). Each design serves both kinds of
+    masses, so the kind picks no route."""
     if flagged or parent:
         return "square"
-    if (uniform and n % TILE == 0
-            and uniform_design(_tiles(n), q, dim) == "one_pass"):
+    if n % TILE == 0 and uniform_design(_tiles(n), q, dim) == "one_pass":
         return "one_pass"
-    return sym_schedule(n)
+    return "square" if fused_max else sym_schedule(n)
 
 
 def pair_design(n_a: int, n_b: int, dim: int, q: Quantizer,
@@ -229,10 +244,11 @@ def _one_pass_tiles(receiver_tiles: int) -> int:
 
 
 def sym_one_pass_scratch(n: int, dim: int) -> tuple:
-    """Shapes of the one-pass sym_force_uniform's scratch over n
-    particles: row partials (TI, nsegmax, ONE_PASS_RECEIVERS, dim) and
-    reaction partials (T, TI, TILE, dim) f32, T = n / TILE,
-    TI = ceil(T / 4), nsegmax = ceil(T / ONE_PASS_SEGMENT_TILES)."""
+    """Shapes of the one-pass sym_force's scratch over n particles, either
+    kind: row partials (TI, nsegmax, ONE_PASS_RECEIVERS, dim) and reaction
+    partials (T, TI, TILE, dim) f32, T = n / TILE, TI = ceil(T / 4),
+    nsegmax = ceil(T / ONE_PASS_SEGMENT_TILES); the fused max adds one f32
+    a block, TI x nsegmax."""
     t = _tiles(n)
     ti = _one_pass_tiles(t)
     return ((ti, -(-t // ONE_PASS_SEGMENT_TILES), ONE_PASS_RECEIVERS, dim),
@@ -249,18 +265,37 @@ def pair_one_pass_scratch(n_a: int, n_b: int, dim: int) -> tuple:
             (tb, ti, TILE, dim))
 
 
+def _segments(n_i: int, n_j: int, receivers: int, tile: int,
+              target: int) -> tuple:
+    """(segments, source tiles a segment): the ceil(n_j / tile) source
+    tiles cut into as many segments as bring the ceil(n_i / receivers)
+    receiver blocks up to ``target`` blocks, at most one a tile."""
+    blocks = -(-n_i // receivers)
+    tiles = -(-n_j // tile)
+    want = min(tiles, max(1, -(-target // blocks)))
+    seg = -(-tiles // want)
+    return -(-tiles // seg), seg
+
+
 def row_segments(n_i: int, n_j: int) -> tuple:
     """(segments, source tiles a segment) of a register-tiled row_force /
     pair_force launch over n_i receivers and n_j sources, a fixed function
-    of the two: the ceil(n_j / ROW_SOURCE_TILE) source tiles are cut into
-    as many segments as bring ceil(n_i / ROW_BLOCK_RECEIVERS) receiver
-    blocks up to ROW_TARGET_BLOCKS blocks, at most one a tile. 131072^2:
-    64 segments of 16 tiles (16384 blocks); 1M^2: 8 of 1024."""
-    blocks = -(-n_i // ROW_BLOCK_RECEIVERS)
-    tiles = -(-n_j // ROW_SOURCE_TILE)
-    want = min(tiles, max(1, -(-ROW_TARGET_BLOCKS // blocks)))
-    seg = -(-tiles // want)
-    return -(-tiles // seg), seg
+    of the two (``_segments`` toward ROW_TARGET_BLOCKS blocks of
+    ROW_BLOCK_RECEIVERS, tiles of ROW_SOURCE_TILE). 131072^2: 64 segments
+    of 16 tiles (16384 blocks); 1M^2: 8 of 1024."""
+    return _segments(n_i, n_j, ROW_BLOCK_RECEIVERS, ROW_SOURCE_TILE,
+                     ROW_TARGET_BLOCKS)
+
+
+def pair_max_segments(n_i: int, n_j: int) -> tuple:
+    """(segments, source tiles a segment) of the register-tiled pair_max
+    over n_i receivers and n_j sources, a fixed function of the two
+    (``_segments`` toward PAIR_MAX_TARGET_BLOCKS blocks of
+    PAIR_MAX_RECEIVERS, tiles of PAIR_MAX_SOURCE_TILE). 131072^2: 64
+    segments of 16 tiles (16384 blocks); the S=4 shard of 131075,
+    32769^2: 129 of 2."""
+    return _segments(n_i, n_j, PAIR_MAX_RECEIVERS, PAIR_MAX_SOURCE_TILE,
+                     PAIR_MAX_TARGET_BLOCKS)
 
 
 def row_scratch(n_i: int, n_j: int, dim: int) -> tuple | None:
@@ -390,11 +425,15 @@ def _library():
                            f"{lib.nbody_one_pass_receivers()} != "
                            f"hopper_nbody.ONE_PASS_RECEIVERS "
                            f"{ONE_PASS_RECEIVERS}")
-    geometry = divmod(lib.nbody_row_force_geometry(), 65536)
-    if geometry != (ROW_BLOCK_RECEIVERS, ROW_SOURCE_TILE):
-        raise RuntimeError(f"csrc row_tiled (receivers a block, tile) "
-                           f"{geometry} != hopper_nbody's "
-                           f"{(ROW_BLOCK_RECEIVERS, ROW_SOURCE_TILE)}")
+    for what, got, want in (
+            ("row_tiled", lib.nbody_row_force_geometry(),
+             (ROW_BLOCK_RECEIVERS, ROW_SOURCE_TILE)),
+            ("pair_max_tiled", lib.nbody_pair_max_geometry(),
+             (PAIR_MAX_RECEIVERS, PAIR_MAX_SOURCE_TILE))):
+        if divmod(got, 65536) != want:
+            raise RuntimeError(f"csrc {what} (receivers a block, tile) "
+                               f"{divmod(got, 65536)} != hopper_nbody's "
+                               f"{want}")
     return lib
 
 
@@ -664,11 +703,13 @@ def sym_force(pos: torch.Tensor, gm: torch.Tensor, bounds: torch.Tensor,
     ``skip`` and no ``max_out`` walks the tile pairs with a capped grid,
     so that a skipped launch costs microseconds (csrc/sym_force.cu).
 
-    An unflagged launch takes ``sym_schedule(N)``'s grid, and an unflagged
-    equal-mass one ``uniform_design``'s design; ``parent=True`` takes the
-    T x T grid of the two-pass tile (the earlier designs: the same bits as
-    the triangle, another summation order than the one-pass design) to
-    compare them."""
+    The design is ``sym_design``'s: past 256 tiles a launch over a
+    multiple of TILE without skip or count takes the one-pass design
+    (either kind, with or without the fused max: the body and its
+    reduction, the fused max folded by max_d2's ticket in the body), else
+    ``sym_schedule(N)``'s grid; ``parent=True`` takes the T x T grid of the
+    two-pass tile (the earlier designs: the same bits as the triangle,
+    another summation order than the one-pass design) to compare them."""
     n, dim = _check_force_args(pos, gm, bounds)
     # The engine's tick calls this with no flag and no fused max: that path
     # pays for none of their checks.
@@ -690,19 +731,26 @@ def sym_force(pos: torch.Tensor, gm: torch.Tensor, bounds: torch.Tensor,
         return _plain_skip(acc, skip, count)
     lib = _library()
     tiles = _tiles(n)
-    design = sym_design(n, dim, q, uniform, extras, parent)
+    fused = max_out is not None
+    design = sym_design(n, dim, q, skip is not None or count is not None,
+                        parent, fused)
     if design == "one_pass":
         with torch.cuda.device(pos.device):
             rpart, cpart = (torch.empty(shape, dtype=torch.float32,
                                         device=pos.device)
                             for shape in sym_one_pass_scratch(n, dim))
             out = torch.empty_like(pos)
+            block_max = (torch.empty(rpart.shape[0] * rpart.shape[1],
+                                     dtype=torch.float32, device=pos.device)
+                         if fused else None)
             rc = lib.nbody_sym_force_one_pass(
                 _ptr(pos), _ptr(gm), _ptr(bounds), n, dim, *_int_args(q),
-                int(self_masked), ONE_PASS_SEGMENT_TILES, _ptr(rpart),
-                _ptr(cpart), _ptr(out), _stream(pos.device))
+                int(self_masked), int(uniform), ONE_PASS_SEGMENT_TILES,
+                _ptr(rpart), _ptr(cpart), _opt_ptr(block_max),
+                _ptr(ticket(pos.device)) if fused else None,
+                _opt_ptr(max_out), _ptr(out), _stream(pos.device))
         _raise_on(rc, "sym_force")
-        LAUNCHES["sym_force_uniform"] += 1
+        LAUNCHES[_variant("sym_force", uniform, fused)] += 1
         return out
     with torch.cuda.device(pos.device):
         part = torch.empty((tiles, tiles, TILE, dim), dtype=torch.float32,
@@ -725,7 +773,7 @@ def sym_force(pos: torch.Tensor, gm: torch.Tensor, bounds: torch.Tensor,
             tile_max_p, block_max_p, MAX_D2_BLOCKS, max_out_p,
             int(triangle), _ptr(out), _stream(pos.device))
     _raise_on(rc, "sym_force")
-    LAUNCHES[_variant("sym_force", uniform, max_out is not None)] += 1
+    LAUNCHES[_variant("sym_force", uniform, fused)] += 1
     return out
 
 
@@ -1249,26 +1297,39 @@ def pair_max_plain(receivers: torch.Tensor, sources: torch.Tensor,
 
 
 def pair_max(receivers: torch.Tensor, sources: torch.Tensor,
-             valid_i: torch.Tensor, valid_j: torch.Tensor) -> torch.Tensor:
+             valid_i: torch.Tensor, valid_j: torch.Tensor,
+             parent: bool = False) -> torch.Tensor:
     """Kernel #9 wrapper, the counterpart of ``pallas_pair_max``: CUDA
     kernel for CUDA tensors, pair_max_plain for CPU tensors. ``valid_i`` /
     ``valid_j`` are bool masks of the receivers and sources. Bitwise the
     plain version's, and for one set against itself, all valid, bitwise
-    max_d2's."""
+    max_d2's. One register-tiled launch over ``pair_max_segments``' grid,
+    folded by max_d2's ticket; ``parent=True`` takes the earlier two
+    launches (the same bits) to compare them."""
     n_i, n_j, dim = _check_two_sets(receivers, sources)
     _check_mask("valid_i", valid_i, n_i, receivers.device)
     _check_mask("valid_j", valid_j, n_j, receivers.device)
     if receivers.device.type == "cpu":
         return pair_max_plain(receivers, sources, valid_i, valid_j)
     lib = _library()
-    with torch.cuda.device(receivers.device):
-        block_max = torch.empty(MAX_D2_BLOCKS, dtype=torch.float32,
-                                device=receivers.device)
-        out = torch.empty(1, dtype=torch.float32, device=receivers.device)
-        rc = lib.nbody_pair_max(
-            _ptr(receivers), _ptr(valid_i), n_i, _ptr(sources),
-            _ptr(valid_j), n_j, dim, _ptr(block_max), MAX_D2_BLOCKS,
-            _ptr(out), _stream(receivers.device))
+    dev = receivers.device
+    with torch.cuda.device(dev):
+        out = torch.empty(1, dtype=torch.float32, device=dev)
+        if parent:
+            block_max = torch.empty(MAX_D2_BLOCKS, dtype=torch.float32,
+                                    device=dev)
+            rc = lib.nbody_pair_max(
+                _ptr(receivers), _ptr(valid_i), n_i, _ptr(sources),
+                _ptr(valid_j), n_j, dim, _ptr(block_max), MAX_D2_BLOCKS,
+                _ptr(out), _stream(dev))
+        else:
+            nseg, seg = pair_max_segments(n_i, n_j)
+            block_max = torch.empty(-(-n_i // PAIR_MAX_RECEIVERS) * nseg,
+                                    dtype=torch.float32, device=dev)
+            rc = lib.nbody_pair_max_tiled(
+                _ptr(receivers), _ptr(valid_i), n_i, _ptr(sources),
+                _ptr(valid_j), n_j, dim, seg, _ptr(block_max),
+                _ptr(ticket(dev)), _ptr(out), _stream(dev))
     _raise_on(rc, "pair_max")
     LAUNCHES["pair_max"] += 1
     return out[0]

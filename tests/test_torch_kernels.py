@@ -506,3 +506,87 @@ def test_mxu_kernel_matches_plain(cuda, precision, dim):
           tp.Quantizer.from_string("float32"),
           k5.mxu_term_scale(pt, gm, 0.01))
     assert torch.equal(got, k5.sym_force_mxu(pt, gm, 0.01, precision))
+
+
+# --------------------------------------------------------------------------
+# The one-pass body past 256 tiles for the general sym_force and the fused
+# max, and pair_max's register-tiled launch
+# --------------------------------------------------------------------------
+
+def _general(n, dim, seed, cuda):
+    rng = np.random.default_rng(seed)
+    pt = torch.from_numpy(_disk(n, dim, seed)).to(cuda)
+    gm = (0.001 * (1.0 + torch.from_numpy(rng.random(n)).float())).to(cuda)
+    return pt, gm
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("n", [16448, 16576])
+def test_general_one_pass_sym_force_matches_plain(cuda, mode, dim, n):
+    """257 and 259 tiles (ragged 256-receiver tails): the general route on
+    the one-pass body, one sym_force count, bitwise run to run."""
+    pt, gm = _general(n, dim, 31, cuda)
+    q = tp.Quantizer.from_string(mode)
+    bounds = _bounds(q, pt, 0.01, cuda)
+    assert hn.sym_design(n, dim, q) == "one_pass"
+    before = dict(hn.LAUNCHES)
+    got = hn.sym_force(pt, gm, bounds, q, False)
+    assert hn.LAUNCHES == {**before, "sym_force": before["sym_force"] + 1}
+    _hold(got, hn.sym_force_plain(pt, gm, bounds, q, False), q)
+    assert torch.equal(got, hn.sym_force(pt, gm, bounds, q, False))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["int8", "int4", "custom"])
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("uniform", [False, True])
+def test_one_pass_fused_max_bitwise_and_forces_unchanged(cuda, mode, dim,
+                                                         uniform):
+    """The fused max on the one-pass body at 16448 (257 tiles): bitwise
+    max_d2's and the plain max's, the forces bitwise the unflagged
+    launch's, one sym_force_max / sym_force_uniform_max count."""
+    n = 16448
+    pt, gm = _general(n, dim, 32, cuda)
+    if uniform:
+        gm = torch.full_like(gm, 0.001)
+    q = tp.Quantizer.from_string(mode)
+    bounds = _bounds(q, pt, 0.01, cuda)
+    assert hn.sym_design(n, dim, q, fused_max=True) == "one_pass"
+    key = hn._variant("sym_force", uniform, True)
+    mx = torch.empty((), device=cuda)
+    before = hn.LAUNCHES[key]
+    got = hn.sym_force(pt, gm, bounds, q, False, uniform=uniform, max_out=mx)
+    assert hn.LAUNCHES[key] == before + 1
+    assert torch.equal(mx, hn.max_d2(pt))
+    assert torch.equal(mx, hn.max_d2_plain(pt))
+    assert torch.equal(got, hn.sym_force(pt, gm, bounds, q, False,
+                                         uniform=uniform))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("layout", ["all valid", "tail phantom",
+                                    "scattered", "none valid"])
+def test_tiled_pair_max_bitwise_plain_and_parent(cuda, dim, layout):
+    """The register-tiled pair_max bitwise its plain version and its
+    earlier two launches (parent=True), over 100 consecutive launches."""
+    n_i, n_j = 4099, 5001
+    xi, xj, _, _ = _two_sets(n_i, n_j, dim, 33, cuda)
+    rng = np.random.default_rng(dim)
+    vi, vj = {"all valid": (np.ones(n_i, bool), np.ones(n_j, bool)),
+              "tail phantom": (np.arange(n_i) < n_i - 1,
+                               np.arange(n_j) < n_j - 3),
+              "scattered": (rng.random(n_i) < 0.7, rng.random(n_j) < 0.7),
+              "none valid": (np.zeros(n_i, bool), np.ones(n_j, bool))}[layout]
+    vi, vj = torch.from_numpy(vi).to(cuda), torch.from_numpy(vj).to(cuda)
+    before = hn.LAUNCHES["pair_max"]
+    got = hn.pair_max(xi, xj, vi, vj)
+    assert hn.LAUNCHES["pair_max"] == before + 1
+    assert torch.equal(got, hn.pair_max_plain(xi, xj, vi, vj))
+    assert torch.equal(got, hn.pair_max(xi, xj, vi, vj, parent=True))
+    assert all(torch.equal(hn.pair_max(xi, xj, vi, vj), got)
+               for _ in range(100))
+    if layout == "none valid":
+        assert float(got) == 0.0

@@ -5,8 +5,9 @@ card, a fixed function of (T, mode, D) in the wrapper (``uniform_design``):
 the one-pass design (csrc/one_pass.cuh: t = w diff formed once, added into
 the rows and the reactions in the same iteration, 256 receivers a block)
 past ``ONE_PASS_MIN_TILES`` for the (mode family, D) in ``ONE_PASS_ROUTES``,
-else the earlier two-pass tile. Flagged launches (skip, count, fused max),
-the general kernels and the T <= 256 triangle keep their routes; both
+else the earlier two-pass tile. The general kernels and the fused max
+follow the same rule (tests/test_torch_redesign_sym_general_max.py); the
+skip and count flags and the T <= 256 triangle keep their routes; both
 wrappers take ``parent=True`` to reach the earlier design.
 
 On the CPU these tests hold the rule, the routes, the wrappers' arguments,
@@ -79,7 +80,7 @@ def test_uniform_design_is_a_function_of_tiles_mode_and_dim(tiles, mode,
     assert hn.uniform_design(tiles, _q(mode), dim) == want
     # every N with the same T takes the same design
     for n in (tiles * hn.TILE, (tiles - 1) * hn.TILE + 64):
-        assert hn.sym_design(n, dim, _q(mode), uniform=True) == (
+        assert hn.sym_design(n, dim, _q(mode)) == (
             "one_pass" if want == "one_pass" else hn.sym_schedule(n))
 
 
@@ -89,9 +90,9 @@ def test_the_rule_edge_is_the_triangles():
     assert hn.ONE_PASS_MIN_TILES == hn.TRIANGLE_MAX_TILES
     edge = hn.TRIANGLE_MAX_TILES * hn.TILE
     q = _q("float32")
-    assert hn.sym_design(edge, 2, q, uniform=True) == "triangle"
+    assert hn.sym_design(edge, 2, q) == "triangle"
     want = ("one_pass" if ("float", 2) in hn.ONE_PASS_ROUTES else "square")
-    assert hn.sym_design(edge + hn.TILE, 2, q, uniform=True) == want
+    assert hn.sym_design(edge + hn.TILE, 2, q) == want
 
 
 @pytest.mark.parametrize("routes", [frozenset(),
@@ -112,16 +113,18 @@ def test_routes_pick_the_design_per_mode_family_and_dim(monkeypatch,
 def test_flagged_general_and_parent_launches_keep_their_routes(n, mode):
     q = _q(mode)
     for dim in (2, 3):
-        # the general kernel, the flagged variants and parent=True: the
-        # T x T grid of the two-pass tile, whatever the rule says
-        assert hn.sym_design(n, dim, q) == "square"
-        assert hn.sym_design(n, dim, q, uniform=True, flagged=True) == \
-            "square"
-        assert hn.sym_design(n, dim, q, uniform=True, parent=True) == \
-            "square"
-        # off the tile the flag is void: the general kernel
-        assert hn.sym_design(n + 1, dim, q, uniform=True) == "square"
         routed = hn.uniform_design(-(-n // hn.TILE), q, dim)
+        # the general kernel follows the equal-mass rule (the one-pass body
+        # with G m per particle); the skip / count flags and parent=True
+        # take the T x T grid of the two-pass tile, whatever the rule says
+        assert hn.sym_design(n, dim, q) == (
+            "one_pass" if routed == "one_pass" else "square")
+        assert hn.sym_design(n, dim, q, flagged=True) == \
+            "square"
+        assert hn.sym_design(n, dim, q, parent=True) == \
+            "square"
+        # off the tile: the T x T grid of the two-pass tile
+        assert hn.sym_design(n + 1, dim, q) == "square"
         # the general pair tile follows the same rule as the equal-mass one
         # (its one-pass body carries G m per particle)
         assert hn.pair_design(n, n, dim, q) == routed
@@ -129,8 +132,11 @@ def test_flagged_general_and_parent_launches_keep_their_routes(n, mode):
             "two_pass"
         assert hn.pair_design(n, n + 1, dim, q) == "two_pass"
         assert hn.pair_design(n + 1, n, dim, q) == "two_pass"
-        assert hn.sym_design(n, dim, q, uniform=True) == (
+        # the fused max alone follows the rule too; with skip it does not
+        assert hn.sym_design(n, dim, q, fused_max=True) == (
             "one_pass" if routed == "one_pass" else "square")
+        assert hn.sym_design(n, dim, q, flagged=True, fused_max=True) == \
+            "square"
         assert hn.pair_design(n, 64, dim, q) == routed
 
 
@@ -138,10 +144,9 @@ def test_flagged_general_and_parent_launches_keep_their_routes(n, mode):
 def test_small_n_keeps_the_triangle_and_the_two_pass_pair(n):
     for mode in ("float32", "int4"):
         for dim in (2, 3):
-            for uniform in (False, True):
-                assert hn.sym_design(n, dim, _q(mode), uniform) == "triangle"
-                assert hn.pair_design(n - n % 64 or 64, 4096, dim,
-                                      _q(mode)) == "two_pass"
+            assert hn.sym_design(n, dim, _q(mode)) == "triangle"
+            assert hn.pair_design(n - n % 64 or 64, 4096, dim,
+                                  _q(mode)) == "two_pass"
 
 
 # --------------------------------------------------------------------------
@@ -197,7 +202,7 @@ def test_the_1m_chunking_stays_as_it_was(dim, chunk):
     last = 1_048_576 - (chunks - 1) * chunk
     assert last % hn.TILE == 0
     for n in (chunk, last):
-        assert hn.sym_design(n, dim, _q("float32"), uniform=True) == (
+        assert hn.sym_design(n, dim, _q("float32")) == (
             "one_pass" if ("float", dim) in hn.ONE_PASS_ROUTES else "square")
 
 
@@ -388,7 +393,7 @@ def test_one_pass_sym_against_plain(cuda, monkeypatch, n, dim, mode):
                         frozenset({("float", dim), ("int", dim)}))
     for soft, masked in ((0.01, False), (0.0, True)):
         pos, gm, bounds, q = _card_inputs(n, dim, mode, cuda, soft)
-        assert hn.sym_design(n, dim, q, uniform=True) == "one_pass"
+        assert hn.sym_design(n, dim, q) == "one_pass"
         before = hn.LAUNCHES["sym_force_uniform"]
         got = hn.sym_force(pos, gm, bounds, q, masked, uniform=True)
         assert hn.LAUNCHES["sym_force_uniform"] == before + 1
