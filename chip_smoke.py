@@ -35,7 +35,14 @@ Phases (any failure exits non-zero before the last line is printed):
    bitwise the unflagged launch's); pair_max's register-tiled launch
    bitwise its plain version and its earlier two launches (131072 all
    valid, the 131075-over-S=4 phantoms, scattered invalid rows, none
-   valid); each new design bitwise over 100 consecutive launches.
+   valid); each new design bitwise over 100 consecutive launches;
+   pair_pe_rows at its route's edge (16384, the first design bit for bit;
+   16385, 20011, 131075, and two sets 16385 x 300 and 40000 x 16400) with
+   each id pattern (own, permuted, duplicated, overlapping, disjoint),
+   softening 0.1 and 0, D in {2,3}, within the bound of the design it runs
+   and bitwise run to run; max_d2 at its route edges (4096, 4097, 16384,
+   16385, 20011, 131072, 131075) and on a 131072 shell, bitwise its plain
+   version and the design each replaced, with its skip and count flags.
 4. main: ``nbody_tpu_torch.cli.main`` at 5000 stars x 2000 ticks for
    float64, float32 and int4, with the launch counters read around it.
 5. gate: every mode of the ladder (float32, int4, float64, bfloat16,
@@ -58,8 +65,10 @@ Phases (any failure exits non-zero before the last line is printed):
    operations and both designs' scratch bytes; the general pair tile's two
    designs in turns at 209728^2 and 174784^2, and row_force's (the earlier
    kernel, the register-tiled one) at 131072, unmasked and self-masked,
-   each held to its plain version; and ``dynamic_params`` runs at 5000
-   stars against static ones.
+   each held to its plain version; the single-device 20-tick run at
+   131072 (float32 and int4) with the snapshots' energy on pair_pe_rows
+   and on the plain sum in turns (ticks/s, launches, the energies within
+   1e-5); and ``dynamic_params`` runs at 5000 stars against static ones.
 7. large: N=1,048,576 through ``run_steps(..., "auto", ...)`` for 5 steps
    (D=2 disk and D=3 Plummer sphere, seed 43, float32 and int4), with the
    general kernels (5 steps; the parent's routes, sym_force on the T x T
@@ -70,13 +79,17 @@ Phases (any failure exits non-zero before the last line is printed):
    the row kernel over all rows (the row sweep timed in both designs, in
    turns) and all against the plain version on sampled rows; zero
    softening routed to the row kernel; the pruned bounds pass at D=3
-   bitwise equal to the full max.
+   bitwise equal to the full max; max_d2 at 131072 (D=2 disk) and at 1M
+   D=3 (Plummer and shell) in its register-tiled design and the 256-point
+   launch it replaced, in turns, running and skipped, bitwise.
 8. ring: the multi-device ring (``--mesh``) and its tiles pair_force
    (#10), pair_max (#9) and pair_pe_rows (#7): each tile against its plain
    version at (5000, 5000) one set, (32768, 32771), (1, 1000) and prime
    sizes, all seven modes, D in {2,3} (pair_max bitwise), and timed and
-   held at the --mesh path's 131072^2 (pair_force and pair_max in both
-   designs, in turns; pair_max also at the S=4 shard shape 32769^2);
+   held at the --mesh path's 131072^2 (pair_force, pair_max and
+   pair_pe_rows in both designs, in turns; pair_max also at the S=4 shard
+   shape 32769^2, pair_pe_rows at the S=3 and S=4 shard shapes 43691^2
+   and 32769^2);
    ``cli.main`` at 131072 stars x 200 ticks with ``--mesh`` for both
    schedules, each with pair_max in both designs in turns (int4; float32
    once), launch counts exact; virtual shards
@@ -835,6 +848,144 @@ def phase_kernels(dev, report: dict) -> None:
     del pos, m, gm
     kernels_equal_mass(dev, report)
     kernels_mxu(dev, report)
+    kernels_pe_max_tiled(dev, report)
+
+
+# pair_pe_rows' id patterns: each set's own ids (one set: its self pairs
+# masked; two sets: ids that meet everywhere), permuted, duplicated (runs
+# of 3 and 7), overlapping in 40 ids, disjoint.
+PE_ID_PATTERNS = ("own", "permuted", "duplicated", "overlapping", "disjoint")
+# (receivers, sources), equal counts one set: the route's edge (16384
+# keeps the first design bit for bit), just past it, a prime, 131075
+# (ragged), and two sets with ragged tiles either way round.
+PE_SHAPES = ((16384, 16384), (16385, 16385), (20011, 20011),
+             (BIG_N + 3, BIG_N + 3), (16385, 300), (40000, 16400))
+# max_d2 at its route edges (64-point tile to 4096, 256 to 16384, the
+# register-tiled body beyond), a prime, 131072 and 131075.
+MAX_D2_EDGES = (4096, 4097, 16384, 16385, 20011, BIG_N, BIG_N + 3)
+
+
+def pe_rtol_tiled(n_i: int, n_j: int) -> float:
+    """pair_pe_rows' register-tiled design against its plain version,
+    relative to the row (positive terms: the row is its summed |terms|):
+    twice the worst-case rounding of its order, 128 terms a tile, seg tile
+    sums a segment and nseg segment sums a row, the m_i multiply, and a few
+    ulp for the terms (csrc/pair_pe_rows.cu)."""
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+    nseg, seg = hn.pe_segments(n_i, n_j)
+    return 2 * (128 + seg + nseg + 5) * 2.0 ** -24
+
+
+def pe_bound_rtol(n_i: int, n_j: int, parent: bool = False) -> float:
+    """The bound of the design a pair_pe_rows launch runs (pe_design)."""
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+    if hn.pe_design(n_i, n_j, parent) == "tiled":
+        return pe_rtol_tiled(n_i, n_j)
+    return pe_rtol(n_j)
+
+
+def pe_ids(pattern: str, n_i: int, n_j: int, dev) -> tuple:
+    """Receiver and source ids (int32 on dev) of one of PE_ID_PATTERNS."""
+    gen = torch.Generator().manual_seed(n_i + n_j)
+    ids = {"own": (torch.arange(n_i), torch.arange(n_j)),
+           "permuted": (torch.randperm(n_i, generator=gen),
+                        torch.randperm(n_j, generator=gen)),
+           "duplicated": (torch.arange(n_i) // 3, torch.arange(n_j) // 7),
+           "overlapping": (torch.arange(n_i),
+                           torch.arange(n_i - 40, n_i - 40 + n_j)),
+           "disjoint": (torch.arange(n_i), torch.arange(n_i, n_i + n_j))
+           }[pattern]
+    return tuple(x.to(torch.int32).to(dev).contiguous() for x in ids)
+
+
+def kernels_pe_max_tiled(dev, report: dict) -> None:
+    """pair_pe_rows at the route's edges (PE_SHAPES) with every id pattern,
+    softening 0.1 and 0, D in {2,3}, against its plain version within the
+    bound of the design it runs, bitwise run to run, and at 16384 bitwise
+    the first design; max_d2 at MAX_D2_EDGES and on the shell that defeats
+    the pruned pass, bitwise its plain version and the design it replaced,
+    its skip and count flags, and 100 consecutive launches at 131072."""
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+
+    fails, worst, cases = [], (0.0, ""), 0
+    for dim in (2, 3):
+        for n_i, n_j in PE_SHAPES:
+            pos, m = make_inputs(n_i + n_j, dim, False, seed=n_i + dim,
+                                 dev=dev)
+            xi, mi = pos[:n_i].contiguous(), m[:n_i].contiguous()
+            xj, mj = ((xi, mi) if n_i == n_j else
+                      (pos[n_i:].contiguous(), m[n_i:].contiguous()))
+            design = hn.pe_design(n_i, n_j)
+            rtol = pe_bound_rtol(n_i, n_j)
+            for pattern in PE_ID_PATTERNS:
+                ids_i, ids_j = pe_ids(pattern, n_i, n_j, dev)
+                for soft in (0.01, 0.0):
+                    args = (xi, mi, ids_i, xj, mj, ids_j, soft)
+                    case = (f"D={dim} {n_i}x{n_j} {pattern} eps^2={soft} "
+                            f"({design})")
+                    got, want = hn.pair_pe_rows(*args), \
+                        hn.pair_pe_rows_plain(*args)
+                    cases += 1
+                    fin = torch.isfinite(want)
+                    err = ((got - want).abs() / want.abs())[fin]
+                    ratio = err.max().item() / rtol if err.numel() else 0.0
+                    worst = max(worst, (ratio, case))
+                    report["pair_pe_rows"]["max_abs_err"] = max(
+                        report["pair_pe_rows"]["max_abs_err"] or 0.0,
+                        (got - want)[fin].abs().max().item()
+                        if err.numel() else 0.0)
+                    if (ratio > 1.0
+                            or not torch.equal(torch.isfinite(got), fin)
+                            or not bitwise(got, hn.pair_pe_rows(*args))):
+                        fails.append(f"{case}: err/bound {ratio:.3f}, or "
+                                     f"non-finite rows differ, or not "
+                                     f"bitwise run to run")
+                    if design == "per_receiver" and not bitwise(
+                            got, hn.pair_pe_rows(*args, parent=True)):
+                        fails.append(f"{case}: not the first design's bits")
+            del pos, m, xi, xj, mi, mj
+    print(f"kernels: pair_pe_rows at the route's edges, {cases} cases "
+          f"(D in {{2,3}}, {PE_SHAPES}, ids {PE_ID_PATTERNS}, eps^2 0.01 and "
+          f"0): {len(fails)} failures; worst err/bound {worst[0]:.4f} "
+          f"({worst[1]}); the register-tiled bound 2 (128 + seg + nseg + 5) "
+          f"2^-24 |row|, e.g. {pe_rtol_tiled(BIG_N, BIG_N):.3e} at "
+          f"{BIG_N}^2 (the first design's {pe_rtol(BIG_N):.3e})")
+    check(not fails, "pair_pe_rows (register-tiled) disagreements:\n  "
+          + "\n  ".join(fails))
+    report["pair_pe_rows"].update(
+        cases=(report["pair_pe_rows"].get("cases") or 0) + cases,
+        err_over_bound=max(report["pair_pe_rows"].get("err_over_bound")
+                           or 0.0, worst[0]))
+
+    one = torch.ones((), dtype=torch.int32, device=dev)
+    max_fails, max_cases = [], 0
+    inputs = [(f"D={dim} N={n}", make_inputs(n, dim, False, seed=n,
+                                             dev=dev)[0])
+              for dim in (2, 3) for n in MAX_D2_EDGES]
+    for label, pos in inputs + [(f"D=3 N={BIG_N} shell",
+                                 shell_positions(BIG_N, dev))]:
+        n = pos.shape[0]
+        want = hn.max_d2_plain(pos)
+        count = torch.zeros((), dtype=torch.int32, device=dev)
+        max_cases += 1
+        if not (bitwise(hn.max_d2(pos), want)
+                and bitwise(hn.max_d2(pos, parent=True), want)
+                and float(hn.max_d2(pos, skip=one, count=count)) == 0.0
+                and bitwise(hn.max_d2(pos, skip=one * 0, count=count), want)
+                and int(count) == 1):
+            max_fails.append(f"max_d2 {label} ({hn.max_d2_design(n)} vs "
+                             f"{hn.max_d2_design(n, True)})")
+    del inputs
+    pos, _ = make_inputs(BIG_N, 2, False, seed=3, dev=dev)
+    same_over_launches(lambda: (hn.max_d2(pos),), f"max_d2 N={BIG_N} tiled")
+    print(f"kernels: max_d2 at its route edges {MAX_D2_EDGES} and the "
+          f"{BIG_N} shell, D in {{2,3}}: {max_cases} cases bitwise the plain "
+          f"version and the design each replaced, skip and count flags: "
+          f"{len(max_fails)} failures; {LAUNCH_RUNS} consecutive launches at "
+          f"{BIG_N} bitwise")
+    check(not max_fails, "\n  ".join(max_fails))
+    report["max_d2"]["cases"] = (report["max_d2"].get("cases") or 0) \
+        + max_cases
 
 
 ROW_SEGMENTED_N = 32832   # 65 receiver blocks x 129 segments of 2 tiles
@@ -1384,6 +1535,20 @@ def pair_max_design(hn, design: str):
 
 
 @contextlib.contextmanager
+def energy_design(metrics, design: str):
+    """Runs the snapshots' potential energy inside on ``design``: "kernel"
+    (metrics.energy_route: pair_pe_rows past hn.TILED_MIN_N on the card)
+    or "plain" (the O(N^2) f64 sum of f32 terms at every N), for an A/B of
+    a whole path."""
+    saved = metrics.ENERGY_DESIGN
+    metrics.ENERGY_DESIGN = design
+    try:
+        yield
+    finally:
+        metrics.ENERGY_DESIGN = saved
+
+
+@contextlib.contextmanager
 def sym_design_routes(hn, design: str):
     """Runs the sym_force launches inside in ``design``: "one_pass" (the
     wrapper's rule) or "two_pass" (the earlier routes: a general or
@@ -1587,6 +1752,9 @@ def phase_main(dev, report: dict) -> None:
     check(per_mode["int4_sim"]["max_d2"] == 2 * (TICKS + 1),
           f"int4: max_d2 launched {per_mode['int4_sim']['max_d2']} times in "
           f"{TICKS} ticks")
+    # N=5000 <= hn.TILED_MIN_N: every snapshot keeps the plain energy.
+    check(all(v["pair_pe_rows"] == 0 for v in per_mode.values()),
+          f"pair_pe_rows launched at N={STARS}: {per_mode}")
     for mode, h in histories.items():
         check(len(h.total_energy) == TICKS // INTERVAL + 1
               and np.isfinite(h.total_energy).all(),
@@ -1970,12 +2138,100 @@ def row_ab(dev, report: dict) -> None:
     del pos, m, gm
 
 
+PERF_TICKS, PERF_INTERVAL = 20, 10   # the single-device run at 131072
+ENERGY_SPEEDUP = {"float32": 5.0, "int4": 3.0}   # kernel energy vs plain
+
+
+def big_energy_ab(dev, report: dict) -> None:
+    """The single-device main path at N=131072 (D=2 disk, equal masses):
+    20 ticks with a snapshot every 10, float32 and int4, the snapshots'
+    potential energy on pair_pe_rows (metrics.energy_route) and on the
+    plain O(N^2) sum in turns (plain, kernel, kernel, plain): ticks/s,
+    launches exact (21 sym_force_uniform; 2 pair_pe_rows on the kernel
+    route, none on the plain one), the two routes' energies within 1e-5
+    relative of each other (the same trajectory: the energy does not feed
+    back), and the kernel route at least ENERGY_SPEEDUP times the plain
+    one's ticks/s. The float64 baseline's sum (compensated) launches
+    nothing at this N."""
+    from nbody_tpu_torch.cli import force_path
+    from nbody_tpu_torch.config import SimConfig
+    from nbody_tpu_torch.diagnostics import metrics
+    from nbody_tpu_torch.models.direct import DirectSimulation
+    from nbody_tpu_torch.models.galaxy import create_disk_galaxy
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+    from nbody_tpu_torch.utils.profiler import fence
+
+    p0, v0, m0 = create_disk_galaxy(torch.Generator().manual_seed(0),
+                                    num_stars=BIG_N, device=dev)
+    passes = PERF_TICKS // PERF_INTERVAL
+    rates = {}
+    for mode in ("float32", "int4"):
+        energies = {}
+        for design in ("plain", "kernel", "kernel", "plain"):
+            reset_counters(hn)
+            sim = DirectSimulation(p0, v0, m0, precision=mode, device=dev)
+            fence(sim.state.positions)
+            t0 = time.time()
+            with energy_design(metrics, design):
+                snaps, _ = sim.run_with_history(PERF_TICKS, PERF_INTERVAL)
+            fence(sim.state.positions)
+            wall = time.time() - t0
+            launched = {k: v for k, v in hn.LAUNCHES.items() if v}
+            check(np.isfinite(np.asarray(snaps.total)).all(),
+                  f"N={BIG_N} {mode}: non-finite energy")
+            print(f"perf: main path N={BIG_N} {mode}, energy {design}: "
+                  f"{PERF_TICKS} ticks (snapshots every {PERF_INTERVAL}) in "
+                  f"{wall:.3f}s = {PERF_TICKS / wall:.3f} ticks/s, "
+                  f"{BIG_N ** 2 * PERF_TICKS / wall:.4e} pairwise "
+                  f"interactions/s; launches {launched}; force path: "
+                  f"{force_path(launched)}")
+            check(launched.get("sym_force_uniform") == PERF_TICKS + 1
+                  and not launched.get("sym_force"),
+                  f"N={BIG_N} {mode}: not the equal-mass path: {launched}")
+            check(launched.get("pair_pe_rows", 0)
+                  == (passes if design == "kernel" else 0),
+                  f"N={BIG_N} {mode} energy {design}: pair_pe_rows "
+                  f"launched {launched.get('pair_pe_rows', 0)} times")
+            if design == "kernel" and design not in energies:
+                for k in ("sym_force_uniform", "pair_pe_rows"):
+                    report[k]["launches"] += hn.LAUNCHES[k]
+            energies.setdefault(design, []).append(
+                np.asarray(snaps.potential, dtype=np.float64))
+            rates.setdefault((mode, design), []).append(PERF_TICKS / wall)
+            del sim
+        rel = max(float(np.abs(k / p - 1).max())
+                  for k in energies["kernel"] for p in energies["plain"])
+        plain, kernel = (sum(rates[(mode, d)]) / 2 for d in ("plain",
+                                                            "kernel"))
+        print(f"perf: N={BIG_N} {mode} ticks/s, energy plain "
+              f"{rates[(mode, 'plain')][0]:.3f} / "
+              f"{rates[(mode, 'plain')][1]:.3f}, on pair_pe_rows "
+              f"{rates[(mode, 'kernel')][0]:.3f} / "
+              f"{rates[(mode, 'kernel')][1]:.3f} ({kernel / plain:.2f}x); "
+              f"the routes' potential energies within {rel:.3e} relative")
+        check(rel <= 1e-5, f"N={BIG_N} {mode}: the energy routes differ by "
+                           f"{rel:.3e}")
+        check(kernel >= ENERGY_SPEEDUP[mode] * plain,
+              f"N={BIG_N} {mode}: the kernel energy's run is only "
+              f"{kernel / plain:.2f}x the plain one's")
+        report["pair_pe_rows"].setdefault("energy_ab", {})[mode] = {
+            "plain_ticks_per_s": plain, "kernel_ticks_per_s": kernel,
+            "energy_rel": rel}
+    reset_counters(hn)
+    e64 = metrics.total_energy(p0, v0, m0, SimConfig(), compensated=True)
+    check(bool(torch.isfinite(e64)) and hn.LAUNCHES["pair_pe_rows"] == 0,
+          f"N={BIG_N}: the compensated (float64 baseline) energy launched "
+          f"pair_pe_rows")
+    print(f"perf: N={BIG_N} compensated energy (the float64 baseline's): "
+          f"plain sum, no pair_pe_rows launch")
+
+
 def phase_perf(dev, report: dict) -> None:
     from nbody_tpu_torch.config import SimConfig
     from nbody_tpu_torch.models.direct import DirectSimulation
     from nbody_tpu_torch.ops import hopper_nbody as hn
+    from nbody_tpu_torch.models.galaxy import create_disk_galaxy
     from nbody_tpu_torch.ops.precision import Quantizer, dist_sq_log_bounds
-    from nbody_tpu_torch.utils.profiler import fence
 
     cfg = SimConfig()
     perf_main_shapes(dev, report)
@@ -2078,31 +2334,7 @@ def phase_perf(dev, report: dict) -> None:
                   f"plain {plain_ms:.4f} ms, bound {bound(*work)[0]:.4f} ms")
         del pos, m, gm
 
-    from nbody_tpu_torch.cli import force_path
-    from nbody_tpu_torch.models.galaxy import create_disk_galaxy
-    p0, v0, m0 = create_disk_galaxy(torch.Generator().manual_seed(0),
-                                    num_stars=BIG_N, device=dev)
-    for mode in ("float32", "int4"):
-        reset_counters(hn)
-        sim = DirectSimulation(p0, v0, m0, precision=mode, device=dev)
-        fence(sim.state.positions)
-        t0 = time.time()
-        snaps, _ = sim.run_with_history(20, 10)
-        fence(sim.state.positions)
-        wall = time.time() - t0
-        launched = {k: v for k, v in hn.LAUNCHES.items() if v}
-        check(np.isfinite(np.asarray(snaps.total)).all(),
-              f"N={BIG_N} {mode}: non-finite energy")
-        print(f"perf: main path N={BIG_N} {mode}: 20 ticks (snapshots "
-              f"every 10) in {wall:.3f}s = {20 / wall:.3f} ticks/s, "
-              f"{BIG_N ** 2 * 20 / wall:.4e} pairwise interactions/s; "
-              f"launches {launched}; force path: {force_path(launched)}")
-        check(launched.get("sym_force_uniform") == 21
-              and not launched.get("sym_force"),
-              f"N={BIG_N} {mode}: not the equal-mass path: {launched}")
-        report["sym_force_uniform"]["launches"] += hn.LAUNCHES[
-            "sym_force_uniform"]
-        del sim
+    big_energy_ab(dev, report)
 
     # The row sweep at N=131072 in both designs (its plain version at the
     # 1M path's shape takes minutes; --phases scale has it), then the N=1M
@@ -2224,6 +2456,9 @@ def phase_large(dev, report: dict) -> None:
     from nbody_tpu_torch.utils.profiler import fence
 
     cfg = SimConfig()
+    pos, _ = make_inputs(BIG_N, 2, True, seed=7, dev=dev)
+    max_d2_ab(hn, f"N={BIG_N} D=2 disk", pos, report, 5)
+    del pos
     gen = torch.Generator().manual_seed(LARGE_SEED)
     rows = torch.randperm(LARGE_N, generator=gen)[:SAMPLED_ROWS].to(dev)
     for dim in (2, 3):
@@ -2377,7 +2612,7 @@ def phase_large(dev, report: dict) -> None:
                            rows)
             del state, pos, gm, chunked, rowsweep, sweeps, plain
         if dim == 3:
-            bounds_pass_checks(hn, cfg, pos0, dev)
+            bounds_pass_checks(hn, cfg, pos0, dev, report)
         del pos0, vel0, m0
 
     # Zero softening routes the chunked path to the row sweep. The D=3
@@ -2409,30 +2644,53 @@ def phase_large(dev, report: dict) -> None:
     report["row_force"]["step_ms_1M_D3_zero_softening"] = wall / 2 * 1e3
 
 
-def bounds_pass_checks(hn, cfg, plummer, dev) -> None:
+def max_d2_ab(hn, name: str, pos, report: dict, reps: int) -> None:
+    """max_d2 over ``pos`` in the design it routes to and the one that
+    replaced (parent=True) in turns: running (CUDA events, ``reps`` calls
+    a turn) and skipped (device time, device_ms), the running results
+    bitwise each other; the bound by the pairs."""
+    n, dim = pos.shape
+    one = torch.ones((), dtype=torch.int32, device=pos.device)
+    olds, news = in_turns(lambda f: cuda_ms(f, reps),
+                          lambda: hn.max_d2(pos, parent=True),
+                          lambda: hn.max_d2(pos))
+    s_olds, s_news = in_turns(lambda f: device_ms(f)[0],
+                              lambda: hn.max_d2(pos, skip=one, parent=True),
+                              lambda: hn.max_d2(pos, skip=one))
+    ms, old_ms = sum(news) / 2, sum(olds) / 2
+    skip_ms, skip_old = sum(s_news) / 2, sum(s_olds) / 2
+    b_ms = bound(n * (n - 1) / 2, pair_ops("max", dim, ""),
+                 4 * (dim * n + 1))[0]
+    check(bitwise(hn.max_d2(pos), hn.max_d2(pos, parent=True)),
+          f"max_d2 {name}: the designs differ")
+    old, new = hn.max_d2_design(n, True), hn.max_d2_design(n)
+    print(f"large: time max_d2 {name}: {old} {olds[0]:.4f} / {olds[1]:.4f} "
+          f"ms, {new} {news[0]:.4f} / {news[1]:.4f} ms "
+          f"({ms / old_ms - 1:+.2%}); bound {b_ms:.4f} ms ({b_ms / old_ms:.1%}"
+          f" / {b_ms / ms:.1%} of it); skipped (device time) {old} "
+          f"{s_olds[0]:.5f} / {s_olds[1]:.5f} ms, {new} {s_news[0]:.5f} / "
+          f"{s_news[1]:.5f} ms ({skip_ms / skip_old - 1:+.2%}); bitwise")
+    report["max_d2"].setdefault("designs", []).append(
+        {"shape": name, old + "_ms": old_ms, new + "_ms": ms,
+         "bound_ms": b_ms, "skipped_" + old + "_ms": skip_old,
+         "skipped_" + new + "_ms": skip_ms})
+
+
+def bounds_pass_checks(hn, cfg, plummer, dev, report: dict) -> None:
     """The pruned bounds pass at D=3, N=1M bitwise equal to the full
-    max_d2, on the Plummer ICs and on a shell that forces the fallback."""
+    max_d2, on the Plummer ICs and on a shell that forces the fallback;
+    the full max_d2 there in both designs in turns (max_d2_ab)."""
     for name, geom in (("Plummer", plummer),
                        ("shell", shell_positions(LARGE_N, dev))):
         hn.BOUNDS_FALLBACKS.clear()
         pruned = hn.max_pairwise_dist_sq_pruned(geom, cfg)
         took = hn.bounds_fallbacks(dev)
-        olds, news = in_turns(lambda f: cuda_ms(f, 1),
-                              lambda: hn.max_d2(geom, parent=True),
-                              lambda: hn.max_d2(geom))
-        ms = sum(news) / 2
+        max_d2_ab(hn, f"N={LARGE_N} D=3 {name}", geom, report, 1)
         full = hn.max_dist_sq(geom, cfg)
-        b_ms = bound(LARGE_N * (LARGE_N - 1) / 2, pair_ops("max", 3, ""),
-                     4 * (3 * LARGE_N + 1))[0]
         print(f"large: bounds pass D=3 {name}: pruned {pruned.item()!r}, "
-              f"full max_d2 {full.item()!r} ({ms:.3f} ms a full launch, "
-              f"single {news[0]:.3f} / {news[1]:.3f} against two launches "
-              f"{olds[0]:.3f} / {olds[1]:.3f}: {ms / (sum(olds) / 2) - 1:+.2%};"
-              f" bound {b_ms:.3f}), fallback taken: {bool(took)}")
-        check(torch.equal(pruned, full)
-              and torch.equal(hn.max_d2(geom),
-                              hn.max_d2(geom, parent=True)),
-              f"{name}: pruned != full max, or the designs differ")
+              f"full max_d2 {full.item()!r}, fallback taken: {bool(took)}")
+        check(torch.equal(pruned, full),
+              f"{name}: pruned != full max")
         if name == "shell":
             check(took == 1, "the shell did not take the fallback")
             r = torch.linalg.vector_norm(geom - geom.mean(0), dim=1)
@@ -2454,9 +2712,9 @@ VIRTUAL_SHARDS = (3, 4)
 
 
 def pe_rtol(n_sources: int) -> float:
-    """pair_pe_rows against its plain version, relative to the row (its
-    terms are positive, so the row is its summed |terms|): twice the
-    worst-case rounding of the kernel's two-level order, 128 terms a tile
+    """pair_pe_rows' first design against its plain version, relative to
+    the row (its terms are positive, so the row is its summed |terms|):
+    twice the worst-case rounding of its two-level order, 128 terms a tile
     and one add per tile, plus a few ulp for the terms."""
     return 2 * (128 + -(-n_sources // 128) + 4) * 2.0 ** -24
 
@@ -2501,12 +2759,13 @@ def ring_tiles(dev, report: dict) -> None:
     max_cases = pe_cases = 0
     gen = torch.Generator().manual_seed(5)
 
-    def hold_pe(case, got, want, n_j):
+    def hold_pe(case, got, want, n_i, n_j, parent=False):
         nonlocal pe_worst, pe_cases
         pe_cases += 1
         fin = torch.isfinite(want)
         err = ((got - want).abs() / want.abs())[fin]
-        ratio = err.max().item() / pe_rtol(n_j) if err.numel() else 0.0
+        rtol = pe_bound_rtol(n_i, n_j, parent)
+        ratio = err.max().item() / rtol if err.numel() else 0.0
         pe_worst = max(pe_worst, (ratio, case))
         report["pair_pe_rows"]["max_abs_err"] = max(
             report["pair_pe_rows"]["max_abs_err"] or 0.0,
@@ -2556,7 +2815,7 @@ def ring_tiles(dev, report: dict) -> None:
             for soft in (cfg.softening_sq, 0.0):
                 args = (xi, mi, ids_i, xj, mj, ids_j, soft)
                 hold_pe(f"{shape} eps^2={soft}", hn.pair_pe_rows(*args),
-                        hn.pair_pe_rows_plain(*args), n_j)
+                        hn.pair_pe_rows_plain(*args), n_i, n_j)
 
     # Run to run, one case each.
     xi, xj, mi, mj, _, gmj = ring_sets(32768, 32771, 2, 1, dev)
@@ -2642,8 +2901,24 @@ def ring_tiles(dev, report: dict) -> None:
                                         old_design_ms=old_ms)
                 else:
                     report[name].update(int4_ms=ms, int4_old_design_ms=old_ms)
-            else:
-                ms = cuda_ms(keep(kernel, "kernel"), 3)
+            else:   # pair_pe_rows: both designs in turns
+                olds, news = in_turns(
+                    lambda f: cuda_ms(f, 3),
+                    keep(lambda: hn.pair_pe_rows(pos, m, ids, pos, m, ids,
+                                                 cfg.softening_sq,
+                                                 parent=True), "earlier"),
+                    keep(kernel, "kernel"))
+                ms, old_ms = sum(news) / 2, sum(olds) / 2
+                b_ms = bound(BIG_N ** 2, pair_ops("pe", 2, mode),
+                             4 * 9 * BIG_N)[0]
+                line = (f"; first design {olds[0]:.4f} / {olds[1]:.4f} ms, "
+                        f"register-tiled {news[0]:.4f} / {news[1]:.4f} ms "
+                        f"({ms / old_ms - 1:+.2%}); bound {b_ms:.4f} ms "
+                        f"({b_ms / old_ms:.1%} / {b_ms / ms:.1%} of it; the "
+                        f"MUFU floor {pe_mufu_ms(BIG_N ** 2):.4f} ms)")
+                report[name].update(design="tiled",
+                                    old_design="per_receiver",
+                                    old_design_ms=old_ms)
             plain_ms2 = cuda_ms(keep(plain, "plain"), 1, 0)
             print(f"ring: time {name} {BIG_N}x{BIG_N} D=2 {mode}: kernel "
                   f"{ms:.4f} ms, plain {min(plain_ms, plain_ms2):.4f} ms "
@@ -2672,11 +2947,14 @@ def ring_tiles(dev, report: dict) -> None:
                 hold_max(f"{shape} two launches", out["earlier"], want)
             else:
                 hold_pe(f"{shape} eps^2={cfg.softening_sq}", got, want,
-                        BIG_N)
+                        BIG_N, BIG_N)
+                hold_pe(f"{shape} eps^2={cfg.softening_sq} first design",
+                        out["earlier"], want, BIG_N, BIG_N, parent=True)
             out.clear()
             del got, want
     del pos, m, gm, ones, ids
     pair_max_shard_ab(dev, report)
+    pe_shard_ab(dev, report, hold_pe)
 
     torch.cuda.synchronize()
     force.report("pair_force", report["pair_force"])
@@ -2687,12 +2965,15 @@ def ring_tiles(dev, report: dict) -> None:
         max_abs_err=0.0,
         cases=(report["pair_max"].get("cases") or 0) + max_cases)
     print(f"ring: pair_pe_rows vs plain in {pe_cases} cases, |err| <= "
-          f"2 (128 + tiles + 4) 2^-24 |row|: {len(pe_fail)} failures; worst "
-          f"err/bound {pe_worst[0]:.4f} ({pe_worst[1]})")
+          f"2 (128 + tiles + 4) 2^-24 |row| (first design), 2 (128 + seg + "
+          f"nseg + 5) 2^-24 |row| (register-tiled): {len(pe_fail)} failures;"
+          f" worst err/bound {pe_worst[0]:.4f} ({pe_worst[1]})")
     check(not pe_fail, "pair_pe_rows disagreements:\n  "
           + "\n  ".join(pe_fail))
-    report["pair_pe_rows"].update(err_over_bound=pe_worst[0],
-                                  cases=pe_cases)
+    report["pair_pe_rows"].update(
+        err_over_bound=max(report["pair_pe_rows"].get("err_over_bound")
+                           or 0.0, pe_worst[0]),
+        cases=(report["pair_pe_rows"].get("cases") or 0) + pe_cases)
 
 
 def pair_max_shard_ab(dev, report: dict) -> None:
@@ -2727,6 +3008,49 @@ def pair_max_shard_ab(dev, report: dict) -> None:
     report["pair_max"]["shard_ab"] = {
         "shape": f"{size}x{size}", "two_launch_ms": old_ms, "tiled_ms": ms,
         "bound_ms": b_ms}
+
+
+def pe_mufu_ms(pairs: float) -> float:
+    """pair_pe_rows' floor by the special-function unit: one rsqrt a pair
+    at 16 a clock a SM, 132 SMs at the H100 SXM's 1.98 GHz boost clock."""
+    return pairs / (16 * 132 * 1.98e9) * 1e3
+
+
+def pe_shard_ab(dev, report: dict, hold_pe) -> None:
+    """pair_pe_rows at the ring's shard shapes, D=2: shards 0 and 1 of
+    131072 over S=3 (43691^2) and of 131075 over S=4 (32769^2), the ids
+    the ring gives them (disjoint, contiguous): the first design and the
+    register-tiled one in turns (CUDA events), each held to the plain
+    version (``hold_pe``); the bound by the pairs."""
+    from nbody_tpu_torch.config import SimConfig
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+
+    cfg = SimConfig()
+    shapes = {}
+    for n_total, shards in ((BIG_N, 3), (BIG_N + 3, 4)):
+        size = -(-n_total // shards)
+        pos, m = make_inputs(2 * size, 2, False, seed=shards, dev=dev)
+        ids = torch.arange(2 * size, dtype=torch.int32, device=dev)
+        a, b = (slice(0, size), slice(size, 2 * size))
+        args = (pos[a], m[a], ids[a], pos[b], m[b], ids[b], cfg.softening_sq)
+        old, new = (lambda: hn.pair_pe_rows(*args, parent=True),
+                    lambda: hn.pair_pe_rows(*args))
+        want = hn.pair_pe_rows_plain(*args)
+        shape = f"{size}x{size} (shards 0 x 1 of {n_total} over S={shards})"
+        hold_pe(f"D=2 {shape}", new(), want, size, size)
+        hold_pe(f"D=2 {shape} first design", old(), want, size, size,
+                parent=True)
+        olds, news = in_turns(lambda f: cuda_ms(f, 10), old, new)
+        ms, old_ms = sum(news) / 2, sum(olds) / 2
+        b_ms = bound(size * size, pair_ops("pe", 2, ""), 4 * 9 * size)[0]
+        print(f"ring: time pair_pe_rows D=2 {shape}: first design "
+              f"{olds[0]:.4f} / {olds[1]:.4f} ms, register-tiled "
+              f"{news[0]:.4f} / {news[1]:.4f} ms ({ms / old_ms - 1:+.2%}); "
+              f"bound {b_ms:.4f} ms ({b_ms / old_ms:.1%} / {b_ms / ms:.1%} "
+              f"of it); grid {hn.pe_segments(size, size)}")
+        shapes[f"{size}x{size}"] = {"per_receiver_ms": old_ms,
+                                    "tiled_ms": ms, "bound_ms": b_ms}
+    report["pair_pe_rows"]["shard_ab"] = shapes
 
 
 def ring_cli(dev, report: dict) -> None:
@@ -2779,7 +3103,9 @@ def ring_cli(dev, report: dict) -> None:
                 path = re.search(r"force path: (.*)", block).group(1)
                 is_int = mode == "int4_sim"
                 want = dict.fromkeys(hn.LAUNCHES, 0)
-                want["pair_pe_rows"] = passes
+                # The ring's energy pass a snapshot, and the CLI's first
+                # snapshot (single-device, past hn.TILED_MIN_N on #7).
+                want["pair_pe_rows"] = passes + 1
                 want["pair_max"] = evals if is_int else 0
                 # Equal masses, N % 1 == 0 and 131072 % 64 == 0: the sym
                 # schedule's diagonal is the equal-mass variant.
@@ -2837,7 +3163,8 @@ def ring_virtual(dev, report: dict) -> None:
         gm = (cfg.G * m).contiguous()
         torch.cuda.synchronize()
         t0 = time.time()
-        pe_plain = float(metrics.potential_energy(pos, m, cfg))
+        pe_plain = float(metrics.potential_energy(pos, m, cfg,
+                                                  compensated=True))
         plain_ms = (time.time() - t0) * 1e3
         max_single = hn.max_d2(pos) + cfg.softening_sq
         singles, single_ms = {}, {}
@@ -3594,6 +3921,15 @@ def resident_lines() -> None:
               f"{warps}; grid at {BIG_N}^2 {grid} (segments, tiles a "
               f"segment)")
         check(warps >= 32, f"pair_max D={dim}: fewer than 32 resident warps")
+        mx, pe = (4 * lib.nbody_max_d2_tiled_resident(dim),
+                  4 * lib.nbody_pair_pe_tiled_resident(dim))
+        print(f"build: max_d2 register-tiled D={dim}: resident warps a SM "
+              f"{mx} (grid {hn.max_d2_tiled_blocks(torch.device('cuda', 0))}"
+              f" blocks); pair_pe_rows register-tiled D={dim}: resident "
+              f"warps a SM {pe}; grid at {BIG_N}^2 "
+              f"{hn.pe_segments(BIG_N, BIG_N)} (segments, tiles a segment)")
+        check(mx >= 32 and pe >= 32, f"max_d2 / pair_pe_rows D={dim}: fewer "
+                                     f"than 32 resident warps")
     for dim, n in ((2, hn.sym_chunk_size(LARGE_N, 2)),
                    (3, hn.sym_chunk_size(LARGE_N, 3))):
         one = sum(4 * math.prod(x) for x in hn.pair_one_pass_scratch(n, n,
@@ -3648,7 +3984,8 @@ def main(argv=None) -> int:
         if "Compiling entry function" in line:
             entry = line
         if (("one_pass" in entry or "row_tiled" in entry
-             or "pair_max_tiled" in entry) and "spill" in line
+             or "pair_max_tiled" in entry or "max_d2_tiled" in entry
+             or "pair_pe_tiled" in entry) and "spill" in line
                 and not line.strip().startswith(
                     "0 bytes stack frame, 0 bytes spill stores")):
             spilled.append(f"{entry.strip()}: {line.strip()}")

@@ -62,6 +62,8 @@ SIGNATURES = {
                                  _P],
         "nbody_pair_max_geometry": [],
         "nbody_pair_max_tiled_resident": [_I],
+        "nbody_max_d2_tiled": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P],
+        "nbody_max_d2_tiled_resident": [_I],
     },
     "row_force": {
         "nbody_row_force": [_P, _I, _P, _P, _I, _P, _I, _I, _I, _F, _F, _I,
@@ -82,6 +84,10 @@ SIGNATURES = {
     "pair_pe_rows": {
         "nbody_pair_pe_rows": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P,
                                _P],
+        "nbody_pair_pe_rows_tiled": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P,
+                                     _P, _P, _I, _P, _P, _P],
+        "nbody_pair_pe_geometry": [],
+        "nbody_pair_pe_tiled_resident": [_I],
     },
 }
 

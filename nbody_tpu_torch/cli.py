@@ -196,7 +196,8 @@ def run_compare(args) -> dict:
                                mesh=mesh, schedule=args.schedule,
                                ticks_per_dispatch=args.ticks_per_dispatch)
         snap0 = metrics_lib.to_host(metrics_lib.snapshot(
-            sim.positions, sim.velocities, sim.masses, sim.tick, cfg))
+            sim.positions, sim.velocities, sim.masses, sim.tick, cfg,
+            compensated=sim.is_baseline))
         fence(sim.state.positions)
         t0 = time.time()
         snaps, frames = sim.run_with_history(

@@ -89,6 +89,23 @@
 // may fuse (subtract-form d^2), so at D = 2 six issue slots a pair and a
 // quarter of a shared load: ~3.2 ms at 131072^2 by the FP32 issue rate,
 // twice pair_ops' bound, whose 67 TFLOP/s peak counts an FMA as two ops.
+//
+// One set past 16384 points (max_d2_tiled; nbody_max_d2_tiled, the route
+// of hopper_nbody.max_d2_design), replacing max_d2_single's 256-point tile
+// there (one thread a receiver, one shared load a coordinate a pair, one
+// max chain a thread: 2.19 ms at 131072, 200 ms at 1M D=3, where
+// pair_max_tiled computes the same max over twice the pairs at 131072^2
+// in 3.65 ms). It runs pair_max_tiled's body over one set's upper
+// triangle of 512-point units: a work item is a unit pair I <= J (J-major,
+// tri_tile), 512 receivers in registers (4 a thread) against the 512
+// sources of unit J staged once in shared memory; a diagonal item walks
+// its full square (d^2 of x_j - x_i and of x_i - x_j are the same bits,
+// a self pair gives 0, so the max is unchanged). A point past n is staged
+// as NaN, which fmaxf drops. The grid is capped (persistent blocks
+// walking the items in a grid-stride loop), so a skipped launch reads the
+// flag in no more blocks than max_d2_single's capped grid; every block
+// folds by max_d2's ticket in the same launch, and `skip` and `count`
+// keep their contract. Max is exact: bitwise max_d2_single's.
 
 #include "max_reduce.cuh"
 #include "nbody_common.cuh"
@@ -264,20 +281,26 @@ static_assert(PM_TILE == PM_THREADS, "one thread a source stages");
 template <int D>
 using PmVec = typename std::conditional<D == 2, float2, float4>::type;
 
-// Point j of p as the staged vector, or NaNs where it is invalid or past
-// n: its every d^2 is then NaN, which fmaxf drops.
+// Point j of p as the staged vector where ok, else NaNs: its every d^2 is
+// then NaN, which fmaxf drops.
 template <int D>
-__device__ __forceinline__ PmVec<D> pm_load(const float* __restrict__ p,
-                                            const unsigned char* __restrict__ v,
-                                            int n, int j) {
+__device__ __forceinline__ PmVec<D> pm_point(const float* __restrict__ p,
+                                             bool ok, int j) {
   const float nan = __int_as_float(0x7fffffff);
-  const bool ok = j < n && v[j];
   const float* q = p + (size_t)j * D;
   if constexpr (D == 2)
     return ok ? make_float2(q[0], q[1]) : make_float2(nan, nan);
   else
     return ok ? make_float4(q[0], q[1], q[2], 0.f)
               : make_float4(nan, nan, nan, nan);
+}
+
+// Point j of p, NaNs where it is invalid or past n.
+template <int D>
+__device__ __forceinline__ PmVec<D> pm_load(const float* __restrict__ p,
+                                            const unsigned char* __restrict__ v,
+                                            int n, int j) {
+  return pm_point<D>(p, j < n && v[j], j);
 }
 
 // Receiver block b = blockIdx.x (receivers b 512 + 128 r + t, r = 0..3, in
@@ -339,6 +362,70 @@ pair_max_tiled(const float* __restrict__ pa,
   fold_by_ticket<PM_THREADS>(m, block_max,
                              blockIdx.y * gridDim.x + blockIdx.x,
                              gridDim.x * gridDim.y, ticket, nullptr, out);
+}
+
+// One set's max d^2 on pair_max_tiled's body: each block walks the unit
+// pairs k = blockIdx.x, + gridDim.x, ... of the U (U + 1) / 2 pairs I <= J
+// of 512-point units (tri_tile), receivers of unit I in registers against
+// the sources of unit J staged in shared memory, each pair's raw d^2 as
+// max_d2_single forms it; then the fold by ticket (counting the run). A
+// skipped launch returns at once in every block; block 0 writes the 0.
+template <int D>
+__global__ void __launch_bounds__(PM_THREADS)
+max_d2_tiled(const float* __restrict__ pos, int n,
+             const int* __restrict__ skip, int* __restrict__ count,
+             float* __restrict__ block_max, int* __restrict__ ticket,
+             float* __restrict__ out) {
+  const int t = threadIdx.x;
+  if (skip != nullptr && *skip != 0) {
+    if (blockIdx.x == 0 && t == 0) out[0] = 0.f;
+    return;
+  }
+  __shared__ PmVec<D> xs[PM_RW];
+  const long long U = (n + PM_RW - 1) / PM_RW;
+  float best[PM_R];
+#pragma unroll
+  for (int r = 0; r < PM_R; ++r) best[r] = 0.f;
+  for (long long k = blockIdx.x; k < U * (U + 1) / 2; k += gridDim.x) {
+    int I, J;
+    tri_tile(k, I, J);
+    float xi[PM_R][D];
+#pragma unroll
+    for (int r = 0; r < PM_R; ++r) {
+      const int i = I * PM_RW + PM_THREADS * r + t;
+      const PmVec<D> p = pm_point<D>(pos, i < n, i);
+      xi[r][0] = p.x;
+      xi[r][1] = p.y;
+      if constexpr (D == 3) xi[r][D - 1] = p.z;
+    }
+    __syncthreads();  // the previous item's readers are done with xs
+#pragma unroll
+    for (int r = 0; r < PM_R; ++r) {
+      const int j = J * PM_RW + PM_THREADS * r + t;
+      xs[PM_THREADS * r + t] = pm_point<D>(pos, j < n, j);
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int j = 0; j < PM_RW; ++j) {
+      const PmVec<D> sj = xs[j];
+      float xj[D];
+      xj[0] = sj.x;
+      xj[1] = sj.y;
+      if constexpr (D == 3) xj[D - 1] = sj.z;
+#pragma unroll
+      for (int r = 0; r < PM_R; ++r) {
+        float dx[D];
+#pragma unroll
+        for (int d = 0; d < D; ++d) dx[d] = __fsub_rn(xj[d], xi[r][d]);
+        best[r] = fmaxf(best[r], raw_d2<D>(dx));
+      }
+    }
+  }
+  float m = best[0];
+#pragma unroll
+  for (int r = 1; r < PM_R; ++r) m = fmaxf(m, best[r]);
+  fold_by_ticket<PM_THREADS>(m, block_max, blockIdx.x, gridDim.x, ticket,
+                             count, out);
 }
 
 }  // namespace
@@ -422,6 +509,43 @@ extern "C" int nbody_pair_max_tiled(const float* pa, const unsigned char* va,
     pair_max_tiled<3><<<grid, PM_THREADS, 0, s>>>(pa, va, na, pb, vb, nb, seg,
                                                   block_max, ticket, out);
   return (int)cudaGetLastError();
+}
+
+// One set past 16384 points on pair_max_tiled's body (max_d2_tiled): pos
+// (n, dim) f32; skip, count: nullable device ints as nbody_max_d2's;
+// block_max: scratch of `capacity` floats, the grid's cap; ticket: one
+// device int, 0, left 0 (max_d2's); out: one float, the raw max d^2 (0
+// when skipped). One launch. Returns cudaGetLastError().
+extern "C" int nbody_max_d2_tiled(const float* pos, int n, int dim,
+                                  const int* skip, int* count,
+                                  float* block_max, int capacity, int* ticket,
+                                  float* out, void* stream) {
+  if (n <= 0 || (dim != 2 && dim != 3) || capacity <= 0 || ticket == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long U = (n + PM_RW - 1) / PM_RW;
+  const long long items = U * (U + 1) / 2;
+  const int grid = (int)(items < capacity ? items : capacity);
+  if (dim == 2)
+    max_d2_tiled<2><<<grid, PM_THREADS, 0, s>>>(pos, n, skip, count,
+                                                block_max, ticket, out);
+  else
+    max_d2_tiled<3><<<grid, PM_THREADS, 0, s>>>(pos, n, skip, count,
+                                                block_max, ticket, out);
+  return (int)cudaGetLastError();
+}
+
+// Blocks of max_d2_tiled<dim> a SM holds at once (-1: none).
+extern "C" int nbody_max_d2_tiled_resident(int dim) {
+  int blocks = -1;
+  cudaError_t rc = cudaErrorInvalidValue;
+  if (dim == 2)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, max_d2_tiled<2>, PM_THREADS, 0);
+  else if (dim == 3)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, max_d2_tiled<3>, PM_THREADS, 0);
+  return rc == cudaSuccess ? blocks : -1;
 }
 
 // Receivers a block, sources a tile of the register-tiled pair_max

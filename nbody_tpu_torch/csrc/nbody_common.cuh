@@ -1,7 +1,8 @@
-// Device code shared by the force kernels of nbody_tpu_torch (sym_force.cu,
-// row_force.cu, pair_sym_force.cu): the precision hook of one pair, the
-// fixed-order reduction of per-tile partials, and the dispatch from the
-// runtime (mode, dim) to a kernel instance.
+// Device code shared by the kernels of nbody_tpu_torch (sym_force.cu,
+// row_force.cu, pair_sym_force.cu, pair_pe_rows.cu, max_dist_sq.cu): the
+// precision hook of one pair, the staged source of a register-tiled tile,
+// the fixed-order reduction of per-tile partials, and the dispatch from
+// the runtime (mode, dim) to a kernel instance.
 //
 // Numerics, matched to the plain PyTorch versions (ops/hopper_nbody.py):
 //   * d^2 is subtract-form and never contracted into an FMA:
@@ -99,6 +100,24 @@ __device__ __forceinline__ void tri_tile(long long k, int& I, int& J) {
   while ((j + 1) * (j + 2) / 2 <= k) ++j;
   J = (int)j;
   I = (int)(k - j * (j + 1) / 2);
+}
+
+// The inert far sentinel that pads a ragged source tile
+// (pallas_nbody.py:55-64's): d^2 ~ 8e36 stays finite, and the weight 0
+// zeroes its term.
+constexpr float FAR_SENTINEL = 2e18f;
+
+// Source j of pos with its weight w[j] (G m or m) as one staged float4
+// {x, y, w, 0} (D = 3: {x, y, z, w}), or the sentinel with weight 0 past
+// n: the register-tiled row sweep's and pair_pe_rows' source tiles.
+template <int D>
+__device__ __forceinline__ float4 load_src4(const float* __restrict__ pos,
+                                            const float* __restrict__ w,
+                                            int n, int j) {
+  if (j >= n) return make_float4(FAR_SENTINEL, FAR_SENTINEL, 0.f, 0.f);
+  const float* p = pos + (size_t)j * D;
+  return D == 2 ? make_float4(p[0], p[1], w[j], 0.f)
+                : make_float4(p[0], p[1], p[D - 1], w[j]);
 }
 
 template <int D>

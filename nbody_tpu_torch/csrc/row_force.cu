@@ -142,19 +142,7 @@ constexpr int ROW_R = 4;          // receivers a thread
 constexpr int ROW_THREADS = 128;  // threads a block
 constexpr int ROW_RW = ROW_R * ROW_THREADS;  // receivers a block: 512
 constexpr int ROW_TILE = 128;     // sources a staged tile (the inner sum)
-constexpr float ROW_SENTINEL = 2e18f;  // pallas_nbody.py:55-64's
 static_assert(ROW_TILE == ROW_THREADS, "one thread a source stages");
-
-// Source j of pos_j / gm as the staged float4, or the inert sentinel.
-template <int D>
-__device__ __forceinline__ float4 row_load_src(const float* __restrict__ pos,
-                                               const float* __restrict__ gm,
-                                               int n, int j) {
-  if (j >= n) return make_float4(ROW_SENTINEL, ROW_SENTINEL, 0.f, 0.f);
-  const float* p = pos + (size_t)j * D;
-  return D == 2 ? make_float4(p[0], p[1], gm[j], 0.f)
-                : make_float4(p[0], p[1], p[D - 1], gm[j]);
-}
 
 // One staged tile of ROW_TILE sources (first index j0) against a thread's
 // ROW_R receivers (indices i0 + 128 r): the tile's terms summed by fmaf
@@ -222,13 +210,13 @@ row_tiled(const float* __restrict__ pos_i, int n_i,
       acc[r][d] = 0.f;
     }
   }
-  xs[0][t] = row_load_src<D>(pos_j, gm, n_j, Jb * ROW_TILE + t);
+  xs[0][t] = load_src4<D>(pos_j, gm, n_j, Jb * ROW_TILE + t);
   __syncthreads();
   for (int J = Jb, k = 0; J < Je; ++J, ++k) {
     const int buf = k & 1;
     float4 nxt{};
     if (J + 1 < Je)
-      nxt = row_load_src<D>(pos_j, gm, n_j, (J + 1) * ROW_TILE + t);
+      nxt = load_src4<D>(pos_j, gm, n_j, (J + 1) * ROW_TILE + t);
     const int j0 = J * ROW_TILE;
     if (MASKED && j0 < i_lo + ROW_RW && j0 + ROW_TILE > i_lo)  // block-uniform
       row_tile<MODE, D, true>(xs[buf], xi, acc, soft, g, j0, i_lo + t);

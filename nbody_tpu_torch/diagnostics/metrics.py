@@ -5,7 +5,9 @@ runs on the tensors' device and returns device tensors; nothing here
 waits on the host, so a run takes its snapshots on the device and copies
 them to the host once (``to_host`` / ``stack_snapshots``). The JAX
 package's compensated (double-double) sums become float64 accumulation;
-potential energy keeps f32 pair terms with an f64 sum, row-blocked.
+potential energy keeps f32 pair terms with an f64 sum, row-blocked, and
+past ``hopper_nbody.TILED_MIN_N`` particles on the card sums the f32 rows
+of the pair_pe_rows kernel in f64 instead (``energy_route``).
 """
 
 from __future__ import annotations
@@ -16,6 +18,12 @@ import numpy as np
 import torch
 
 from nbody_tpu_torch.config import SimConfig
+from nbody_tpu_torch.ops import hopper_nbody as hn
+
+# Which sum the routed potential energy takes on the card: "kernel" (the
+# route of energy_route) or "plain" (the O(N^2) f64 sum of f32 terms at
+# every N), which an A/B of a whole path sets for that path's run.
+ENERGY_DESIGN = "kernel"
 
 
 # --------------------------------------------------------------------------
@@ -28,15 +36,46 @@ def kinetic_energy(velocities, masses) -> torch.Tensor:
     return 0.5 * (masses.to(torch.float64) * v_sq.to(torch.float64)).sum()
 
 
+def energy_route(n: int, device_type: str, compensated: bool = False) -> str:
+    """Which sum potential_energy takes for n particles on a device of
+    ``device_type``: "kernel" (the f64 sum of pair_pe_rows' f32 rows, the
+    tile JAX's ring runs for the same sum) on the card past
+    hn.TILED_MIN_N particles, else "plain" (f64 sums of f32 pair terms).
+    ``compensated`` (the float64 baseline's precision anchor) keeps the
+    plain sum at every N: the kernel's f32 row sums add a rounding the
+    anchor must not carry (parallel/ring.py's energy pass does the same)."""
+    return ("kernel" if device_type == "cuda" and n > hn.TILED_MIN_N
+            and not compensated else "plain")
+
+
+def pe_rows_energy(positions, masses, cfg: SimConfig,
+                   softening_sq) -> torch.Tensor:
+    """U = -G/2 * (the f64 sum of pair_pe_rows' rows) over one set with its
+    own ids: every unordered pair is in two rows. 0-d f64."""
+    pos = positions.to(torch.float32).contiguous()
+    m = masses.to(torch.float32).contiguous()
+    ids = torch.arange(pos.shape[0], dtype=torch.int32, device=pos.device)
+    rows = hn.pair_pe_rows(pos, m, ids, pos, m, ids, softening_sq)
+    return -0.5 * cfg.G * rows.to(torch.float64).sum()
+
+
 def potential_energy(positions, masses, cfg: SimConfig,
-                     block: int = 1024, softening_sq=None) -> torch.Tensor:
+                     block: int = 1024, softening_sq=None,
+                     compensated: bool = False) -> torch.Tensor:
     """U = -G * sum_{i<j} m_i m_j / sqrt(|x_i - x_j|^2 + eps^2).
 
     Row-blocked (O(block * N) memory), f32 pair terms summed in f64;
-    counts every unordered pair once via 0.5x the full masked matrix.
-    ``softening_sq`` optionally replaces cfg's (a run-time value)."""
+    counts every unordered pair once via 0.5x the full masked matrix; on
+    the card past hn.TILED_MIN_N particles, unless ``compensated``, the
+    pair_pe_rows kernel's rows summed in f64 (``energy_route``,
+    ``pe_rows_energy``). ``softening_sq`` optionally replaces cfg's (a
+    run-time value)."""
     if softening_sq is None:
         softening_sq = cfg.softening_sq
+    if ENERGY_DESIGN == "kernel" and energy_route(
+            positions.shape[0], positions.device.type,
+            compensated) == "kernel":
+        return pe_rows_energy(positions, masses, cfg, softening_sq)
     pos = positions.to(torch.float32)
     m = masses.to(torch.float32)
     ids = torch.arange(pos.shape[0], device=pos.device)
@@ -63,9 +102,10 @@ def pair_potential_sum(pos_i, m_i, ids_i, pos_j, m_j, ids_j, softening_sq,
 
 
 def total_energy(positions, velocities, masses, cfg: SimConfig,
-                 softening_sq=None) -> torch.Tensor:
+                 softening_sq=None, compensated: bool = False) -> torch.Tensor:
     return kinetic_energy(velocities, masses) + potential_energy(
-        positions, masses, cfg, softening_sq=softening_sq)
+        positions, masses, cfg, softening_sq=softening_sq,
+        compensated=compensated)
 
 
 # --------------------------------------------------------------------------
@@ -160,13 +200,15 @@ class Snapshot(NamedTuple):
 
 
 def snapshot(positions, velocities, masses, tick: int, cfg: SimConfig,
-             num_bins: int = 20, potential=None) -> Snapshot:
+             num_bins: int = 20, potential=None,
+             compensated: bool = False) -> Snapshot:
     """One snapshot of device tensors (``tick`` stays a host int).
     ``potential`` is the potential energy where the caller already has it
-    (the multi-device ring's energy pass); else the plain O(N^2) sum."""
+    (the multi-device ring's energy pass); else potential_energy's routed
+    O(N^2) sum (``compensated``: the float64 baseline's plain sum)."""
     ke = kinetic_energy(velocities, masses)
-    pe = (potential_energy(positions, masses, cfg) if potential is None
-          else potential)
+    pe = (potential_energy(positions, masses, cfg, compensated=compensated)
+          if potential is None else potential)
     curve = rotation_curve(positions, velocities, num_bins=num_bins)
     return Snapshot(
         tick=int(tick),

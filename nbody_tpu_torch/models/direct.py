@@ -417,7 +417,7 @@ def run_with_snapshots_baseline(state: BaselineState, cfg: SimConfig,
         f32 = s.to_f32()
         return (metrics_lib.snapshot(f32.positions, f32.velocities,
                                      f32.masses, f32.tick, cfg,
-                                     num_bins=num_bins),
+                                     num_bins=num_bins, compensated=True),
                 f32.positions)
 
     return _run_chunks(state, lambda s: leapfrog_step_baseline(s, cfg),
@@ -682,14 +682,14 @@ class DirectSimulation:
                 n_total=self._n_total, compensated=self.is_baseline))
         return float(metrics_lib.potential_energy(
             self.positions, self.masses, self.cfg,
-            softening_sq=self._dyn_soft_sq))
+            softening_sq=self._dyn_soft_sq, compensated=self.is_baseline))
 
     def get_total_energy(self) -> float:
         if self.mesh is not None:
             return self.get_kinetic_energy() + self.get_potential_energy()
         return float(metrics_lib.total_energy(
             self.positions, self.velocities, self.masses, self.cfg,
-            softening_sq=self._dyn_soft_sq))
+            softening_sq=self._dyn_soft_sq, compensated=self.is_baseline))
 
     def get_state(self) -> dict:
         """Reference-parity state export (reference: simulation.py:160-168)."""

@@ -16,7 +16,8 @@ multi-device ring (``parallel/ring.py``):
 * ``max_d2`` — ``csrc/max_dist_sq.cu``, replacing ``_max_kernel`` /
   ``pallas_max_dist_sq`` (#2) and its streamed twin
   ``pallas_max_dist_sq_streamed`` (#3): the global max of the raw
-  pairwise d^2, the int-sim log grid's upper bound.
+  pairwise d^2, the int-sim log grid's upper bound; past TILED_MIN_N
+  points on pair_max's register-tiled body (``max_d2_design``).
 * ``pair_max`` — a second entry of ``csrc/max_dist_sq.cu``, replacing
   ``_pair_max_kernel`` / ``pallas_pair_max`` (#9): the max of raw d^2
   between two sets over valid pairs, the ring's bounds tile; one
@@ -36,7 +37,10 @@ multi-device ring (``parallel/ring.py``):
   one-pass design at large N (``pair_design``).
 * ``pair_pe_rows`` — ``csrc/pair_pe_rows.cu``, replacing
   ``_pair_pe_kernel`` / ``pallas_pair_pe_rows`` (#7): per-receiver
-  potential-energy row sums with an id mask, the ring's energy tile.
+  potential-energy row sums with an id mask, the ring's energy tile and
+  the single-device snapshot's past TILED_MIN_N particles; register-tiled
+  past TILED_MIN_N receivers (``pe_design``), the mask only on the tiles
+  whose id ranges meet (``id_ranges``).
 
 Each kernel has a plain PyTorch version of the same function and
 signature (``*_plain``). A wrapper launches the kernel for a CUDA tensor
@@ -154,6 +158,23 @@ ROW_TARGET_BLOCKS = 16384
 PAIR_MAX_RECEIVERS = 512
 PAIR_MAX_SOURCE_TILE = 128
 PAIR_MAX_TARGET_BLOCKS = 16384
+# Past this many points (receivers) max_d2 and pair_pe_rows take their
+# register-tiled designs (``max_d2_design``, ``pe_design``); smaller
+# launches keep theirs bit for bit. The one-pass edge of the sym kernels.
+TILED_MIN_N = ONE_PASS_MIN_TILES * TILE
+# max_d2's register-tiled launch (csrc/max_dist_sq.cu's max_d2_tiled):
+# persistent blocks of 128 threads, this many a SM (the card's SM count
+# read once a device), walking the triangle's 512-point unit pairs; a
+# skipped launch reads its flag in that many blocks: 924 on the H100's
+# 132 SMs, fewer than max_d2_single's capped 1024 (8 a SM ran 0.8%
+# faster at 131072 but made a skipped launch 0.9% dearer than that one's).
+MAX_D2_TILED_PER_SM = 7
+# The register-tiled pair_pe_rows (csrc/pair_pe_rows.cu's pair_pe_tiled):
+# the row sweep's geometry, 512 receivers a block and 128-source tiles,
+# its segments by pe_segments toward this many blocks.
+PE_RECEIVERS = 512
+PE_SOURCE_TILE = 128
+PE_TARGET_BLOCKS = 16384
 # The row sweep's design for every launch that does not pass parent=True:
 # "tiled" (row_tiled), or "per_receiver" (the earlier kernel, one thread a
 # receiver), which an A/B of a whole path sets for that path's run.
@@ -298,6 +319,47 @@ def pair_max_segments(n_i: int, n_j: int) -> tuple:
                      PAIR_MAX_TARGET_BLOCKS)
 
 
+def pe_segments(n_i: int, n_j: int) -> tuple:
+    """(segments, source tiles a segment) of the register-tiled
+    pair_pe_rows over n_i receivers and n_j sources, a fixed function of
+    the two (``_segments`` toward PE_TARGET_BLOCKS blocks of PE_RECEIVERS,
+    tiles of PE_SOURCE_TILE). 131072^2: 64 segments of 16 tiles; 1M^2: 8
+    of 1024."""
+    return _segments(n_i, n_j, PE_RECEIVERS, PE_SOURCE_TILE,
+                     PE_TARGET_BLOCKS)
+
+
+def pe_design(n_i: int, n_j: int, parent: bool = False) -> str:
+    """What a pair_pe_rows launch over n_i receivers and n_j sources runs
+    on the card: "tiled" (pair_pe_tiled: 4 receivers a thread, the id
+    mask only on tiles whose id ranges meet) past TILED_MIN_N receivers,
+    else "per_receiver" (the first design, one thread a receiver, the id
+    compare on every pair), which ``parent=True`` always takes."""
+    return "tiled" if n_i > TILED_MIN_N and not parent else "per_receiver"
+
+
+def pe_scratch(n_i: int, n_j: int) -> tuple | None:
+    """Shape of the register-tiled pair_pe_rows' segment sums,
+    (ceil(n_i / PE_RECEIVERS), segments, PE_RECEIVERS) f32, or None for
+    one segment (the kernel writes the rows itself)."""
+    nseg, _ = pe_segments(n_i, n_j)
+    if nseg == 1:
+        return None
+    return (-(-n_i // PE_RECEIVERS), nseg, PE_RECEIVERS)
+
+
+def id_ranges(ids: torch.Tensor, width: int) -> torch.Tensor:
+    """[min, max] of the ids in each run of ``width`` consecutive entries
+    (the last run ragged), (ceil(n / width), 2) int32 on the ids' device:
+    PyTorch ops, no host read. The ragged tail repeats the last id, so a
+    run's range covers its real entries only."""
+    pad = -ids.shape[0] % width
+    if pad:
+        ids = torch.cat([ids, ids[-1:].expand(pad)])
+    runs = ids.view(-1, width)
+    return torch.stack([runs.amin(dim=1), runs.amax(dim=1)], 1).contiguous()
+
+
 def row_scratch(n_i: int, n_j: int, dim: int) -> tuple | None:
     """Shape of the register-tiled row sweep's segment sums,
     (ceil(n_i / ROW_BLOCK_RECEIVERS), segments, ROW_BLOCK_RECEIVERS, dim)
@@ -318,6 +380,28 @@ def row_scratch_bytes(n_i: int, n_j: int, dim: int) -> int:
 def max_d2_tile(n: int) -> int:
     """Tile side of max_d2's single launch over n points."""
     return 64 if n <= MAX_D2_SMALL_N else 256
+
+
+def max_d2_design(n: int, parent: bool = False) -> str:
+    """What a max_d2 launch over n points runs on the card, a fixed
+    function of n: "single_64" (one launch, 64-point tiles) to
+    MAX_D2_SMALL_N, "single_256" (256-point tiles) to TILED_MIN_N, else
+    "tiled" (pair_max's register-tiled body over the triangle of 512-point
+    units). ``parent=True`` reaches the design each replaced: "two_launch"
+    (the T x T grid of 256-point tiles, then the reduction) to
+    TILED_MIN_N, "single_256" beyond. Every design gives the same bits."""
+    if n <= TILED_MIN_N:
+        return ("two_launch" if parent else
+                f"single_{max_d2_tile(n)}")
+    return "single_256" if parent else "tiled"
+
+
+@functools.lru_cache(maxsize=None)
+def max_d2_tiled_blocks(device: torch.device) -> int:
+    """The grid cap of max_d2's register-tiled launch on ``device``:
+    MAX_D2_TILED_PER_SM blocks a SM (the SM count read once)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return MAX_D2_TILED_PER_SM * sms
 
 
 def ticket(device: torch.device) -> torch.Tensor:
@@ -429,7 +513,9 @@ def _library():
             ("row_tiled", lib.nbody_row_force_geometry(),
              (ROW_BLOCK_RECEIVERS, ROW_SOURCE_TILE)),
             ("pair_max_tiled", lib.nbody_pair_max_geometry(),
-             (PAIR_MAX_RECEIVERS, PAIR_MAX_SOURCE_TILE))):
+             (PAIR_MAX_RECEIVERS, PAIR_MAX_SOURCE_TILE)),
+            ("pair_pe_tiled", lib.nbody_pair_pe_geometry(),
+             (PE_RECEIVERS, PE_SOURCE_TILE))):
         if divmod(got, 65536) != want:
             raise RuntimeError(f"csrc {what} (receivers a block, tile) "
                                f"{divmod(got, 65536)} != hopper_nbody's "
@@ -925,24 +1011,33 @@ def max_d2(pos: torch.Tensor, skip: torch.Tensor | None = None,
     version for a CPU tensor. ``skip`` is an optional int32 flag on the
     same device: when nonzero the launch returns at once with 0. ``count``
     is an optional int32 on the same device that gains 1 when the launch
-    was not skipped. One launch, tiles of ``max_d2_tile(N)`` points;
-    ``parent=True`` takes the earlier two launches (the same bits) to
-    compare them."""
+    was not skipped. One launch in ``max_d2_design(N)``; ``parent=True``
+    takes the design that one replaced (the same bits) to compare them."""
     n, dim = _check_positions(pos)
     _check_flag("skip", skip, pos.device)
     _check_flag("count", count, pos.device)
     if pos.device.type == "cpu":
         return max_d2_plain(pos, skip, count)
     lib = _library()
-    with torch.cuda.device(pos.device):
-        block_max = torch.empty(MAX_D2_BLOCKS, dtype=torch.float32,
-                                device=pos.device)
-        out = torch.empty(1, dtype=torch.float32, device=pos.device)
-        rc = lib.nbody_max_d2(
-            _ptr(pos), n, dim, _opt_ptr(skip), _opt_ptr(count),
-            _ptr(block_max), MAX_D2_BLOCKS,
-            None if parent else _ptr(ticket(pos.device)), max_d2_tile(n),
-            _ptr(out), _stream(pos.device))
+    design = max_d2_design(n, parent)
+    dev = pos.device
+    with torch.cuda.device(dev):
+        out = torch.empty(1, dtype=torch.float32, device=dev)
+        if design == "tiled":
+            cap = max_d2_tiled_blocks(dev)
+            block_max = torch.empty(cap, dtype=torch.float32, device=dev)
+            rc = lib.nbody_max_d2_tiled(
+                _ptr(pos), n, dim, _opt_ptr(skip), _opt_ptr(count),
+                _ptr(block_max), cap, _ptr(ticket(dev)), _ptr(out),
+                _stream(dev))
+        else:
+            block_max = torch.empty(MAX_D2_BLOCKS, dtype=torch.float32,
+                                    device=dev)
+            rc = lib.nbody_max_d2(
+                _ptr(pos), n, dim, _opt_ptr(skip), _opt_ptr(count),
+                _ptr(block_max), MAX_D2_BLOCKS,
+                None if design == "two_launch" else _ptr(ticket(dev)),
+                max_d2_tile(n), _ptr(out), _stream(dev))
     _raise_on(rc, "max_d2")
     LAUNCHES["max_d2"] += 1
     return out[0]
@@ -1367,12 +1462,15 @@ def _check_ids(name: str, t: torch.Tensor, n: int, device) -> None:
 
 
 def pair_pe_rows(receivers, m_recv, ids_recv, sources, m_src, ids_src,
-                 softening_sq) -> torch.Tensor:
+                 softening_sq, parent: bool = False) -> torch.Tensor:
     """Kernel #7 wrapper, the counterpart of ``pallas_pair_pe_rows``: CUDA
     kernel for CUDA tensors, pair_pe_rows_plain for CPU tensors. Masses
     f32, ids int32 (any value: equal ids mask the pair), ``softening_sq``
     a float or a 0-d tensor. (n_i,) f32 row sums in a fixed order; the
-    caller sums them in f64."""
+    caller sums them in f64. Past TILED_MIN_N receivers the register-tiled
+    design (``pe_design``; the id ranges of its receiver blocks and source
+    tiles from ``id_ranges``, on the device); ``parent=True`` takes the
+    first design at every shape."""
     n_i, n_j, _ = _check_two_sets(receivers, sources)
     _check_f32("m_recv", m_recv, (n_i,), receivers.device)
     _check_f32("m_src", m_src, (n_j,), receivers.device)
@@ -1382,14 +1480,27 @@ def pair_pe_rows(receivers, m_recv, ids_recv, sources, m_src, ids_src,
         return pair_pe_rows_plain(receivers, m_recv, ids_recv, sources, m_src,
                                   ids_src, softening_sq)
     lib = _library()
-    with torch.cuda.device(receivers.device):
-        soft = _scalar(softening_sq, receivers.device)
-        out = torch.empty(n_i, dtype=torch.float32, device=receivers.device)
-        rc = lib.nbody_pair_pe_rows(
-            _ptr(receivers), _ptr(m_recv), _ptr(ids_recv), n_i,
-            _ptr(sources), _ptr(m_src), _ptr(ids_src), n_j,
-            receivers.shape[1], _ptr(soft), _ptr(out),
-            _stream(receivers.device))
+    dev = receivers.device
+    with torch.cuda.device(dev):
+        soft = _scalar(softening_sq, dev)
+        out = torch.empty(n_i, dtype=torch.float32, device=dev)
+        if pe_design(n_i, n_j, parent) == "tiled":
+            _, seg = pe_segments(n_i, n_j)
+            shape = pe_scratch(n_i, n_j)
+            rpart = None if shape is None else torch.empty(
+                shape, dtype=torch.float32, device=dev)
+            rr = id_ranges(ids_recv, PE_RECEIVERS)
+            sr = id_ranges(ids_src, PE_SOURCE_TILE)
+            rc = lib.nbody_pair_pe_rows_tiled(
+                _ptr(receivers), _ptr(m_recv), _ptr(ids_recv), n_i,
+                _ptr(sources), _ptr(m_src), _ptr(ids_src), n_j,
+                receivers.shape[1], _ptr(soft), _ptr(rr), _ptr(sr), seg,
+                _opt_ptr(rpart), _ptr(out), _stream(dev))
+        else:
+            rc = lib.nbody_pair_pe_rows(
+                _ptr(receivers), _ptr(m_recv), _ptr(ids_recv), n_i,
+                _ptr(sources), _ptr(m_src), _ptr(ids_src), n_j,
+                receivers.shape[1], _ptr(soft), _ptr(out), _stream(dev))
     _raise_on(rc, "pair_pe_rows")
     LAUNCHES["pair_pe_rows"] += 1
     return out

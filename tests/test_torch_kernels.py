@@ -590,3 +590,85 @@ def test_tiled_pair_max_bitwise_plain_and_parent(cuda, dim, layout):
                for _ in range(100))
     if layout == "none valid":
         assert float(got) == 0.0
+
+
+# --------------------------------------------------------------------------
+# pair_pe_rows and max_d2 in their register-tiled designs past 16384 points
+# --------------------------------------------------------------------------
+
+PE_SHAPES = [(16384, 16384), (16385, 16385), (20011, 20011),
+             (131072, 131072), (131075, 131075), (16385, 300)]
+
+
+def _pe_ids(pattern, n_i, n_j, cuda):
+    """Receiver and source ids; "own" one set's (n_i == n_j) or each
+    set's own arange."""
+    rng = np.random.default_rng(n_i + n_j)
+    ids = {"own": (np.arange(n_i), np.arange(n_j)),
+           "permuted": (rng.permutation(n_i), rng.permutation(n_j)),
+           "duplicated": (np.arange(n_i) // 3, np.arange(n_j) // 7),
+           "overlapping": (np.arange(n_i), np.arange(n_i - 40, n_i - 40 + n_j)),
+           "disjoint": (np.arange(n_i), np.arange(n_i, n_i + n_j))}[pattern]
+    return tuple(torch.from_numpy(x.astype(np.int32)).to(cuda) for x in ids)
+
+
+def _pe_rtol(n_i, n_j):
+    """chip_smoke.py's bound of each design: twice the worst-case rounding
+    of its summation order (csrc/pair_pe_rows.cu)."""
+    if hn.pe_design(n_i, n_j) == "tiled":
+        nseg, seg = hn.pe_segments(n_i, n_j)
+        return 2 * (128 + seg + nseg + 5) * 2.0 ** -24
+    return 2 * (128 + -(-n_j // 128) + 4) * 2.0 ** -24
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pattern", ["own", "permuted", "duplicated",
+                                     "overlapping", "disjoint"])
+@pytest.mark.parametrize("n_i,n_j", PE_SHAPES)
+@pytest.mark.parametrize("dim", [2, 3])
+def test_tiled_pair_pe_rows_matches_plain_and_parent(cuda, dim, n_i, n_j,
+                                                     pattern):
+    """The routed design against the plain version within its bound, at
+    the route's edge (16384 keeps the first design bit for bit), ragged
+    and prime N, adversarial ids, softening 0.1 and 0; bitwise run to
+    run."""
+    xi, xj, mi, mj = _two_sets(n_i, n_j, dim, 41, cuda)
+    mi, mj = mi * 1000.0, mj * 1000.0
+    ids_i, ids_j = _pe_ids(pattern, n_i, n_j, cuda)
+    for soft in (0.01, 0.0):
+        args = (xi, mi, ids_i, xj, mj, ids_j, soft)
+        before = hn.LAUNCHES["pair_pe_rows"]
+        got = hn.pair_pe_rows(*args)
+        assert hn.LAUNCHES["pair_pe_rows"] == before + 1
+        want = hn.pair_pe_rows_plain(*args)
+        fin = torch.isfinite(want)
+        assert torch.equal(torch.isfinite(got), fin)
+        err = (got - want).abs()[fin]
+        assert bool((err <= _pe_rtol(n_i, n_j) * want.abs()[fin]).all())
+        assert torch.equal(got, hn.pair_pe_rows(*args))
+        first = hn.pair_pe_rows(*args, parent=True)
+        if hn.pe_design(n_i, n_j) == "per_receiver":
+            assert torch.equal(got, first)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [4096, 4097, 16384, 16385, 20011, 131072,
+                               131075])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_max_d2_designs_bitwise_at_the_route_edges(cuda, dim, n):
+    """Every design bitwise the plain version and the design it replaced
+    (parent=True); the skip flag gives 0 and counts nothing, a run counts
+    one; bitwise over 20 consecutive launches."""
+    pt = torch.from_numpy(_disk(n, dim, 43)).to(cuda)
+    want = hn.max_d2_plain(pt)
+    before = hn.LAUNCHES["max_d2"]
+    got = hn.max_d2(pt)
+    assert hn.LAUNCHES["max_d2"] == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(hn.max_d2(pt, parent=True), want)
+    one = torch.ones((), dtype=torch.int32, device=cuda)
+    count = torch.zeros((), dtype=torch.int32, device=cuda)
+    assert float(hn.max_d2(pt, skip=one, count=count)) == 0.0
+    assert torch.equal(hn.max_d2(pt, skip=one * 0, count=count), want)
+    assert int(count) == 1
+    assert all(torch.equal(hn.max_d2(pt), want) for _ in range(20))
