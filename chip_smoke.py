@@ -52,7 +52,7 @@ Phases (any failure exits non-zero before the last line is printed):
    its recorded row (GATE_ROWS) bit for bit.
 6. perf: the main path's two kernels at its own shapes by device time
    (``device_ms``: torch.profiler over 50 warm calls; a CUDA-graph replay
-   beside it), each beside its earlier design in turns (old, new, new,
+   beside it, and in its place where the trace is empty), each beside its earlier design in turns (old, new, new,
    old): sym_force at 5000 float32 and int4 and at the grid rule's edge,
    the general sym_force's two designs (the T x T grid, the one-pass
    body) at 131072 and at the 1M chunk shapes, the fused max's at 131072,
@@ -121,6 +121,21 @@ Phases (any failure exits non-zero before the last line is printed):
    each precision of the tensor-core kernel launched, the study's verdict
    checked, and each precision against its plain version at N=129024,
    D=2, timed beside sym_force_uniform in the same call.
+13. pm: the particle-mesh engine (``engines/cosmo.py``). The deposit
+   kernel pm_deposit (``csrc/pm_deposit.cu``) bitwise its plain version on
+   a CPU copy of its inputs and bitwise run to run, NGP and CIC, N in
+   {10000, 262144}, D in {2, 3}, on a lattice, a clustered state and the
+   box edge; the three gate rows (the reference's universe_2d at N=10000
+   float32 and int4 and N=1024 float32 from its cached ICs under its
+   clock) held to the cached reference runs by the rule of
+   tools/pm_reference_parity.py (``diagnostics/pm_gate.py``'s copy);
+   bench.py's PM arm on one card (262144 particles, int4, D=3, a 256^3
+   grid, pipelined chunks of 10 with every detector live: two warm-up
+   chunks, four timed, each dispatch with host syncs made errors, the
+   deposit's launches exact), then in float32; the deposit's device time
+   beside the sort's and ``index_add_``'s at the gate's z=0.01 state and
+   at the arm's shape (lattice, clustered, the arm's own state), and a
+   profile of one step and of the probe bundle.
 
 The kernels phase also holds the equal-mass variants (D in {2,3}, every
 mode, N in {4096, 32768}; the one-pass design at odd multiples of 64, N in
@@ -164,7 +179,7 @@ import torch
 
 REPO = Path(__file__).resolve().parent
 PHASES = ("kernels", "main", "gate", "perf", "large", "ring", "cached",
-          "lab", "lab_r4", "lab_r5")  # default
+          "lab", "lab_r4", "lab_r5", "pm")  # default
 EXTRA_PHASES = ("profile", "scale")
 MODES = ("float32", "bfloat16", "float16", "int8", "int4", "custom")
 STARS, TICKS, INTERVAL = 5000, 2000, 100
@@ -215,6 +230,10 @@ KERNELS = {
     **{f"sym_force_mxu_{p}": {"source": _MXU,
                               "replaces": "tools/kernel_lab_r5.py:163"}
        for p in ("default", "high", "highest")},
+    # no pl.pallas_call: jax.ops.segment_sum, run by XLA as a sequential
+    # scatter (ngp_deposit :41, cic_deposit :65)
+    "pm_deposit": {"source": "nbody_tpu_torch/csrc/pm_deposit.cu",
+                   "replaces": "nbody_tpu/ops/pm.py:41"},
 }
 
 # The H100 SXM's published peaks: FP32 outside the tensor cores, HBM3
@@ -397,7 +416,9 @@ def device_ms(fn, reps: int = DEVICE_REPS, warmup: int = 3) -> tuple:
     torch.profiler over a warm window of ``reps`` calls; each kernel's mean
     self device time times its launches a call (the profiler's count over
     ``reps``, rounded: the trace can drop an event of the window), summed.
-    Returns (ms a call, {kernel: (launches a call, ms a call)})."""
+    Returns (ms a call, {kernel: (launches a call, ms a call)}); where
+    three windows in turn trace no device event, (graph_ms, or cuda_ms
+    where the calls cannot be captured, None), the fallback printed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
@@ -422,7 +443,18 @@ def device_ms(fn, reps: int = DEVICE_REPS, warmup: int = 3) -> tuple:
         if traced:
             break
         print(f"perf: the profiler traced no device event in window "
-              f"{attempt + 1} of 3; tracing it again")
+              f"{attempt + 1} of 3")
+    else:
+        # A process whose profiler has stopped tracing the card (seen on
+        # the card: three windows in turn empty) is timed by graph_ms, or
+        # where its calls cannot be captured by cuda_ms (the host's issue
+        # included); no kernel names.
+        ms = graph_ms(fn, reps)
+        how = "a CUDA-graph replay"
+        if ms is None:
+            ms, how = cuda_ms(fn, reps, 0), "CUDA events"
+        print(f"perf: device time by {how} instead: {ms:.5f} ms")
+        return ms, None
     kernels = {name: (round(count / reps), us / count / 1e3)
                for name, (count, us) in traced.items()}
     total = sum(n * ms for n, ms in kernels.values())
@@ -1857,15 +1889,27 @@ def perf_main_shapes(dev, report: dict) -> None:
     pos, m = make_inputs(STARS, 2, True, seed=7, dev=dev)
     gm = (cfg.G * m).contiguous()
 
-    def launches_a_call(what, launched, kernels):
+    def launches_a_call(what, launched, kernels, fn, key):
+        if launched is None:   # untraced: one launch of fn's wrapper
+            before = dict(hn.LAUNCHES)
+            fn()
+            torch.cuda.synchronize()
+            made = {k: n - before[k] for k, n in hn.LAUNCHES.items()
+                    if n != before[k]}
+            check(made == {key: 1}, f"{what}: not one {key} launch a call: "
+                                    f"{made}")
+            print(f"perf: {what}: one {key} launch a call by its count (the "
+                  f"profiler named no kernel)")
+            return
         check(sorted(k.split("<")[0] for k in launched) == sorted(kernels)
               and all(n == 1 for n, _ in launched.values()),
               f"{what}: not one launch each of {kernels} a call: {launched}")
 
     def turns_text(olds, news, old_name, new_name):
         return (f"{old_name} {olds[0][0]:.5f} / {olds[1][0]:.5f} ms "
-                f"({olds[0][1]}), {new_name} {news[0][0]:.5f} / "
-                f"{news[1][0]:.5f} ms ({news[0][1]})")
+                f"({olds[0][1] or 'untraced'}), {new_name} "
+                f"{news[0][0]:.5f} / {news[1][0]:.5f} ms "
+                f"({news[0][1] or 'untraced'})")
 
     route = hn.sym_schedule(STARS)
     for mode in ("float32", "int4"):
@@ -1885,7 +1929,8 @@ def perf_main_shapes(dev, report: dict) -> None:
         ms = (news[0][0] + news[1][0]) / 2
         launches_a_call(f"sym_force N={STARS} {mode}", news[0][1],
                         ["sym_force_tri" if route == "triangle"
-                         else "sym_force_tiles", "reduce_partials"])
+                         else "sym_force_tiles", "reduce_partials"], new,
+                        "sym_force")
         plain_ms = device_ms(
             lambda: hn.sym_force_plain(pos, gm, bounds, q, False), 10)[0]
         g_old, g_new = graph_ms(old), graph_ms(new)
@@ -1948,7 +1993,8 @@ def perf_main_shapes(dev, report: dict) -> None:
               and torch.equal(new(), hn.max_d2_plain(x, skip)),
               f"max_d2 {label}: the designs or the plain version differ")
         olds, news = in_turns(device_ms, old, new)
-        launches_a_call(f"max_d2 {label}", news[0][1], ["max_d2_single"])
+        launches_a_call(f"max_d2 {label}", news[0][1], ["max_d2_single"],
+                        new, "max_d2")
         old_ms = (olds[0][0] + olds[1][0]) / 2
         ms = (news[0][0] + news[1][0]) / 2
         plain_ms = device_ms(lambda: hn.max_d2_plain(x, skip), 10)[0]
@@ -2415,10 +2461,13 @@ def large_ics(dim: int, dev):
 
 
 def reset_counters(hn) -> None:
-    """Every launch count, the labs' too, and the device counters to 0."""
+    """Every launch count, the labs' and the PM deposit's too, and the
+    device counters to 0."""
     from nbody_tpu_torch.lab import kernel_lab, kernel_lab_r5
     from nbody_tpu_torch.models import direct
-    for counts in (hn.LAUNCHES, kernel_lab.LAUNCHES, kernel_lab_r5.LAUNCHES):
+    from nbody_tpu_torch.ops import pm
+    for counts in (hn.LAUNCHES, kernel_lab.LAUNCHES, kernel_lab_r5.LAUNCHES,
+                   pm.LAUNCHES):
         for k in counts:
             counts[k] = 0
     for registry in (hn.BOUNDS_FALLBACKS, hn.REDO_LAUNCHES,
@@ -3752,6 +3801,325 @@ def phase_lab_r5(dev, report: dict) -> None:
 
 
 # --------------------------------------------------------------------------
+# Phase 13: the particle-mesh cosmology engine
+# --------------------------------------------------------------------------
+
+# bench.py:207-253's PM arm on one device: 262144 particles, D=3, a 256^3
+# grid, a 400 Mpc box, z = 80, seed 1, pipelined dispatch/collect in
+# chunks of 10 steps of dz = 0.1 with every detector live.
+PM_ARM = dict(num_particles=262144, start_redshift=80.0, dim=3, n_grid=256,
+              box_size_mpc=400.0, seed=1)
+PM_ARM_DZ, PM_ARM_CHUNK, PM_ARM_WARM, PM_ARM_TIMED = 0.1, 10, 2, 4
+# The gate: the reference's universe_2d rows cached under
+# tools/reference_cache/ (N, mode).
+PM_GATE_ROWS = ((10000, "float32"), (10000, "int4"), (1024, "float32"))
+# The deposit checks: (N, D, n_grid, box).
+PM_DEPOSIT_CASES = ((10000, 2, 128, 200.0), (262144, 2, 128, 200.0),
+                    (10000, 3, 32, 200.0), (262144, 3, 256, 400.0))
+PM_TIMING_REPS = 20
+
+
+def pm_layouts(n: int, dim: int, n_grid: int, box: float, seed: int) -> dict:
+    """CPU positions for the deposit checks: a lattice (a perturbed-lattice
+    IC's start; the rest uniform), a clustered state (90% of the particles
+    in a cube of 3 cells a side), and the box edge (a quarter exactly on
+    ``box``, a quarter wrapped from -1e-9 onto it, tiny negatives)."""
+    rng = np.random.default_rng(seed)
+    side = int(round(n ** (1.0 / dim)))
+    side -= side ** dim > n
+    axis = (np.arange(side) + 0.5) * (box / side)
+    lattice = np.stack([m.reshape(-1) for m in np.meshgrid(
+        *([axis] * dim), indexing="ij")], axis=1)
+    lattice = np.concatenate([lattice, rng.uniform(
+        0, box, (n - side ** dim, dim))])
+    clustered = rng.uniform(0, box, (n, dim))
+    k = n - n // 10
+    clustered[:k] = box / 2 + rng.uniform(0, 3 * box / n_grid, (k, dim))
+    edge = rng.uniform(0, box, (n, dim)).astype(np.float32)
+    edge[: n // 4] = np.float32(box)
+    edge[n // 4: n // 2] = np.float32(-1e-9) % np.float32(box)
+    edge[n // 2: n // 2 + 64] = np.float32(-1e-7)
+    return {name: torch.from_numpy(np.asarray(p, np.float32))
+            for name, p in (("lattice", lattice), ("clustered", clustered),
+                            ("edge", edge))}
+
+
+def pm_deposit_checks(dev, report: dict) -> None:
+    """pm_deposit bitwise its plain version on a CPU copy of its inputs
+    (the keys and weights each deposit makes on the card, each sum added to
+    the last) and bitwise from run to run: NGP and CIC, every case of
+    PM_DEPOSIT_CASES, each layout of pm_layouts."""
+    from nbody_tpu_torch.ops import pm
+
+    cases, fails, worst = 0, [], 0.0
+    for n, dim, n_grid, box in PM_DEPOSIT_CASES:
+        w = torch.from_numpy(np.random.default_rng(n + dim).uniform(
+            0.5, 1.5, n).astype(np.float32)).to(dev)
+        for layout, pos in pm_layouts(n, dim, n_grid, box, n + dim).items():
+            pos = pos.to(dev)
+            for kind in ("ngp", "cic"):
+                got = want = None
+                for keys, ws in pm.deposit_segments(pos, w, n_grid, box,
+                                                    kind):
+                    want = pm.segment_sum_plain(keys.cpu(), ws.cpu(),
+                                                n_grid ** dim, want)
+                    got = pm.segment_sum(keys, ws, n_grid ** dim, got)
+                deposit = getattr(pm, f"{kind}_deposit")
+                again = deposit(pos, w, n_grid, box).reshape(-1)
+                worst = max(worst, float((got.cpu() - want).abs().max()))
+                cases += 1
+                if not (torch.equal(got.cpu(), want)
+                        and torch.equal(again, got)):
+                    fails.append(f"{kind} N={n} D={dim} {n_grid}^{dim} "
+                                 f"{layout}")
+    report["pm_deposit"]["max_abs_err"] = worst
+    print(f"pm: pm_deposit bitwise its plain version and run to run in "
+          f"{cases - len(fails)} of {cases} cases (NGP and CIC, N in "
+          f"{{10000, 262144}}, D in {{2, 3}}, lattice / clustered / edge); "
+          f"max abs err {worst}")
+    check(not fails, f"pm_deposit not bitwise: {fails}")
+
+
+def pm_deposit_times(label: str, pos, n_grid: int, box: float) -> dict:
+    """The NGP deposit of unit weights at ``pos`` (on the card): the kernel
+    on sorted keys, the sort alone, ``index_add_`` from a zeroed grid (the
+    same function, but in no fixed order) by CUDA events over
+    PM_TIMING_REPS calls; the plain version on a CPU copy by the host
+    clock; the bound by bytes (the sorted keys, the int64 permutation and
+    the weights read, the grid written)."""
+    from nbody_tpu_torch.ops import pm
+
+    n, dim = pos.shape
+    cells = n_grid ** dim
+    w = torch.ones(n, device=pos.device)
+    keys = pm.cell_index(pos, box, n_grid)[0]
+    sorted_keys, perm = pm.sort_keys(keys)
+    kernel = cuda_ms(lambda: pm.deposit_sorted(sorted_keys, perm, w, cells),
+                     PM_TIMING_REPS, 2)
+    sort = cuda_ms(lambda: pm.sort_keys(keys), PM_TIMING_REPS, 2)
+    library = cuda_ms(lambda: torch.zeros(cells, device=pos.device)
+                      .index_add_(0, keys, w), PM_TIMING_REPS, 2)
+    keys_c, w_c = keys.cpu(), w.cpu()
+    pm.segment_sum_plain(keys_c, w_c, cells)
+    t0 = time.perf_counter()
+    pm.segment_sum_plain(keys_c, w_c, cells)
+    plain = (time.perf_counter() - t0) * 1e3
+    nbytes = 16 * n + 4 * cells
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+    dense = int(torch.bincount(keys).max())
+    print(f"pm: deposit {label}: kernel {kernel:.5f} ms, sort {sort:.5f} ms, "
+          f"index_add_ {library:.5f} ms, plain (CPU) {plain:.3f} ms; bound "
+          f"{bound_ms:.5f} ms ({nbytes} bytes); densest cell {dense} "
+          f"particles")
+    return dict(ms=kernel, sort_ms=sort, library_ms=library, plain_ms=plain,
+                bound_ms=bound_ms, bytes=nbytes, densest=dense)
+
+
+def pm_gate(dev) -> dict:
+    """The three gate rows on the card from the reference's cached ICs
+    under its clock, each held to its cached reference run (and its
+    permuted twin where cached) by the port's copy of the rule of
+    tools/pm_reference_parity.py; returns the 10000 float32 row's final
+    positions (the z = 0.01 state)."""
+    from nbody_tpu_torch.diagnostics import pm_gate as gate
+
+    fails, late = [], None
+    for n, mode in PM_GATE_ROWS:
+        t0 = time.time()
+        ours, eng = gate.run_engine(gate.load_ics(n), mode, dev)
+        wall = time.time() - t0
+        ref = gate.load_reference(n, mode)
+        twin = gate.load_reference(n, mode, perturbed=True)
+        row = gate.compare_mode(ref, ours, twin)
+        print(f"pm: {gate.row_text(f'gate N={n} {mode}', row)}; drift at "
+              f"z=10 ours {row['drift_at_z10_ours']:+.4f}% vs "
+              f"{row['drift_at_z10_reference']:+.4f}%; glitches "
+              f"{eng.glitch_detector.get_glitch_summary()}; {wall:.1f}s")
+        check(np.isfinite(ours["energies"]).all() and
+              np.isfinite(ours["final_pos"]).all(),
+              f"gate N={n} {mode}: non-finite output")
+        if not row["agree"]:
+            fails.append(f"N={n} {mode}")
+        if (n, mode) == (10000, "float32"):
+            late = eng.positions
+    check(not fails, f"pm gate DISAGREE: {fails}")
+    return late
+
+
+@contextlib.contextmanager
+def no_host_sync():
+    """Any CUDA call that waits for the device raises inside this block."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def pm_arm(dev, precision: str):
+    """bench.py's PM arm: PM_ARM_WARM warm-up chunks, then PM_ARM_TIMED
+    chunks pipelined (dispatch k+1, collect k) by the host clock, every
+    dispatch inside no_host_sync; the deposit's launches counted over the
+    timed chunks. Returns (engine, ms a step, launches)."""
+    from nbody_tpu_torch import native
+    from nbody_tpu_torch.engines import cosmo
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+    from nbody_tpu_torch.ops import pm
+
+    eng = cosmo.CosmologicalEngine(precision=precision, device=dev, **PM_ARM)
+    for _ in range(PM_ARM_WARM):
+        eng.step(PM_ARM_DZ, PM_ARM_CHUNK)
+    torch.cuda.synchronize()
+    reset_counters(hn)
+    glitches = eng.glitch_detector.get_glitch_count()
+    t0 = time.perf_counter()
+    pending = None
+    for _ in range(PM_ARM_TIMED):
+        with no_host_sync():
+            nxt = eng.dispatch_step(PM_ARM_DZ, PM_ARM_CHUNK)
+        if pending is not None:
+            eng.collect_step(pending)
+        pending = nxt
+    eng.collect_step(pending)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / (PM_ARM_TIMED * PM_ARM_CHUNK) * 1e3
+    launches = pm.LAUNCHES["pm_deposit"]
+    others = {k: v for k, v in hn.LAUNCHES.items() if v}
+    pos = eng.positions
+    check(bool(torch.isfinite(pos).all()) and float(pos.min()) >= 0
+          and float(pos.max()) <= PM_ARM["box_size_mpc"]
+          and np.isfinite(eng.history["energy"]).all()
+          and np.isfinite(eng.history["clustering"]).all(),
+          f"pm arm {precision}: non-finite or out-of-box state")
+    check(launches == PM_ARM_TIMED * (PM_ARM_CHUNK + 2) and not others,
+          f"pm arm {precision}: pm_deposit launched {launches} times in "
+          f"{PM_ARM_TIMED} chunks of {PM_ARM_CHUNK} (other kernels "
+          f"{others})")
+    print(f"pm: arm {precision} N={eng.num_particles} D=3 256^3 (pipelined, "
+          f"every detector live): {ms:.3f} ms a step over "
+          f"{PM_ARM_TIMED * PM_ARM_CHUNK} steps, z={eng.redshift:.2f}; "
+          f"glitches {eng.glitch_detector.get_glitch_count() - glitches} in "
+          f"the timed chunks ({eng.glitch_detector.get_glitch_summary()} "
+          f"over the run); entropy route {native.route()}; pm_deposit "
+          f"launches {launches}; clustering {eng.history['clustering'][-1]:.4f}"
+          f", BAO {eng.history['bao_scale'][-1]:.2f} Mpc; card {card_line()}")
+    return eng, ms, launches
+
+
+PM_PROFILE_STEPS = 3   # steps (probe bundles) in one traced window
+
+
+def pm_breakdown(eng) -> None:
+    """torch.profiler over PM_PROFILE_STEPS steps of the arm's engine and
+    over as many probe bundles: device time by kernel a step (a bundle),
+    in classes (deposit, sort, FFTs, gather, the rest: quantizers,
+    integrator, census, grid arithmetic); a window whose trace lacks a
+    class the call must launch (seen once: the deposit and the sort
+    missing) is traced again, twice at most, and where none traced a
+    device event the call is timed by CUDA events, with no breakdown. The
+    force quantizer alone by CUDA events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from nbody_tpu_torch.engines import cosmo
+    from nbody_tpu_torch.ops.precision import quantize_force
+
+    sched, _ = eng._build_schedule(PM_ARM_DZ, 1)
+    ex = eng.exploit_engine
+    obs = (torch.zeros(3, device=eng.device),
+           torch.eye(3, device=eng.device)[0])
+
+    def step():
+        return cosmo.run_pm_steps(eng.state, sched, eng.quantizer, eng.cfg)
+
+    def probes():
+        return cosmo.probe_bundle(eng.positions, eng.velocities,
+                                  eng.positions, *obs, eng.cfg.box_size,
+                                  ex.c_sim, ex.fov_cos)
+
+    def classify(name: str) -> str:
+        low = name.lower()
+        if "pm_deposit" in low:
+            return "deposit"
+        if "sort" in low or "radix" in low:
+            return "sort"
+        if "fft" in low:
+            return "FFTs"
+        if "index" in low or "gather" in low:   # index_select's kernels
+            return "gather"
+        return "the rest"
+
+    for label, fn, needed in (
+            ("one step", step, {"deposit", "sort", "FFTs", "gather"}),
+            ("probe bundle", probes, {"deposit", "sort", "FFTs"})):
+        fn()
+        torch.cuda.synchronize()
+        for attempt in range(3):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(PM_PROFILE_STEPS):
+                    fn()
+                torch.cuda.synchronize()
+            classes, kernels = {}, []
+            for e in prof.key_averages():
+                if e.device_type == DeviceType.CUDA and e.count:
+                    ms = e.self_device_time_total / 1e3 / PM_PROFILE_STEPS
+                    cls = classify(e.key)
+                    classes[cls] = classes.get(cls, 0.0) + ms
+                    kernels.append((ms, e.count // PM_PROFILE_STEPS,
+                                    kernel_name(e.key)[:60]))
+            if needed <= set(classes):
+                break
+            print(f"pm: the profiler traced no {sorted(needed - set(classes))}"
+                  f" kernel of the {label} in window {attempt + 1} of 3")
+        total = sum(classes.values())
+        if not total:   # device_ms's fallback: no breakdown, CUDA events
+            ms = cuda_ms(fn, PM_PROFILE_STEPS, 0)
+            print(f"pm: breakdown of {label}: the profiler traced no device "
+                  f"event; by CUDA events {ms:.4f} ms a call")
+            continue
+        print(f"pm: breakdown of {label} ({eng.precision_str}, device time "
+              f"{total:.4f} ms, a mean over {PM_PROFILE_STEPS}): " + ", ".join(
+                  f"{k} {v:.4f} ms ({100 * v / total:.1f}%)"
+                  for k, v in sorted(classes.items(), key=lambda kv: -kv[1])))
+        print("pm:   top kernels: " + "; ".join(
+            f"{name} x{count} {ms:.4f} ms" for ms, count, name in
+            sorted(kernels, reverse=True)[:6]))
+    acc = torch.randn((eng.num_particles, 3), device=eng.device)
+    q_ms = cuda_ms(lambda: quantize_force(acc, eng.quantizer), 10, 2)
+    print(f"pm: breakdown: quantize_force alone {q_ms:.4f} ms (CUDA events)")
+
+
+def phase_pm(dev, report: dict) -> None:
+    """The PM engine on the card: the deposit kernel's checks and times,
+    the three gate rows, bench.py's PM arm in int4 (the main path: its
+    launches are the kernel's count) and float32, and a profile of a step."""
+    import logging
+    logging.getLogger("nbody_tpu_torch.glitch").setLevel(logging.ERROR)
+
+    pm_deposit_checks(dev, report)
+    late = pm_gate(dev)
+    pm_deposit_times("N=10000 D=2 128^2 at z=0.01 (the gate's float32 "
+                     "final state)", late, 128, 200.0)
+    eng, ms, launches = pm_arm(dev, "int4")
+    report["pm_deposit"]["launches"] = launches
+    entry = report["pm_deposit"]
+    for layout, pos in pm_layouts(262144, 3, 256, 400.0, 3).items():
+        if layout != "edge":
+            pm_deposit_times(f"N=262144 D=3 256^3 {layout}", pos.to(dev),
+                             256, 400.0)
+    t = pm_deposit_times("N=262144 D=3 256^3 the int4 arm's state at "
+                         f"z={eng.redshift:.2f}", eng.positions, 256, 400.0)
+    entry.update(ms=t["ms"], plain_ms=t["plain_ms"],
+                 library_ms=t["library_ms"], bound_ms=t["bound_ms"],
+                 bound_by="bytes", bytes=t["bytes"], sort_ms=t["sort_ms"],
+                 timed_at="N=262144 D=3 256^3 NGP, the int4 arm's state")
+    pm_breakdown(eng)
+    del eng
+    pm_arm(dev, "float32")
+
+
+# --------------------------------------------------------------------------
 # Extra phase: each kernel against its plain version at the 1M shapes
 # --------------------------------------------------------------------------
 
@@ -4020,6 +4388,8 @@ def main(argv=None) -> int:
                 phase_lab_r4(dev, report)
             elif phase == "lab_r5":
                 phase_lab_r5(dev, report)
+            elif phase == "pm":
+                phase_pm(dev, report)
             elif phase == "profile":
                 phase_profile(dev, args.profile_out)
             elif phase == "scale":

@@ -89,6 +89,9 @@ SIGNATURES = {
         "nbody_pair_pe_geometry": [],
         "nbody_pair_pe_tiled_resident": [_I],
     },
+    "pm_deposit": {
+        "nbody_pm_deposit": [_P, _P, _P, _P, _P, _I, _I, _P],
+    },
 }
 
 _lock = threading.Lock()

@@ -131,7 +131,7 @@ FORMS = (("subtract-form", d2_subtract), ("dot-form naive", d2_dot_naive),
          ("dot-form compensated", d2_dot_compensated))
 
 
-def accuracy_study(device="cpu",
+def accuracy_study(device="cuda",
                    generator: torch.Generator | None = None) -> dict:
     """Max abs error of each d^2 form against a float64 oracle (diagonal
     excluded) on both geometries: 2048 x 2 normals drawn once on the CPU from

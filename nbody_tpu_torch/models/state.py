@@ -122,3 +122,32 @@ def from_jax_numpy(state, device=None):
         accelerations=_tensor(state.accelerations, torch.float32, device),
         tick=int(np.asarray(state.tick)),
     )
+
+
+class CosmoState(NamedTuple):
+    """State of the particle-mesh engine (``engines/cosmo.py``).
+
+    ``redshift`` (f32-exact) and ``tick`` live on the host: the engine
+    knows both from its schedule, so reading them never waits for the
+    device (the JAX engine keeps device scalars and host shadows of them)."""
+
+    positions: torch.Tensor   # (N, D) f32, comoving Mpc in [0, box)
+    velocities: torch.Tensor  # (N, D) f32
+    masses: torch.Tensor      # (N,) f32, in units of mass_unit_msun
+    redshift: float
+    tick: int
+
+
+def cosmo_from_jax_numpy(state, device=None) -> CosmoState:
+    """The port's CosmoState from a JAX ``CosmoState`` whose leaves were
+    exported as numpy arrays (``jax.tree.map(np.asarray, state)``); the
+    masses stay in the JAX engine's normalized units, whose
+    ``mass_unit_msun`` goes with them
+    (``CosmologicalEngine.load_jax_state``)."""
+    return CosmoState(
+        positions=_tensor(state.positions, torch.float32, device),
+        velocities=_tensor(state.velocities, torch.float32, device),
+        masses=_tensor(state.masses, torch.float32, device),
+        redshift=float(np.float32(state.redshift)),
+        tick=int(np.asarray(state.tick)),
+    )

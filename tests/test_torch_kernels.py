@@ -672,3 +672,69 @@ def test_max_d2_designs_bitwise_at_the_route_edges(cuda, dim, n):
     assert torch.equal(hn.max_d2(pt, skip=one * 0, count=count), want)
     assert int(count) == 1
     assert all(torch.equal(hn.max_d2(pt), want) for _ in range(20))
+
+
+def _pm_positions(n, dim, box, layout, seed=0):
+    rng = np.random.default_rng(seed + n + dim)
+    pos = rng.uniform(0.0, box, (n, dim)).astype(np.float32)
+    if layout == "clustered":       # most particles in a few cells
+        pos[: n - n // 10] = (box * 0.5 + rng.uniform(0, box / 40,
+                              (n - n // 10, dim))).astype(np.float32)
+    elif layout == "edge":          # on the box edge, wrapped negatives
+        pos[: n // 4] = np.float32(box)
+        pos[n // 4: n // 2] = np.float32(-1e-9) % np.float32(box)
+    return pos
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["uniform", "clustered", "edge"])
+@pytest.mark.parametrize("dim, n_grid, box", [(2, 128, 200.0),
+                                              (3, 64, 400.0)])
+@pytest.mark.parametrize("deposit", ["ngp_deposit", "cic_deposit"])
+def test_pm_deposit_bitwise_its_plain_version(cuda, deposit, dim, n_grid,
+                                              box, layout):
+    """The deposit kernel (csrc/pm_deposit.cu) bitwise its plain version on
+    a CPU copy of the segment sums' inputs (the keys and weights the
+    deposit makes on the card, each sum added to the last), bitwise from
+    run to run, one launch a segment sum (NGP one, CIC one a corner)."""
+    from nbody_tpu_torch.ops import pm
+
+    pos = torch.from_numpy(_pm_positions(20000, dim, box, layout)).to(cuda)
+    w = torch.from_numpy(np.random.default_rng(dim).uniform(
+        0.5, 1.5, 20000).astype(np.float32)).to(cuda)
+    kind = deposit.split("_")[0]
+    segments = list(pm.deposit_segments(pos, w, n_grid, box, kind))
+    cells = n_grid ** dim
+    got = want = None
+    for keys, ws in segments:
+        want = pm.segment_sum(keys.cpu(), ws.cpu(), cells, want)
+        got = pm.segment_sum(keys, ws, cells, got)
+    assert torch.equal(got.cpu(), want)
+    before = pm.LAUNCHES["pm_deposit"]
+    again = getattr(pm, deposit)(pos, w, n_grid, box)
+    assert pm.LAUNCHES["pm_deposit"] == before + len(segments)
+    assert len(segments) == (1 if kind == "ngp" else 2 ** dim)
+    assert torch.equal(again.reshape(-1), got)
+    assert all(torch.equal(getattr(pm, deposit)(pos, w, n_grid, box), again)
+               for _ in range(5))
+
+
+@pytest.mark.gpu
+def test_pm_segment_sum_edges(cuda):
+    """Empty cells written as prev (or 0), one segment, keys all in one
+    cell, and a sum in particle order (not sorted by value)."""
+    from nbody_tpu_torch.ops import pm
+
+    keys = torch.tensor([3, 3, 0, 3], dtype=torch.int32)
+    w = torch.tensor([1e8, 1.0, 2.0, -1e8])
+    prev = torch.arange(5, dtype=torch.float32)
+    for p in (None, prev):
+        want = pm.segment_sum(keys, w, 5, p)
+        got = pm.segment_sum(keys.to(cuda), w.to(cuda), 5,
+                             None if p is None else p.to(cuda))
+        assert torch.equal(got.cpu(), want)
+    assert float(want[3]) == 3.0    # 3 + ((1e8 + 1) - 1e8): 1 is lost
+    one = torch.zeros(1000, dtype=torch.int32)
+    ws = torch.rand(1000, generator=torch.Generator().manual_seed(0))
+    assert torch.equal(pm.segment_sum(one.to(cuda), ws.to(cuda), 1).cpu(),
+                       pm.segment_sum(one, ws, 1))
