@@ -123,19 +123,23 @@ Phases (any failure exits non-zero before the last line is printed):
    D=2, timed beside sym_force_uniform in the same call.
 13. pm: the particle-mesh engine (``engines/cosmo.py``). The deposit
    kernel pm_deposit (``csrc/pm_deposit.cu``) bitwise its plain version on
-   a CPU copy of its inputs and bitwise run to run, NGP and CIC, N in
-   {10000, 262144}, D in {2, 3}, on a lattice, a clustered state and the
-   box edge; the three gate rows (the reference's universe_2d at N=10000
-   float32 and int4 and N=1024 float32 from its cached ICs under its
-   clock) held to the cached reference runs by the rule of
+   a CPU copy of its inputs, its parent design and itself run to run, NGP
+   and CIC (later corners in place), N in {10000, 262144}, D in {2, 3},
+   on a lattice, a clustered state, the box edge and one cell, and on the
+   adversarial keys of ``diagnostics/deposit_cases.py`` (runs of R and
+   R + 1, long runs straddling blocks, ...); the three gate rows (the
+   reference's universe_2d at N=10000 float32 and int4 and N=1024
+   float32 from its cached ICs under its clock) held to the cached reference runs by the rule of
    tools/pm_reference_parity.py (``diagnostics/pm_gate.py``'s copy);
    bench.py's PM arm on one card (262144 particles, int4, D=3, a 256^3
    grid, pipelined chunks of 10 with every detector live: two warm-up
    chunks, four timed, each dispatch with host syncs made errors, the
-   deposit's launches exact), then in float32; the deposit's device time
-   beside the sort's and ``index_add_``'s at the gate's z=0.01 state and
-   at the arm's shape (lattice, clustered, the arm's own state), and a
-   profile of one step and of the probe bundle.
+   deposit's launches exact), then in float32; the deposit's device time,
+   both designs in turns, beside the sort's and ``index_add_``'s and its
+   two-term bound (bytes, the densest cell's FADD chain) at the gate's
+   z=0.01 state and at the arm's shape (lattice, clustered, one cell, the
+   arm's own state), the whole CIC deposit in both designs, and a profile
+   of one step and of the probe bundle.
 
 The kernels phase also holds the equal-mass variants (D in {2,3}, every
 mode, N in {4096, 32768}; the one-pass design at odd multiples of 64, N in
@@ -3816,14 +3820,23 @@ PM_GATE_ROWS = ((10000, "float32"), (10000, "int4"), (1024, "float32"))
 # The deposit checks: (N, D, n_grid, box).
 PM_DEPOSIT_CASES = ((10000, 2, 128, 200.0), (262144, 2, 128, 200.0),
                     (10000, 3, 32, 200.0), (262144, 3, 256, 400.0))
+# The adversarial key sets of diagnostics/deposit_cases.py: (N, cells).
+PM_KEY_CASES = ((20000, 64 ** 3), (262144, 256 ** 3))
 PM_TIMING_REPS = 20
+# A timed series of one function spends at most this long (the parent
+# design on one cell of 262144 particles takes ~0.13 s a call).
+PM_TIMING_BUDGET_MS = 300.0
+# Dependent FP32 add latency on Hopper, in SM cycles: an order-preserving
+# sum of L particles takes at least L of them.
+FADD_CYCLES = 4
 
 
 def pm_layouts(n: int, dim: int, n_grid: int, box: float, seed: int) -> dict:
     """CPU positions for the deposit checks: a lattice (a perturbed-lattice
     IC's start; the rest uniform), a clustered state (90% of the particles
-    in a cube of 3 cells a side), and the box edge (a quarter exactly on
-    ``box``, a quarter wrapped from -1e-9 onto it, tiny negatives)."""
+    in a cube of 3 cells a side), the box edge (a quarter exactly on
+    ``box``, a quarter wrapped from -1e-9 onto it, tiny negatives), and
+    every particle in one cell."""
     rng = np.random.default_rng(seed)
     side = int(round(n ** (1.0 / dim)))
     side -= side ** dim > n
@@ -3839,16 +3852,68 @@ def pm_layouts(n: int, dim: int, n_grid: int, box: float, seed: int) -> dict:
     edge[: n // 4] = np.float32(box)
     edge[n // 4: n // 2] = np.float32(-1e-9) % np.float32(box)
     edge[n // 2: n // 2 + 64] = np.float32(-1e-7)
+    cell = box / n_grid
+    one_cell = box / 2 + rng.uniform(0.1 * cell, 0.9 * cell, (n, dim))
     return {name: torch.from_numpy(np.asarray(p, np.float32))
             for name, p in (("lattice", lattice), ("clustered", clustered),
-                            ("edge", edge))}
+                            ("edge", edge), ("one_cell", one_cell))}
+
+
+def float_bits(t: torch.Tensor) -> torch.Tensor:
+    """The float32 bit patterns on the CPU: -0.0 and +0.0 differ."""
+    return t.detach().cpu().contiguous().view(torch.int32)
+
+
+def pm_key_checks(dev) -> tuple:
+    """The run-centric deposit on diagnostics/deposit_cases.py's keys
+    (runs of R and R + 1, one cell, runs at the first and last index,
+    alternating long and short runs, empty cells, ties, long runs that
+    straddle the run pass's blocks and the long pass's pieces, cells = 1,
+    N = 1) at each PM_KEY_CASES size, R = pm.LONG_RUN and R = 1 (every run
+    of two or more on the long pass): bitwise its plain version, the
+    parent design and itself run to run; the long pass's count the runs
+    longer than R. Returns (cases, failures)."""
+    from nbody_tpu_torch.diagnostics.deposit_cases import (case_weights,
+                                                           deposit_key_cases)
+    from nbody_tpu_torch.ops import pm
+
+    cases, fails = 0, []
+    for n, cells in PM_KEY_CASES:
+        for long_run in (pm.LONG_RUN, 1):
+            for name, keys, c in deposit_key_cases(n, cells, long_run, n):
+                w = torch.from_numpy(case_weights(len(keys), n))
+                kc = torch.from_numpy(keys)
+                want = float_bits(pm.segment_sum_plain(kc, w, c))
+                sorted_keys, perm = pm.sort_keys(kc.to(dev))
+                wd = w.to(dev)
+                scratch = torch.empty(pm.long_list_size(len(keys), long_run),
+                                      dtype=torch.int32, device=dev)
+                got = pm.deposit_sorted(sorted_keys, perm, wd, c,
+                                        long_run=long_run, long_list=scratch)
+                parent = pm.deposit_sorted(sorted_keys, perm, wd, c,
+                                           parent=True)
+                again = pm.deposit_sorted(sorted_keys, perm, wd, c,
+                                          long_run=long_run)
+                _, lengths, _ = pm.sorted_runs(sorted_keys, c)
+                longs = int((lengths > long_run).sum())
+                cases += 1
+                if not (torch.equal(float_bits(got), want)
+                        and torch.equal(float_bits(parent), want)
+                        and torch.equal(float_bits(again), want)
+                        and int(scratch[0]) == longs):
+                    fails.append(f"keys {name} N={len(keys)} cells={c} "
+                                 f"R={long_run} (long runs {longs}, "
+                                 f"listed {int(scratch[0])})")
+    return cases, fails
 
 
 def pm_deposit_checks(dev, report: dict) -> None:
-    """pm_deposit bitwise its plain version on a CPU copy of its inputs
-    (the keys and weights each deposit makes on the card, each sum added to
-    the last) and bitwise from run to run: NGP and CIC, every case of
-    PM_DEPOSIT_CASES, each layout of pm_layouts."""
+    """pm_deposit bitwise (float32 bits) its plain version on a CPU copy
+    of its inputs (the keys and weights each deposit makes on the card,
+    each sum added to the last), the parent design's chain on the card,
+    and itself run to run through the entry points (CIC's later corners
+    added in place): NGP and CIC, every case of PM_DEPOSIT_CASES, each
+    layout of pm_layouts; then pm_key_checks."""
     from nbody_tpu_torch.ops import pm
 
     cases, fails, worst = 0, [], 0.0
@@ -3858,35 +3923,101 @@ def pm_deposit_checks(dev, report: dict) -> None:
         for layout, pos in pm_layouts(n, dim, n_grid, box, n + dim).items():
             pos = pos.to(dev)
             for kind in ("ngp", "cic"):
-                got = want = None
+                got = want = parent = None
                 for keys, ws in pm.deposit_segments(pos, w, n_grid, box,
                                                     kind):
                     want = pm.segment_sum_plain(keys.cpu(), ws.cpu(),
                                                 n_grid ** dim, want)
                     got = pm.segment_sum(keys, ws, n_grid ** dim, got)
+                    parent = pm.segment_sum(keys, ws, n_grid ** dim, parent,
+                                            parent=True)
                 deposit = getattr(pm, f"{kind}_deposit")
                 again = deposit(pos, w, n_grid, box).reshape(-1)
                 worst = max(worst, float((got.cpu() - want).abs().max()))
                 cases += 1
-                if not (torch.equal(got.cpu(), want)
-                        and torch.equal(again, got)):
+                bits = float_bits(want)
+                if not (torch.equal(float_bits(got), bits)
+                        and torch.equal(float_bits(parent), bits)
+                        and torch.equal(float_bits(again), bits)):
                     fails.append(f"{kind} N={n} D={dim} {n_grid}^{dim} "
                                  f"{layout}")
+    key_cases, key_fails = pm_key_checks(dev)
     report["pm_deposit"]["max_abs_err"] = worst
-    print(f"pm: pm_deposit bitwise its plain version and run to run in "
-          f"{cases - len(fails)} of {cases} cases (NGP and CIC, N in "
-          f"{{10000, 262144}}, D in {{2, 3}}, lattice / clustered / edge); "
-          f"max abs err {worst}")
-    check(not fails, f"pm_deposit not bitwise: {fails}")
+    print(f"pm: pm_deposit bitwise its plain version, the parent design "
+          f"and itself run to run in {cases - len(fails)} of {cases} cases "
+          f"(NGP and CIC in place, N in {{10000, 262144}}, D in {{2, 3}}, "
+          f"lattice / clustered / edge / one cell) and in "
+          f"{key_cases - len(key_fails)} of {key_cases} key sets (runs of "
+          f"R and R + 1, one cell, long runs first and last, alternating, "
+          f"empty cells, ties, straddling, cells = 1, N = 1; R = "
+          f"{pm.LONG_RUN} and 1; the long pass's count exact); max abs err "
+          f"{worst}")
+    check(not fails and not key_fails,
+          f"pm_deposit not bitwise: {fails + key_fails}")
 
 
-def pm_deposit_times(label: str, pos, n_grid: int, box: float) -> dict:
-    """The NGP deposit of unit weights at ``pos`` (on the card): the kernel
-    on sorted keys, the sort alone, ``index_add_`` from a zeroed grid (the
-    same function, but in no fixed order) by CUDA events over
-    PM_TIMING_REPS calls; the plain version on a CPU copy by the host
-    clock; the bound by bytes (the sorted keys, the int64 permutation and
-    the weights read, the grid written)."""
+def sm_clock_max_mhz() -> float:
+    """The card's highest SM clock (MHz), by nvidia-smi."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0])
+
+
+def turns_ms(fns: dict) -> tuple:
+    """Each fn of ``fns`` in turns (a b b a: the mean of its two series)
+    by CUDA events around a loop of calls (the host's issue included) and
+    by graph_ms's replay of a CUDA graph of calls (device time with its
+    launch gaps, the host excluded; device_ms where a capture fails);
+    PM_TIMING_REPS calls a series or fewer, so that one series stays
+    within PM_TIMING_BUDGET_MS (at least 2). Returns ({name: events ms},
+    {name: device ms})."""
+    once = {k: max(cuda_ms(fn, 1, 1), 1e-3) for k, fn in fns.items()}
+    events = {k: 0.0 for k in fns}
+    device = {k: 0.0 for k in fns}
+    for k in list(fns) + list(fns)[::-1]:
+        reps = max(2, min(PM_TIMING_REPS, int(PM_TIMING_BUDGET_MS / once[k])))
+        events[k] += cuda_ms(fns[k], reps, 1) / 2
+        ms = graph_ms(fns[k], reps)
+        device[k] += (device_ms(fns[k], reps)[0] if ms is None else ms) / 2
+    return events, device
+
+
+def kernel_split(fn, reps: int = 10) -> str:
+    """The device time of each kernel a call of fn() launches, by
+    torch.profiler over ``reps`` warm calls (what it traced; a line of
+    the report, no check)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = sorted(((e.self_device_time_total / 1e3 / reps, e.count / reps,
+                     kernel_name(e.key)) for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA and e.count),
+                   reverse=True)
+    return ", ".join(f"{name} {ms:.5f} ms (x{count:g})"
+                     for ms, count, name in split) or "nothing traced"
+
+
+def chain_ms(densest: int, clock_mhz: float) -> float:
+    """The longest run's chain of dependent FADDs at the SM clock."""
+    return densest * FADD_CYCLES / (clock_mhz * 1e3)
+
+
+def pm_deposit_times(label: str, pos, n_grid: int, box: float,
+                     clock_mhz: float) -> dict:
+    """The NGP deposit of unit weights at ``pos`` (on the card): the
+    kernel on sorted keys, its parent design, the sort alone and
+    ``index_add_`` from a zeroed grid (the same function, but in no fixed
+    order) in turns, by CUDA events and by device time (turns_ms); the
+    plain version on a CPU copy by the host clock; the bound of an order-preserving segment sum, the larger of
+    bytes (the sorted keys, the int64 permutation and the weights read,
+    the grid written) over 3.35 TB/s and the densest cell's FADD chain."""
     from nbody_tpu_torch.ops import pm
 
     n, dim = pos.shape
@@ -3894,25 +4025,109 @@ def pm_deposit_times(label: str, pos, n_grid: int, box: float) -> dict:
     w = torch.ones(n, device=pos.device)
     keys = pm.cell_index(pos, box, n_grid)[0]
     sorted_keys, perm = pm.sort_keys(keys)
-    kernel = cuda_ms(lambda: pm.deposit_sorted(sorted_keys, perm, w, cells),
-                     PM_TIMING_REPS, 2)
-    sort = cuda_ms(lambda: pm.sort_keys(keys), PM_TIMING_REPS, 2)
-    library = cuda_ms(lambda: torch.zeros(cells, device=pos.device)
-                      .index_add_(0, keys, w), PM_TIMING_REPS, 2)
+    t, dt = turns_ms({
+        "parent": lambda: pm.deposit_sorted(sorted_keys, perm, w, cells,
+                                            parent=True),
+        "kernel": lambda: pm.deposit_sorted(sorted_keys, perm, w, cells),
+        "sort": lambda: pm.sort_keys(keys),
+        "index_add_": lambda: torch.zeros(cells, device=pos.device)
+        .index_add_(0, keys, w)})
     keys_c, w_c = keys.cpu(), w.cpu()
     pm.segment_sum_plain(keys_c, w_c, cells)
     t0 = time.perf_counter()
     pm.segment_sum_plain(keys_c, w_c, cells)
     plain = (time.perf_counter() - t0) * 1e3
     nbytes = 16 * n + 4 * cells
-    bound_ms = nbytes / PEAK_BYTES * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
     dense = int(torch.bincount(keys).max())
-    print(f"pm: deposit {label}: kernel {kernel:.5f} ms, sort {sort:.5f} ms, "
-          f"index_add_ {library:.5f} ms, plain (CPU) {plain:.3f} ms; bound "
-          f"{bound_ms:.5f} ms ({nbytes} bytes); densest cell {dense} "
-          f"particles")
-    return dict(ms=kernel, sort_ms=sort, library_ms=library, plain_ms=plain,
-                bound_ms=bound_ms, bytes=nbytes, densest=dense)
+    fadd_ms = chain_ms(dense, clock_mhz)
+    bound_ms = max(bytes_ms, fadd_ms)
+    by = "bytes" if bytes_ms >= fadd_ms else "operations"
+
+    def times(x):
+        return (f"kernel {x['kernel']:.5f} ms, parent {x['parent']:.5f} ms "
+                f"({x['parent'] / x['kernel']:.1f}x), sort {x['sort']:.5f} "
+                f"ms, sort + kernel {x['sort'] + x['kernel']:.5f} ms, "
+                f"index_add_ {x['index_add_']:.5f} ms")
+
+    print(f"pm: deposit {label}: by CUDA events {times(t)}; by device time "
+          f"{times(dt)}; plain (CPU) {plain:.3f} ms; bound {bound_ms:.5f} ms "
+          f"by {'bytes' if by == 'bytes' else 'the FADD chain'} (bytes "
+          f"{bytes_ms:.5f} ms: {nbytes} bytes; FADD chain {fadd_ms:.5f} ms: "
+          f"{dense} x {FADD_CYCLES} cycles at {clock_mhz:.0f} MHz), share "
+          f"{100 * bound_ms / t['kernel']:.1f}% (events), "
+          f"{100 * bound_ms / dt['kernel']:.1f}% (device); densest cell "
+          f"{dense} particles")
+    print("pm:   the kernel's launches by the profiler: " + kernel_split(
+        lambda: pm.deposit_sorted(sorted_keys, perm, w, cells)))
+    return dict(ms=t["kernel"], parent_ms=t["parent"], sort_ms=t["sort"],
+                library_ms=t["index_add_"], device_ms=dt["kernel"],
+                parent_device_ms=dt["parent"], plain_ms=plain,
+                bound_ms=bound_ms, bound_by=by, bytes=nbytes, densest=dense)
+
+
+def pm_cic_times(label: str, pos, n_grid: int, box: float,
+                 clock_mhz: float) -> None:
+    """The whole CIC deposit of unit weights at ``pos`` (all 2^D corners:
+    weights, sorts and kernels), ``cic_deposit`` (the run-centric design,
+    later corners in place) against the parent design's out-of-place
+    chain, in turns; then the corners' kernels alone on keys sorted once,
+    bitwise each other, beside the in-place chain's bound (each corner's
+    keys, permutation and weights read, the fill written once, each
+    occupied cell written at the first corner and read and written at the
+    later ones; or the corners' densest-cell FADD chains in sequence)."""
+    from nbody_tpu_torch.ops import pm
+
+    n, dim = pos.shape
+    cells = n_grid ** dim
+    w = torch.ones(n, device=pos.device)
+
+    def parent_chain():
+        grid = None
+        for keys, ws in pm.deposit_segments(pos, w, n_grid, box, "cic"):
+            grid = pm.segment_sum(keys, ws, cells, grid, parent=True)
+        return grid
+
+    whole, whole_dt = turns_ms({
+        "parent": parent_chain,
+        "kernel": lambda: pm.cic_deposit(pos, w, n_grid, box)})
+    segs = [(pm.sort_keys(keys), ws.contiguous())
+            for keys, ws in pm.deposit_segments(pos, w, n_grid, box, "cic")]
+
+    def kernels():
+        grid = pm.deposit_sorted(*segs[0][0], segs[0][1], cells)
+        for (sorted_keys, perm), ws in segs[1:]:
+            pm.deposit_sorted(sorted_keys, perm, ws, cells, into=grid)
+        return grid
+
+    def parent_kernels():
+        grid = None
+        for (sorted_keys, perm), ws in segs:
+            grid = pm.deposit_sorted(sorted_keys, perm, ws, cells, grid,
+                                     parent=True)
+        return grid
+
+    check(torch.equal(float_bits(kernels()), float_bits(parent_kernels())),
+          f"pm: CIC {label}: the in-place chain is not the parent's")
+    alone, alone_dt = turns_ms({"parent": parent_kernels,
+                                   "kernel": kernels})
+    nbytes, fadd_ms = 4 * cells, 0.0
+    for i, ((sorted_keys, _), _) in enumerate(segs):
+        _, lengths, _ = pm.sorted_runs(sorted_keys, cells)
+        nbytes += 16 * n + (4 if i == 0 else 8) * lengths.numel()
+        fadd_ms += chain_ms(int(lengths.max()), clock_mhz)
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    bound_ms = max(bytes_ms, fadd_ms)
+    def times(x):
+        return (f"{x['kernel']:.5f} ms, parent {x['parent']:.5f} ms "
+                f"({x['parent'] / x['kernel']:.1f}x)")
+
+    print(f"pm: CIC {label} ({2 ** dim} corners): whole deposit by CUDA "
+          f"events {times(whole)}, by device time {times(whole_dt)}; the "
+          f"kernels alone, bitwise, by CUDA events {times(alone)}, by "
+          f"device time {times(alone_dt)}; bound {bound_ms:.5f} ms (bytes "
+          f"{bytes_ms:.5f} ms: {nbytes} bytes; FADD chains {fadd_ms:.5f} "
+          f"ms), share {100 * bound_ms / alone_dt['kernel']:.1f}% (device)")
 
 
 def pm_gate(dev) -> dict:
@@ -3960,7 +4175,8 @@ def pm_arm(dev, precision: str):
     """bench.py's PM arm: PM_ARM_WARM warm-up chunks, then PM_ARM_TIMED
     chunks pipelined (dispatch k+1, collect k) by the host clock, every
     dispatch inside no_host_sync; the deposit's launches counted over the
-    timed chunks. Returns (engine, ms a step, launches)."""
+    timed chunks. Returns (engine, ms a step, (deposits, fills, long
+    passes))."""
     from nbody_tpu_torch import native
     from nbody_tpu_torch.engines import cosmo
     from nbody_tpu_torch.ops import hopper_nbody as hn
@@ -3984,6 +4200,8 @@ def pm_arm(dev, precision: str):
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / (PM_ARM_TIMED * PM_ARM_CHUNK) * 1e3
     launches = pm.LAUNCHES["pm_deposit"]
+    fills = pm.LAUNCHES["pm_deposit_fill"]
+    longs = pm.LAUNCHES["pm_deposit_long"]
     others = {k: v for k, v in hn.LAUNCHES.items() if v}
     pos = eng.positions
     check(bool(torch.isfinite(pos).all()) and float(pos.min()) >= 0
@@ -3995,15 +4213,19 @@ def pm_arm(dev, precision: str):
           f"pm arm {precision}: pm_deposit launched {launches} times in "
           f"{PM_ARM_TIMED} chunks of {PM_ARM_CHUNK} (other kernels "
           f"{others})")
+    check(fills == launches and longs == launches,
+          f"pm arm {precision}: {launches} deposits launched {fills} fills "
+          f"and {longs} long passes (one each a deposit of 262144)")
     print(f"pm: arm {precision} N={eng.num_particles} D=3 256^3 (pipelined, "
           f"every detector live): {ms:.3f} ms a step over "
           f"{PM_ARM_TIMED * PM_ARM_CHUNK} steps, z={eng.redshift:.2f}; "
           f"glitches {eng.glitch_detector.get_glitch_count() - glitches} in "
           f"the timed chunks ({eng.glitch_detector.get_glitch_summary()} "
           f"over the run); entropy route {native.route()}; pm_deposit "
-          f"launches {launches}; clustering {eng.history['clustering'][-1]:.4f}"
+          f"launches {launches} (fills {fills}, long passes {longs}); "
+          f"clustering {eng.history['clustering'][-1]:.4f}"
           f", BAO {eng.history['bao_scale'][-1]:.2f} Mpc; card {card_line()}")
-    return eng, ms, launches
+    return eng, ms, (launches, fills, longs)
 
 
 PM_PROFILE_STEPS = 3   # steps (probe bundles) in one traced window
@@ -4091,29 +4313,39 @@ def pm_breakdown(eng) -> None:
 
 
 def phase_pm(dev, report: dict) -> None:
-    """The PM engine on the card: the deposit kernel's checks and times,
-    the three gate rows, bench.py's PM arm in int4 (the main path: its
-    launches are the kernel's count) and float32, and a profile of a step."""
+    """The PM engine on the card: the deposit kernel's checks, the three
+    gate rows, bench.py's PM arm in int4 (the main path: its launches are
+    the kernel's count) and float32, the deposit's times (both designs in
+    turns) and a profile of a step."""
     import logging
     logging.getLogger("nbody_tpu_torch.glitch").setLevel(logging.ERROR)
 
     pm_deposit_checks(dev, report)
     late = pm_gate(dev)
+    clock = sm_clock_max_mhz()
     pm_deposit_times("N=10000 D=2 128^2 at z=0.01 (the gate's float32 "
-                     "final state)", late, 128, 200.0)
-    eng, ms, launches = pm_arm(dev, "int4")
-    report["pm_deposit"]["launches"] = launches
+                     "final state)", late, 128, 200.0, clock)
+    eng, ms, (launches, fills, longs) = pm_arm(dev, "int4")
     entry = report["pm_deposit"]
-    for layout, pos in pm_layouts(262144, 3, 256, 400.0, 3).items():
-        if layout != "edge":
-            pm_deposit_times(f"N=262144 D=3 256^3 {layout}", pos.to(dev),
-                             256, 400.0)
-    t = pm_deposit_times("N=262144 D=3 256^3 the int4 arm's state at "
-                         f"z={eng.redshift:.2f}", eng.positions, 256, 400.0)
+    entry.update(launches=launches, fill_launches=fills, long_launches=longs)
+    layouts = pm_layouts(262144, 3, 256, 400.0, 3)
+    for layout in ("lattice", "clustered", "one_cell"):
+        pm_deposit_times(f"N=262144 D=3 256^3 {layout}",
+                         layouts[layout].to(dev), 256, 400.0, clock)
+    state = f"the int4 arm's state at z={eng.redshift:.2f}"
+    t = pm_deposit_times(f"N=262144 D=3 256^3 {state}", eng.positions, 256,
+                         400.0, clock)
     entry.update(ms=t["ms"], plain_ms=t["plain_ms"],
                  library_ms=t["library_ms"], bound_ms=t["bound_ms"],
-                 bound_by="bytes", bytes=t["bytes"], sort_ms=t["sort_ms"],
+                 bound_by=t["bound_by"], bytes=t["bytes"],
+                 sort_ms=t["sort_ms"], parent_ms=t["parent_ms"],
+                 device_ms=t["device_ms"],
+                 parent_device_ms=t["parent_device_ms"],
                  timed_at="N=262144 D=3 256^3 NGP, the int4 arm's state")
+    pm_cic_times(f"N=262144 D=3 256^3 {state}", eng.positions, 256, 400.0,
+                 clock)
+    pm_cic_times("N=262144 D=3 256^3 clustered",
+                 layouts["clustered"].to(dev), 256, 400.0, clock)
     pm_breakdown(eng)
     del eng
     pm_arm(dev, "float32")

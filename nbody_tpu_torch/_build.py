@@ -91,6 +91,8 @@ SIGNATURES = {
     },
     "pm_deposit": {
         "nbody_pm_deposit": [_P, _P, _P, _P, _P, _I, _I, _P],
+        "nbody_pm_deposit_runs": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+                                  _P],
     },
 }
 

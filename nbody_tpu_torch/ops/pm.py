@@ -11,12 +11,14 @@ coordinate that wrapped onto ``box`` lands in cell 0), and JAX's own
 friends below).
 
 The deposit is a segment sum in particle order: ``segment_sum`` wraps the
-hand-written kernel ``csrc/pm_deposit.cu`` (a stable sort, then one thread
-a cell summing its run in order; no float atomics) for a CUDA tensor, and
-its plain version (``segment_sum_plain``: ``index_add_`` on the CPU, which
-adds in index order) for a CPU tensor, bit for bit JAX's sequential
-scatter. The P(k) bin sums are fixed-order ``torch.sum``s over a constant
-bin mask. The FFTs are library calls (``torch.fft``), as JAX leaves them
+hand-written kernel ``csrc/pm_deposit.cu`` (a stable sort, then a thread a
+run of sorted particles summing it in order, a block a run longer than
+``LONG_RUN``; no float atomics) for a CUDA tensor, and its plain version
+(``segment_sum_plain``: ``index_add_`` on the CPU, which adds in index
+order) for a CPU tensor, bit for bit JAX's sequential scatter.
+``deposit_runs_plain`` models the kernel's decomposition on the CPU.
+The P(k) bin sums are fixed-order ``torch.sum``s over a constant bin
+mask. The FFTs are library calls (``torch.fft``), as JAX leaves them
 to XLA. The spectral constants of a grid (wavevectors, the quantized k^2,
 the P(k) bins, the dark-matter background) are built once per
 (geometry, device) and reused.
@@ -36,9 +38,14 @@ import torch
 
 from nbody_tpu_torch.ops.precision import Quantizer, quantize_distance_squared
 
-# Launches of the deposit kernel in this process (reset by whoever reads
-# them).
-LAUNCHES = {"pm_deposit": 0}
+# Launches of the deposit's kernels in this process (reset by whoever
+# reads them): "pm_deposit" one a deposit (a segment sum), either design;
+# "pm_deposit_fill" and "pm_deposit_long" the run-centric design's fill
+# and long-run launches (``deposit_launches``).
+LAUNCHES = {"pm_deposit": 0, "pm_deposit_fill": 0, "pm_deposit_long": 0}
+# The longest run of sorted particles (one cell's) that one thread of the
+# deposit kernel sums; a longer run goes to the long pass, a block a run.
+LONG_RUN = 32
 
 
 # --------------------------------------------------------------------------
@@ -148,37 +155,163 @@ def sort_keys(keys: torch.Tensor) -> tuple:
     return torch.sort(keys, stable=True)
 
 
+def long_list_size(n: int, long_run: int = LONG_RUN) -> int:
+    """int32 elements of the long pass's scratch for n sorted particles:
+    the count of runs longer than ``long_run``, then their first indices
+    (at most n // (long_run + 1) of them)."""
+    return 1 + -(-n // (long_run + 1))
+
+
+def deposit_launches(n: int, long_run: int = LONG_RUN,
+                     parent: bool = False) -> dict:
+    """The kernel launches of one deposit of n sorted particles, by
+    ``LAUNCHES`` key: the parent design one; the run-centric design the
+    fill (always: it also zeroes the long-run count), the run pass (counted
+    as "pm_deposit", the deposit's own count) and the long pass when a run
+    could exceed ``long_run`` (n > long_run: the host cannot see the runs
+    without a read, so the pass launches and finds its list empty where no
+    run is that long)."""
+    if parent:
+        return {"pm_deposit": 1}
+    return {"pm_deposit": 1, "pm_deposit_fill": 1,
+            "pm_deposit_long": int(n > long_run)}
+
+
 def deposit_sorted(sorted_keys: torch.Tensor, perm: torch.Tensor,
                    w: torch.Tensor, num_segments: int,
-                   prev: torch.Tensor | None = None) -> torch.Tensor:
-    """One launch of csrc/pm_deposit.cu on keys already sorted by
-    ``sort_keys`` (CUDA tensors); counts the launch."""
+                   prev: torch.Tensor | None = None, *,
+                   into: torch.Tensor | None = None, parent: bool = False,
+                   long_run: int = LONG_RUN,
+                   long_list: torch.Tensor | None = None) -> torch.Tensor:
+    """One deposit by csrc/pm_deposit.cu on keys already sorted by
+    ``sort_keys`` (CUDA tensors); counts its launches in ``LAUNCHES``.
+
+    ``prev``: the grid the sums are added to, out of place (every cell
+    written, an empty one as prev + 0). ``into``: a grid the sums are added
+    to in place, only occupied cells touched (bitwise the out-of-place sum
+    for a grid that holds no -0.0, as no deposit grid does); returned.
+    ``parent``: the first design (a thread a cell; no ``into``).
+    ``long_run``: the longest run a thread sums. ``long_list``: int32 of
+    ``long_list_size(n, long_run)`` on the card, the long pass's scratch;
+    after the call its first element is the number of runs longer than
+    ``long_run`` (a scratch of the wrapper's own when None)."""
     from nbody_tpu_torch import _build
 
+    if into is not None and (prev is not None or parent):
+        raise ValueError("deposit_sorted: into excludes prev and parent")
+    if into is not None and (into.dtype != torch.float32
+                             or into.shape != (num_segments,)
+                             or not into.is_contiguous()
+                             or into.device != w.device):
+        raise ValueError(f"deposit_sorted: into must be contiguous float32 "
+                         f"({num_segments},) on the weights' device")
+    if long_run < 1:
+        raise ValueError(f"deposit_sorted: long_run {long_run} < 1")
+    if w.device.type != "cuda":
+        raise ValueError("deposit_sorted launches the CUDA kernel: its "
+                         "tensors lie on the card (segment_sum takes a CPU "
+                         "tensor to the plain version)")
+    n = sorted_keys.shape[0]
     w = w.contiguous()
-    out = torch.empty(num_segments, dtype=torch.float32, device=w.device)
+    prev = None if prev is None else prev.contiguous()
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
-    rc = _build.library().nbody_pm_deposit(
-        ptr(sorted_keys), ptr(perm), ptr(w),
-        None if prev is None else ptr(prev.contiguous()), ptr(out),
-        sorted_keys.shape[0], num_segments,
-        ctypes.c_void_p(torch.cuda.current_stream(w.device).cuda_stream))
+    base = None if prev is None else ptr(prev)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(w.device).cuda_stream)
+    lib = _build.library()
+    if parent:
+        out = torch.empty(num_segments, dtype=torch.float32, device=w.device)
+        rc = lib.nbody_pm_deposit(ptr(sorted_keys), ptr(perm), ptr(w), base,
+                                  ptr(out), n, num_segments, stream)
+    else:
+        out = (torch.empty(num_segments, dtype=torch.float32,
+                           device=w.device) if into is None else into)
+        size = long_list_size(n, long_run)
+        if long_list is None:
+            long_list = torch.empty(size, dtype=torch.int32, device=w.device)
+        elif (long_list.dtype != torch.int32 or long_list.numel() < size
+              or long_list.device != w.device):
+            raise ValueError(f"deposit_sorted: long_list must be int32 of "
+                             f"{size} on the weights' device")
+        rc = lib.nbody_pm_deposit_runs(
+            ptr(sorted_keys), ptr(perm), ptr(w), base, ptr(out), n,
+            num_segments, long_run, int(into is not None), ptr(long_list),
+            stream)
     if rc != 0:
         raise RuntimeError(f"pm_deposit kernel launch failed: CUDA error {rc}")
-    LAUNCHES["pm_deposit"] += 1
+    for k, v in deposit_launches(n, long_run, parent).items():
+        LAUNCHES[k] += v
     return out
 
 
 def segment_sum(keys: torch.Tensor, w: torch.Tensor, num_segments: int,
-                prev: torch.Tensor | None = None) -> torch.Tensor:
+                prev: torch.Tensor | None = None, *,
+                parent: bool = False) -> torch.Tensor:
     """Deterministic segment sum (``jax.ops.segment_sum`` of ``w`` by
-    ``keys``, plus ``prev``): the deposit kernel for a CUDA tensor, its
-    plain version for a CPU tensor; bitwise the same function."""
+    ``keys``, plus ``prev``): the deposit kernel for a CUDA tensor
+    (``parent``: its first design), its plain version for a CPU tensor;
+    bitwise the same function."""
     _check_segment_args(keys, w, num_segments, prev)
     if keys.device.type == "cpu":
         return segment_sum_plain(keys, w, num_segments, prev)
     sorted_keys, perm = sort_keys(keys)
-    return deposit_sorted(sorted_keys, perm, w, num_segments, prev)
+    return deposit_sorted(sorted_keys, perm, w, num_segments, prev,
+                          parent=parent)
+
+
+def sorted_runs(sorted_keys: torch.Tensor, num_segments: int) -> tuple:
+    """The runs of equal keys in sorted keys whose key lies in
+    [0, num_segments): (first index, length, key), int64 tensors on the
+    keys' device, in sorted order."""
+    n = sorted_keys.shape[0]
+    keys = sorted_keys.long()
+    if n == 0:
+        return keys, keys, keys
+    head = torch.ones(n, dtype=torch.bool, device=keys.device)
+    head[1:] = keys[1:] != keys[:-1]
+    starts = torch.nonzero(head).flatten()
+    ends = torch.cat([starts[1:], torch.full((1,), n, device=keys.device)])
+    run_keys = keys[starts]
+    keep = (run_keys >= 0) & (run_keys < num_segments)
+    return starts[keep], (ends - starts)[keep], run_keys[keep]
+
+
+def _ordered_sums(ws: torch.Tensor, starts: torch.Tensor,
+                  lengths: torch.Tensor) -> torch.Tensor:
+    """((0 + ws[s]) + ws[s + 1]) + ... over each run, in float32, one
+    position of every run at a time."""
+    sums = torch.zeros(starts.shape[0], dtype=torch.float32)
+    for j in range(int(lengths.max()) if len(lengths) else 0):
+        live = lengths > j
+        sums[live] = sums[live] + ws[starts[live] + j]
+    return sums
+
+
+def deposit_runs_plain(sorted_keys: torch.Tensor, perm: torch.Tensor,
+                       w: torch.Tensor, num_segments: int,
+                       prev: torch.Tensor | None = None, *,
+                       into: torch.Tensor | None = None,
+                       long_run: int = LONG_RUN) -> tuple:
+    """Plain model of the run-centric kernel on CPU tensors, step by step:
+    the fill (0, prev + 0, or nothing into ``into``), the runs of at most
+    ``long_run`` summed by their owners, the longer ones by the long pass,
+    each in particle order, each written to its cell (added to the cell
+    where there is a prev or an ``into``). Returns (grid, the first sorted
+    index of each run longer than ``long_run``)."""
+    if into is not None:
+        grid = into
+    elif prev is not None:
+        grid = prev + 0.0
+    else:
+        grid = torch.zeros(num_segments, dtype=torch.float32)
+    add = into is not None or prev is not None
+    starts, lengths, run_keys = sorted_runs(sorted_keys, num_segments)
+    ws = w[perm]
+    long = lengths > long_run
+    for part in (~long, long):
+        sums = _ordered_sums(ws, starts[part], lengths[part])
+        cells = run_keys[part]
+        grid[cells] = grid[cells] + sums if add else sums
+    return grid, starts[long]
 
 
 def _cic_corners(positions, n_grid: int, box_size: float):
@@ -215,11 +348,20 @@ def deposit_segments(positions, weights, n_grid: int, box_size: float,
 
 def _deposit(positions, weights, n_grid: int, box_size: float,
              deposit: str):
+    """The segments' sums chained into one grid: on the card the first
+    sum fills the grid and every later one (CIC's corners) adds into it in
+    place; on the CPU each is the plain ``prev + sum``. Bitwise the same:
+    no deposit grid holds -0.0."""
     dim = positions.shape[1]
+    cells = n_grid ** dim
     grid = None
     for keys, w in deposit_segments(positions, weights, n_grid, box_size,
                                     deposit):
-        grid = segment_sum(keys, w, n_grid ** dim, prev=grid)
+        if grid is None or keys.device.type == "cpu":
+            grid = segment_sum(keys, w, cells, prev=grid)
+        else:
+            _check_segment_args(keys, w, cells, grid)
+            deposit_sorted(*sort_keys(keys), w, cells, into=grid)
     return grid.reshape((n_grid,) * dim)
 
 

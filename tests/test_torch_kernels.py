@@ -738,3 +738,88 @@ def test_pm_segment_sum_edges(cuda):
     ws = torch.rand(1000, generator=torch.Generator().manual_seed(0))
     assert torch.equal(pm.segment_sum(one.to(cuda), ws.to(cuda), 1).cpu(),
                        pm.segment_sum(one, ws, 1))
+
+
+def _pm_bits(t):
+    return t.cpu().contiguous().view(torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("long_run", [1, 32])
+@pytest.mark.parametrize("n, cells", [(20000, 64 ** 3), (262144, 256 ** 3)])
+@pytest.mark.parametrize("name", ["one_cell", "runs_R", "runs_R1",
+                                  "long_first", "long_last", "alternating",
+                                  "sparse", "ties", "straddle", "cells1",
+                                  "n1"])
+def test_pm_deposit_runs_adversarial_keys(cuda, name, n, cells, long_run):
+    """The run-centric deposit on diagnostics.deposit_cases' keys, with and
+    without prev: bitwise (float32 bits) its plain version, the parent
+    design and itself run to run; its long pass took exactly the runs
+    longer than long_run (the work list's count), and it counts the
+    launches of pm.deposit_launches."""
+    from nbody_tpu_torch.diagnostics.deposit_cases import (
+        case_weights, deposit_key_cases)
+    from nbody_tpu_torch.ops import pm
+
+    keys, cells = next((k, c) for case, k, c in
+                       deposit_key_cases(n, cells, long_run, 5)
+                       if case == name)
+    w = torch.from_numpy(case_weights(len(keys), 5))
+    kc = torch.from_numpy(keys)
+    sorted_keys, perm = pm.sort_keys(kc.to(cuda))
+    _, lengths, _ = pm.sorted_runs(sorted_keys, cells)
+    prev = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        cells).astype(np.float32))
+    prev[::7] = -0.0
+    for p in (None, prev):
+        want = pm.segment_sum_plain(kc, w, cells, p)
+        pc = None if p is None else p.to(cuda)
+        scratch = torch.empty(pm.long_list_size(len(keys), long_run),
+                              dtype=torch.int32, device=cuda)
+        before = dict(pm.LAUNCHES)
+        got = pm.deposit_sorted(sorted_keys, perm, w.to(cuda), cells, pc,
+                                long_run=long_run, long_list=scratch)
+        expect = pm.deposit_launches(len(keys), long_run)
+        assert {k: pm.LAUNCHES[k] - before[k] for k in expect} == expect
+        assert int(scratch[0]) == int((lengths > long_run).sum())
+        assert torch.equal(_pm_bits(got), _pm_bits(want))
+        parent = pm.deposit_sorted(sorted_keys, perm, w.to(cuda), cells, pc,
+                                   parent=True)
+        assert torch.equal(_pm_bits(parent), _pm_bits(want))
+        assert all(torch.equal(_pm_bits(pm.deposit_sorted(
+            sorted_keys, perm, w.to(cuda), cells, pc, long_run=long_run)),
+            _pm_bits(want)) for _ in range(3))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["uniform", "clustered", "one_cell"])
+@pytest.mark.parametrize("dim, n_grid, box", [(2, 512, 200.0),
+                                              (3, 256, 400.0)])
+@pytest.mark.parametrize("deposit", ["ngp_deposit", "cic_deposit"])
+def test_pm_deposit_in_place_chain_vs_parent(cuda, deposit, dim, n_grid,
+                                             box, layout):
+    """NGP and CIC at N=262144 through the entry points (CIC's later
+    corners added into the grid in place): bitwise (float32 bits) the
+    parent design's out-of-place chain, the plain version on a CPU copy,
+    and itself run to run."""
+    from nbody_tpu_torch.ops import pm
+
+    n = 262144
+    pos_np = _pm_positions(n, dim, box, "clustered" if layout == "clustered"
+                           else "uniform")
+    if layout == "one_cell":
+        pos_np[:] = np.float32(box * 0.3)
+    pos = torch.from_numpy(pos_np).to(cuda)
+    w = torch.from_numpy(np.random.default_rng(dim).uniform(
+        0.5, 1.5, n).astype(np.float32)).to(cuda)
+    cells = n_grid ** dim
+    kind = deposit.split("_")[0]
+    parent = want = None
+    for keys, ws in pm.deposit_segments(pos, w, n_grid, box, kind):
+        want = pm.segment_sum_plain(keys.cpu(), ws.cpu(), cells, want)
+        parent = pm.segment_sum(keys, ws, cells, parent, parent=True)
+    got = getattr(pm, deposit)(pos, w, n_grid, box).reshape(-1)
+    assert torch.equal(_pm_bits(got), _pm_bits(want))
+    assert torch.equal(_pm_bits(parent), _pm_bits(want))
+    assert all(torch.equal(_pm_bits(getattr(pm, deposit)(
+        pos, w, n_grid, box).reshape(-1)), _pm_bits(got)) for _ in range(3))
