@@ -140,6 +140,20 @@ Phases (any failure exits non-zero before the last line is printed):
    z=0.01 state and at the arm's shape (lattice, clustered, one cell, the
    arm's own state), the whole CIC deposit in both designs, and a profile
    of one step and of the probe bundle.
+14. pm_mesh: the sharded particle mesh (``parallel/pm_sharded.py``).
+   pm_deposit bitwise its plain version at the per-shard shapes (the arm's
+   262144 particles over 4 and over 3 shards, 256^3, 64^3 and 32^3); the
+   three gate rows through a mesh of one (bitwise the single device) and
+   through 4 and 3 virtual shards on the card, each held to the cached
+   reference runs; bench's PM arm with ``mesh=make_particle_mesh()``, on
+   4 virtual shards (the slab-decomposed FFT and the slab gather) and on
+   3 (the replicated fallback, phantom rows): ms a step, pm_deposit's
+   launches exactly S x (steps + 2) a chunk and no other kernel, no host
+   sync in a dispatch, peak memory; one force evaluation at the arm's
+   state through every route against the single device (bitwise on a
+   mesh of one); a device-time breakdown of one sharded step at S = 1 and
+   4; ``universe3d --mesh --probes``, ``genesis --mesh`` and
+   ``universe2d --mesh`` at their defaults.
 
 The kernels phase also holds the equal-mass variants (D in {2,3}, every
 mode, N in {4096, 32768}; the one-pass design at odd multiples of 64, N in
@@ -183,7 +197,7 @@ import torch
 
 REPO = Path(__file__).resolve().parent
 PHASES = ("kernels", "main", "gate", "perf", "large", "ring", "cached",
-          "lab", "lab_r4", "lab_r5", "pm")  # default
+          "lab", "lab_r4", "lab_r5", "pm", "pm_mesh")  # default
 EXTRA_PHASES = ("profile", "scale")
 MODES = ("float32", "bfloat16", "float16", "int8", "int4", "custom")
 STARS, TICKS, INTERVAL = 5000, 2000, 100
@@ -4171,18 +4185,22 @@ def no_host_sync():
         torch.cuda.set_sync_debug_mode("default")
 
 
-def pm_arm(dev, precision: str):
-    """bench.py's PM arm: PM_ARM_WARM warm-up chunks, then PM_ARM_TIMED
-    chunks pipelined (dispatch k+1, collect k) by the host clock, every
-    dispatch inside no_host_sync; the deposit's launches counted over the
-    timed chunks. Returns (engine, ms a step, (deposits, fills, long
-    passes))."""
+def pm_arm(dev, precision: str, mesh=None, timed: int = PM_ARM_TIMED):
+    """bench.py's PM arm (through the sharded PM on ``mesh``): PM_ARM_WARM
+    warm-up chunks, then ``timed`` chunks pipelined (dispatch k+1, collect
+    k) by the host clock, every dispatch inside no_host_sync; the
+    deposit's launches counted over the timed chunks, S of them where one
+    device launches one. Returns (engine, ms a step, (deposits, fills,
+    long passes), peak bytes allocated)."""
     from nbody_tpu_torch import native
     from nbody_tpu_torch.engines import cosmo
     from nbody_tpu_torch.ops import hopper_nbody as hn
     from nbody_tpu_torch.ops import pm
 
-    eng = cosmo.CosmologicalEngine(precision=precision, device=dev, **PM_ARM)
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = cosmo.CosmologicalEngine(precision=precision, device=dev,
+                                   mesh=mesh, **PM_ARM)
+    shards = 1 if mesh is None else mesh.size
     for _ in range(PM_ARM_WARM):
         eng.step(PM_ARM_DZ, PM_ARM_CHUNK)
     torch.cuda.synchronize()
@@ -4190,7 +4208,7 @@ def pm_arm(dev, precision: str):
     glitches = eng.glitch_detector.get_glitch_count()
     t0 = time.perf_counter()
     pending = None
-    for _ in range(PM_ARM_TIMED):
+    for _ in range(timed):
         with no_host_sync():
             nxt = eng.dispatch_step(PM_ARM_DZ, PM_ARM_CHUNK)
         if pending is not None:
@@ -4198,7 +4216,8 @@ def pm_arm(dev, precision: str):
         pending = nxt
     eng.collect_step(pending)
     torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) / (PM_ARM_TIMED * PM_ARM_CHUNK) * 1e3
+    ms = (time.perf_counter() - t0) / (timed * PM_ARM_CHUNK) * 1e3
+    peak = torch.cuda.max_memory_allocated(dev)
     launches = pm.LAUNCHES["pm_deposit"]
     fills = pm.LAUNCHES["pm_deposit_fill"]
     longs = pm.LAUNCHES["pm_deposit_long"]
@@ -4209,26 +4228,47 @@ def pm_arm(dev, precision: str):
           and np.isfinite(eng.history["energy"]).all()
           and np.isfinite(eng.history["clustering"]).all(),
           f"pm arm {precision}: non-finite or out-of-box state")
-    check(launches == PM_ARM_TIMED * (PM_ARM_CHUNK + 2) and not others,
-          f"pm arm {precision}: pm_deposit launched {launches} times in "
-          f"{PM_ARM_TIMED} chunks of {PM_ARM_CHUNK} (other kernels "
-          f"{others})")
+    where = "" if mesh is None else f" on a mesh of {shards}"
+    check(launches == timed * (PM_ARM_CHUNK + 2) * shards and not others,
+          f"pm arm {precision}{where}: pm_deposit launched {launches} times "
+          f"in {timed} chunks of {PM_ARM_CHUNK} (other kernels {others})")
     check(fills == launches and longs == launches,
-          f"pm arm {precision}: {launches} deposits launched {fills} fills "
-          f"and {longs} long passes (one each a deposit of 262144)")
-    print(f"pm: arm {precision} N={eng.num_particles} D=3 256^3 (pipelined, "
-          f"every detector live): {ms:.3f} ms a step over "
-          f"{PM_ARM_TIMED * PM_ARM_CHUNK} steps, z={eng.redshift:.2f}; "
+          f"pm arm {precision}{where}: {launches} deposits launched {fills} "
+          f"fills and {longs} long passes (one each a deposit of more than "
+          f"{pm.LONG_RUN})")
+    label = "pm" if mesh is None else "pm_mesh"
+    print(f"{label}: arm {precision}{where} N={eng.num_particles} D=3 256^3 "
+          f"(pipelined, every detector live): {ms:.3f} ms a step over "
+          f"{timed * PM_ARM_CHUNK} steps, z={eng.redshift:.2f}; "
           f"glitches {eng.glitch_detector.get_glitch_count() - glitches} in "
           f"the timed chunks ({eng.glitch_detector.get_glitch_summary()} "
           f"over the run); entropy route {native.route()}; pm_deposit "
           f"launches {launches} (fills {fills}, long passes {longs}); "
           f"clustering {eng.history['clustering'][-1]:.4f}"
-          f", BAO {eng.history['bao_scale'][-1]:.2f} Mpc; card {card_line()}")
-    return eng, ms, (launches, fills, longs)
+          f", BAO {eng.history['bao_scale'][-1]:.2f} Mpc; peak "
+          f"{peak / 2 ** 30:.3f} GiB allocated; card {card_line()}")
+    return eng, ms, (launches, fills, longs), peak
 
 
 PM_PROFILE_STEPS = 3   # steps (probe bundles) in one traced window
+
+
+def pm_kernel_class(name: str) -> str:
+    """A PM step's kernel by class: deposit, sort, FFTs, gather
+    (index_select's kernels), cat/copy (a mesh's transposes and
+    all-gathers), the rest."""
+    low = name.lower()
+    if "pm_deposit" in low:
+        return "deposit"
+    if "sort" in low or "radix" in low:
+        return "sort"
+    if "fft" in low:
+        return "FFTs"
+    if "index" in low or "gather" in low:
+        return "gather"
+    if "cat" in low or "copy" in low:
+        return "cat/copy"
+    return "the rest"
 
 
 def pm_breakdown(eng) -> None:
@@ -4259,18 +4299,6 @@ def pm_breakdown(eng) -> None:
                                   eng.positions, *obs, eng.cfg.box_size,
                                   ex.c_sim, ex.fov_cos)
 
-    def classify(name: str) -> str:
-        low = name.lower()
-        if "pm_deposit" in low:
-            return "deposit"
-        if "sort" in low or "radix" in low:
-            return "sort"
-        if "fft" in low:
-            return "FFTs"
-        if "index" in low or "gather" in low:   # index_select's kernels
-            return "gather"
-        return "the rest"
-
     for label, fn, needed in (
             ("one step", step, {"deposit", "sort", "FFTs", "gather"}),
             ("probe bundle", probes, {"deposit", "sort", "FFTs"})):
@@ -4286,7 +4314,7 @@ def pm_breakdown(eng) -> None:
             for e in prof.key_averages():
                 if e.device_type == DeviceType.CUDA and e.count:
                     ms = e.self_device_time_total / 1e3 / PM_PROFILE_STEPS
-                    cls = classify(e.key)
+                    cls = pm_kernel_class(e.key)
                     classes[cls] = classes.get(cls, 0.0) + ms
                     kernels.append((ms, e.count // PM_PROFILE_STEPS,
                                     kernel_name(e.key)[:60]))
@@ -4325,7 +4353,7 @@ def phase_pm(dev, report: dict) -> None:
     clock = sm_clock_max_mhz()
     pm_deposit_times("N=10000 D=2 128^2 at z=0.01 (the gate's float32 "
                      "final state)", late, 128, 200.0, clock)
-    eng, ms, (launches, fills, longs) = pm_arm(dev, "int4")
+    eng, ms, (launches, fills, longs), _ = pm_arm(dev, "int4")
     entry = report["pm_deposit"]
     entry.update(launches=launches, fill_launches=fills, long_launches=longs)
     layouts = pm_layouts(262144, 3, 256, 400.0, 3)
@@ -4349,6 +4377,272 @@ def phase_pm(dev, report: dict) -> None:
     pm_breakdown(eng)
     del eng
     pm_arm(dev, "float32")
+
+
+# --------------------------------------------------------------------------
+# Phase pm_mesh: the sharded particle mesh (parallel/pm_sharded.py)
+# --------------------------------------------------------------------------
+
+# The arm's meshes: bench's make_particle_mesh() (one card: a mesh of
+# one), 4 virtual shards (the slab FFT and the slab gather: 256^3 >
+# 2 x 262144) and 3 (256 % 3 takes the replicated fallback; 262144 % 3
+# leaves two phantom rows). Timed chunks each.
+PM_MESH_VIRTUAL = (4, 3)
+PM_MESH_TIMED = PM_ARM_TIMED
+# The gate's single-device rows on the card (final drift, %), recorded on
+# their first card run and bit for bit since, printed beside the mesh of
+# one's.
+PM_GATE_DRIFTS = {(10000, "float32"): 557602.3732,
+                  (10000, "int4"): 566835.8750,
+                  (1024, "float32"): 602590.3300}
+# One force evaluation through the mesh against the single device: every
+# component within this share of the largest |a| (the port's PM rule,
+# tests/test_torch_cosmo.py); a mesh of one bitwise.
+PM_FORCE_RTOL = 1e-5
+# The presets at their defaults with --mesh: (module, extra argv, report
+# file, its tick key, steps).
+PM_PRESETS = (("universe3d", ["--probes"], "universe3d_report.json",
+               "ticks", 50),
+              ("genesis", [], "genesis_report.json", "tick", 200),
+              ("universe2d", [], "universe2d_report.json", "ticks", 50))
+
+
+def pm_mesh_deposit_checks(dev, report: dict) -> None:
+    """pm_deposit bitwise its plain version at the mesh's per-shard shapes:
+    the arm's 262144 particles padded to S shards (65536 at S = 4, 87382
+    at S = 3 with two phantom rows), a lattice and a clustered layout, the
+    step's 256^3 grid and the probe bundle's 64^3 and 32^3, unit weights
+    times the valid mask (the arm's: equal masses) and random ones."""
+    from nbody_tpu_torch.ops import pm
+    from nbody_tpu_torch.parallel.ring import _pad_to_shards
+
+    n, box = PM_ARM["num_particles"], PM_ARM["box_size_mpc"]
+    layouts = pm_layouts(n, 3, 256, box, 3)
+    rand = torch.from_numpy(np.random.default_rng(5).uniform(
+        0.5, 1.5, n).astype(np.float32))
+    cases, fails, worst = 0, [], 0.0
+    for shards in PM_MESH_VIRTUAL:
+        for layout in ("lattice", "clustered"):
+            pos = _pad_to_shards(layouts[layout], shards)
+            valid = (torch.arange(pos.shape[0]) < n).to(torch.float32)
+            b = pos.shape[0] // shards
+            for kind, w in (("unit", valid),
+                            ("random", _pad_to_shards(rand, shards))):
+                for s in range(shards):
+                    p_s, w_s = pos[s * b:(s + 1) * b], w[s * b:(s + 1) * b]
+                    for n_grid in (256, 64, 32):
+                        keys = pm.cell_index(p_s.to(dev), box, n_grid)[0]
+                        got = pm.segment_sum(keys, w_s.to(dev), n_grid ** 3)
+                        want = pm.segment_sum_plain(keys.cpu(), w_s,
+                                                    n_grid ** 3)
+                        cases += 1
+                        worst = max(worst, float(
+                            (got.cpu() - want).abs().max()))
+                        if not torch.equal(float_bits(got), float_bits(want)):
+                            fails.append(f"S={shards} {layout} {kind} shard "
+                                         f"{s} {n_grid}^3")
+    entry = report["pm_deposit"]
+    entry["max_abs_err"] = max(entry["max_abs_err"] or 0.0, worst)
+    print(f"pm_mesh: pm_deposit bitwise its plain version at the per-shard "
+          f"shapes in {cases - len(fails)} of {cases} cases (S in "
+          f"{PM_MESH_VIRTUAL}: {n // 4} and {-(-n // 3)} particles a shard, "
+          f"lattice / clustered, 256^3 / 64^3 / 32^3, unit x valid and "
+          f"random weights); max abs err {worst}")
+    check(not fails, f"pm_deposit not bitwise at the shard shapes: {fails}")
+
+
+def pm_mesh_gate(dev) -> None:
+    """The three gate rows through a mesh of one and 4 and 3 virtual shards,
+    each held to its cached reference run by the gate's rule; the mesh of
+    one bitwise the single-device engine (energies, momenta and final
+    positions), its drift printed beside the single device's recorded
+    row."""
+    from nbody_tpu_torch.diagnostics import pm_gate as gate
+    from nbody_tpu_torch.parallel import pm_sharded
+
+    meshes = [pm_sharded.make_particle_mesh(1, dev)] + [
+        pm_sharded.ParticleMesh.virtual(s, dev) for s in PM_MESH_VIRTUAL]
+    fails = []
+    for n, mode in PM_GATE_ROWS:
+        ics = gate.load_ics(n)
+        ref = gate.load_reference(n, mode)
+        twin = gate.load_reference(n, mode, perturbed=True)
+        single, _ = gate.run_engine(ics, mode, dev)
+        for mesh in meshes:
+            t0 = time.time()
+            ours, eng = gate.run_engine(ics, mode, dev, mesh=mesh)
+            wall = time.time() - t0
+            row = gate.compare_mode(ref, ours, twin)
+            extra = ""
+            if mesh.size == 1:
+                same = all(ours[k] == single[k]
+                           for k in ("energies", "momenta", "final_pos"))
+                extra = (f"; bitwise the single device: {same}; its "
+                         f"recorded row {PM_GATE_DRIFTS[(n, mode)]:+.4f}%")
+                check(same, f"gate N={n} {mode}: a mesh of one is not the "
+                      f"single device's run")
+            print(f"pm_mesh: {gate.row_text(f'gate N={n} {mode} S={mesh.size}', row)}"
+                  f"; glitches {eng.glitch_detector.get_glitch_summary()}; "
+                  f"{wall:.1f}s{extra}")
+            check(np.isfinite(ours["energies"]).all()
+                  and np.isfinite(ours["final_pos"]).all(),
+                  f"gate N={n} {mode} S={mesh.size}: non-finite output")
+            if not row["agree"]:
+                fails.append(f"N={n} {mode} S={mesh.size}")
+    check(not fails, f"pm gate through a mesh DISAGREE: {fails}")
+
+
+def pm_mesh_force(dev, state, q, cfg) -> None:
+    """One force evaluation at the arm's state through each route, S in
+    {1, 3, 4}, against the single-device pm_accelerations on the same
+    positions (unquantized, and int4-quantized on the mesh of one)."""
+    from nbody_tpu_torch.engines import cosmo
+    from nbody_tpu_torch.parallel import pm_sharded
+
+    pos, masses = state.positions, state.masses
+    scale = torch.full((), 1.0 / (1.0 + state.redshift), device=dev)
+    single = cosmo.pm_accelerations(pos, masses, q, cfg, scale, False)
+    top = float(single.abs().max())
+    one = pm_sharded.make_particle_mesh(1, dev)
+    for shards, route in ((1, "replicated"), (1, "slab"), (4, "slab"),
+                          (4, "replicate"), (3, "replicated")):
+        mesh = one if shards == 1 else pm_sharded.ParticleMesh.virtual(
+            shards, dev)
+        got = pm_sharded.pm_accelerations_sharded(pos, masses, q, cfg, mesh,
+                                                  scale, False, route)
+        err = float((got - single).abs().max()) / top
+        print(f"pm_mesh: one force evaluation at the arm's state "
+              f"(z={state.redshift:.2f}), S={shards} {route}: largest error "
+              f"{err:.3e} of max|a| {top:.4e} (rule {PM_FORCE_RTOL:g}; "
+              f"{'bitwise' if torch.equal(got, single) else 'not bitwise'})")
+        if shards == 1:
+            check(torch.equal(got, single), f"S=1 {route}: the force is not "
+                  f"the single device's")
+        else:
+            check(err <= PM_FORCE_RTOL, f"S={shards} {route}: force error "
+                  f"{err:.3e} > {PM_FORCE_RTOL:g} of max|a|")
+    got = pm_sharded.pm_accelerations_sharded(pos, masses, q, cfg, one,
+                                              scale, True, "replicated")
+    want = cosmo.pm_accelerations(pos, masses, q, cfg, scale, True)
+    check(torch.equal(got, want), "S=1: the quantized force is not the "
+          "single device's")
+
+
+def pm_mesh_breakdown(dev, eng) -> None:
+    """Device time of one step of the slab-FFT runner at the arm's state on
+    a mesh of one and on 4 virtual shards (device_ms: torch.profiler, its
+    CUDA-graph / CUDA-event fallback), by ``pm_kernel_class``: deposit,
+    sort, FFTs, gather (index_select), cat/copy (the mesh's transposes and
+    all-gathers), the rest (the reduce-scatter's and the step's
+    arithmetic). The reduce-scatter of the S full grids and the
+    spectrum's all-to-all alone by CUDA events."""
+    from nbody_tpu_torch.parallel import pm_sharded
+
+    state, q, cfg = eng._trimmed_state(), eng.quantizer, eng.cfg
+    sched, _ = eng._build_schedule(PM_ARM_DZ, 1)
+    n_grid = cfg.n_grid
+    for shards in (1, 4):
+        mesh = (pm_sharded.make_particle_mesh(1, dev) if shards == 1
+                else pm_sharded.ParticleMesh.virtual(shards, dev))
+
+        def step():
+            return pm_sharded.run_pm_steps_sharded_fft(
+                state, sched, q, cfg, mesh, quantize_forces=True,
+                gather=False)
+
+        total, kernels = device_ms(step, reps=5, warmup=2)
+        if kernels is None:
+            print(f"pm_mesh: breakdown of a step at S={shards}: {total:.4f} "
+                  f"ms by the fallback, no classes")
+        else:
+            classes = {}
+            for name, (_, ms) in kernels.items():
+                cls = pm_kernel_class(name)
+                classes[cls] = classes.get(cls, 0.0) + ms
+            print(f"pm_mesh: breakdown of a step at S={shards} (slab-FFT "
+                  f"runner, int4, device time {total:.4f} ms): " + ", ".join(
+                      f"{k} {v:.4f} ms ({100 * v / total:.1f}%)" for k, v in
+                      sorted(classes.items(), key=lambda kv: -kv[1])))
+        grids = [torch.rand((n_grid,) * 3, device=dev) for _ in range(shards)]
+        spec = [torch.zeros((n_grid // shards, n_grid, n_grid // 2 + 1),
+                            dtype=torch.complex64, device=dev)
+                for _ in range(shards)]
+        rs = cuda_ms(lambda: pm_sharded._reduce_scatter(grids, mesh), 10, 2)
+        a2a = cuda_ms(lambda: pm_sharded._all_to_all(spec, mesh, 1, 0), 10, 2)
+        print(f"pm_mesh:   alone by CUDA events: the reduce-scatter of "
+              f"{shards} {n_grid}^3 grids {rs:.4f} ms, the half spectrum's "
+              f"all-to-all {a2a:.4f} ms (one of 1 + D a step)")
+
+
+def pm_mesh_presets() -> None:
+    """universe3d (with --probes), genesis and universe2d through
+    ``main(argv)`` with --mesh at their defaults on the card, each report
+    written into a temporary directory and read back: finite energies,
+    the step count, the glitch summary, the wall time."""
+    import importlib
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, extra, report_file, tick_key, steps in PM_PRESETS:
+            main = importlib.import_module(
+                f"nbody_tpu_torch.engines.{name}").main
+            out = Path(tmp) / name
+            buf = io.StringIO()
+            t0 = time.time()
+            with contextlib.redirect_stdout(buf):
+                main(["--mesh", *extra, "--output", str(out)])
+            wall = time.time() - t0
+            rep = json.loads((out / report_file).read_text())
+            energies = [rep["energy_first"], rep["energy_last"]]
+            summary = rep["glitch_summary"]
+            check("sharded PM over 1 device(s)" in buf.getvalue(),
+                  f"{name} --mesh: no mesh of one")
+            check(rep[tick_key] == steps and np.isfinite(energies).all()
+                  and isinstance(summary, dict),
+                  f"{name} --mesh: {rep[tick_key]} steps (want {steps}), "
+                  f"energies {energies}, glitches {summary}")
+            probes = ("; probes: variance ratio "
+                      f"{rep['interference']['variance_ratio']:.2f}, clip "
+                      f"velocity {rep['collision_audit']['clip_velocity']:.1f}"
+                      if "interference" in rep else "")
+            print(f"pm_mesh: {name} --mesh{' ' + ' '.join(extra) if extra else ''} "
+                  f"at its defaults: {steps} steps to z="
+                  f"{rep.get('final_redshift', rep.get('redshift')):.2f} in "
+                  f"{wall:.1f}s wall; energy {energies[0]:.4e} -> "
+                  f"{energies[1]:.4e}; glitches {summary}{probes}")
+
+
+def phase_pm_mesh(dev, report: dict) -> None:
+    """The sharded PM on the card: the deposit at the per-shard shapes, the
+    gate rows through meshes of 1, 4 and 3, bench's PM arm through
+    make_particle_mesh() and on 4 and 3 virtual shards (ms a step, exact
+    launches, peak memory), one force evaluation through every route, a
+    breakdown of a step at S = 1 and 4, and the presets' --mesh runs."""
+    import logging
+
+    from nbody_tpu_torch.parallel import pm_sharded
+
+    logging.getLogger("nbody_tpu_torch.glitch").setLevel(logging.ERROR)
+    pm_mesh_deposit_checks(dev, report)
+    pm_mesh_gate(dev)
+    entry = report["pm_deposit"]
+    arms, base = {}, None
+    for mesh in [pm_sharded.make_particle_mesh(device=dev)] + [
+            pm_sharded.ParticleMesh.virtual(s, dev) for s in PM_MESH_VIRTUAL]:
+        eng, ms, (launches, _, _), peak = pm_arm(dev, "int4", mesh=mesh,
+                                                 timed=PM_MESH_TIMED)
+        arms[mesh.size] = {"ms": ms, "launches": launches,
+                           "peak_gib": round(peak / 2 ** 30, 4)}
+        base = base or eng
+        del eng
+    entry["mesh_arms"] = arms
+    if not entry["launches"]:   # phase pm did not run: the mesh of one's
+        entry["launches"] = arms[1]["launches"]
+    state = base._trimmed_state()
+    pm_mesh_force(dev, state, base.quantizer, base.cfg)
+    pm_mesh_breakdown(dev, base)
+    del base, state
+    pm_mesh_presets()
 
 
 # --------------------------------------------------------------------------
@@ -4622,6 +4916,8 @@ def main(argv=None) -> int:
                 phase_lab_r5(dev, report)
             elif phase == "pm":
                 phase_pm(dev, report)
+            elif phase == "pm_mesh":
+                phase_pm_mesh(dev, report)
             elif phase == "profile":
                 phase_profile(dev, args.profile_out)
             elif phase == "scale":

@@ -68,9 +68,10 @@ def load_reference(n: int, mode: str, perturbed: bool = False):
     return json.loads(path.read_text()) if path.exists() else None
 
 
-def run_engine(ics, mode: str, device):
+def run_engine(ics, mode: str, device, mesh=None):
     """``CosmologicalEngine`` on the gate's workload from ``ics``, run to
-    completion in chunks of 10; returns (its series in the reference
+    completion in chunks of 10 (through the sharded PM on ``mesh``, whose
+    first device is ``device``); returns (its series in the reference
     run's form, the engine)."""
     from nbody_tpu_torch.engines.cosmo import CosmologicalEngine
 
@@ -84,7 +85,7 @@ def run_engine(ics, mode: str, device):
         num_particles=pos.shape[0], box_size_mpc=200.0, start_redshift=50.0,
         precision=mode, dm_ratio=5.0, seed=42, dim=2, n_grid=128,
         deposit="ngp", cosmo=ReferenceCosmology(), glitch_threshold=0.05,
-        ic_fn=ic_fn, device=device)
+        ic_fn=ic_fn, device=device, mesh=mesh)
     eng.run_to_completion(dz=1.0, chunk=10)
     return {
         "n": int(pos.shape[0]),

@@ -21,7 +21,10 @@ realtime_reality_engine.py:187-345). What differs from the JAX engine:
 * the ICs draw their phases from a ``torch.Generator`` seeded by ``seed``
   (JAX: ``jax.random``), on the CPU whatever the engine's device, so a
   seed gives the same ICs on every device but not JAX's;
-* ``mesh=`` (the sharded PM) is not ported yet and raises.
+* ``mesh=`` (a ``parallel.ring.ParticleMesh``) runs every step through the
+  sharded PM of ``parallel/pm_sharded.py`` under one controller; the
+  resident state is padded to the shard boundary and lives on the mesh's
+  first device, the engine's device.
 
 The engine runs on ``cuda`` unless given ``device="cpu"``, and raises
 when there is no card. The mass deposit is the hand-written kernel of
@@ -50,14 +53,18 @@ from nbody_tpu_torch.ops.precision import (
     describe_mode,
     quantize_force,
 )
+from nbody_tpu_torch.parallel.ring import (
+    _normalise,
+    _pad_to_shards,
+    _reduce,
+    _replicate,
+    _shards,
+)
 
 logger = logging.getLogger("nbody_tpu_torch.cosmo")
 
 G_NEWTON = 4.302e-6  # (km/s)^2 Mpc / M_sun (reference: universe_2d.py:176)
 RHO_CRIT = 2.775e11  # M_sun / (Mpc/h)^3 (reference: universe_2d.py:1009)
-MESH_NOT_PORTED = ("the sharded particle mesh (mesh=) is not ported to "
-                   "nbody_tpu_torch yet: ROADMAP Queue 1 item 3, "
-                   "parallel/pm_sharded.py")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,6 +112,66 @@ def probe_bundle(positions, velocities, prev_positions, obs_pos, obs_dir,
     dm = glitch_lib.exploit_device_metrics(positions, velocities,
                                            prev_positions, obs_pos, obs_dir,
                                            c_sim, fov_cos)
+    return ProbeBundle(k, pk_, clus, dm)
+
+
+def probe_bundle_sharded(positions, velocities, prev_positions, obs_pos,
+                         obs_dir, box_size: float, c_sim: float,
+                         fov_cos: float, n_valid: int, mesh) -> ProbeBundle:
+    """probe_bundle for the padded resident state of a mesh engine:
+    per-shard NGP deposits of the real rows at 64 and 32, each summed in
+    shard order (psum), and masked partial sums for the exploit scalars
+    (the velocity spread in two passes). Matches probe_bundle on the
+    trimmed state up to f32 summation order; on a mesh of one, where
+    nothing is padded and every collective is the identity, it is
+    probe_bundle itself."""
+    if mesh.size == 1 and positions.shape[0] == n_valid:
+        return probe_bundle(positions, velocities, prev_positions, obs_pos,
+                            obs_dir, box_size, c_sim, fov_cos)
+    ids = torch.arange(positions.shape[0], dtype=torch.int32,
+                       device=positions.device)
+    p_l, v_l, pv_l, ids_l = (_shards(x, mesh) for x in
+                             (positions, velocities, prev_positions, ids))
+    valid = [i < n_valid for i in ids_l]
+    w_l = [ok.to(torch.float32) for ok in valid]
+
+    def psum(values):
+        return _reduce(values, torch.add, mesh)
+
+    d64 = psum([pm.ngp_deposit(p, w, 64, box_size)
+                for p, w in zip(p_l, w_l)])
+    d32 = psum([pm.ngp_deposit(p, w, 32, box_size)
+                for p, w in zip(p_l, w_l)])
+    k, pk_ = pm.pk_from_density(d64, box_size)
+    clus = torch.std(d32, correction=0) / (torch.mean(d32) + 1e-10)
+
+    rows = [glitch_lib.exploit_row_metrics(p, v, pv, op, od, c_sim, fov_cos)
+            for p, v, pv, op, od in zip(p_l, v_l, pv_l,
+                                        _replicate(obs_pos, mesh),
+                                        _replicate(obs_dir, mesh))]
+    dim = velocities.shape[1]
+    cnt = torch.clamp(psum([torch.sum(w) for w in w_l]), min=1.0)
+    mu = psum([torch.sum(v * w[:, None]) for v, w in zip(v_l, w_l)]) \
+        / (cnt * dim)
+    var = psum([torch.sum(((v - m) ** 2) * w[:, None])
+                for v, w, m in zip(v_l, w_l, _replicate(mu, mesh))]) \
+        / (cnt * dim)
+
+    def count(pick):
+        return psum([torch.sum(pick(r) & ok) for r, ok in zip(rows, valid)]
+                    ).to(torch.int32)
+
+    dm = glitch_lib.ExploitDeviceMetrics(
+        max_gamma=_reduce([torch.amax(torch.where(ok, r[0], 1.0))
+                           for r, ok in zip(rows, valid)], torch.maximum,
+                          mesh),
+        near_c_09=count(lambda r: r[1] > 0.9),
+        near_c_099=count(lambda r: r[1] > 0.99),
+        v_mean=psum([torch.sum(r[2] * w) for r, w in zip(rows, w_l)]) / cnt,
+        v_std=torch.sqrt(var),
+        in_frustum=count(lambda r: r[3]),
+        snap_events=count(lambda r: r[4]),
+    )
     return ProbeBundle(k, pk_, clus, dm)
 
 
@@ -292,9 +359,11 @@ class CosmologicalEngine:
                  cosmo: Cosmology = PLANCK18, min_redshift: float = 0.01,
                  glitch_threshold: float = 0.05, ic_fn=None, mesh=None,
                  snapshot_cap: Optional[int] = None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(MESH_NOT_PORTED)
-        self.device = _resolve_device(device)
+        # Optional 1-D particle mesh: every step runs the sharded PM
+        # (replicated grid below 256^dim, slab-decomposed FFT from there,
+        # parallel/pm_sharded.py); the engine lives on its first device.
+        self.mesh = mesh
+        self.device = self._mesh_device(mesh, device)
         self.cosmo = cosmo
         if n_grid is None:
             n_grid = 128 if dim == 2 else 32
@@ -369,6 +438,20 @@ class CosmologicalEngine:
                     n_grid, dim, box_size_mpc, start_redshift,
                     describe_mode(self.quantizer.mode), self.device)
 
+    @staticmethod
+    def _mesh_device(mesh, device) -> torch.device:
+        """The engine's device: ``device`` (cuda unless named), or with a
+        mesh the mesh's first device, which ``device`` must then name."""
+        if mesh is None:
+            return _resolve_device(device)
+        home = mesh.devices[0]
+        if device is not None:
+            named = _normalise(_resolve_device(device))
+            if named != home:
+                raise ValueError(f"device {str(named)!r} is not the mesh's "
+                                 f"first device {str(home)!r}")
+        return _resolve_device(home)
+
     def _set_mass_unit(self, mass_unit: float) -> None:
         self.mass_unit_msun = float(mass_unit)
         self.cfg = dataclasses.replace(
@@ -384,11 +467,17 @@ class CosmologicalEngine:
         if cfg.dm_ratio > 0:
             pm.dm_background_field(cfg.box_size, cfg.n_grid, cfg.dm_ratio,
                                    cfg.dim, dev)
+        if self.mesh is not None:
+            from nbody_tpu_torch.parallel import pm_sharded
+
+            pm_sharded.warm_constants(cfg, self.quantizer, self.mesh)
 
     def load_jax_state(self, state, mass_unit_msun: float) -> None:
         """Carry a JAX engine's state across: its ``CosmoState`` exported
         as numpy arrays and its ``mass_unit_msun`` (masses normalized by
-        it, G scaled by it), so both engines continue from the same bits."""
+        it, G scaled by it), so both engines continue from the same bits.
+        A mesh engine's padded resident state comes across padded: its
+        rows past ``num_particles`` stay phantoms."""
         self._set_mass_unit(mass_unit_msun)
         self.state = cosmo_from_jax_numpy(state, self.device)
         self.current_epoch = get_current_epoch(self.redshift)
@@ -419,17 +508,33 @@ class CosmologicalEngine:
     def tick(self) -> int:
         return self._state.tick
 
+    # A mesh engine keeps its state padded to the shard boundary between
+    # chunks; these views expose exactly the real rows (the tensor itself
+    # when nothing is padded).
+
+    def _trim_rows(self, x: torch.Tensor) -> torch.Tensor:
+        n = self.num_particles
+        return x if x.shape[0] == n else x[:n]
+
     @property
     def positions(self) -> torch.Tensor:
-        return self._state.positions
+        return self._trim_rows(self._state.positions)
 
     @property
     def velocities(self) -> torch.Tensor:
-        return self._state.velocities
+        return self._trim_rows(self._state.velocities)
 
     @property
     def masses(self) -> torch.Tensor:
-        return self._state.masses
+        return self._trim_rows(self._state.masses)
+
+    def _trimmed_state(self) -> CosmoState:
+        """The state without its padding (the checkpoint and export
+        form)."""
+        st = self._state
+        return CosmoState(*(self._trim_rows(x) for x in
+                            (st.positions, st.velocities, st.masses)),
+                          st.redshift, st.tick)
 
     @property
     def snapshot_stride(self) -> int:
@@ -483,23 +588,47 @@ class CosmologicalEngine:
 
         schedule, z_end = self._build_schedule(dz, num_steps)
         tick_start = self.tick
-        self._state, stream = run_pm_steps(self._state, schedule,
-                                           self.quantizer, self.cfg)
+        if self.mesh is not None:
+            from nbody_tpu_torch.parallel import pm_sharded
+
+            runner = (pm_sharded.run_pm_steps_sharded_fft
+                      if self.cfg.n_grid >= 256
+                      else pm_sharded.run_pm_steps_sharded)
+            # Resident loop: gather=False keeps the state padded to the
+            # shard boundary between chunks (the runner's padding is a
+            # no-op once it is).
+            self._state, stream = runner(
+                self._state, schedule, self.quantizer, self.cfg, self.mesh,
+                quantize_forces=self.quantizer.is_int,
+                n_valid=self.num_particles, gather=False)
+        else:
+            self._state, stream = run_pm_steps(self._state, schedule,
+                                               self.quantizer, self.cfg)
 
         eng = self.exploit_engine
         prev, obs_pos, obs_dir = eng.probe_inputs(self._state.positions)
-        probes = probe_bundle(self._state.positions, self._state.velocities,
-                              prev, obs_pos, obs_dir, self.cfg.box_size,
-                              eng.c_sim, eng.fov_cos)
+        if self.mesh is not None:
+            probes = probe_bundle_sharded(
+                self._state.positions, self._state.velocities, prev,
+                obs_pos, obs_dir, self.cfg.box_size, eng.c_sim, eng.fov_cos,
+                n_valid=self.num_particles, mesh=self.mesh)
+        else:
+            probes = probe_bundle(self._state.positions,
+                                  self._state.velocities, prev, obs_pos,
+                                  obs_dir, self.cfg.box_size, eng.c_sim,
+                                  eng.fov_cos)
         # Observer rotates once per chunk, after the probe that used it
         # (reference cadence: universe_2d.py:877).
         eng.rotate_observer(5.0)
 
+        # The snapshot the host reads: the real rows, decimated under
+        # snapshot_cap, trimmed and strided on the device before the copy.
         snap_pos, snap_vel = self._state.positions, self._state.velocities
         snap_stride = self.snapshot_stride
-        if snap_stride > 1:
-            snap_pos = snap_pos[::snap_stride]
-            snap_vel = snap_vel[::snap_stride]
+        n = self.num_particles
+        if snap_stride > 1 or snap_pos.shape[0] != n:
+            snap_pos = snap_pos[:n:snap_stride]
+            snap_vel = snap_vel[:n:snap_stride]
         host = _tree_to_host((stream, probes, snap_pos, snap_vel))
         event = None
         if self.device.type == "cuda":
@@ -757,14 +886,20 @@ class CosmologicalEngine:
                 x.observer_dir = np.asarray(eng["observer_dir"],
                                             np.float32)
             if eng.get("has_prev"):
-                # prev == post-chunk positions == the checkpointed state
-                x.prev_positions = self._state.positions
+                # prev == post-chunk positions == the checkpointed state;
+                # a mesh engine keeps it padded to the shard boundary (the
+                # probe bundle masks phantom rows by n_valid)
+                prev = self._trimmed_state().positions
+                if self.mesh is not None:
+                    prev = _pad_to_shards(prev, self.mesh.size)
+                x.prev_positions = prev
 
     def save_checkpoint(self, manager) -> int:
-        """Write the CosmoState at the current tick (utils.checkpoint). Run
-        histories ride in the metadata so a resumed run owns the full
-        pre-crash drift curve."""
-        manager.save(self.tick, self._state, {
+        """Write the CosmoState at the current tick (utils.checkpoint). A
+        mesh engine's padding is stripped, so a checkpoint does not depend
+        on the mesh's shape. Run histories ride in the metadata so a
+        resumed run owns the full pre-crash drift curve."""
+        manager.save(self.tick, self._trimmed_state(), {
             "precision": self.precision_str,
             "redshift": self.redshift,
             "num_particles": self.num_particles,
@@ -778,7 +913,7 @@ class CosmologicalEngine:
         step = manager.latest_step()
         if step is None:
             return None
-        self.state = manager.restore(step, self._state)
+        self.state = manager.restore(step, self._trimmed_state())
         self.completed = self.redshift <= self.cfg.min_redshift
         # re-sync derived run state with the restored redshift so the next
         # step does not log a bogus epoch transition
@@ -799,7 +934,7 @@ class CosmologicalEngine:
 
     def get_state_dict(self) -> dict:
         """Exportable state (reference: universe_genesis.py:500-511)."""
-        st = self._state
+        st = self._trimmed_state()
         return {
             "positions": st.positions.cpu().numpy(),
             "velocities": st.velocities.cpu().numpy(),

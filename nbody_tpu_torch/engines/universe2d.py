@@ -5,8 +5,10 @@ universe_2d.py:884-1749): Planck-2018 evolution from z=50 with BAO initial
 conditions, the quantized-k^2 precision hook, glitch detection and
 physics-exploit probes, power-spectrum/BAO/clustering measurements and a
 matplotlib dashboard (static frames headless; animated when interactive).
-Runs on the card unless given ``--device cpu``; where matplotlib is not
-installed the frames are skipped and the run says so.
+Runs on the card unless given ``--device cpu``; ``--mesh`` runs the
+sharded PM over every local device of that type (``parallel/pm_sharded.py``;
+one card, or the CPU, is a mesh of one). Where matplotlib is not installed
+the frames are skipped and the run says so.
 
 Usage:
     python -m nbody_tpu_torch.engines.universe2d --precision int4 --particles 10000
@@ -20,7 +22,7 @@ import logging
 import time
 from pathlib import Path
 
-from nbody_tpu_torch.engines.cosmo import MESH_NOT_PORTED, CosmologicalEngine
+from nbody_tpu_torch.engines.cosmo import CosmologicalEngine
 from nbody_tpu_torch.engines.epochs import EPOCHS
 from nbody_tpu_torch.utils.anim import has_matplotlib
 
@@ -127,6 +129,18 @@ class Universe2DDashboard:
                         headless=headless)
 
 
+def make_mesh(wanted: bool, device):
+    """The presets' ``--mesh``: a mesh over every local device of
+    ``device``'s type, its shard count printed; None without the flag."""
+    if not wanted:
+        return None
+    from nbody_tpu_torch.parallel import pm_sharded
+
+    mesh = pm_sharded.make_particle_mesh(device=device)
+    print(f"sharded PM over {mesh.size} device(s)")
+    return mesh
+
+
 def write_report(u: Universe2D, path: Path):
     report = {
         "engine": "universe2d",
@@ -171,7 +185,9 @@ def main(argv=None):
                    help="torch device (default cuda; cpu runs the plain "
                         "versions of the kernels)")
     p.add_argument("--mesh", action="store_true",
-                   help="the sharded PM pipeline (not ported yet: raises)")
+                   help="run the sharded PM pipeline over all local "
+                        "devices of --device's type "
+                        "(parallel/pm_sharded.py)")
     p.add_argument("--output", type=str, default="output/universe2d")
     p.add_argument("--frames", type=int, default=5,
                    help="dashboard frames to render across the run")
@@ -185,16 +201,15 @@ def main(argv=None):
     p.add_argument("--checkpoint-dir", type=str, default=None,
                    help="enable checkpoint/resume in this directory")
     args = p.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(MESH_NOT_PORTED)
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
 
+    mesh = make_mesh(args.mesh, args.device)
     u = Universe2D(num_particles=args.particles, box_size_mpc=args.box_size,
                    start_redshift=args.start_z, precision=args.precision,
                    dm_ratio=args.dm_ratio, seed=args.seed,
-                   device=args.device)
+                   device=args.device, mesh=mesh)
     ckpt = None
     if args.checkpoint_dir:
         from nbody_tpu_torch.utils.checkpoint import CheckpointManager

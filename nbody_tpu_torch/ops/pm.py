@@ -17,8 +17,9 @@ run of sorted particles summing it in order, a block a run longer than
 (``segment_sum_plain``: ``index_add_`` on the CPU, which adds in index
 order) for a CPU tensor, bit for bit JAX's sequential scatter.
 ``deposit_runs_plain`` models the kernel's decomposition on the CPU.
-The P(k) bin sums are fixed-order ``torch.sum``s over a constant bin
-mask. The FFTs are library calls (``torch.fft``), as JAX leaves them
+The slab gathers (``ngp_gather_slab`` / ``cic_gather_slab``) are the
+sharded PM's partial gathers from one x-slab of the gradient grids. The
+P(k) bin sums are fixed-order ``torch.sum``s over a constant bin mask. The FFTs are library calls (``torch.fft``), as JAX leaves them
 to XLA. The spectral constants of a grid (wavevectors, the quantized k^2,
 the P(k) bins, the dark-matter background) are built once per
 (geometry, device) and reused.
@@ -314,20 +315,29 @@ def deposit_runs_plain(sorted_keys: torch.Tensor, perm: torch.Tensor,
     return grid, starts[long]
 
 
-def _cic_corners(positions, n_grid: int, box_size: float):
-    """Per corner of the 2^D stencil: (flat cell index, the D per-axis
-    weight factors, multiplied in d order by the caller)."""
+def _cic_stencil(positions, n_grid: int, box_size: float):
+    """Per corner of the 2^D stencil: (the D per-axis cell indices, the D
+    per-axis weight factors, multiplied in d order by the caller)."""
     dim = positions.shape[1]
     u = _over_box(positions, box_size) * n_grid - 0.5
     i0 = torch.floor(u).to(torch.int32)
     frac = u - i0
     for corner in range(2 ** dim):
-        flat, factors = None, []
+        idx, factors = [], []
         for d in range(dim):
             o = (corner >> d) & 1
-            idx = (i0[:, d] + o) % n_grid
+            idx.append((i0[:, d] + o) % n_grid)
             factors.append(frac[:, d] if o == 1 else 1.0 - frac[:, d])
-            flat = idx if flat is None else flat * n_grid + idx
+        yield idx, factors
+
+
+def _cic_corners(positions, n_grid: int, box_size: float):
+    """Per corner of the 2^D stencil: (flat cell index, the D per-axis
+    weight factors, multiplied in d order by the caller)."""
+    for idx, factors in _cic_stencil(positions, n_grid, box_size):
+        flat = idx[0]
+        for i in idx[1:]:
+            flat = flat * n_grid + i
         yield flat, factors
 
 
@@ -464,6 +474,65 @@ def cic_gather(grids, positions, n_grid: int, box_size: float):
         vals = torch.stack([g.reshape(-1).index_select(0, flat)
                             for g in grids], dim=-1)
         out = out + w[:, None] * vals
+    return out
+
+
+def _slab_local(row, rest, n_grid: int, slab_start: int, slab: int,
+                numel: int) -> tuple:
+    """(in_slab, the flat index into a slab of ``slab`` x-rows starting at
+    ``slab_start``) of cells whose x-row is ``row`` and whose other
+    per-axis indices are ``rest``; the index clamped into the slab, as
+    JAX's ``take(..., mode="clip")``."""
+    in_slab = (row >= slab_start) & (row < slab_start + slab)
+    local = torch.clamp(row - slab_start, 0, slab - 1)
+    for i in rest:
+        local = local * n_grid + i
+    return in_slab, torch.clamp(local, 0, numel - 1)
+
+
+def ngp_gather_slab(grids_slab, positions, n_grid: int, box_size: float,
+                    slab_start: int):
+    """Partial NGP gather from a local x-slab of each gradient grid.
+
+    ``grids_slab``: D tensors of shape (slab, n_grid, ...), the rows
+    [slab_start, slab_start + slab) of the full grids. Returns the (N, D)
+    contributions of the cells inside this slab (zero elsewhere) for all
+    particles; the partials summed over the slabs are the full gather.
+    Cells come from ``cell_index``, so one slab holding the whole grid
+    gives ``ngp_gather``'s bits."""
+    dim = positions.shape[1]
+    slab = grids_slab[0].shape[0]
+    _, ij = cell_index(positions, box_size, n_grid)
+    in_slab, local = _slab_local(ij[:, 0], [ij[:, d] for d in range(1, dim)],
+                                 n_grid, slab_start, slab,
+                                 grids_slab[0].numel())
+    out = torch.stack([g.reshape(-1).index_select(0, local)
+                       for g in grids_slab], dim=-1)
+    return torch.where(in_slab[:, None], out,
+                       torch.zeros((), dtype=out.dtype, device=out.device))
+
+
+def cic_gather_slab(grids_slab, positions, n_grid: int, box_size: float,
+                    slab_start: int):
+    """Partial CIC (trilinear) gather from a local x-slab of each grid:
+    ``ngp_gather_slab``'s contract, each of the 2^D stencil corners
+    counted iff its x-row lies in this slab, so a stencil that straddles
+    two slabs is completed by the sum over slabs. The corners and their
+    factors are ``cic_gather``'s (``_cic_stencil``), so one slab holding
+    the whole grid gives its bits."""
+    n, dim = positions.shape
+    slab = grids_slab[0].shape[0]
+    zero = torch.zeros((), dtype=torch.float32, device=positions.device)
+    out = torch.zeros((n, dim), dtype=torch.float32, device=positions.device)
+    for idx, factors in _cic_stencil(positions, n_grid, box_size):
+        in_slab, local = _slab_local(idx[0], idx[1:], n_grid, slab_start,
+                                     slab, grids_slab[0].numel())
+        w = torch.ones(n, dtype=torch.float32, device=positions.device)
+        for f in factors:
+            w = w * f
+        vals = torch.stack([g.reshape(-1).index_select(0, local)
+                            for g in grids_slab], dim=-1)
+        out = out + torch.where(in_slab[:, None], w[:, None] * vals, zero)
     return out
 
 

@@ -73,6 +73,17 @@ class CheckpointManager:
                     values.append(type(t)(v.item()))
         return type(template)(*values)
 
+    def restore_to_sharding(self, step: int, template: Any, mesh) -> Any:
+        """Restore a checkpoint onto a ``parallel.ring.ParticleMesh``,
+        possibly of another shape than the one it was saved from: every
+        tensor on the mesh's first device, where the one controller keeps
+        a resident state (the sharded runners pad it to their shard
+        boundary on entry); host scalars as the template's type."""
+        state = self.restore(step, template)
+        home = mesh.devices[0]
+        return type(state)(*(v.to(home) if isinstance(v, torch.Tensor)
+                             else v for v in state))
+
     def load_metadata(self, step: int) -> dict:
         p = self.directory / f"ckpt_{step}.meta.json"
         return (json.loads(p.read_text()).get("metadata", {})

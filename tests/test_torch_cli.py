@@ -115,6 +115,11 @@ def test_import_never_pulls_in_jax():
             "nbody_tpu_torch.__path__, 'nbody_tpu_torch.')]\n"
             "for name in mods: importlib.import_module(name)\n"
             "assert 'nbody_tpu_torch.lab.kernel_lab_r5' in mods, mods\n"
+            "new = ['nbody_tpu_torch.parallel.pm_sharded', "
+            "'nbody_tpu_torch.engines.universe3d', "
+            "'nbody_tpu_torch.engines.dashboard3d', "
+            "'nbody_tpu_torch.engines.genesis']\n"
+            "assert set(new) <= set(mods), mods\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'nbody_tpu', 'tools')]\n"
             "assert not bad, bad")

@@ -299,8 +299,11 @@ def test_checkpoint_manager_keeps_the_newest(tmp_path):
 
 
 def test_engine_surfaces():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        tc.CosmologicalEngine(mesh=object(), device="cpu")
+    from nbody_tpu_torch.parallel.ring import ParticleMesh
+
+    meshed = tc.CosmologicalEngine(mesh=ParticleMesh.virtual(2, "cpu"),
+                                   **ENGINE_KW)
+    assert meshed.mesh.size == 2 and meshed.device == torch.device("cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device=\"cpu\""):
             tc.CosmologicalEngine(num_particles=64)
@@ -339,5 +342,8 @@ def test_universe2d_cli_runs_on_the_cpu_without_jax(tmp_path):
     assert report["final_redshift"] == pytest.approx(0.01)
     assert "Done in" in run.stdout
     from nbody_tpu_torch.engines import universe2d
-    with pytest.raises(NotImplementedError):
-        universe2d.main(["--device", "cpu", "--mesh"])
+    meshed = universe2d.main(["--device", "cpu", "--mesh", "--particles",
+                              "256", "--start-z", "3", "--frames", "1",
+                              "--headless", "--output",
+                              str(tmp_path / "mesh")])
+    assert meshed["ticks"] == 3
