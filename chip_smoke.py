@@ -154,6 +154,25 @@ Phases (any failure exits non-zero before the last line is printed):
    mesh of one); a device-time breakdown of one sharded step at S = 1 and
    4; ``universe3d --mesh --probes``, ``genesis --mesh`` and
    ``universe2d --mesh`` at their defaults.
+15. ultimate: ``engines/ultimate.py``'s ``main --mode full`` at its
+   default size (32768 particles, D=3, 64^3, int4): the five checks, the
+   score, each phase's wall, and pm_deposit's launches equal to the count
+   the run's chunks (steps + the probe bundle's 2), BAO epochs, structure
+   census and CMB spectrum give; the 2-point shell counts of the final
+   state on the card against the CPU on the same positions (each within
+   2); ``hash_state`` of the card's state against its CPU copy's and the
+   run's export; two ``--mode substrate`` runs with one hash; a card and
+   a CPU engine from one seed with one tick-0 hash, then the mirror test
+   after 10 steps; ``DeviceProfiler``'s overhead at 10 ms sampling over a
+   10-step chunk, its device memory and one ``TraceCapture``.
+16. realtime: ``realtime.engine.main`` at its default size for 5 s,
+   headless, on one card and with ``--mesh`` (a mesh of one): ticks, no
+   desync, no monitor left running, pm_deposit 2 launches a tick;
+   ``realtime.visual.main`` in compare mode at 2000 stars x 20 frames of
+   50 ticks: sym_force and max_d2 one and two launches a tick (and at
+   set-up) as derived, no pair_pe_rows; ``MultiverseSim`` at 1024 stars x
+   60 ticks: a finite report whose reversed-order divergence grows, the
+   reversed force at tick 0 within 1e-5 of max|a| of a float64 CPU sum.
 
 The kernels phase also holds the equal-mass variants (D in {2,3}, every
 mode, N in {4096, 32768}; the one-pass design at odd multiples of 64, N in
@@ -189,6 +208,8 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -197,7 +218,8 @@ import torch
 
 REPO = Path(__file__).resolve().parent
 PHASES = ("kernels", "main", "gate", "perf", "large", "ring", "cached",
-          "lab", "lab_r4", "lab_r5", "pm", "pm_mesh")  # default
+          "lab", "lab_r4", "lab_r5", "pm", "pm_mesh", "ultimate",
+          "realtime")  # default
 EXTRA_PHASES = ("profile", "scale")
 MODES = ("float32", "bfloat16", "float16", "int8", "int4", "custom")
 STARS, TICKS, INTERVAL = 5000, 2000, 100
@@ -435,16 +457,19 @@ def device_ms(fn, reps: int = DEVICE_REPS, warmup: int = 3) -> tuple:
     self device time times its launches a call (the profiler's count over
     ``reps``, rounded: the trace can drop an event of the window), summed.
     Returns (ms a call, {kernel: (launches a call, ms a call)}); where
-    three windows in turn trace no device event, (graph_ms, or cuda_ms
-    where the calls cannot be captured, None), the fallback printed."""
+    three windows in turn trace no device time (no device event, or too
+    few of the window's launches to count one a call), (graph_ms, or
+    cuda_ms where the calls cannot be captured, None), the fallback
+    printed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    # A window whose trace came back without a device event (seen once on
-    # the card, in the ninth window of a run) is traced again, twice at
-    # most; each retry is printed.
+    # A window whose trace came back without device time (seen on the
+    # card: once no device event in the ninth window of a run; once a
+    # window that kept too few of its events to count one a call) is
+    # traced again, twice at most; each retry is printed.
     for attempt in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -458,26 +483,24 @@ def device_ms(fn, reps: int = DEVICE_REPS, warmup: int = 3) -> tuple:
                 count, us = traced.get(name, (0, 0.0))
                 traced[name] = (count + e.count,
                                 us + e.self_device_time_total)
-        if traced:
-            break
-        print(f"perf: the profiler traced no device event in window "
-              f"{attempt + 1} of 3")
-    else:
-        # A process whose profiler has stopped tracing the card (seen on
-        # the card: three windows in turn empty) is timed by graph_ms, or
-        # where its calls cannot be captured by cuda_ms (the host's issue
-        # included); no kernel names.
-        ms = graph_ms(fn, reps)
-        how = "a CUDA-graph replay"
-        if ms is None:
-            ms, how = cuda_ms(fn, reps, 0), "CUDA events"
-        print(f"perf: device time by {how} instead: {ms:.5f} ms")
-        return ms, None
-    kernels = {name: (round(count / reps), us / count / 1e3)
-               for name, (count, us) in traced.items()}
-    total = sum(n * ms for n, ms in kernels.values())
-    check(total > 0, "the profiler traced no device time")
-    return total, {k: (n, round(n * ms, 5)) for k, (n, ms) in kernels.items()}
+        kernels = {name: (round(count / reps), us / count / 1e3)
+                   for name, (count, us) in traced.items()}
+        total = sum(n * ms for n, ms in kernels.values())
+        if total > 0:
+            return total, {k: (n, round(n * ms, 5))
+                           for k, (n, ms) in kernels.items()}
+        print(f"perf: the profiler traced no device time in window "
+              f"{attempt + 1} of 3 (events {traced})")
+    # A process whose profiler has stopped tracing the card (seen on the
+    # card: three windows in turn empty) is timed by graph_ms, or where
+    # its calls cannot be captured by cuda_ms (the host's issue included);
+    # no kernel names.
+    ms = graph_ms(fn, reps)
+    how = "a CUDA-graph replay"
+    if ms is None:
+        ms, how = cuda_ms(fn, reps, 0), "CUDA events"
+    print(f"perf: device time by {how} instead: {ms:.5f} ms")
+    return ms, None
 
 
 def graph_ms(fn, reps: int = DEVICE_REPS) -> float | None:
@@ -4646,6 +4669,478 @@ def phase_pm_mesh(dev, report: dict) -> None:
 
 
 # --------------------------------------------------------------------------
+# Phase ultimate: the batch "run everything" test (engines/ultimate.py)
+# --------------------------------------------------------------------------
+
+ULTIMATE_N = 32768         # ultimate.main's default size: 32^3, D=3, 64^3
+ULTIMATE_BOX = 500.0       # UltimateEngine's box (Mpc)
+ULTIMATE_SUBSTRATE_STEPS = 10
+SHELL_COUNT_SLACK = 2      # a shell's pair count on the card against the CPU's
+PROFILER_SAMPLE_MS = 10.0
+
+
+@contextlib.contextmanager
+def timed_calls(walls: dict, *targets):
+    """Wrap each (owner, attribute) so that every call adds its wall to
+    ``walls[attribute]``; the originals come back on exit."""
+    saved = [(owner, name, getattr(owner, name), name in vars(owner))
+             for owner, name in targets]
+
+    def timed(name, fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                walls[name] = walls.get(name, 0.0) + time.perf_counter() - t0
+        return run
+
+    try:
+        for owner, name, fn, _ in saved:
+            setattr(owner, name, timed(name, fn))
+        yield walls
+    finally:
+        for owner, name, fn, own in saved:
+            if own:
+                setattr(owner, name, fn)
+            else:   # inherited: drop the wrapper, the base's comes back
+                delattr(owner, name)
+
+
+@contextlib.contextmanager
+def counted_dispatches(chunks: list):
+    """Record the step count of every chunk CosmologicalEngine dispatches
+    (the deposits a chunk launches are its steps and its probe bundle's
+    two)."""
+    from nbody_tpu_torch.engines.cosmo import CosmologicalEngine
+
+    dispatch = CosmologicalEngine.dispatch_step
+
+    @functools.wraps(dispatch)
+    def counted(self, dz=1.0, num_steps=1):
+        pending = dispatch(self, dz, num_steps)
+        if pending is not None:
+            chunks.append(pending.num_steps)
+        return pending
+
+    CosmologicalEngine.dispatch_step = counted
+    try:
+        yield chunks
+    finally:
+        CosmologicalEngine.dispatch_step = dispatch
+
+
+@contextlib.contextmanager
+def clock_skews(skews: list):
+    """Record, at every check of the realtime engine's GlobalClock, the
+    skew of its stamps in ms and the stalest subsystem."""
+    from nbody_tpu_torch.realtime import engine as rt
+
+    check_sync = rt.GlobalClock.check_sync_violation
+
+    @functools.wraps(check_sync)
+    def recorded(self):
+        with self._lock:
+            now = time.monotonic()
+            ages = {k: now - t for k, t in self._stamps.items()}
+        if len(ages) >= 2:
+            skews.append((1e3 * (max(ages.values()) - min(ages.values())),
+                          max(ages, key=ages.get)))
+        return check_sync(self)
+
+    rt.GlobalClock.check_sync_violation = recorded
+    try:
+        yield skews
+    finally:
+        rt.GlobalClock.check_sync_violation = check_sync
+
+
+def chunk_deposits(chunks: list) -> int:
+    """The deposits of the chunks dispatched on one device: one a step and
+    the probe bundle's two (P(k) and the clustering grid)."""
+    return sum(steps + 2 for steps in chunks)
+
+
+def ultimate_full(dev, tmp: Path, report: dict) -> Path:
+    """ultimate.main --mode full at its default size on the card: the five
+    checks, the score, each phase's wall and the deposit's launches
+    against the count the run's chunks and probes give."""
+    from nbody_tpu_torch.engines import ultimate
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+    from nbody_tpu_torch.ops import pm
+
+    out = tmp / "full"
+    argv = ["--mode", "full", "--precision", "int4", "--output", str(out),
+            "--device", str(dev)]
+    print(f"ultimate: nbody_tpu_torch.engines.ultimate.main({argv})")
+    reset_counters(hn)
+    chunks, walls = [], {}
+    buf = io.StringIO()
+    t0 = time.time()
+    with counted_dispatches(chunks), timed_calls(
+            walls, (ultimate, "run_bao_test"),
+            (ultimate.UltimateEngine, "run_to_completion"),
+            (ultimate.UltimateEngine, "detect_structures"),
+            (ultimate, "compare_to_sdss"), (ultimate, "compare_to_cmb"),
+            (ultimate, "export_state_for_comparison")), \
+            contextlib.redirect_stdout(buf):
+        rep = ultimate.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = pm.LAUNCHES["pm_deposit"]
+    others = {k: v for k, v in hn.LAUNCHES.items() if v}
+    epochs = len(rep["bao_test"]["rows"])
+    # every chunk's deposits, one P(k) an epoch of the BAO test, the
+    # structure census's one, the CMB comparison's P(k)
+    want = chunk_deposits(chunks) + epochs + 1 + 1
+    check(rep["num_particles"] == ULTIMATE_N,
+          f"ultimate ran {rep['num_particles']} particles")
+    check(launches == want and not others,
+          f"ultimate: pm_deposit launched {launches} times, the run's "
+          f"{len(chunks)} chunks ({sum(chunks)} steps), {epochs} BAO "
+          f"epochs, the census and the CMB spectrum give {want} (other "
+          f"kernels {others})")
+    check(np.isfinite(rep["sdss"]["xi_sim"]).all()
+          and np.isfinite(rep["bao_test"]["final_bao_mpc"])
+          and 0.0 <= rep["structures"]["void_fraction"] <= 1.0,
+          f"ultimate: non-finite or out-of-range report {rep['sdss']}, "
+          f"{rep['structures']}")
+    print(f"ultimate: full at N={rep['num_particles']} D=3 64^3 int4 in "
+          f"{wall:.2f}s: {len(chunks)} chunks, {sum(chunks)} steps; checks "
+          f"{rep['checks']}; reality score {rep['reality_score']:.0f}/100; "
+          f"glitches {rep['glitch_summary']}; walls (s): " + ", ".join(
+              f"{k} {v:.3f}" for k, v in walls.items())
+          + f"; BAO epochs {[round(r['step_time_s'], 4) for r in rep['bao_test']['rows']]}"
+          f" s; pm_deposit launches {launches} (derived {want}); state "
+          f"hash {rep['state_hash']}")
+    report["pm_deposit"]["launches"] += launches
+    return out / "substrate_state.json"
+
+
+def ultimate_estimator(dev, export: Path) -> None:
+    """The 2-point estimator on the run's final positions on the card
+    against its CPU run on the same positions; the hash of the card's
+    state against its CPU copy's and the run's own."""
+    from nbody_tpu_torch.engines import ultimate
+    from nbody_tpu_torch.utils.reproducibility import hash_state
+
+    state = json.loads(export.read_text())
+    pos = torch.tensor(state["positions"], dtype=torch.float32)
+    vel = torch.tensor(state["velocities"], dtype=torch.float32)
+    card_pos, card_vel = pos.to(dev), vel.to(dev)
+    box = ULTIMATE_BOX
+    ultimate.shell_counts(card_pos, box)   # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r, card, n_anchor = ultimate.shell_counts(card_pos, box)
+    card_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    _, host, _ = ultimate.shell_counts(pos, box)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    diff = np.abs(card - host)
+    check(diff.max() <= SHELL_COUNT_SLACK,
+          f"ultimate: 2-point shell counts on the card {card.tolist()} "
+          f"against the CPU's {host.tolist()}")
+    print(f"ultimate: 2-point counts at N={pos.shape[0]} ({n_anchor} "
+          f"anchors, bins {r.tolist()}): card {card.tolist()}, CPU "
+          f"{host.tolist()}: {int((diff > 0).sum())} of {len(diff)} bins "
+          f"differ (most by {int(diff.max())}); card {card_ms:.2f} ms, CPU "
+          f"{cpu_ms:.1f} ms (host clock, one call)")
+    hashes = {"card": hash_state(card_pos, card_vel),
+              "cpu copy": hash_state(card_pos.cpu(), card_vel.cpu()),
+              "run": state["simulation"]["state_hash"]}
+    check(len(set(hashes.values())) == 1,
+          f"ultimate: hash_state differs: {hashes}")
+    print(f"ultimate: hash_state of the card's final state "
+          f"{hashes['card']} = its CPU copy's = the run's export")
+
+
+def ultimate_substrate(dev, tmp: Path) -> None:
+    """Two --mode substrate runs on the card give one hash; a card engine
+    and a CPU engine from one seed export one hash at tick 0, and the
+    mirror test compares them after 10 steps."""
+    from nbody_tpu_torch.engines import ultimate
+
+    argv = ["--mode", "substrate", "--precision", "int4", "--device",
+            str(dev)]
+    with contextlib.redirect_stdout(io.StringIO()):
+        hashes = [ultimate.main([*argv, "--output", str(tmp / f"sub{i}")])
+                  for i in (0, 1)]
+    check(hashes[0] == hashes[1],
+          f"ultimate: two substrate runs on the card: {hashes}")
+    print(f"ultimate: --mode substrate twice on the card ({ULTIMATE_N} "
+          f"particles, {ULTIMATE_SUBSTRATE_STEPS} steps, int4): hash "
+          f"{hashes[0]} both times")
+    engines = {k: ultimate.UltimateEngine(num_particles=ULTIMATE_N,
+                                          precision="int4", seed=42,
+                                          device=where)
+               for k, where in (("card", dev), ("cpu", "cpu"))}
+    paths = {k: tmp / f"mirror_{k}.json" for k in engines}
+    with contextlib.redirect_stdout(io.StringIO()):
+        tick0 = {k: ultimate.export_state_for_comparison(e, str(paths[k]))
+                 for k, e in engines.items()}
+    check(tick0["card"] == tick0["cpu"],
+          f"ultimate: tick-0 hashes differ between the card and the CPU: "
+          f"{tick0}")
+    walls = {}
+    for k, e in engines.items():
+        t0 = time.perf_counter()
+        e.step(dz=1.0, num_steps=ULTIMATE_SUBSTRATE_STEPS)
+        walls[k] = time.perf_counter() - t0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        for k, e in engines.items():
+            ultimate.export_state_for_comparison(e, str(paths[k]))
+        res = ultimate.compare_substrate_states(str(paths["card"]),
+                                                str(paths["cpu"]))
+    check(np.isfinite(res["position_correlation"]),
+          f"ultimate: mirror test {res}")
+    print(f"ultimate: card vs CPU from seed 42: tick-0 hash {tick0['card']} "
+          f"on both; after {ULTIMATE_SUBSTRATE_STEPS} steps (card "
+          f"{walls['card']:.2f}s, CPU {walls['cpu']:.2f}s) hash_match "
+          f"{res['hash_match']}, position correlation "
+          f"{res['position_correlation']:.9f}, velocity correlation "
+          f"{res['velocity_correlation']:.9f}, max |dx| "
+          f"{res['max_position_delta']:.4g} Mpc")
+
+
+def ultimate_profiler(dev) -> None:
+    """DeviceProfiler's overhead at 10 ms sampling over a 10-step chunk,
+    its channels on the card, and one TraceCapture of a chunk."""
+    from nbody_tpu_torch.engines import ultimate
+    from nbody_tpu_torch.utils import profiler
+    from nbody_tpu_torch.utils.profiler import fence
+
+    eng = ultimate.UltimateEngine(num_particles=ULTIMATE_N,
+                                  precision="int4", device=dev)
+
+    def chunk():
+        eng.step(dz=0.1, num_steps=10)
+        fence(eng.state.positions)
+
+    chunk()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = profiler.measure_instrumentation_overhead(
+            chunk, sample_interval_ms=PROFILER_SAMPLE_MS)
+    prof = profiler.DeviceProfiler(PROFILER_SAMPLE_MS, "ultimate chunk",
+                                   device=dev)
+    prof.start()
+    try:
+        for _ in range(3):
+            prof.time_step(chunk)
+    finally:
+        prof.stop()
+    a = prof.analyze()
+    check(a.step_count == 3 and a.num_samples > 0
+          and a.peak_memory_mb is not None,
+          f"ultimate: profiler read no device memory: {a}")
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiler.TraceCapture(tmp) as tc:
+            chunk()
+        events = json.loads(tc.path.read_text())["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    try:
+        import psutil  # noqa: F401
+        host = "psutil installed"
+    except ImportError:
+        host = "psutil not installed: host CPU / RSS None"
+    print(f"ultimate: DeviceProfiler at {PROFILER_SAMPLE_MS:.0f} ms over a "
+          f"10-step chunk (N={ULTIMATE_N}, int4): baseline "
+          f"{res['baseline_s'] * 1e3:.2f} ms, instrumented "
+          f"{res['instrumented_s'] * 1e3:.2f} ms, overhead "
+          f"{res['overhead_percent']:+.2f}%; 3 chunks p50 "
+          f"{a.p50_step_ms:.2f} ms, CV {a.step_time_cv:.3f}, {a.num_samples} "
+          f"samples, device memory peak {a.peak_memory_mb:.1f} MB, host CPU "
+          f"{a.mean_host_cpu}; {host}; TraceCapture of a chunk: "
+          f"{len(events)} events, {kernels} device kernels")
+
+
+def phase_ultimate(dev, report: dict) -> None:
+    """engines/ultimate.py on the card: --mode full at its default size
+    (32768 particles, D=3, 64^3, int4) with the deposit's launches derived
+    from its chunks; the 2-point counts and the state hash against the
+    CPU; substrate runs bitwise from run to run and the card-vs-CPU mirror
+    test; the profiler's overhead and channels."""
+    import logging
+
+    logging.getLogger("nbody_tpu_torch.glitch").setLevel(logging.ERROR)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        export = ultimate_full(dev, tmp, report)
+        ultimate_estimator(dev, export)
+        ultimate_substrate(dev, tmp)
+    ultimate_profiler(dev)
+
+
+# --------------------------------------------------------------------------
+# Phase realtime: the live loop, the precision viewer, the multiverse
+# --------------------------------------------------------------------------
+
+REALTIME_N, REALTIME_SECONDS = 10000, 5       # realtime.engine's default N
+REALTIME_STEPS_PER_FRAME = 2                  # CosmicWebEngine's default
+VIEWER_STARS, VIEWER_FRAMES, VIEWER_TICKS = 2000, 20, 50
+MULTIVERSE_STARS, MULTIVERSE_TICKS, MULTIVERSE_INTERVAL = 1024, 60, 20
+REVERSED_RTOL = 1e-5       # the reversed force against float64, of max|a|
+
+
+def realtime_engine_runs(dev, tmp: Path, report: dict) -> None:
+    """realtime.engine.main at its default size for 5 s, headless, on one
+    card and through a mesh of one: ticks, no desync (the clock's largest
+    skews and their stalest subsystem printed beside), the deposit's
+    launches against the ticks (each frame's 2 steps and its probe
+    bundle's 2), and where a pump's host time goes (its dispatch and
+    collect halves; inside them the schedule's and the histories'
+    cosmic-time integrals and the zlib entropy probe)."""
+    from nbody_tpu_torch.config import Cosmology
+    from nbody_tpu_torch.diagnostics import glitch
+    from nbody_tpu_torch.engines.cosmo import CosmologicalEngine
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+    from nbody_tpu_torch.ops import pm
+    from nbody_tpu_torch.realtime import engine as rt
+
+    for extra in ([], ["--mesh"]):
+        out = tmp / f"rt{len(extra)}"
+        argv = ["--particles", str(REALTIME_N), "--seconds",
+                str(REALTIME_SECONDS), "--output", str(out), "--device",
+                str(dev), *extra]
+        reset_counters(hn)
+        chunks, walls, skews = [], {}, []
+        t0 = time.time()
+        with counted_dispatches(chunks), clock_skews(skews), timed_calls(
+                walls, (CosmologicalEngine, "dispatch_step"),
+                (CosmologicalEngine, "collect_step"),
+                (Cosmology, "cosmic_time_gyr"),
+                (glitch, "measure_state_entropy")), \
+                contextlib.redirect_stdout(io.StringIO()):
+            rep = rt.main(argv)
+        wall = time.time() - t0
+        launches = pm.LAUNCHES["pm_deposit"]
+        ticks = rep["final_tick"]
+        frames = ticks // REALTIME_STEPS_PER_FRAME
+        alive = [t.name for t in threading.enumerate()
+                 if t.name in ("bao-solver", "rsi-monitor")]
+        label = "--mesh (a mesh of one)" if extra else "one card"
+        top = ", ".join(f"{ms:.1f} ms ({who})"
+                        for ms, who in sorted(skews, reverse=True)[:3])
+        margin = (f"largest clock skews {top} of {len(skews)} checks "
+                  f"(limit {1e3 * rt.DESYNC_LIMIT_S:.0f} ms)")
+        check(ticks > 0 and rep["desync_count"] == 0 and not alive,
+              f"realtime {label}: final tick {ticks}, desyncs "
+              f"{rep['desync_count']}, monitors alive {alive}; {margin}")
+        check(sum(chunks) == ticks
+              and launches == ticks + 2 * frames == chunk_deposits(chunks),
+              f"realtime {label}: pm_deposit launched {launches} times in "
+              f"{ticks} ticks ({len(chunks)} chunks dispatched)")
+        check(rep["mesh_devices"] == (1 if extra else 0),
+              f"realtime {label}: mesh_devices {rep['mesh_devices']}")
+        print(f"realtime: engine {label} N={REALTIME_N} "
+              f"{REALTIME_SECONDS}s headless ({wall:.1f}s with set-up): "
+              f"{ticks} ticks to z={rep['final_redshift']:.2f}, fps "
+              f"{rep['mean_fps']:.2f}, step_ms_p50 {rep['step_ms_p50']:.3f}, "
+              f"jitter CV {rep['step_jitter_cv']:.3f}, RSI "
+              f"{rep['final_rsi']:.1f}, glitches {rep['glitch_count']}, "
+              f"desyncs {rep['desync_count']}, {margin}; pm_deposit launches "
+              f"{launches} (= ticks + 2 x {frames} frames); host ms a "
+              f"frame: " + ", ".join(f"{k} {1e3 * v / max(frames, 1):.3f}"
+                                     for k, v in walls.items()))
+        report["pm_deposit"]["launches"] += launches
+
+
+def realtime_viewer(dev, tmp: Path, report: dict) -> None:
+    """realtime.visual.main in compare mode at 2000 stars for 20 frames of
+    50 ticks: one sym_force launch a tick a universe (and one at set-up),
+    the custom universe's two max_d2 launches an evaluation, no
+    pair_pe_rows."""
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+    from nbody_tpu_torch.realtime import visual
+
+    argv = ["--stars", str(VIEWER_STARS), "--frames", str(VIEWER_FRAMES),
+            "--ticks-per-frame", str(VIEWER_TICKS), "--output",
+            str(tmp / "visual"), "--device", str(dev)]
+    reset_counters(hn)
+    t0 = time.time()
+    with contextlib.redirect_stdout(io.StringIO()):
+        view = visual.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(hn.LAUNCHES)
+    evals = VIEWER_FRAMES * VIEWER_TICKS + 1
+    hist = view.history
+    check(view.tick == evals - 1 and len(hist["ghost"]) == VIEWER_FRAMES
+          and np.isfinite(hist["drift_clean"] + hist["drift_broken"]).all(),
+          f"realtime viewer: tick {view.tick}, history {hist}")
+    check(launches["sym_force"] == 2 * evals
+          and launches["max_d2"] == 2 * evals
+          and launches["pair_pe_rows"] == 0
+          and not any(v for k, v in launches.items()
+                      if k not in ("sym_force", "max_d2")),
+          f"realtime viewer: launches {launches}, want sym_force {2 * evals} "
+          f"(both universes), max_d2 {2 * evals} (the custom universe's "
+          f"bounds pass), nothing else")
+    print(f"realtime: viewer {VIEWER_STARS} stars x {VIEWER_FRAMES} frames "
+          f"of {VIEWER_TICKS} ticks in {wall:.2f}s (with set-up): final "
+          f"drift clean {hist['drift_clean'][-1]:+.6f}%, broken (custom-16) "
+          f"{hist['drift_broken'][-1]:+.6f}%, ghost {hist['ghost'][-1]:+.6f}%"
+          f"; launches sym_force {launches['sym_force']}, max_d2 "
+          f"{launches['max_d2']}, pair_pe_rows {launches['pair_pe_rows']}")
+    for k in ("sym_force", "max_d2"):
+        report[k]["launches"] += launches[k]
+
+
+def realtime_multiverse(dev) -> None:
+    """MultiverseSim at 1024 stars for 60 ticks on the card: a finite
+    report whose reversed-order divergence grows; the reversed force at
+    tick 0 against a float64 CPU evaluation of the same sum."""
+    from nbody_tpu_torch.config import SimConfig
+    from nbody_tpu_torch.diagnostics import multiverse
+    from nbody_tpu_torch.models.galaxy import create_disk_galaxy
+
+    pos, vel, m = create_disk_galaxy(torch.Generator().manual_seed(42),
+                                     MULTIVERSE_STARS)
+    cfg = SimConfig()
+    acc = multiverse.reversed_sum_accelerations(pos.to(dev), m.to(dev), cfg)
+    ref = multiverse.reversed_sum_accelerations(pos.double(), m.double(),
+                                                cfg)
+    err = float((acc.cpu().double() - ref).abs().max())
+    scale = float(ref.abs().max())
+    check(err <= REVERSED_RTOL * scale,
+          f"multiverse: reversed force off float64 by {err:.3e} "
+          f"(max|a| {scale:.3e})")
+    t0 = time.time()
+    rep = multiverse.MultiverseSim(pos, vel, m, device=dev).run(
+        MULTIVERSE_TICKS, MULTIVERSE_INTERVAL)
+    wall = time.time() - t0
+    div = rep.divergence_reversed
+    fields = [*div, *rep.divergence_fp16, rep.lyapunov_reversed,
+              rep.lyapunov_fp16, rep.entropy_bits_a, rep.entropy_bits_b,
+              rep.heisenberg_product]
+    check(np.isfinite(fields).all() and div[-1] > div[0],
+          f"multiverse: report {rep}")
+    print(f"realtime: multiverse {MULTIVERSE_STARS} stars x "
+          f"{MULTIVERSE_TICKS} ticks on the card in {wall:.2f}s: |A-B| "
+          f"{[f'{d:.3e}' for d in div]}, |A-C| "
+          f"{[f'{d:.3e}' for d in rep.divergence_fp16]}, Lyapunov "
+          f"{rep.lyapunov_reversed:.4f} / {rep.lyapunov_fp16:.4f} a tick; "
+          f"reversed force at tick 0 off float64 by {err / scale:.3e} of "
+          f"max|a|")
+
+
+def phase_realtime(dev, report: dict) -> None:
+    """realtime/engine.py at its default size for 5 s on one card and
+    through a mesh of one; realtime/visual.py in compare mode at 2000
+    stars; MultiverseSim at 1024 stars."""
+    import logging
+
+    logging.getLogger("nbody_tpu_torch.glitch").setLevel(logging.ERROR)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        realtime_engine_runs(dev, tmp, report)
+        realtime_viewer(dev, tmp, report)
+    realtime_multiverse(dev)
+
+
+# --------------------------------------------------------------------------
 # Extra phase: each kernel against its plain version at the 1M shapes
 # --------------------------------------------------------------------------
 
@@ -4918,6 +5413,10 @@ def main(argv=None) -> int:
                 phase_pm(dev, report)
             elif phase == "pm_mesh":
                 phase_pm_mesh(dev, report)
+            elif phase == "ultimate":
+                phase_ultimate(dev, report)
+            elif phase == "realtime":
+                phase_realtime(dev, report)
             elif phase == "profile":
                 phase_profile(dev, args.profile_out)
             elif phase == "scale":

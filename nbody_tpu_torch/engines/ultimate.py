@@ -1,0 +1,475 @@
+"""Ultimate reality engine: the batch "run everything" test.
+
+PyTorch counterpart of ``nbody_tpu.engines.ultimate`` (reference:
+ultimate_reality_engine.py:165-1826):
+
+* cosmological evolution on the PM engine (3-D, ``CosmologicalEngine``);
+* ``run_bao_test``: BAO scale across epochs against the step time (the
+  reference correlates it with the GPU clock, :546-653);
+* ``detect_structures``: void census with the "Great Void match"
+  heuristic (reference: :443-508), on one NGP deposit of unit weights:
+  on the card one launch of the deposit kernel (``csrc/pm_deposit.cu``);
+* SDSS two-point correlation (``compute_2point_correlation``: chunked
+  pair counts as torch ops on the positions' device, reference: :1213-1317)
+  and the CMB acoustic-peak comparison (reference: :1320-1411);
+* cross-substrate mirror: state export and comparison with hashes and
+  position / velocity correlations (reference: :694-833). The export
+  writes the JAX package's keys, with ``torch`` and ``cuda`` under
+  ``platform`` where JAX writes ``jax``, so either package's
+  ``compare_substrate_states`` reads the other's file;
+* ``run_ultimate_reality_test``: 5 phases + score + verdict + JSON
+  (reference: :888-1146). ``run_all_tests`` also chains the sensitivity /
+  omniverse / orbital suites (reference: :1447-1728); this package has no
+  ``experiments`` yet, so each of the three is recorded as
+  ``{"error": "ModuleNotFoundError: ..."}`` by the per-suite capture.
+
+Everything runs on ``--device`` (default ``cuda``; with no card the entry
+point raises and names ``--device cpu``).
+
+Usage:
+    python -m nbody_tpu_torch.engines.ultimate --mode full --quick
+    python -m nbody_tpu_torch.engines.ultimate --device cpu --mode bao --quick
+    python -m nbody_tpu_torch.engines.ultimate --mode compare --other-platform a.json
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import platform
+import sys
+import time
+from datetime import datetime
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from nbody_tpu_torch.engines.cosmo import CosmologicalEngine
+from nbody_tpu_torch.ops import pm
+from nbody_tpu_torch.utils.profiler import fence
+from nbody_tpu_torch.utils.reproducibility import hash_state
+
+# Reference cosmological data (Planck 2018 / SDSS DR16 anchors,
+# reference: ultimate_reality_engine.py:1195-1210)
+SDSS_BAO_SCALE = 147.09
+SDSS_BAO_ERROR = 0.26
+SDSS_XI_R = {1: 40.0, 2: 15.0, 5: 4.0, 10: 1.5, 20: 0.5, 50: 0.1,
+             100: 0.02}
+CMB_PEAKS = {"first": 220, "second": 546, "third": 800}
+DEFAULT_R_BINS = (1, 2, 5, 10, 20, 50, 100)
+QUICK_PARTICLES = 4096
+
+
+class UltimateEngine(CosmologicalEngine):
+    """3-D batch preset (reference: ultimate_reality_engine.py:165-526)."""
+
+    def __init__(self, num_particles: int = 32768,
+                 box_size_mpc: float = 500.0, start_redshift: float = 50.0,
+                 precision: str = "float32", seed: int = 42, **kw):
+        kw.setdefault("n_grid", 64)
+        super().__init__(num_particles=num_particles,
+                         box_size_mpc=box_size_mpc,
+                         start_redshift=start_redshift,
+                         precision=precision, seed=seed, dim=3, **kw)
+
+    # -- structure detection ------------------------------------------------
+
+    def detect_structures(self, n_grid: int = 16) -> dict:
+        """Void/filament census (reference: :443-508): a count of particles
+        a cell (an exact segment sum of ones), copied to the host once; the
+        greedy void scan runs there."""
+        ones = torch.ones(self.num_particles, dtype=torch.float32,
+                          device=self.device)
+        density = pm.ngp_deposit(self.positions, ones, n_grid,
+                                 self.cfg.box_size).cpu().numpy()
+        mean = density.mean()
+        voids = density < 0.2 * mean
+        filaments = density > 3.0 * mean
+        void_frac = float(voids.mean())
+        cell_mpc = self.cfg.box_size / n_grid
+        # largest void extent along any axis (greedy scan)
+        biggest_run = 0
+        for axis in range(3):
+            proj = voids.any(axis=tuple(a for a in range(3) if a != axis))
+            run = best = 0
+            for v in proj:
+                run = run + 1 if v else 0
+                best = max(best, run)
+            biggest_run = max(biggest_run, best)
+        void_extent_mpc = biggest_run * cell_mpc
+        # Bootes-like "Great Void" is ~100 Mpc across
+        great_void_match = 60.0 < void_extent_mpc < 200.0
+        return {
+            "void_fraction": void_frac,
+            "filament_fraction": float(filaments.mean()),
+            "largest_void_extent_mpc": void_extent_mpc,
+            "great_void_match": bool(great_void_match),
+        }
+
+    # -- state export -------------------------------------------------------
+
+    def get_export_state(self) -> dict:
+        sd = self.get_state_dict()
+        sd["state_hash"] = hash_state(sd["positions"], sd["velocities"])
+        return sd
+
+
+# --------------------------------------------------------------------------
+# BAO test
+# --------------------------------------------------------------------------
+
+def run_bao_test(engine: UltimateEngine, epochs: int = 5,
+                 dz_per_epoch: float = 8.0) -> dict:
+    """(reference: ultimate_reality_engine.py:546-653). The GPU-clock
+    correlation becomes a step-time correlation."""
+    print("\n--- PHASE: BAO EVOLUTION TEST ---")
+    rows = []
+    for epoch in range(epochs):
+        t0 = time.perf_counter()
+        engine.step(dz=dz_per_epoch / 10.0, num_steps=10)
+        fence(engine.state.positions)
+        wall = time.perf_counter() - t0
+        bao = engine.get_bao_scale()
+        rows.append({"epoch": epoch, "redshift": engine.redshift,
+                     "bao_scale_mpc": bao, "step_time_s": wall})
+        print(f"  epoch {epoch}: z={engine.redshift:6.2f} "
+              f"BAO={bao:6.1f} Mpc  ({wall:.2f}s)")
+    baos = [r["bao_scale_mpc"] for r in rows if r["bao_scale_mpc"] > 0]
+    times = [r["step_time_s"] for r in rows if r["bao_scale_mpc"] > 0]
+    if len(baos) >= 3 and np.std(baos) > 0 and np.std(times) > 0:
+        corr = float(np.corrcoef(baos, times)[0, 1])
+    else:
+        corr = 0.0  # degenerate series: no correlation measurable
+    final_dev = (abs(baos[-1] - SDSS_BAO_SCALE) / SDSS_BAO_SCALE
+                 if baos else 1.0)
+    print(f"  BAO-vs-steptime correlation: {corr:+.3f} "
+          f"(matrix proof requires |corr| ~ 1)")
+    return {"rows": rows, "bao_steptime_correlation": corr,
+            "final_bao_mpc": baos[-1] if baos else 0.0,
+            "sdss_deviation": final_dev}
+
+
+# --------------------------------------------------------------------------
+# SDSS / CMB comparisons
+# --------------------------------------------------------------------------
+
+def _shell_edges(r_bins) -> tuple:
+    return tuple((max(r - r * 0.2, 1e-6), r + r * 0.2) for r in r_bins)
+
+
+def shell_counts(positions, box_size: float, r_bins=None,
+                 num_anchors: int = 1024, anchor_chunk: int = 128):
+    """Pair counts in the shells (r +- 20%) around sampled anchors, with
+    periodic minimum-image distances, on the positions' device. Returns
+    (r_bins, counts (int64 numpy), anchors used).
+
+    The anchors (every (N // num_anchors)-th point) are padded to a whole
+    number of ``anchor_chunk`` with points at -1e9, whose wrapped
+    distances fall outside every shell, and counted a chunk at a time: a
+    chunk holds anchor_chunk x N x D float32 (50 MB at N = 32768, D = 3).
+    Each chunk forms the minimum-image difference, d = sqrt(sum of the
+    squared components, in component order) in float32, and sums its
+    shells' counts in int64."""
+    if r_bins is None:
+        r_bins = np.array(DEFAULT_R_BINS, float)
+    pos = torch.as_tensor(positions).to(torch.float32)
+    n, dim = pos.shape
+    anchors = pos[:: max(n // num_anchors, 1)][:num_anchors]
+    n_anchor = anchors.shape[0]
+    pad = (-n_anchor) % anchor_chunk
+    if pad:
+        anchors = torch.cat([anchors, torch.full((pad, dim), -1e9,
+                                                 dtype=torch.float32,
+                                                 device=pos.device)])
+    edges = _shell_edges(r_bins)
+    half = box_size / 2
+    counts = torch.zeros(len(edges), dtype=torch.int64, device=pos.device)
+    for chunk in anchors.split(anchor_chunk):
+        diff = pos[None, :, :] - chunk[:, None, :]
+        diff = torch.where(diff > half, diff - box_size, diff)
+        diff = torch.where(diff < -half, diff + box_size, diff)
+        d2 = diff[..., 0] * diff[..., 0]
+        for d in range(1, dim):
+            d2 = d2 + diff[..., d] * diff[..., d]
+        dist = torch.sqrt(d2)
+        counts += torch.stack([((dist > lo) & (dist < hi) & (dist > 0)).sum()
+                               for lo, hi in edges])
+    return r_bins, counts.cpu().numpy(), n_anchor
+
+
+def compute_2point_correlation(positions, box_size: float,
+                               r_bins=None, num_anchors: int = 1024,
+                               anchor_chunk: int = 128):
+    """xi(r) estimator (reference: :1213-1256 vectorised): the shell pair
+    counts of ``shell_counts`` against the random expectation. Returns
+    (r_bins, xi)."""
+    r_bins, counts, n_anchor = shell_counts(positions, box_size, r_bins,
+                                            num_anchors, anchor_chunk)
+    n = positions.shape[0]
+    density = n / box_size ** 3
+    xi = []
+    for (lo, hi), count in zip(_shell_edges(r_bins), counts):
+        shell_vol = 4.0 / 3.0 * np.pi * (hi ** 3 - lo ** 3)
+        expected = n_anchor * density * shell_vol
+        xi.append(float(count) / expected - 1.0 if expected > 0 else 0.0)
+    return r_bins, np.asarray(xi)
+
+
+def compare_to_sdss(engine: UltimateEngine) -> dict:
+    """(reference: :1259-1317)"""
+    print("\n--- PHASE: SDSS 2-POINT CORRELATION ---")
+    r, xi = compute_2point_correlation(engine.positions,
+                                       engine.cfg.box_size)
+    ref = np.asarray([SDSS_XI_R[int(rr)] for rr in r])
+    valid = (xi > 0) & (ref > 0)
+    if valid.sum() >= 3:
+        log_rms = float(np.sqrt(np.mean(
+            (np.log10(xi[valid]) - np.log10(ref[valid])) ** 2)))
+    else:
+        log_rms = float("inf")
+    slope_ok = bool(xi[0] > xi[-1])
+    for rr, x, rf in zip(r, xi, ref):
+        print(f"  r={rr:5.0f} Mpc: xi_sim={x:8.3f}  xi_SDSS={rf:8.3f}")
+    print(f"  log-RMS deviation: {log_rms:.2f} dex; "
+          f"declining with r: {slope_ok}")
+    return {"r_mpc": r.tolist(), "xi_sim": xi.tolist(),
+            "xi_sdss": ref.tolist(), "log_rms_dex": log_rms,
+            "shape_consistent": slope_ok}
+
+
+def compare_to_cmb(engine: UltimateEngine) -> dict:
+    """(reference: :1320-1411): map the simulated P(k) peak structure onto
+    acoustic-peak multipoles via l ~ k * D_A (comoving distance to last
+    scattering ~ 14000 Mpc)."""
+    print("\n--- PHASE: CMB ACOUSTIC PEAKS ---")
+    k, pk = engine.compute_power_spectrum(n_grid=32)
+    d_a = 14000.0
+    valid = pk > 0
+    if valid.sum() < 4:
+        return {"skipped": True}
+    k_peak = float(k[valid][np.argmax(pk[valid])])
+    l_equiv = k_peak * d_a
+    # closest Planck peak
+    nearest = min(CMB_PEAKS.values(), key=lambda l: abs(l - l_equiv))
+    dev = abs(l_equiv - nearest) / nearest
+    print(f"  dominant k={k_peak:.4f} -> l~{l_equiv:.0f}; nearest Planck "
+          f"peak {nearest} (dev {dev:.0%})")
+    return {"k_peak": k_peak, "l_equivalent": l_equiv,
+            "nearest_planck_peak": nearest, "deviation": dev,
+            "peak_match": bool(dev < 0.5)}
+
+
+# --------------------------------------------------------------------------
+# Cross-substrate mirror
+# --------------------------------------------------------------------------
+
+def _device_name(device: torch.device) -> str:
+    return (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+
+
+def export_state_for_comparison(engine: UltimateEngine, filepath: str) -> str:
+    """(reference: :694-729)"""
+    sd = engine.get_export_state()
+    payload = {
+        "timestamp": datetime.now().isoformat(),
+        "platform": {
+            "os": platform.system(),
+            "python": sys.version.split()[0],
+            "torch": torch.__version__,
+            "cuda": torch.version.cuda,
+            "backend": engine.device.type,
+            "device": _device_name(engine.device),
+        },
+        "simulation": {
+            "seed": engine.seed,
+            "precision": sd["precision"],
+            "num_particles": sd["num_particles"],
+            "redshift": sd["redshift"],
+            "time_gyr": sd["time_gyr"],
+            "state_hash": sd["state_hash"],
+        },
+        "positions": sd["positions"].tolist(),
+        "velocities": sd["velocities"].tolist(),
+        "masses": sd["masses"].tolist(),
+    }
+    Path(filepath).write_text(json.dumps(payload))
+    print(f"  exported state to {filepath} (hash {sd['state_hash']})")
+    return sd["state_hash"]
+
+
+def compare_substrate_states(path_a: str, path_b: str) -> dict:
+    """(reference: :732-833): the 'Matrix proof': different hardware
+    agreeing bit-exactly implies enforced determinism. (ICs drawn on CPU
+    generators are bit-exact across devices by construction; the
+    interesting signal is divergence during evolution.)"""
+    a = json.loads(Path(path_a).read_text())
+    b = json.loads(Path(path_b).read_text())
+    print(f"\n{'=' * 60}\nCROSS-SUBSTRATE MIRROR TEST\n{'=' * 60}")
+    print(f"  A: {a['platform']['device']} ({a['platform']['backend']})")
+    print(f"  B: {b['platform']['device']} ({b['platform']['backend']})")
+    hash_match = (a["simulation"]["state_hash"]
+                  == b["simulation"]["state_hash"])
+    pa, pb = np.asarray(a["positions"]), np.asarray(b["positions"])
+    va, vb = np.asarray(a["velocities"]), np.asarray(b["velocities"])
+    result = {"hash_match": bool(hash_match)}
+    if pa.shape == pb.shape:
+        result["position_correlation"] = float(np.corrcoef(
+            pa.reshape(-1), pb.reshape(-1))[0, 1])
+        result["velocity_correlation"] = float(np.corrcoef(
+            va.reshape(-1), vb.reshape(-1))[0, 1])
+        result["max_position_delta"] = float(np.abs(pa - pb).max())
+    same_hw = a["platform"]["device"] == b["platform"]["device"]
+    result["admin_intervention_suspected"] = bool(
+        hash_match and not same_hw)
+    print(f"  hash match: {hash_match}; "
+          f"pos corr: {result.get('position_correlation')}")
+    if result["admin_intervention_suspected"]:
+        print("  !! Different hardware produced IDENTICAL states — "
+              "enforced determinism ('admin intervention') suspected")
+    return result
+
+
+# --------------------------------------------------------------------------
+# Orchestration
+# --------------------------------------------------------------------------
+
+def run_ultimate_reality_test(num_particles: int = 32768,
+                              precision: str = "int4", seed: int = 42,
+                              quick: bool = False,
+                              out_dir: str = "output/ultimate",
+                              device=None) -> dict:
+    """5 phases + score + verdict (reference: :888-1146)."""
+    print("\n" + "=" * 64)
+    print("ULTIMATE REALITY TEST")
+    print("=" * 64)
+    if quick:
+        num_particles = QUICK_PARTICLES
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+
+    engine = UltimateEngine(num_particles=num_particles,
+                            precision=precision, seed=seed, device=device)
+    report: dict = {"precision": precision,
+                    "num_particles": engine.num_particles}
+
+    print("\n--- PHASE: EVOLUTION ---")
+    t0 = time.time()
+    report["bao_test"] = run_bao_test(engine)
+    engine.run_to_completion(dz=1.0, chunk=10, pipelined=True)
+    report["evolution_wall_s"] = time.time() - t0
+    report["glitch_summary"] = engine.glitch_detector.get_glitch_summary()
+    report["structures"] = engine.detect_structures()
+    report["sdss"] = compare_to_sdss(engine)
+    report["cmb"] = compare_to_cmb(engine)
+    report["state_hash"] = export_state_for_comparison(
+        engine, str(out / "substrate_state.json"))
+
+    # scoring (reference: :1100-1146)
+    checks = {
+        "bao_within_50pct": report["bao_test"]["sdss_deviation"] < 0.5,
+        "structures_formed": report["structures"]["void_fraction"] > 0.05,
+        "sdss_shape": report["sdss"]["shape_consistent"],
+        "cmb_peak": report["cmb"].get("peak_match", False),
+        "glitches_recorded": sum(report["glitch_summary"].values()) > 0,
+    }
+    score = sum(checks.values()) / len(checks) * 100
+    report["checks"] = checks
+    report["reality_score"] = score
+    report["verdict"] = (
+        "SIMULATION ARTIFACTS CONFIRMED: lossy physics reproduces "
+        "cosmological phenomenology" if score >= 60 else
+        "INCONCLUSIVE: degraded physics does not match observations")
+    print(f"\n  REALITY SCORE: {score:.0f}/100 — {report['verdict']}")
+    (out / "ultimate_report.json").write_text(
+        json.dumps(report, indent=2, default=str))
+    return report
+
+
+# The suites run_all_tests chains: (name, module, runner). This package
+# has no experiments module yet, so each import fails and is recorded.
+SUITES = (("sensitivity", "sensitivity_test", "run_sensitivity_sweep"),
+          ("omniverse", "omniverse_tests", "run_omniverse_suite"),
+          ("orbital", "orbital_audit", "run_full_orbital_audit"))
+
+
+def run_all_tests(quick: bool = True, seed: int = 42,
+                  out_dir: str = "output/ultimate", device=None) -> dict:
+    """(reference: :1447-1728): ultimate + sensitivity + omniverse +
+    orbital, with graceful per-suite failure capture. The three suites
+    live in ``nbody_tpu_torch.experiments``, which this package does not
+    have yet: each is recorded as ``{"error": "ModuleNotFoundError:
+    ..."}``."""
+    results = {"ultimate": run_ultimate_reality_test(quick=quick,
+                                                     seed=seed,
+                                                     out_dir=out_dir,
+                                                     device=device)}
+    args = {
+        "sensitivity": lambda fn: fn(
+            800 if quick else 1500, 200 if quick else 500,
+            out_dir=str(Path(out_dir) / "sensitivity")),
+        "omniverse": lambda fn: fn(quick=quick, seed=seed),
+        "orbital": lambda fn: fn(quick=quick),
+    }
+    for name, module, runner in SUITES:
+        try:
+            fn = getattr(__import__(
+                f"nbody_tpu_torch.experiments.{module}",
+                fromlist=[runner]), runner)
+            results[name] = args[name](fn)
+        except Exception as e:  # noqa: BLE001 (suite isolation)
+            results[name] = {"error": f"{type(e).__name__}: {e}"}
+            print(f"  suite '{name}' failed: {e}")
+    out = Path(out_dir)
+    (out / "comprehensive_report.json").write_text(
+        json.dumps(results, indent=2, default=str))
+    return results
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description="Ultimate reality engine")
+    p.add_argument("--mode", choices=["full", "all", "bao", "substrate",
+                                      "compare"], default="full")
+    p.add_argument("--quick", action="store_true")
+    p.add_argument("--precision", type=str, default="int4")
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--output", type=str, default="output/ultimate")
+    p.add_argument("--other-platform", type=str, default=None,
+                   help="path to another substrate_state.json for compare")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device (cuda unless given; cpu for the CPU)")
+    args = p.parse_args(argv)
+
+    num_particles = QUICK_PARTICLES if args.quick else 32768
+    if args.mode == "compare":
+        mine = Path(args.output) / "substrate_state.json"
+        if not mine.exists() or not args.other_platform:
+            print("need --other-platform and an existing export; run "
+                  "--mode substrate first")
+            return None
+        return compare_substrate_states(str(mine), args.other_platform)
+    if args.mode == "substrate":
+        engine = UltimateEngine(num_particles=num_particles,
+                                precision=args.precision, seed=args.seed,
+                                device=args.device)
+        engine.step(dz=1.0, num_steps=10)
+        out = Path(args.output)
+        out.mkdir(parents=True, exist_ok=True)
+        return export_state_for_comparison(engine,
+                                           str(out / "substrate_state.json"))
+    if args.mode == "bao":
+        engine = UltimateEngine(num_particles=num_particles,
+                                precision=args.precision, seed=args.seed,
+                                device=args.device)
+        return run_bao_test(engine)
+    if args.mode == "all":
+        return run_all_tests(quick=args.quick, seed=args.seed,
+                             out_dir=args.output, device=args.device)
+    return run_ultimate_reality_test(precision=args.precision, seed=args.seed,
+                                     quick=args.quick, out_dir=args.output,
+                                     device=args.device)
+
+
+if __name__ == "__main__":
+    main()

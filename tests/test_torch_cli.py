@@ -118,7 +118,12 @@ def test_import_never_pulls_in_jax():
             "new = ['nbody_tpu_torch.parallel.pm_sharded', "
             "'nbody_tpu_torch.engines.universe3d', "
             "'nbody_tpu_torch.engines.dashboard3d', "
-            "'nbody_tpu_torch.engines.genesis']\n"
+            "'nbody_tpu_torch.engines.genesis', "
+            "'nbody_tpu_torch.utils.reproducibility', "
+            "'nbody_tpu_torch.engines.ultimate', "
+            "'nbody_tpu_torch.diagnostics.multiverse', "
+            "'nbody_tpu_torch.realtime.engine', "
+            "'nbody_tpu_torch.realtime.visual']\n"
             "assert set(new) <= set(mods), mods\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'nbody_tpu', 'tools')]\n"
