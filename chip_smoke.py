@@ -173,6 +173,18 @@ Phases (any failure exits non-zero before the last line is printed):
    set-up) as derived, no pair_pe_rows; ``MultiverseSim`` at 1024 stars x
    60 ticks: a finite report whose reversed-order divergence grows, the
    reversed force at tick 0 within 1e-5 of max|a| of a float64 CPU sum.
+17. experiments: the precision-ladder suites of
+   ``nbody_tpu_torch.experiments`` with ``--device cuda``: stability,
+   sensitivity, dark matter and SPARC at the JAX package's run_all
+   arguments, falsification and jitter with ``--quick``, omniverse at its
+   full defaults (the 20001-body cloud) and the orbital audit at its full
+   size: each suite's wall, its report's keys and finite numbers, the
+   smoke tests' verdicts, and the launches of sym_force,
+   sym_force_uniform, max_d2 and pair_pe_rows equal to the counts derived
+   from its N, ticks and modes; propagate_rk4's CUDA-graph replay bitwise
+   its eager launches (both timed, in turns) and float32 within 1e-4 of
+   the orbit's radius of the CPU (int4's bin flips counted);
+   ``ultimate.run_all_tests(quick=True)`` on the card with no error.
 
 The kernels phase also holds the equal-mass variants (D in {2,3}, every
 mode, N in {4096, 32768}; the one-pass design at odd multiples of 64, N in
@@ -219,7 +231,7 @@ import torch
 REPO = Path(__file__).resolve().parent
 PHASES = ("kernels", "main", "gate", "perf", "large", "ring", "cached",
           "lab", "lab_r4", "lab_r5", "pm", "pm_mesh", "ultimate",
-          "realtime")  # default
+          "realtime", "experiments")  # default
 EXTRA_PHASES = ("profile", "scale")
 MODES = ("float32", "bfloat16", "float16", "int8", "int4", "custom")
 STARS, TICKS, INTERVAL = 5000, 2000, 100
@@ -5141,6 +5153,475 @@ def phase_realtime(dev, report: dict) -> None:
 
 
 # --------------------------------------------------------------------------
+# Phase experiments: the precision-ladder suites on the card
+# --------------------------------------------------------------------------
+
+# (module of nbody_tpu_torch.experiments, arguments, report file): run_all's
+# arguments of the JAX package for the first six (omniverse at its full
+# defaults, so that its 20001-body cloud runs), the orbital audit at its
+# full size (each RK4 chunk a CUDA-graph replay).
+EXPERIMENT_SUITES = (
+    ("stability_test", ["--stars", "600", "--ticks", "400"],
+     "stability_results.json"),
+    ("sensitivity_test", ["--stars", "600", "--ticks", "200"],
+     "sensitivity_results.json"),
+    ("falsification_tests", ["--quick"], "falsification_report.json"),
+    ("dark_matter_test", ["--stars", "800", "--ticks", "150"],
+     "dark_matter_results.json"),
+    ("sparc_test", ["--stars", "600", "--ticks", "150"],
+     "sparc_results.json"),
+    ("jitter_test", ["--quick"], "jitter_report.json"),
+    ("omniverse_tests", [], "omniverse_report.json"),
+    ("orbital_audit", [], "orbital_audit_report.json"),
+)
+# The top-level keys of each report, as the JAX package writes them.
+EXPERIMENT_KEYS = {
+    "stability_test": {"results", "threshold_mode", "num_stars",
+                       "max_ticks"},
+    "sensitivity_test": {"results", "monotonicity"},
+    "falsification_tests": {"convergence", "bullet_cluster",
+                            "parameter_sensitivity"},
+    "dark_matter_test": {"DM 0x", "DM 2x", "DM 5x", "DM 10x"},
+    "sparc_test": {"results", "int4_dm_wins", "float64_dm_wins",
+                   "verdict_int4_more_dm_like"},
+    "jitter_test": {"frame_rate_sweep", "velocity_sweep"},
+    "omniverse_tests": {"recursive_mirror", "fluid_chaos", "neural_bridge",
+                        "voxel_grid", "suite_score"},
+    "orbital_audit": {"tle_drift", "lense_thirring", "telemetry_glitches",
+                      "flop_cost", "tle_source", "notes", "score"},
+}
+# propagate_rk4 on the card against the CPU, float32: samples within this
+# share of the orbit's radius (the transcendentals are other builds).
+RK4_CARD_RTOL = 1e-4
+RK4_AB = ("ISS", 6.0, 10.0)   # fixture, hours, dt: the drift audit's run
+
+
+def force_evals(counts: dict, n: int, evals: int, precision,
+                equal_masses: bool) -> None:
+    """Add the launches of ``evals`` force evaluations of DirectSimulation
+    (force_impl "auto") over n particles at ``precision`` (a Quantizer or
+    a mode's name) to counts: sym_force an evaluation (its equal-mass
+    variant for equal masses at a multiple of TILE), and for an int or
+    custom rung the pruned bounds pass's max_d2 launches; float64 launches
+    none (the native-f64 baseline)."""
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+    from nbody_tpu_torch.ops.precision import Precision, Quantizer
+
+    q = (precision if isinstance(precision, Quantizer)
+         else Quantizer(Precision(precision)))
+    check(hn.sym_force_fits(n, 2), f"N={n} leaves the single launch")
+    if q.mode == Precision.FLOAT64:
+        return
+    uniform = equal_masses and n % hn.TILE == 0
+    counts["sym_force_uniform" if uniform else "sym_force"] += evals
+    if q.is_int:
+        counts["max_d2"] += evals * (1 if n <= hn.PRUNED_CANDIDATES else 2)
+
+
+def experiment_launches(module: str, argv: list, rep: dict) -> tuple:
+    """The kernel launches one suite's run must make, and the derivation
+    as text: N, ticks and modes from the suite's own parser for argv, its
+    size rules (suite_sizes) and its sweep constants. A disk's masses are
+    equal, the nested system's and the cloud's are not. Only the stability
+    floor's ticks depend on the run (a mode stops at its first failed
+    explosion check): they are read from the report once they fit its
+    check interval and max ticks. No suite takes an energy past
+    hn.TILED_MIN_N, so pair_pe_rows launches 0 times."""
+    import importlib
+
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+    from nbody_tpu_torch.ops.precision import Quantizer
+
+    counts = {k: 0 for k in hn.LAUNCHES}
+    if module == "orbital_audit":
+        return counts, "RK4 on 3-vectors: no N-body kernel"
+    mod = importlib.import_module(f"nbody_tpu_torch.experiments.{module}")
+    args = mod.build_parser().parse_args(argv)
+    if module == "stability_test":
+        n, every = args.stars, mod.CHECK_INTERVAL
+        last = -(-args.ticks // every) * every
+        check([r["mode"] for r in rep["results"]]
+              == [m.value for m in mod.MODES],
+              f"stability: modes {[r['mode'] for r in rep['results']]}")
+        ran = [r["stable_ticks"] for r in rep["results"]]
+        for r in rep["results"]:
+            t = r["stable_ticks"]
+            check(t % every == 0 and every <= t <= last
+                  and (r["exploded"] or t == last),
+                  f"stability: {r['mode']} ran {t} ticks (checks every "
+                  f"{every}, at most {last}, exploded {r['exploded']})")
+            force_evals(counts, n, 1 + t, r["mode"], True)
+        text = (f"{n} stars: (1 + ticks run) x sym_force a mode but "
+                f"float64, x max_d2 for int8 and int4; ticks run {ran} "
+                f"(checks every {every} up to {last})")
+    elif module == "sensitivity_test":
+        n, ticks = args.stars, args.ticks
+        for lv in mod.DEFAULT_LEVELS:
+            force_evals(counts, n, 1 + ticks, mod._quantizer_for_levels(lv),
+                        True)
+        text = (f"{len(mod.DEFAULT_LEVELS)} levels x {1 + ticks} "
+                f"evaluations at {n} stars: sym_force each, max_d2 the "
+                f"custom rungs")
+    elif module == "falsification_tests":
+        s = mod.suite_sizes(args.stars, args.ticks, args.quick)
+        (nc, tc), (nb, tb), (ns, ts) = (
+            s[k] for k in ("convergence", "bullet_cluster",
+                           "parameter_sensitivity"))
+        for lv in mod.CONVERGENCE_LEVELS:
+            force_evals(counts, nc, 1 + tc, mod._quantizer_for_levels(lv),
+                        True)
+        bodies = len(mod.bullet_initial_conditions(nb, args.seed)[2])
+        for _, precision in mod.BULLET_PRECISIONS:
+            force_evals(counts, bodies, 1 + tb, precision, True)
+        sweeps = len(mod.SOFTENINGS) + len(mod.DTS)
+        for _ in range(sweeps):
+            force_evals(counts, ns, 1 + ts, "int4_sim", True)
+        text = (f"convergence {len(mod.CONVERGENCE_LEVELS)} levels x "
+                f"{1 + tc} at {nc}, bullet float64 + custom-16 x {1 + tb} "
+                f"at {bodies}, {sweeps} int4 sweeps x {1 + ts} at {ns}")
+    elif module == "dark_matter_test":
+        n, ticks = args.stars, args.ticks
+        for _ in mod.DM_RATIOS:
+            force_evals(counts, n, 1 + ticks, "float32", True)
+        text = (f"{len(mod.DM_RATIOS)} ratios x {1 + ticks} float32 "
+                f"evaluations at {n}")
+    elif module == "sparc_test":
+        n, ticks = args.stars, args.ticks
+        for _ in mod.GALAXY_DATABASE:
+            for mode in mod.MODES:
+                force_evals(counts, n, 1 + ticks, mode.value, True)
+        text = (f"{len(mod.GALAXY_DATABASE)} galaxies x "
+                f"{[m.value for m in mod.MODES]} x {1 + ticks} evaluations "
+                f"at {n} stars (float64: none)")
+    elif module == "jitter_test":
+        s = mod.suite_sizes(args.quick)
+        nested = mod.NESTED_LEVELS * s["nested_stars"]
+
+        def evals(dt, total):   # set-up, then interval x samples ticks
+            return 1 + mod.sample_plan(dt, total)[1] * mod.NUM_SAMPLES
+
+        frame = [evals(dt, mod.FRAME_TIME) for dt in mod.FRAME_DTS]
+        speed = [evals(mod.VELOCITY_DT, mod.VELOCITY_TIME)
+                 for _ in mod.BETAS]
+        for e in frame:
+            force_evals(counts, nested, e, "float32", False)
+        for e in speed:
+            force_evals(counts, s["disk_stars"], e, "float32", True)
+        text = (f"nested {mod.NESTED_LEVELS} x {s['nested_stars']} "
+                f"(unequal masses) {frame} evaluations over the dts, disk "
+                f"{s['disk_stars']} {speed} over the speeds, float32")
+    else:
+        s = mod.suite_sizes(args.quick)
+        n = len(mod.fluid_initial_conditions(s["fluid_particles"],
+                                             args.seed)[2])
+        force_evals(counts, n, 1 + s["fluid_ticks"], "float32", False)
+        text = (f"the cloud's {n} bodies (unequal masses) x "
+                f"{1 + s['fluid_ticks']} evaluations, sym_force design "
+                f"{hn.sym_design(n, 2, Quantizer())!r} (T = "
+                f"{-(-n // hn.TILE)} tiles); the mirror and the voxel grid "
+                f"run the plain dense force")
+    return counts, text
+
+
+@contextlib.contextmanager
+def first_launches(hn):
+    """Record, cloned, the inputs of the first sym_force and max_d2 launch
+    of each shape the enclosed run makes (sym_force: N, D, mode, levels,
+    variant, self mask; max_d2: N, D). The wrappers run as they are and
+    count their launches."""
+    seen = {}
+    sym, mx = hn.sym_force, hn.max_d2
+
+    def sym_force(pos, gm, bounds, q, self_masked, uniform=False, **kw):
+        variant = uniform and pos.shape[0] % hn.TILE == 0
+        key = ("sym_force", *pos.shape, q.mode.value, q.levels, variant,
+               self_masked)
+        if key not in seen:
+            seen[key] = (pos.clone(), gm.clone(), bounds.clone(), q,
+                         self_masked, uniform)
+        return sym(pos, gm, bounds, q, self_masked, uniform=uniform, **kw)
+
+    def max_d2(pos, *a, **kw):
+        seen.setdefault(("max_d2", *pos.shape), (pos.clone(),))
+        return mx(pos, *a, **kw)
+
+    hn.sym_force, hn.max_d2 = sym_force, max_d2
+    try:
+        yield seen
+    finally:
+        hn.sym_force, hn.max_d2 = sym, mx
+
+
+def hold_first_launches(seen: dict, report: dict) -> None:
+    """Each launch first_launches recorded, again, against its plain
+    version on the same inputs: sym_force (and its equal-mass variant)
+    within the kernels phase's tolerance and quantize_force flips (Tally),
+    max_d2 bitwise. At a float32 shape that no int rung reached (the
+    omniverse cloud's), the int4 rung too, bounds from the plain max
+    pass."""
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+    from nbody_tpu_torch.ops.precision import Quantizer
+
+    tallies = {"sym_force": Tally(), "sym_force_uniform": Tally()}
+    cases = [(key, inputs) for key, inputs in seen.items()
+             if key[0] == "sym_force"]
+    int_shapes = {key[1:3] for key, (*_, q, _m, _u) in cases if q.is_int}
+    for key, (pos, gm, bounds, q, masked, uniform) in list(cases):
+        if q.mode.value == "float32" and key[1:3] not in int_shapes:
+            q4 = Quantizer.from_string("int4")
+            b4 = force_bounds(q4, pos, float(bounds[2]), pos.device)
+            cases.append((("sym_force", *key[1:3], "int4_sim", 16, *key[5:]),
+                          (pos, gm, b4, q4, masked, uniform)))
+    for key, (pos, gm, bounds, q, masked, uniform) in cases:
+        variant = uniform and pos.shape[0] % hn.TILE == 0
+        name = "sym_force_uniform" if variant else "sym_force"
+        plain = hn.sym_force_uniform_plain if variant else hn.sym_force_plain
+        got = hn.sym_force(pos, gm, bounds, q, masked, uniform=uniform)
+        want = plain(pos, gm, bounds, q, masked)
+        case = (f"N={pos.shape[0]} D={pos.shape[1]} {q.mode.value}"
+                + (f"/{q.levels}" if q.levels else "")
+                + f" design {hn.sym_design(pos.shape[0], pos.shape[1], q)}")
+        tallies[name].hold(case, got, want, lazy_scale(
+            pos, gm, bounds, q, masked, got, want), q)
+    maxes = [key for key in seen if key[0] == "max_d2"]
+    for key in maxes:
+        pos, = seen[key]
+        got, want = hn.max_d2(pos), hn.max_d2_plain(pos)
+        check(bitwise(got, want), f"max_d2 at the suites' N={key[1]} "
+              f"D={key[2]}: {got.item()} vs plain {want.item()}")
+    for name, tally in tallies.items():
+        if tally.cases:
+            tally.report(f"{name} at the suites' shapes", report[name])
+    print(f"experiments: max_d2 bitwise its plain version at the suites' "
+          f"{len(maxes)} shapes {sorted(key[1] for key in maxes)}")
+
+
+def finite_numbers(x, path: str = "") -> list:
+    """Paths of the non-finite numbers in a JSON report; a rotation
+    curve's velocities may be NaN (a bin with no star)."""
+    if isinstance(x, dict):
+        return [p for k, v in x.items()
+                for p in finite_numbers(v, f"{path}/{k}")]
+    if isinstance(x, list):
+        if path.endswith("/velocities"):
+            return []
+        return [p for i, v in enumerate(x)
+                for p in finite_numbers(v, f"{path}[{i}]")]
+    if isinstance(x, float) and not math.isfinite(x):
+        return [path]
+    return []
+
+
+def experiment_verdicts(module: str, rep: dict) -> str:
+    """tests/test_experiments_smoke.py's verdicts on the card's report."""
+    if module == "stability_test":
+        check(len(rep["results"]) == 6, f"stability: {len(rep['results'])} "
+                                         f"results")
+        return f"threshold {rep['threshold_mode']}"
+    if module == "sensitivity_test":
+        by_bits = sorted(rep["results"], key=lambda r: r["bits"])
+        coarse, fine = (abs(by_bits[i]["energy_drift_pct"]) for i in (0, -1))
+        check(coarse > fine, f"sensitivity: coarsest |drift| {coarse} <= "
+                             f"finest {fine}")
+        return (f"|drift| 2 bits {coarse:.4f}% > infinite {fine:.6f}%, "
+                f"monotone {rep['monotonicity']['monotone']}")
+    if module == "falsification_tests":
+        check(rep["convergence"]["converges"], "falsification: the "
+              "artifact does not converge")
+        return (f"converges, bullet separated "
+                f"{rep['bullet_cluster']['separated']}, robust "
+                f"{rep['parameter_sensitivity']['robust']}")
+    if module == "dark_matter_test":
+        return ", ".join(f"{k} slope {v['final_outer_slope']:+.4f}"
+                         for k, v in rep.items())
+    if module == "sparc_test":
+        return (f"int4 DM wins {rep['int4_dm_wins']}, float64 "
+                f"{rep['float64_dm_wins']}")
+    if module == "jitter_test":
+        return (f"corr(log dt, log jitter) "
+                f"{rep['frame_rate_sweep']['dt_jitter_correlation']:+.3f}")
+    if module == "omniverse_tests":
+        fluid = rep["fluid_chaos"]
+        check(fluid["deleted"] == 0, f"omniverse: {fluid['deleted']} cloud "
+                                     f"bodies not finite")
+        return (f"cloud deleted 0, escaped {fluid['escaped']}, merged "
+                f"{fluid['merged']}; LSTM accuracy "
+                f"{rep['neural_bridge']['accuracy']:.2f}; "
+                f"{rep['suite_score']['conclusion']}")
+    return (f"int4 drift amplification "
+            f"x{rep['score']['mean_int4_drift_amplification']:.1f}")
+
+
+def experiment_suites(dev, tmp: Path, report: dict) -> None:
+    """Each suite's main with --device on the card: its wall, its report's
+    keys and finite numbers, its verdicts, and its launches against the
+    derivation; then the first sym_force and max_d2 launch of each shape
+    the suites made, against the plain versions."""
+    import importlib
+
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+
+    total = 0.0
+    with first_launches(hn) as seen:
+        for module, argv, name in EXPERIMENT_SUITES:
+            total += experiment_suite(importlib.import_module(
+                f"nbody_tpu_torch.experiments.{module}"), module, argv,
+                tmp / module, name, dev, report)
+    print(f"experiments: the eight suites in {total:.2f}s")
+    hold_first_launches(seen, report)
+
+
+def experiment_suite(mod, module: str, argv: list, out: Path, name: str,
+                     dev, report: dict) -> float:
+    """One suite's main on the card, checked; returns its wall (s)."""
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+
+    reset_counters(hn)
+    t0 = time.time()
+    with contextlib.redirect_stdout(io.StringIO()):
+        mod.main([*argv, "--device", str(dev), "--output", str(out)])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    rep = json.loads((out / name).read_text())
+    launches = dict(hn.LAUNCHES)
+    check(set(rep) == EXPERIMENT_KEYS[module],
+          f"{module}: report keys {sorted(rep)}")
+    bad = finite_numbers(rep)
+    check(not bad, f"{module}: non-finite numbers at {bad[:5]}")
+    verdict = experiment_verdicts(module, rep)
+    want, text = experiment_launches(module, argv, rep)
+    check(launches == want, f"{module}: launches "
+          f"{ {k: v for k, v in launches.items() if v} }, derived "
+          f"{ {k: v for k, v in want.items() if v} } ({text})")
+    print(f"experiments: {module} {' '.join(argv) or '(defaults)'} in "
+          f"{wall:.2f}s; {verdict}; launches "
+          f"{ {k: v for k, v in launches.items() if v} } = derived: {text}")
+    for k in ("sym_force", "sym_force_uniform", "max_d2", "pair_pe_rows"):
+        report[k]["launches"] += launches[k]
+    return wall
+
+
+def rk4_bins(samples: torch.Tensor, levels: int) -> torch.Tensor:
+    """Each sample's bin on the orbital audit's log grid of r^2."""
+    from nbody_tpu_torch.experiments import orbital_audit as oa
+    lo, hi = math.log(oa.R_EARTH ** 2), math.log((20 * oa.R_EARTH) ** 2)
+    r2 = torch.clamp((samples.double() ** 2).sum(1), min=oa.R_EARTH ** 2)
+    return torch.round((torch.log(r2) - lo) / (hi - lo) * (levels - 1))
+
+
+def rk4_eager(p0, v0, dt: float, q, steps: int, every: int, dev) -> tuple:
+    """propagate_rk4's chunks as eager launches on the card (the loop of
+    its CPU branch): (samples, underflows, overflows)."""
+    from nbody_tpu_torch.experiments import orbital_audit as oa
+    state, consts = oa._rk4_start(p0, v0, q, dev)
+    samples = []
+    for _ in range(steps // every):
+        state = oa._rk4_chunk(state, dt, q, consts, every)
+        samples.append(state[0])
+    return torch.stack(samples), state[2], state[3]
+
+
+def experiment_rk4(dev) -> None:
+    """propagate_rk4 on the card (its CUDA-graph replay) against the same
+    chunks as eager launches (rk4_eager: bitwise, timed in turns) and
+    against the CPU: float32 within RK4_CARD_RTOL of the orbit's radius;
+    int4's bin flips counted."""
+    from nbody_tpu_torch.experiments import orbital_audit as oa
+    from nbody_tpu_torch.ops.precision import Precision, Quantizer
+
+    name, hours, dt = RK4_AB
+    el = oa.parse_tle(*oa.TLE_FIXTURES[name])
+    p0, v0 = oa.elements_to_state(el)
+    steps = int(hours * 3600 / dt)
+    every = max(steps // 50, 1)
+    steps = steps // every * every
+    for mode in ("float32", "int4_sim"):
+        q = Quantizer(Precision(mode))
+
+        def run(design):
+            t0 = time.perf_counter()
+            out = (oa.propagate_rk4(p0, v0, dt, q, steps, every, device=dev)
+                   if design == "graph"
+                   else rk4_eager(p0, v0, dt, q, steps, every, dev))
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        run("graph")   # capture once, warm
+        walls = {"eager": [], "graph": []}
+        outs = {}
+        for design in ("eager", "graph", "graph", "eager"):
+            outs[design], wall = run(design)
+            walls[design].append(wall)
+        (ge, ue, oe), (gg, ug, og) = outs["eager"], outs["graph"]
+        check(torch.equal(ge, gg) and int(ue) == int(ug)
+              and int(oe) == int(og),
+              f"orbital: propagate_rk4 {mode}: the graph replay differs "
+              f"from the eager launches")
+        cpu, under, over = oa.propagate_rk4(p0, v0, dt, q, steps, every,
+                                            device="cpu")
+        card = gg.cpu()
+        scale = float(torch.linalg.vector_norm(cpu, dim=1).max())
+        err = float((card - cpu).abs().max())
+        flips = (int((rk4_bins(card, q.levels)
+                      != rk4_bins(cpu, q.levels)).sum()) if q.is_int else 0)
+        if not q.is_int:
+            check(err <= RK4_CARD_RTOL * scale,
+                  f"orbital: float32 samples on the card off the CPU's by "
+                  f"{err:.4g} km (radius {scale:.1f} km)")
+        check((int(ug), int(og)) == (int(under), int(over)),
+              f"orbital: counters card {(int(ug), int(og))}, CPU "
+              f"{(int(under), int(over))}")
+        ms = {k: 1e3 * min(v) / steps for k, v in walls.items()}
+        print(f"orbital: propagate_rk4 {mode} {name} {steps} steps (dt "
+              f"{dt:g} s, chunks of {every}): eager {ms['eager']:.4f} ms a "
+              f"step, graph replay {ms['graph']:.4f} ms a step (host clock, "
+              f"best of 2 in turns), bitwise equal; card vs CPU max "
+              f"{err:.4g} km of {scale:.1f} km ({err / scale:.3g}), "
+              f"{flips} int-grid bin flips of {len(card)} samples; "
+              f"counters {int(ug)}, {int(og)}")
+
+
+def experiment_run_all(dev, tmp: Path) -> None:
+    """ultimate.run_all_tests(quick=True) on the card: no suite records an
+    error."""
+    from nbody_tpu_torch.engines import ultimate
+
+    t0 = time.time()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = ultimate.run_all_tests(quick=True, out_dir=str(tmp / "all"),
+                                     device=str(dev))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    errors = {k: v["error"] for k, v in res.items()
+              if isinstance(v, dict) and "error" in v}
+    check(not errors and set(res) == {"ultimate", "sensitivity",
+                                      "omniverse", "orbital"},
+          f"ultimate.run_all_tests: {errors or sorted(res)}")
+    print(f"experiments: ultimate.run_all_tests(quick=True) on the card in "
+          f"{wall:.2f}s: ultimate score "
+          f"{res['ultimate']['reality_score']:.0f}/100, sensitivity "
+          f"monotone {res['sensitivity'][1]['monotone']}, omniverse "
+          f"{res['omniverse']['suite_score']['conclusion']}, orbital "
+          f"x{res['orbital']['score']['mean_int4_drift_amplification']:.1f}"
+          f"; no error")
+
+
+def phase_experiments(dev, report: dict) -> None:
+    """nbody_tpu_torch.experiments on the card: the eight suites' main
+    with their launches derived and their kernels' first launch of each
+    shape against the plain versions, propagate_rk4's graph replay
+    against eager launches and the CPU, and ultimate.run_all_tests."""
+    import logging
+
+    logging.getLogger("nbody_tpu_torch.glitch").setLevel(logging.ERROR)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        experiment_suites(dev, tmp, report)
+        experiment_rk4(dev)
+        experiment_run_all(dev, tmp)
+
+
+# --------------------------------------------------------------------------
 # Extra phase: each kernel against its plain version at the 1M shapes
 # --------------------------------------------------------------------------
 
@@ -5417,6 +5898,8 @@ def main(argv=None) -> int:
                 phase_ultimate(dev, report)
             elif phase == "realtime":
                 phase_realtime(dev, report)
+            elif phase == "experiments":
+                phase_experiments(dev, report)
             elif phase == "profile":
                 phase_profile(dev, args.profile_out)
             elif phase == "scale":

@@ -19,9 +19,9 @@ ultimate_reality_engine.py:165-1826):
   ``compare_substrate_states`` reads the other's file;
 * ``run_ultimate_reality_test``: 5 phases + score + verdict + JSON
   (reference: :888-1146). ``run_all_tests`` also chains the sensitivity /
-  omniverse / orbital suites (reference: :1447-1728); this package has no
-  ``experiments`` yet, so each of the three is recorded as
-  ``{"error": "ModuleNotFoundError: ..."}`` by the per-suite capture.
+  omniverse / orbital suites of ``nbody_tpu_torch.experiments``
+  (reference: :1447-1728) on the same device, each failure recorded as
+  ``{"error": ...}`` by the per-suite capture.
 
 Everything runs on ``--device`` (default ``cuda``; with no card the entry
 point raises and names ``--device cpu``).
@@ -387,8 +387,8 @@ def run_ultimate_reality_test(num_particles: int = 32768,
     return report
 
 
-# The suites run_all_tests chains: (name, module, runner). This package
-# has no experiments module yet, so each import fails and is recorded.
+# The suites run_all_tests chains: (name, module of
+# nbody_tpu_torch.experiments, runner).
 SUITES = (("sensitivity", "sensitivity_test", "run_sensitivity_sweep"),
           ("omniverse", "omniverse_tests", "run_omniverse_suite"),
           ("orbital", "orbital_audit", "run_full_orbital_audit"))
@@ -397,10 +397,9 @@ SUITES = (("sensitivity", "sensitivity_test", "run_sensitivity_sweep"),
 def run_all_tests(quick: bool = True, seed: int = 42,
                   out_dir: str = "output/ultimate", device=None) -> dict:
     """(reference: :1447-1728): ultimate + sensitivity + omniverse +
-    orbital, with graceful per-suite failure capture. The three suites
-    live in ``nbody_tpu_torch.experiments``, which this package does not
-    have yet: each is recorded as ``{"error": "ModuleNotFoundError:
-    ..."}``."""
+    orbital, all on ``device``, with graceful per-suite failure capture:
+    a suite that raises is recorded as ``{"error": "<type>: <message>"}``
+    and the others still run."""
     results = {"ultimate": run_ultimate_reality_test(quick=quick,
                                                      seed=seed,
                                                      out_dir=out_dir,
@@ -408,9 +407,9 @@ def run_all_tests(quick: bool = True, seed: int = 42,
     args = {
         "sensitivity": lambda fn: fn(
             800 if quick else 1500, 200 if quick else 500,
-            out_dir=str(Path(out_dir) / "sensitivity")),
-        "omniverse": lambda fn: fn(quick=quick, seed=seed),
-        "orbital": lambda fn: fn(quick=quick),
+            out_dir=str(Path(out_dir) / "sensitivity"), device=device),
+        "omniverse": lambda fn: fn(quick=quick, seed=seed, device=device),
+        "orbital": lambda fn: fn(quick=quick, device=device),
     }
     for name, module, runner in SUITES:
         try:

@@ -169,6 +169,10 @@ TILED_MIN_N = ONE_PASS_MIN_TILES * TILE
 # 132 SMs, fewer than max_d2_single's capped 1024 (8 a SM ran 0.8%
 # faster at 131072 but made a skipped launch 0.9% dearer than that one's).
 MAX_D2_TILED_PER_SM = 7
+# The pruned bounds pass's candidates (max_pairwise_dist_sq_pruned): up to
+# this N one max_d2 launch on every point, beyond it two (the candidates,
+# and the full set behind the admitted-count flag).
+PRUNED_CANDIDATES = 1024
 # The register-tiled pair_pe_rows (csrc/pair_pe_rows.cu's pair_pe_tiled):
 # the row sweep's geometry, 512 receivers a block and 128-source tiles,
 # its segments by pe_segments toward this many blocks.
@@ -1111,7 +1115,8 @@ def _diameter_directions(dim: int, device: torch.device) -> torch.Tensor:
 
 def max_pairwise_dist_sq_pruned(positions: torch.Tensor, cfg: SimConfig,
                                 softening_sq=None,
-                                max_candidates: int = 1024) -> torch.Tensor:
+                                max_candidates: int = PRUNED_CANDIDATES
+                                ) -> torch.Tensor:
     """EXACT global max softened pairwise d^2 in O(N) work
     (counterpart of ``nbody_tpu.ops.forces.max_pairwise_dist_sq_pruned``).
 

@@ -16,9 +16,11 @@ the CPU.
   ``hash_match`` true.
 * ``run_ultimate_reality_test`` at 512 particles on a 16^3 grid gives JAX's
   report keys; ``main`` runs its modes with ``--device cpu``;
-  ``run_all_tests`` records the three suites this package lacks as
-  ``ModuleNotFoundError``; tests/test_experiments_smoke.py's structure
-  case on the port.
+  ``run_all_tests(device="cpu")`` runs the sensitivity, omniverse and
+  orbital suites of ``nbody_tpu_torch.experiments`` at tiny sizes (each
+  runner wrapped to shrink it, the same wrap on JAX's suites): no
+  ``error`` entry, JAX's top-level keys, and the device reached each;
+  tests/test_experiments_smoke.py's structure case on the port.
 """
 
 import functools
@@ -193,18 +195,92 @@ def test_main_modes_on_the_cpu(tmp_path, small_main, capsys):
     assert "run --mode substrate first" in capsys.readouterr().out
 
 
-def test_run_all_tests_records_the_missing_suites(tmp_path, monkeypatch):
-    calls = []
-    monkeypatch.setattr(tu, "run_ultimate_reality_test",
-                        lambda **kw: calls.append(kw) or {"stub": True})
-    res = tu.run_all_tests(quick=True, out_dir=str(tmp_path), device="cpu")
-    assert calls == [dict(quick=True, seed=42, out_dir=str(tmp_path),
-                          device="cpu")]
+def _tiny_suites(monkeypatch, sens, omni, orbital, seen=None):
+    """Shrink the three suites of one package in place: sensitivity to 48
+    stars x 20 ticks at levels 4 and 100000, the omniverse probes to a
+    few dozen ticks, and every RK4 propagation of the orbital audit to
+    three of its chunks. ``seen`` records the device each runner got."""
+    def record(name, kw):
+        if seen is not None:
+            seen[name] = kw.get("device")
+
+    sweep = sens.run_sensitivity_sweep
+
+    def tiny_sweep(num_stars, num_ticks, **kw):
+        record("sensitivity", kw)
+        return sweep(48, 20, levels=[4, 100000], **kw)
+
+    monkeypatch.setattr(sens, "run_sensitivity_sweep", tiny_sweep)
+    for name, shrink in (
+            ("recursive_physics_mirror", lambda a, kw: ((15,) + a[1:], kw)),
+            ("fluid_dynamics_chaos", lambda a, kw: ((200, 10) + a[2:], kw)),
+            ("neural_hardware_bridge",
+             lambda a, kw: ((60,) + a[1:], {**kw, "epochs": 3})),
+            ("voxel_spacetime_grid", lambda a, kw: ((2, 10) + a[2:], kw))):
+        def tiny(*a, _fn=getattr(omni, name), _shrink=shrink, **kw):
+            return _fn(*_shrink(a, kw)[0], **_shrink(a, kw)[1])
+        monkeypatch.setattr(omni, name, tiny)
+    suite = omni.run_omniverse_suite
+
+    def tiny_suite(**kw):
+        record("omniverse", kw)
+        return suite(**kw)
+
+    monkeypatch.setattr(omni, "run_omniverse_suite", tiny_suite)
+    prop = orbital.propagate_rk4
+
+    def tiny_prop(p, v, dt, q, num_steps, sample_every, **kw):
+        return prop(p, v, dt, q, min(num_steps, 3 * sample_every),
+                    sample_every, **kw)
+
+    monkeypatch.setattr(orbital, "propagate_rk4", tiny_prop)
+    audit = orbital.run_full_orbital_audit
+
+    def tiny_audit(**kw):
+        record("orbital", kw)
+        return audit(**kw)
+
+    monkeypatch.setattr(orbital, "run_full_orbital_audit", tiny_audit)
+
+
+def _top_keys(result):
+    if isinstance(result, dict):
+        return sorted(result)
+    results, mono = result   # the sensitivity sweep: (results, verdict)
+    return (len(results), sorted(vars(results[0])), sorted(mono))
+
+
+def test_run_all_tests_runs_the_three_suites(tmp_path, monkeypatch):
+    from nbody_tpu.experiments import omniverse_tests as jo
+    from nbody_tpu.experiments import orbital_audit as joa
+    from nbody_tpu.experiments import sensitivity_test as js
+    from nbody_tpu_torch.experiments import omniverse_tests as to
+    from nbody_tpu_torch.experiments import orbital_audit as toa
+    from nbody_tpu_torch.experiments import sensitivity_test as ts
+
+    calls, seen = [], {}
+    for mod in (tu, ju):
+        monkeypatch.setattr(mod, "run_ultimate_reality_test",
+                            lambda **kw: calls.append(kw) or {"stub": True})
+    _tiny_suites(monkeypatch, ts, to, toa, seen)
+    _tiny_suites(monkeypatch, js, jo, joa)
+    res = tu.run_all_tests(quick=True, out_dir=str(tmp_path / "torch"),
+                           device="cpu")
+    want = ju.run_all_tests(quick=True, out_dir=str(tmp_path / "jax"))
+    assert calls[0] == dict(quick=True, seed=42, out_dir=str(tmp_path
+                                                             / "torch"),
+                            device="cpu")
     assert res["ultimate"] == {"stub": True}
-    for name, module, _ in tu.SUITES:
-        assert res[name]["error"].startswith("ModuleNotFoundError: "), res
-        assert "nbody_tpu_torch.experiments" in res[name]["error"]
-    saved = json.loads((tmp_path / "comprehensive_report.json").read_text())
+    assert [name for name, _, _ in tu.SUITES] == ["sensitivity",
+                                                  "omniverse", "orbital"]
+    assert seen == {"sensitivity": "cpu", "omniverse": "cpu",
+                    "orbital": "cpu"}
+    for name, _, _ in tu.SUITES:
+        assert "error" not in res[name], res[name]
+        assert "error" not in want[name], want[name]
+        assert _top_keys(res[name]) == _top_keys(want[name]), name
+    saved = json.loads((tmp_path / "torch" / "comprehensive_report.json")
+                       .read_text())
     assert set(saved) == {"ultimate", "sensitivity", "omniverse", "orbital"}
 
 
