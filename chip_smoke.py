@@ -185,6 +185,28 @@ Phases (any failure exits non-zero before the last line is printed):
    its eager launches (both timed, in turns) and float32 within 1e-4 of
    the orbit's radius of the CPU (int4's bin flips counted);
    ``ultimate.run_all_tests(quick=True)`` on the card with no error.
+18. probes: the hardware and glitch probes of
+   ``nbody_tpu_torch.experiments``: ``extreme_mode.memory_armageddon`` at
+   its defaults (its ceiling, and the reserved memory back where it was);
+   ``density_limit_test.main`` at the card's default sweep (D=2 disk,
+   1000 to 1,048,576 stars, float32 and int4, no --quick) and one D=3 row
+   at 131072: ms a tick, pairs/s, the fitted exponent, peak memory; the
+   nine probes through ``run_all.main --only`` at run_all's arguments:
+   each status ok, JAX's report keys, finite numbers, the smoke tests'
+   verdicts (the aliasing clips through, 128 doublings to inf, 150
+   halvings to 0: subnormals kept); every SUITES entry imports with a
+   main. The launches of sym_force, sym_force_uniform, pair_sym_force
+   (both variants) and max_d2 equal the counts derived from each run's
+   N, ticks and modes, from each module's own sizing (``sweep_plan``,
+   ``suite_sizes``, its constants); three come from a report because the
+   work depends on the run: the hardware leak's iterations and the red
+   team's entropy samples (loops that run for a set time, so their
+   count depends on the card's speed; the launches of one iteration are
+   derived from the code) and the crash sweeps' crash ticks. The first
+   launch of each kernel shape is held against its plain version: up to
+   131072 points in full, sym_force past it on 4096 sampled rows (the 1M
+   sweep's chunk shapes are phase large's, not held again), max_d2 past
+   it bitwise the design it replaced.
 
 The kernels phase also holds the equal-mass variants (D in {2,3}, every
 mode, N in {4096, 32768}; the one-pass design at odd multiples of 64, N in
@@ -231,7 +253,7 @@ import torch
 REPO = Path(__file__).resolve().parent
 PHASES = ("kernels", "main", "gate", "perf", "large", "ring", "cached",
           "lab", "lab_r4", "lab_r5", "pm", "pm_mesh", "ultimate",
-          "realtime", "experiments")  # default
+          "realtime", "experiments", "probes")  # default
 EXTRA_PHASES = ("profile", "scale")
 MODES = ("float32", "bfloat16", "float16", "int8", "int4", "custom")
 STARS, TICKS, INTERVAL = 5000, 2000, 100
@@ -2528,7 +2550,8 @@ def reset_counters(hn) -> None:
         registry.clear()
 
 
-def hold_large(name, got, want, pos, gm, bounds, q, rows=None):
+def hold_large(name, got, want, pos, gm, bounds, q, rows=None,
+               label: str = "large"):
     """Two summation orders of the same ~1M terms per row: the elementwise
     rule with the summed-|terms| scale where |a| alone does not hold, and
     for int8/int4 the quantize_force flip rule. Returns a summary."""
@@ -2539,12 +2562,12 @@ def hold_large(name, got, want, pos, gm, bounds, q, rows=None):
     scaled = (scale != 0).any(1)
     scaled_ratio = (agree(got[scaled], want[scaled], scale[scaled])[2]
                     if scaled.any() else 0.0)
-    print(f"large:   {name}: max err {err:.4e}, err/bound {ratio:.4f}; rows "
+    print(f"{label}:   {name}: max err {err:.4e}, err/bound {ratio:.4f}; rows "
           f"beyond the |a| rule {int(scaled.sum())}, held to the summed "
           f"|terms|: worst err/bound {scaled_ratio:.4f}; non-finite "
           f"{nonfinite}; quantize_force flips {off} (allowed {allowed})")
     check(ok and off <= allowed and one_step,
-          f"{name}: kernels disagree at N={LARGE_N}")
+          f"{name}: kernels disagree at N={pos.shape[0]}")
     return err
 
 
@@ -5197,23 +5220,37 @@ RK4_AB = ("ISS", 6.0, 10.0)   # fixture, hours, dt: the drift audit's run
 
 
 def force_evals(counts: dict, n: int, evals: int, precision,
-                equal_masses: bool) -> None:
+                equal_masses: bool, dim: int = 2) -> None:
     """Add the launches of ``evals`` force evaluations of DirectSimulation
-    (force_impl "auto") over n particles at ``precision`` (a Quantizer or
-    a mode's name) to counts: sym_force an evaluation (its equal-mass
-    variant for equal masses at a multiple of TILE), and for an int or
-    custom rung the pruned bounds pass's max_d2 launches; float64 launches
-    none (the native-f64 baseline)."""
+    (force_impl "auto", a static or run-time softening that is not routed
+    to the row sweep) over n particles at ``precision`` (a Quantizer or a
+    mode's name) to counts: sym_force an evaluation (its equal-mass
+    variant for equal masses at a multiple of TILE) while one launch fits
+    (hn.sym_force_fits), else the chunked path's C sym_force and
+    C(C-1)/2 pair_sym_force launches over hn.sym_chunk_size chunks, each
+    in its equal-mass variant where its sizes are multiples of TILE; and
+    for an int or custom rung the pruned bounds pass's max_d2 launches;
+    float64 launches none (the native-f64 baseline)."""
     from nbody_tpu_torch.ops import hopper_nbody as hn
     from nbody_tpu_torch.ops.precision import Precision, Quantizer
 
     q = (precision if isinstance(precision, Quantizer)
          else Quantizer(Precision(precision)))
-    check(hn.sym_force_fits(n, 2), f"N={n} leaves the single launch")
     if q.mode == Precision.FLOAT64:
         return
-    uniform = equal_masses and n % hn.TILE == 0
-    counts["sym_force_uniform" if uniform else "sym_force"] += evals
+    if hn.sym_force_fits(n, dim):
+        uniform = equal_masses and n % hn.TILE == 0
+        counts["sym_force_uniform" if uniform else "sym_force"] += evals
+    else:
+        chunk = hn.sym_chunk_size(n, dim)
+        sizes = [min(chunk, n - a) for a in range(0, n, chunk)]
+        for i, a in enumerate(sizes):
+            counts[hn._variant("sym_force", equal_masses
+                               and a % hn.TILE == 0)] += evals
+            for b in sizes[i + 1:]:
+                counts[hn._variant("pair_sym_force", equal_masses
+                                   and a % hn.TILE == 0
+                                   and b % hn.TILE == 0)] += evals
     if q.is_int:
         counts["max_d2"] += evals * (1 if n <= hn.PRUNED_CANDIDATES else 2)
 
@@ -5352,7 +5389,8 @@ def first_launches(hn):
         hn.sym_force, hn.max_d2 = sym, mx
 
 
-def hold_first_launches(seen: dict, report: dict) -> None:
+def hold_first_launches(seen: dict, report: dict,
+                        label: str = "experiments") -> None:
     """Each launch first_launches recorded, again, against its plain
     version on the same inputs: sym_force (and its equal-mass variant)
     within the kernels phase's tolerance and quantize_force flips (Tally),
@@ -5392,7 +5430,7 @@ def hold_first_launches(seen: dict, report: dict) -> None:
     for name, tally in tallies.items():
         if tally.cases:
             tally.report(f"{name} at the suites' shapes", report[name])
-    print(f"experiments: max_d2 bitwise its plain version at the suites' "
+    print(f"{label}: max_d2 bitwise its plain version at the suites' "
           f"{len(maxes)} shapes {sorted(key[1] for key in maxes)}")
 
 
@@ -5619,6 +5657,507 @@ def phase_experiments(dev, report: dict) -> None:
         experiment_suites(dev, tmp, report)
         experiment_rk4(dev)
         experiment_run_all(dev, tmp)
+
+
+# --------------------------------------------------------------------------
+# Phase 18: the hardware and glitch probes, and run_all
+# --------------------------------------------------------------------------
+
+# The nine probes of nbody_tpu_torch.experiments that run_all runs at its
+# own arguments (run_all.SUITES), and the report each writes.
+PROBE_REPORTS = {
+    "density_limit_test": "density_limit_report.json",
+    "hardware_leak_test": "hardware_leak_report.json",
+    "crash_point_test": "crash_point_report.json",
+    "universe_stress_test": "stress_test_report.json",
+    "breakout_tests": "breakout_results.json",
+    "extreme_mode": "extreme_mode_report.json",
+    "red_team_proof": "rsi_{kind}.json",
+    "omega_point_test": "omega_point_report.json",
+    "reality_glitch_tests": "reality_glitch_report.json",
+}
+# The top-level keys of each probe's report, as the JAX package writes them.
+PROBE_KEYS = {
+    "density_limit_test": {"results", "scaling", "telemetry_note"},
+    "hardware_leak_test": {"workloads", "analysis"},
+    "crash_point_test": {"velocity", "dt", "quantization", "softening"},
+    "universe_stress_test": {"boundaries", "energy_leak",
+                             "density_scaling"},
+    "breakout_tests": {"precision_wall", "lazy_loading", "lattice_symmetry",
+                       "memory_leak", "verdict"},
+    "extreme_mode": {"subnormal_hell", "infinity_cascade",
+                     "precision_massacre", "singularity_hunt",
+                     "quantum_chaos"},
+    "red_team_proof": {"platform", "device_kind", "temporal_jitter",
+                       "divergence", "entropy_drift", "observer_effect",
+                       "rsi", "sha256"},
+    "omega_point_test": {"bekenstein", "temporal_aliasing", "entropy_leak",
+                         "phase_space", "triple_point",
+                         "physical_comparison", "reality_heatmap",
+                         "simulation_probability"},
+    "reality_glitch_tests": {"subnormal_singularity",
+                             "multiverse_divergence", "entropy_horizon",
+                             "spatial_aliasing"},
+}
+# Numbers a report may hold as +/-inf (JAX's reports do too): omega's
+# heat death when the ghost energy does not grow, the leak's overhead when
+# the int4 workload ran no iteration.
+PROBE_INF_OK = ("/entropy_leak/ticks_to_heat_death",
+                "/analysis/broken_overhead_percent")
+# The D=3 row of the density phase, at its full width.
+DENSITY_D3 = ["--dim", "3", "--counts", str(BIG_N)]
+# memory_armageddon must hand its blocks back: reserved memory after the
+# probe within this much of before.
+ARMAGEDDON_SLACK_MB = 256
+
+
+def crash_sweep_evals(counts: dict, mod, n: int, ticks: int,
+                      sweeps: dict) -> int:
+    """Add the launches of crash_point_test's four sweeps (as the report
+    ``sweeps`` records them: which values ran and at which tick each
+    crashed) at n stars and ``ticks`` ticks; returns the runs. A run is
+    one set-up evaluation and a tick's each, in chunks of mod.CHECK up to
+    its crash's tick or the whole ceil(ticks / CHECK) chunks."""
+    full = -(-ticks // mod.CHECK) * mod.CHECK
+    runs = 0
+    for axis, key in (("velocity", "multiplier"), ("dt", "dt"),
+                      ("quantization", "levels"),
+                      ("softening", "softening")):
+        values = [r[key] for r in sweeps[axis]["sweep"]]
+        grid = {"velocity": mod.VELOCITY_MULTIPLIERS, "dt": mod.DTS,
+                "quantization": mod.LEVELS, "softening": mod.SOFTENINGS}
+        check(values == grid[axis][:len(values)]
+              and (axis == "velocity" or len(values) == len(grid[axis])),
+              f"crash sweep {axis}: values {values}")
+        for r in sweeps[axis]["sweep"]:
+            run = r["crash"]["tick"] if r["crash"] else full
+            q = (mod.level_quantizer(r["levels"]) if axis == "quantization"
+                 else "float32")
+            force_evals(counts, n, 1 + run, q, True)
+            runs += 1
+    return runs
+
+
+def probe_launches(module: str, argv: list, rep: dict, extra=None) -> tuple:
+    """The kernel launches one probe's run must make, and the derivation
+    as text: N, ticks and modes from the probe's own parser for argv, its
+    size rules (suite_sizes, sweep_plan) and its constants. Three counts
+    depend on the device's speed, since their loops run for a set time:
+    the hardware leak's workloads and the red team's entropy drift, read
+    from the report's iteration and sample counts; and one on where a run
+    crashed: the crash sweeps' ticks (from the report's crash ticks; the
+    stress test's boundary scan runs the same four sweeps, ``extra``, the
+    crash probe's report). The observer-effect loops run a set number of
+    ticks. No probe takes an energy past hn.TILED_MIN_N, so pair_pe_rows
+    launches 0 times; the dense force (precision wall, quantum chaos,
+    the multiverse) and the float64 baseline launch nothing."""
+    import importlib
+    import inspect
+
+    from nbody_tpu_torch.experiments import _common
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+
+    counts = {k: 0 for k in hn.LAUNCHES}
+    mod = importlib.import_module(f"nbody_tpu_torch.experiments.{module}")
+    observer = inspect.signature(_common.observer_effect_rates).parameters
+    chunk, repeats = (observer[k].default for k in ("chunk", "repeats"))
+
+    def observed(n, ticks):   # observer_effect_rates: 2 arms x repeats runs
+        for _ in range(2 * repeats):
+            force_evals(counts, n, 1 + chunk + ticks // chunk * chunk,
+                        "float32", True)
+
+    def density_rows(rows, dim):
+        for r in rows:
+            force_evals(counts, r["num_stars"], 1 + 2 * r["ticks"],
+                        "float32" if r["mode"] == "clean_float32"
+                        else "int4_sim", True, dim)
+
+    if module == "density_limit_test":
+        plan, ticks, dim, _ = mod.sweep_plan(argv)
+        device = torch.device(mod.build_parser().parse_args(argv).device)
+        plan = plan or (mod.DEFAULT_COUNTS_CARD if device.type == "cuda"
+                        else mod.DEFAULT_COUNTS)
+        rows = rep["results"]
+        for mode in ("clean_float32", "int4_broken"):
+            got = [(r["num_stars"], r["ticks"]) for r in rows
+                   if r["mode"] == mode]
+            want = [(n, mod._ticks_for(n, ticks, device)) for n in plan]
+            check(got == want[:len(got)] and (len(got) == len(want)
+                                              or rows[-1]["crashed"]),
+                  f"density {mode}: rows {got}, planned {want}")
+        density_rows(rows, dim)
+        text = (f"D={dim} rows (N, ticks) "
+                f"{[(r['num_stars'], r['ticks']) for r in rows[:len(plan)]]}"
+                f" x float32 and int4: 1 + 2 x ticks evaluations a row "
+                f"(set-up, warm-up, timed)")
+    elif module == "crash_point_test":
+        n, ticks = mod.suite_sizes(argv)
+        runs = crash_sweep_evals(counts, mod, n, ticks, rep)
+        text = (f"{runs} runs at {n} stars: 1 + the ticks to each crash (or "
+                f"{ticks} rounded up to chunks of {mod.CHECK})")
+    elif module == "universe_stress_test":
+        from nbody_tpu_torch.experiments import crash_point_test as cpt
+        s = mod.suite_sizes("--quick" in argv)
+        check([mod.dataclasses.asdict(mod.boundary(*b)) for b in (
+            ("velocity_multiplier", extra["velocity"], "multiplier"),
+            ("dt", extra["dt"], "dt"),
+            ("quantization_levels", extra["quantization"], "levels"),
+            ("softening", extra["softening"], "softening"))]
+              == rep["boundaries"],
+              "stress: the boundary scan differs from the crash probe's "
+              "sweeps at the same size")
+        runs = crash_sweep_evals(counts, cpt, s["stars"], s["ticks"], extra)
+        for mode in ("float32", "int4_sim"):
+            force_evals(counts, s["stars"], 1 + s["leak_ticks"], mode, True)
+        density_rows(rep["density_scaling"], 2)
+        text = (f"the crash probe's {runs} sweep runs at {s['stars']}, the "
+                f"leak at {s['stars']} x {1 + s['leak_ticks']} float32 and "
+                f"int4, the density rows {s['density_counts']} x "
+                f"{mod.DENSITY_TICKS} ticks")
+    elif module == "hardware_leak_test":
+        duration, n = mod.suite_sizes(argv)
+        w = rep["workloads"]
+        for name, mode in (("float32_standard", "float32"),
+                           ("int4_broken", "int4_sim")):
+            force_evals(counts, n, 1 + mod.SIM_CHUNK + w[name]["iterations"],
+                        mode, True)
+        text = (f"{n} stars, 1 + {mod.SIM_CHUNK} (warm) + the report's "
+                f"ticks ({w['float32_standard']['iterations']} float32, "
+                f"{w['int4_broken']['iterations']} int4, in {duration}s "
+                f"each); float64 and the matmul / alloc loops: none")
+    elif module == "breakout_tests":
+        s = mod.suite_sizes("--quick" in argv)
+        observed(s["lazy_stars"], s["lazy_ticks"])
+        for _ in range(2 * s["lattice_trials"]):
+            force_evals(counts, mod.LATTICE_STARS, 1 + s["lattice_ticks"],
+                        "float32", True)
+        text = (f"lazy loading {2 * repeats} x {s['lazy_stars']} stars x "
+                f"{1 + chunk + s['lazy_ticks']}, lattice "
+                f"{2 * s['lattice_trials']} x {mod.LATTICE_STARS} x "
+                f"{1 + s['lattice_ticks']}; the wall runs dense")
+    elif module == "extreme_mode":
+        s = mod.suite_sizes("--quick" in argv)
+        n, _ = s["subnormal_hell"]
+        hell = len(rep["subnormal_hell"]["rows"])
+        force_evals(counts, n, hell * (1 + mod.HELL_CHUNK), "float32", True)
+        n, _ = s["infinity_cascade"]
+        chunks = len(rep["infinity_cascade"]["contagion"])
+        force_evals(counts, n, 1 + mod.CASCADE_WARM + chunks * mod.CHUNK,
+                    "float32", True)
+        n, ticks = s["precision_massacre"]
+        force_evals(counts, n, 2 * (1 + ticks // mod.CHUNK * mod.CHUNK),
+                    "float32", True)
+        n, ticks = s["singularity_hunt"]
+        sing = rep["singularity_hunt"]
+        check(not sing["singularity"] or len(sing["rows"]) < 3,
+              f"extreme: the singularity's chunk is past the report's "
+              f"last three rows: {sing}")
+        found = (len(sing["rows"]) if sing["singularity"]
+                 else ticks // mod.CHUNK)
+        force_evals(counts, n, 1 + found * mod.CHUNK, "float32", True)
+        text = (f"subnormal hell {hell} runs x {1 + mod.HELL_CHUNK}, the "
+                f"cascade 1 + {mod.CASCADE_WARM} + {chunks} x {mod.CHUNK}, "
+                f"the massacre's two twins, the singularity hunt {found} "
+                f"chunks; the chaos runs dense")
+    elif module == "red_team_proof":
+        s = mod.suite_sizes("--quick" in argv)
+        n = s["stars"]
+        force_evals(counts, n, 2 + mod.JITTER_WARM + s["jitter_ticks"],
+                    "float32", True)
+        samples = rep["entropy_drift"]["samples"]
+        force_evals(counts, n, 1 + samples * mod.ENTROPY_CHUNK, "int4_sim",
+                    True)
+        observed(n, s["observer_ticks"])
+        text = (f"{n} stars: jitter {2 + mod.JITTER_WARM + s['jitter_ticks']}"
+                f", the entropy drift's {samples} samples x "
+                f"{mod.ENTROPY_CHUNK} int4 (in {s['entropy_s']}s), observer "
+                f"{2 * repeats} x {1 + chunk + s['observer_ticks']}; the "
+                f"multiverse runs dense")
+    elif module == "omega_point_test":
+        s = mod.suite_sizes("--quick" in argv)
+        for _ in mod.BEKENSTEIN_RADII:
+            force_evals(counts, s["bekenstein_stars"],
+                        1 + 2 * mod.PROBE_TICKS, "float32", True)
+        for _ in range(s["aliasing_dts"]):
+            force_evals(counts, s["aliasing_stars"], 1 + mod.PROBE_TICKS,
+                        "float32", True)
+        force_evals(counts, s["entropy_stars"], 1 + s["entropy_ticks"],
+                    "int4_sim", True)
+        for prec in mod.PHASE_PRECISIONS:
+            for _ in range(2 * len(s["phase_vel_mults"])
+                           * len(mod.PHASE_RADII)):
+                force_evals(counts, s["phase_stars"], 1 + mod.PROBE_TICKS,
+                            prec.value, True)
+        text = (f"Bekenstein {len(mod.BEKENSTEIN_RADII)} x "
+                f"{s['bekenstein_stars']}, aliasing {s['aliasing_dts']} x "
+                f"{s['aliasing_stars']}, the int4 leak {s['entropy_ticks']}"
+                f" ticks at {s['entropy_stars']}, the phase scan "
+                f"{2 * len(mod.PHASE_PRECISIONS) * len(s['phase_vel_mults']) * len(mod.PHASE_RADII)}"
+                f" runs at {s['phase_stars']}")
+    else:
+        s = mod.suite_sizes("--quick" in argv)
+        n, ticks = s["subnormal_singularity"]
+        force_evals(counts, n, 1 + ticks // mod.SUBNORMAL_CHUNK
+                    * mod.SUBNORMAL_CHUNK, "float32", True)
+        n, ticks = s["entropy_horizon"]
+        force_evals(counts, n, 1 + ticks // mod.ENTROPY_CHUNK
+                    * mod.ENTROPY_CHUNK, "int4_sim", True)
+        wall = inspect.signature(mod.spatial_aliasing_test).parameters
+        stars, wall_ticks = (wall[k].default for k in ("wall_stars",
+                                                       "num_ticks"))
+        force_evals(counts, stars + 1, 1 + wall_ticks, "float32", False)
+        text = (f"the subnormal run at {s['subnormal_singularity'][0]}, the "
+                f"int4 horizon at {n}, the wall {stars} + 1 (unequal "
+                f"masses) x {1 + wall_ticks}; the multiverse runs dense")
+    return counts, text
+
+
+def probe_armageddon(dev) -> None:
+    """extreme_mode.memory_armageddon at its defaults: its ceiling and
+    error, and the reserved memory back where it was."""
+    from nbody_tpu_torch.experiments import extreme_mode
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_reserved(dev)
+    t0 = time.time()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = extreme_mode.memory_armageddon(device=dev)
+    wall = time.time() - t0
+    after = torch.cuda.memory_reserved(dev)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    print(f"probes: memory_armageddon: ceiling {res['ceiling_mb']} MB of "
+          f"{total / 2 ** 20:.0f} MB, error {res['error']}, in {wall:.2f}s; "
+          f"reserved {before / 2 ** 20:.0f} MB before, "
+          f"{after / 2 ** 20:.0f} MB after")
+    check(res["ceiling_mb"] > 0, "memory_armageddon allocated nothing")
+    check(after <= before + ARMAGEDDON_SLACK_MB * 2 ** 20,
+          f"memory_armageddon left {(after - before) / 2 ** 20:.0f} MB "
+          f"reserved")
+
+
+def probe_density(dev, tmp: Path, report: dict) -> None:
+    """density_limit_test.main at the card's default sweep (D=2, every
+    count, float32 and int4, no --quick) and the D=3 row at BIG_N: the
+    report, the launches against their derivation, ms a tick and pairs/s
+    a row, the fitted exponents and the peak memory."""
+    from nbody_tpu_torch.experiments import density_limit_test as dlt
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+
+    for argv in ([], DENSITY_D3):
+        argv = [*argv, "--device", str(dev), "--output",
+                str(tmp / f"density{len(argv)}")]
+        reset_counters(hn)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.time()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rep = dlt.main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        launches = dict(hn.LAUNCHES)
+        fallbacks = hn.bounds_fallbacks(dev)
+        check(set(rep) == PROBE_KEYS["density_limit_test"],
+              f"density: report keys {sorted(rep)}")
+        rows = rep["results"]
+        check(not any(r["crashed"] for r in rows),
+              f"density: crashed rows {[r for r in rows if r['crashed']]}")
+        bad = [p for p in finite_numbers(rows) if not p.endswith("memory_mb")]
+        check(not bad, f"density: non-finite numbers at {bad[:5]}")
+        want, text = probe_launches("density_limit_test", argv, rep)
+        check(launches == want, f"density {argv[:-4]}: launches "
+              f"{ {k: v for k, v in launches.items() if v} }, derived "
+              f"{ {k: v for k, v in want.items() if v} } ({text})")
+        dim = rows[0]["dim"]
+        for r in rows:
+            print(f"probes: density D={dim} {r['mode']} N={r['num_stars']}: "
+                  f"{r['ticks']} ticks, {r['ms_per_tick']:.4f} ms/tick, "
+                  f"{r['pairs_per_sec']:.4e} pairs/s, regime "
+                  f"{r.get('regime', '-')}")
+        for mode, v in rep["scaling"].items():
+            ci = v["exponent_ci95"]
+            print(f"probes: density D={dim} {mode}: time ~ N^"
+                  f"{v['exponent']:.3f}" + (f" +/- {ci:.3f}" if ci else "")
+                  + f" ({v['regime_note']})")
+        print(f"probes: density D={dim} sweep in {wall:.2f}s, peak "
+              f"{peak:.2f} GiB allocated; pruned-pass fallbacks "
+              f"{fallbacks}; launches "
+              f"{ {k: v for k, v in launches.items() if v} } = derived: "
+              f"{text}")
+        for k in ("sym_force", "sym_force_uniform", "max_d2",
+                  "pair_sym_force", "pair_sym_force_uniform"):
+            report[k]["launches"] += launches[k]
+
+
+def probe_checks(module: str, rep: dict, dev) -> str:
+    """tests/test_experiments_smoke.py's verdicts on the card's report,
+    and the port's subnormal census (IEEE float32, nothing flushed)."""
+    if module == "crash_point_test":
+        check(all(len(rep[k]["sweep"]) >= 1 for k in rep),
+              "crash: a sweep returned nothing")
+        return (f"first crashes: velocity x"
+                f"{rep['velocity']['first_crash_multiplier']}, dt "
+                f"{rep['dt']['first_crash_dt']}, levels "
+                f"{rep['quantization']['first_crash_levels']}, softening "
+                f"{rep['softening']['first_crash_softening']}")
+    if module == "breakout_tests":
+        leak = rep["memory_leak"]
+        check((leak["overflow_inf_iter"], leak["underflow_zero_iter"],
+               leak["ftz_detected"]) == (128, 150, False),
+              f"breakout: memory leak {leak}")
+        return (f"inf after 128 doublings, 0 after 150 halvings (no FTZ); "
+                f"{rep['verdict']['conclusion']}")
+    if module == "reality_glitch_tests":
+        alias = rep["spatial_aliasing"]
+        check(alias["clip_through"], f"glitch: no clip-through: {alias}")
+        return (f"clip-through at tick {alias['crossed_tick']}; "
+                f"{rep['subnormal_singularity']['verdict']}")
+    if module == "red_team_proof":
+        check(rep["platform"] == dev.type and rep["device_kind"]
+              == torch.cuda.get_device_name(0), f"red team: {rep['platform']}"
+              f" {rep['device_kind']}")
+        return (f"RSI {rep['rsi']:.2f}, entropy samples "
+                f"{rep['entropy_drift']['samples']}")
+    if module == "omega_point_test":
+        crit = rep["temporal_aliasing"]["critical_dt"]
+        check(crit is None or crit > 0.01, f"omega: critical dt {crit}")
+        return (f"critical dt {crit}, probability "
+                f"{rep['simulation_probability']:.2f}")
+    if module == "extreme_mode":
+        return (f"contagion {rep['infinity_cascade']['contagion'][-1]}, "
+                f"singularity {rep['singularity_hunt']['singularity']}, "
+                f"chaos amplified {rep['quantum_chaos']['chaos_amplified']}")
+    if module == "hardware_leak_test":
+        a = rep["analysis"]
+        return (f"int4 overhead {a['broken_overhead_percent']:+.1f}% "
+                f"({a['clean_ticks_per_sec']:.0f} vs "
+                f"{a['broken_ticks_per_sec']:.0f} ticks/s)")
+    if module == "universe_stress_test":
+        return (f"ghost rate "
+                f"{rep['energy_leak']['ghost_rate_pct_per_tick']:+.6f}%/tick")
+    return f"{len(rep['results'])} rows"
+
+
+def probe_suites(dev, tmp: Path, report: dict) -> None:
+    """The nine probes through the port's run_all.main with --only, one at
+    a time at run_all's arguments: each status ok, the report's keys and
+    finite numbers, the smoke tests' verdicts, and the launches against
+    the derivation; then every SUITES entry imports with a main."""
+    from nbody_tpu_torch.experiments import run_all
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+
+    args = dict(run_all.SUITES)
+    total, crash = 0.0, None
+    for module, name in PROBE_REPORTS.items():
+        reset_counters(hn)
+        t0 = time.time()
+        with contextlib.redirect_stdout(io.StringIO()):
+            summary = run_all.main(["--device", str(dev), "--only", module,
+                                    "--output", str(tmp / "run_all")])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(hn.LAUNCHES)
+        check(summary[module]["status"] == "ok",
+              f"run_all {module}: {summary[module]['status']}")
+        name = name.format(kind=torch.cuda.get_device_name(0).replace(
+            " ", "_"))
+        rep = json.loads((tmp / "run_all" / module / name).read_text())
+        check(set(rep) == PROBE_KEYS[module],
+              f"{module}: report keys {sorted(rep)}")
+        bad = [p for p in finite_numbers(rep) if p not in PROBE_INF_OK
+               and not p.endswith("memory_mb")]
+        check(not bad, f"{module}: non-finite numbers at {bad[:5]}")
+        verdict = probe_checks(module, rep, dev)
+        want, text = probe_launches(module, [*args[module], "--device",
+                                             str(dev)], rep, crash)
+        check(launches == want, f"{module}: launches "
+              f"{ {k: v for k, v in launches.items() if v} }, derived "
+              f"{ {k: v for k, v in want.items() if v} } ({text})")
+        if module == "crash_point_test":
+            crash = rep
+        total += wall
+        print(f"probes: run_all {module} {' '.join(args[module])}: ok in "
+              f"{wall:.2f}s; {verdict}; launches "
+              f"{ {k: v for k, v in launches.items() if v} } = derived: "
+              f"{text}")
+        for k in ("sym_force", "sym_force_uniform", "max_d2"):
+            report[k]["launches"] += launches[k]
+    print(f"probes: the nine probes through run_all in {total:.2f}s")
+    for module, _ in run_all.SUITES:
+        check(callable(run_all.suite_module(module).main),
+              f"run_all: {module} has no main")
+    print(f"probes: all {len(run_all.SUITES)} run_all.SUITES import with a "
+          f"main (the eight of phase experiments not run again here)")
+
+
+def hold_probe_launches(seen: dict, report: dict) -> None:
+    """The first launch of each kernel shape the probes made, against its
+    plain version: up to BIG_N points by hold_first_launches; sym_force
+    past BIG_N (the density sweep's 262144 and 524288's chunks) on
+    SAMPLED_ROWS receivers by hold_large's rule, except the 1M sweep's
+    chunk shapes, which phase large holds on a 1M D=2 disk; max_d2 past
+    BIG_N bitwise the design it replaced (its plain version takes minutes
+    there)."""
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+
+    chunk = hn.sym_chunk_size(LARGE_N, 2)
+    large_chunks = {chunk, LARGE_N - (-(-LARGE_N // chunk) - 1) * chunk}
+    small = {k: v for k, v in seen.items() if k[1] <= BIG_N}
+    hold_first_launches(small, report, "probes")
+    gen = torch.Generator().manual_seed(LARGE_SEED)
+    for key, inputs in seen.items():
+        if key[1] <= BIG_N:
+            continue
+        if key[0] == "max_d2":
+            pos, = inputs
+            got, old = hn.max_d2(pos), hn.max_d2(pos, parent=True)
+            check(bitwise(got, old), f"max_d2 at N={key[1]} D={key[2]}: "
+                  f"{got.item()} vs its replaced design {old.item()}")
+            print(f"probes: max_d2 at N={key[1]} D={key[2]} bitwise the "
+                  f"design it replaced ({got.item():.6g})")
+            continue
+        pos, gm, bounds, q, masked, uniform = inputs
+        n = pos.shape[0]
+        if key[2] == 2 and n in large_chunks:
+            print(f"probes: sym_force at the 1M sweep's chunk N={n} D=2 "
+                  f"{q.mode.value}: held in phase large")
+            continue
+        variant = uniform and n % hn.TILE == 0
+        rows = torch.randperm(n, generator=gen)[:SAMPLED_ROWS].to(pos.device)
+        got = hn.sym_force(pos, gm, bounds, q, masked, uniform=uniform)
+        want = hn.row_force_plain(pos, torch.ones_like(gm) if variant else gm,
+                                  bounds, q, masked, rows=rows, block=512)
+        if variant:
+            want = want * gm[0]
+        label = (f"{'sym_force_uniform' if variant else 'sym_force'} N={n} "
+                 f"D={key[2]} {q.mode.value} vs plain, {SAMPLED_ROWS} rows")
+        err = hold_large(label, got[rows], want, pos, gm, bounds, q, rows,
+                         "probes")
+        name = "sym_force_uniform" if variant else "sym_force"
+        report[name]["max_abs_err"] = max(report[name]["max_abs_err"] or 0.0,
+                                          err)
+
+
+def phase_probes(dev, report: dict) -> None:
+    """nbody_tpu_torch.experiments' hardware and glitch probes on the
+    card: memory_armageddon at its defaults (its memory released), the
+    density sweep at full width, the nine probes through run_all with
+    their launches derived, and each kernel shape's first launch against
+    its plain version."""
+    import logging
+
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+
+    logging.getLogger("nbody_tpu_torch.glitch").setLevel(logging.ERROR)
+    probe_armageddon(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        with first_launches(hn) as seen:
+            t0 = time.time()
+            probe_density(dev, tmp, report)
+            print(f"probes: the density phase in {time.time() - t0:.2f}s")
+            probe_suites(dev, tmp, report)
+        hold_probe_launches(seen, report)
 
 
 # --------------------------------------------------------------------------
@@ -5900,6 +6439,8 @@ def main(argv=None) -> int:
                 phase_realtime(dev, report)
             elif phase == "experiments":
                 phase_experiments(dev, report)
+            elif phase == "probes":
+                phase_probes(dev, report)
             elif phase == "profile":
                 phase_profile(dev, args.profile_out)
             elif phase == "scale":

@@ -1190,10 +1190,25 @@ def kernel_bounds(pos: torch.Tensor, q: Quantizer, cfg: SimConfig,
                         _scalar(log_hi, pos.device), soft_t])
 
 
+# Below this static eps^2 the self pair's weight eps^-3 is not finite in
+# every float mode (float16 rounds an eps^2 under 2^-25 to 0, float32's
+# cube overflows under ~2.1e-26), and inf * 0 would make the row NaN: such
+# runs mask the diagonal by id, as zero softening does. Above it the self
+# term is an exact zero and masking changes no bit.
+SELF_MASK_SOFTENING_SQ = 2.0 ** -24
+
+
+def static_self_masked(cfg: SimConfig) -> bool:
+    """Whether cfg's static softening needs the diagonal masked."""
+    return cfg.softening_sq < SELF_MASK_SOFTENING_SQ
+
+
 def _self_masked(cfg: SimConfig, softening_sq) -> bool:
     """Mask the diagonal at zero softening, and whenever softening is a
-    run-time value the host does not read (pallas_nbody.py:586)."""
-    return softening_sq is not None or cfg.softening_sq <= 0.0
+    run-time value the host does not read (pallas_nbody.py:586), or a
+    static one too small for the self pair's weight to be finite
+    (``static_self_masked``)."""
+    return softening_sq is not None or static_self_masked(cfg)
 
 
 def _prepare(positions, masses, cfg: SimConfig, gm=None) -> tuple:
@@ -1284,8 +1299,9 @@ def sym_accelerations_chunked(positions: torch.Tensor, masses, q: Quantizer,
     j's reactions: C sym_force and C(C-1)/2 pair_sym_force launches,
     ~N^2/2 pair evaluations. Sums follow JAX's order: acc_i = diagonal +
     rows over j ascending, acc[j] += cols. Int-sim bounds are taken once
-    over all N. Zero or run-time softening routes to the row sweep
-    (pallas_nbody.py:892-895): the pair tile has no self-mask.
+    over all N. Zero, run-time or too small a softening
+    (``_self_masked``) routes to the row sweep (pallas_nbody.py:892-895):
+    the pair tile has no self-mask.
     ``uniform_gm=True`` asserts equal masses and reaches every launch,
     where the full-tile rule decides per chunk (pallas_nbody.py:930-945):
     only a last chunk that is not a multiple of TILE takes the general

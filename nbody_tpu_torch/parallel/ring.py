@@ -259,9 +259,10 @@ def _tile_force(xi, ids_i, xj, gm_j, ids_j, q: Quantizer, cfg: SimConfig,
                 diagonal: bool = False) -> torch.Tensor:
     """(Bi, D) accelerations of receivers xi due to sources xj: the rows
     schedule's tile. The kernel path is pair_force (#10); ``diagonal``
-    (xj is xi) at zero softening takes row_force with its self-mask."""
+    (xj is xi) at zero softening (or one too small for a finite self
+    weight, hn.static_self_masked) takes row_force with its self-mask."""
     if _resolve_tile_impl(impl) == "auto":
-        if diagonal and cfg.softening_sq <= 0.0:
+        if diagonal and hn.static_self_masked(cfg):
             bounds = hn.kernel_bounds(xi, q, cfg, None, log_lo, log_hi)
             return hn.row_force(xi, gm_j, bounds, q, True)
         return hn.pair_force(xi, xj, gm_j, q, cfg, log_lo, log_hi)
@@ -303,9 +304,9 @@ def _diagonal_sym(pos, gm, ids, q: Quantizer, cfg: SimConfig, log_lo,
     """A shard's intra-block accelerations for the sym schedule: sym_force
     (#1), or the chunked path (#5) past its scratch budget, with the
     ring's global int bounds (and the equal-mass variants under
-    ``uniform_gm``, checked by the runner); zero softening takes the
-    self-masked row sweep."""
-    if impl == "jnp" or cfg.softening_sq <= 0.0:
+    ``uniform_gm``, checked by the runner); zero softening (or one too
+    small for a finite self weight) takes the self-masked row sweep."""
+    if impl == "jnp" or hn.static_self_masked(cfg):
         return _tile_force(pos, ids, pos, gm, ids, q, cfg, log_lo, log_hi,
                            impl, diagonal=True)
     fn = (hn.sym_accelerations if hn.sym_force_fits(*pos.shape)
