@@ -207,6 +207,25 @@ Phases (any failure exits non-zero before the last line is printed):
    131072 points in full, sym_force past it on 4096 sampled rows (the 1M
    sweep's chunk shapes are phase large's, not held again), max_d2 past
    it bitwise the design it replaced.
+19. multihost: the ring across processes (``parallel/multihost.py``):
+   two processes of ``python -m nbody_tpu_torch.parallel.multihost_check``
+   on the card, 4 virtual shards each on cuda:0, joined over gloo at
+   127.0.0.1 into one mesh of S = 8, at 131072 stars, 20 ticks in 2
+   chunks (the float32 sym history, an int4 run of 5 steps, a rows run of
+   5 steps, the hash agreement and a view perturbed on process 1), and the
+   same parts on one controller (``ParticleMesh.virtual(8)``) in this
+   process: both processes bitwise each other and the one controller in
+   every energy and final hash; their launches summed equal to the one
+   controller's and to the ring formulas (``ring_launches``); agreement
+   true and the perturbed view's false on both; each part's wall, two
+   processes against one, and its time in the collectives staged through
+   gloo; the first launch of each tile shape held against its plain
+   version. The kernels are built here first: the processes load them.
+20. dryrun: ``nbody_tpu_torch.dryrun``: ``entry()``'s tick at 4096
+   stars (one sym_force launch) and ``dryrun_multichip(8)`` on the card
+   (JAX's seven surfaces on 8 virtual shards), its OK line and its
+   launches derived from the surfaces' sizes (``dryrun_launches``), each
+   tile shape's first launch held against its plain version.
 
 The kernels phase also holds the equal-mass variants (D in {2,3}, every
 mode, N in {4096, 32768}; the one-pass design at odd multiples of 64, N in
@@ -253,7 +272,8 @@ import torch
 REPO = Path(__file__).resolve().parent
 PHASES = ("kernels", "main", "gate", "perf", "large", "ring", "cached",
           "lab", "lab_r4", "lab_r5", "pm", "pm_mesh", "ultimate",
-          "realtime", "experiments", "probes")  # default
+          "realtime", "experiments", "probes", "multihost",
+          "dryrun")  # default
 EXTRA_PHASES = ("profile", "scale")
 MODES = ("float32", "bfloat16", "float16", "int8", "int4", "custom")
 STARS, TICKS, INTERVAL = 5000, 2000, 100
@@ -6161,6 +6181,320 @@ def phase_probes(dev, report: dict) -> None:
 
 
 # --------------------------------------------------------------------------
+# Phase multihost: the ring across processes (parallel/multihost.py)
+# --------------------------------------------------------------------------
+
+MULTIHOST_PROCESSES, MULTIHOST_SHARDS = 2, 4   # S = 8 shards of 16384
+MULTIHOST_TICKS, MULTIHOST_CHUNKS = 20, 2
+MULTIHOST_TIMEOUT = 300   # s, both processes, from their start
+MULTIHOST_KEYS = ("energy_total", "drift_pct", "frames_shape", "final_hash",
+                  "int4_total", "int4_hash", "rows_total", "rows_hash")
+RING_TILES = ("pair_sym_force", "pair_force", "pair_max", "pair_pe_rows")
+
+
+def ring_launches(counts: dict, n: int, shards: int, evals: int,
+                  precision: str, schedule: str = "sym",
+                  equal_masses: bool = False, snapshots: int = 0,
+                  dim: int = 2) -> None:
+    """Add the launches of ``evals`` ring force evaluations and
+    ``snapshots`` energy passes over n particles on S shards to counts
+    (PERF.md section 2's ring formulas): sym, S sym_force and S(S-1)/2
+    pair_sym_force an evaluation (k each where the pair tile takes k
+    source chunks; the equal-mass variants for equal masses on a layout
+    without phantoms at multiples of TILE); rows, S^2 pair_force; an int
+    mode, S(S/2+1) pair_max; an energy pass, pair_pe_rows for every pair
+    of shards that both hold real rows. The float64 baseline's ring
+    launches nothing."""
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+    from nbody_tpu_torch.ops.precision import Quantizer
+    from nbody_tpu_torch.parallel import ring
+
+    b = -(-n // shards)
+    real = sum(1 for s in range(shards) if n - s * b > 0)
+    counts["pair_pe_rows"] += snapshots * real * real
+    if precision == "float64":
+        return
+    if schedule == "rows":
+        counts["pair_force"] += evals * shards * shards
+    else:
+        check(hn.sym_force_fits(b, dim), f"ring_launches: a shard of {b} "
+              f"takes the chunked diagonal")
+        uniform = equal_masses and b * shards == n and b % hn.TILE == 0
+        k = -(-b // ring._src_chunk_size(b, b, dim))
+        counts[hn._variant("sym_force", uniform)] += evals * shards
+        counts[hn._variant("pair_sym_force", uniform)] += (
+            evals * shards * (shards - 1) // 2 * k)
+    if Quantizer.from_string(precision).is_int:
+        counts["pair_max"] += evals * shards * (shards // 2 + 1)
+
+
+@contextlib.contextmanager
+def first_ring_launches(hn):
+    """Record, cloned, the inputs of the first launch of each ring tile
+    (pair_sym_force, pair_force, pair_max, pair_pe_rows) at each shape,
+    mode and variant the enclosed run makes; the wrappers run as they are
+    and count their launches."""
+    seen = {}
+    wrapped = {name: getattr(hn, name) for name in RING_TILES}
+
+    def recorder(name):
+        fn = wrapped[name]
+
+        def record(*args, **kw):
+            key = (name, *(tuple(a.shape) if isinstance(a, torch.Tensor)
+                           else a for a in args), *sorted(kw.items()))
+            if key not in seen:
+                seen[key] = (tuple(a.clone() if isinstance(a, torch.Tensor)
+                                   else a for a in args), kw)
+            return fn(*args, **kw)
+        return record
+
+    for name in RING_TILES:
+        setattr(hn, name, recorder(name))
+    try:
+        yield seen
+    finally:
+        for name, fn in wrapped.items():
+            setattr(hn, name, fn)
+
+
+def hold_ring_launches(seen: dict, report: dict, label: str) -> None:
+    """Each launch first_ring_launches recorded, again, against its plain
+    version on the same inputs: the force tiles within the kernels
+    phase's tolerance and quantize_force flips (Tally, the rows and the
+    reactions of a pair tile each), pair_pe_rows within the bound of the
+    design it runs, pair_max bitwise."""
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+
+    tallies = {k: Tally() for k in ("pair_sym_force",
+                                    "pair_sym_force_uniform", "pair_force")}
+    pe_worst, shapes = 0.0, set()
+    for key, (args, kw) in seen.items():
+        name = key[0]
+        other = {"pair_sym_force": 2, "pair_pe_rows": 3}.get(name, 1)
+        shapes.add((name, args[0].shape[0], args[other].shape[0]))
+        if name == "pair_max":
+            got, want = hn.pair_max(*args), hn.pair_max_plain(*args)
+            check(bitwise(got, want), f"{label}: pair_max at {key[1:3]}: "
+                  f"{got.item()!r} vs plain {want.item()!r}")
+        elif name == "pair_pe_rows":
+            got, want = hn.pair_pe_rows(*args), hn.pair_pe_rows_plain(*args)
+            n_i, n_j = args[0].shape[0], args[3].shape[0]
+            err = ((got - want).abs() / want.abs()).max().item()
+            ratio = err / pe_bound_rtol(n_i, n_j)
+            pe_worst = max(pe_worst, ratio)
+            entry = report["pair_pe_rows"]
+            entry["max_abs_err"] = max(entry["max_abs_err"] or 0.0,
+                                       (got - want).abs().max().item())
+            check(ratio <= 1.0 and bool(torch.isfinite(got).all()),
+                  f"{label}: pair_pe_rows {n_i}x{n_j}: err/bound {ratio:.3f}")
+        elif name == "pair_force":
+            xi, xj, gmj, q, cfg, lo, hi = args
+            got, want = hn.pair_force(*args), hn.pair_force_plain(*args)
+            bounds = hn.kernel_bounds(xi, q, cfg, None, lo, hi)
+            tallies[name].hold(f"{xi.shape[0]}x{xj.shape[0]} {q.mode.value}",
+                               got, want, lazy_pair_scale(
+                                   xi, xj, gmj, bounds, q, got, want), q)
+        else:
+            pa, ga, pb, gb, bounds, q = args
+            uniform = (kw.get("uniform", False) and pa.shape[0] % hn.TILE == 0
+                       and pb.shape[0] % hn.TILE == 0)
+            plain = (hn.pair_sym_force_uniform_plain if uniform
+                     else hn.pair_sym_force_plain)
+            rows, cols = hn.pair_sym_force(*args, **kw)
+            rw, cw = plain(*args)
+            case = f"{pa.shape[0]}x{pb.shape[0]} {q.mode.value}"
+            tally = tallies[hn._variant("pair_sym_force", uniform)]
+            tally.hold(case + " rows", rows, rw,
+                       lazy_pair_scale(pa, pb, gb, bounds, q, rows, rw), q)
+            tally.hold(case + " reactions", cols, cw,
+                       lazy_pair_scale(pb, pa, ga, bounds, q, cols, cw), q)
+    for name, tally in tallies.items():
+        if tally.cases:
+            tally.report(f"{name} at the {label} ring's shapes", report[name])
+    print(f"{label}: ring tiles held against their plain versions at "
+          f"{len(seen)} first launches ({sorted(shapes)}); pair_max bitwise, "
+          f"pair_pe_rows worst err/bound {pe_worst:.4f}")
+
+
+def multihost_launches(n: int, shards: int) -> dict:
+    """The kernel launches of multihost_check's parts by part, from their
+    sizes: the float32 history (TICKS + 1 evaluations, CHUNKS energy
+    passes, equal masses), the int4 and rows runs (SHORT_STEPS + 1
+    evaluations, one energy pass each); the agreement launches none."""
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+    from nbody_tpu_torch.parallel.multihost_check import SHORT_STEPS
+
+    want = {}
+    for part, evals, mode, schedule, snaps in (
+            ("history", MULTIHOST_TICKS + 1, "float32", "sym",
+             MULTIHOST_CHUNKS),
+            ("int4", SHORT_STEPS + 1, "int4", "sym", 1),
+            ("rows", SHORT_STEPS + 1, "float32", "rows", 1)):
+        counts = dict.fromkeys(hn.LAUNCHES, 0)
+        ring_launches(counts, n, shards, evals, mode, schedule,
+                      equal_masses=schedule == "sym", snapshots=snaps)
+        want[part] = {k: v for k, v in counts.items() if v}
+    want["agreement"] = {}
+    return want
+
+
+def phase_multihost(dev, report: dict) -> None:
+    """Two processes of multihost_check on the card (4 virtual shards
+    each on cuda:0, gloo over 127.0.0.1: one mesh of S = 8) at 131072
+    stars, 20 ticks in 2 chunks, then the same parts on one controller
+    (ParticleMesh.virtual(8)) in this process: both processes bitwise
+    each other and the one controller in energies and final hashes; their
+    launches summed equal to the one controller's and to the ring
+    formulas; agreement true and the perturbed view's false on both; each
+    tile shape's first launch on the one controller held against its
+    plain version; each part's wall, two processes against one, and the
+    share in the collectives staged through gloo."""
+    from nbody_tpu_torch import _build
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+    from nbody_tpu_torch.parallel import multihost_check, ring
+
+    _build.library()   # built here: the processes load it, no second nvcc
+    procs, shards = MULTIHOST_PROCESSES, MULTIHOST_PROCESSES * MULTIHOST_SHARDS
+    argv = ["--device", str(dev), "--shards-per-process",
+            str(MULTIHOST_SHARDS), "--stars", str(BIG_N), "--ticks",
+            str(MULTIHOST_TICKS), "--chunks", str(MULTIHOST_CHUNKS)]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        results = multihost_check.launch(procs, tmp, argv, MULTIHOST_TIMEOUT)
+        spawn_wall = time.time() - t0
+    pos, vel, m = multihost_check.make_ics(BIG_N, dev)
+    reset_counters(hn)
+    with first_launches(hn) as seen, first_ring_launches(hn) as ring_seen:
+        one = multihost_check.run_parts(ring.ParticleMesh.virtual(shards, dev),
+                                        pos, vel, m, MULTIHOST_TICKS,
+                                        MULTIHOST_CHUNKS)
+    want = multihost_launches(BIG_N, shards)
+    for pid, r in enumerate(results):
+        check(r["multihost_active"] and r["num_processes"] == procs
+              and r["global_shards"] == shards
+              and r["local_shards"] == MULTIHOST_SHARDS,
+              f"multihost: process {pid}'s topology {r}")
+        for key in MULTIHOST_KEYS:
+            check(r[key] == one[key], f"multihost: process {pid}'s {key} "
+                  f"{r[key]} != one controller's {one[key]}")
+        check(r["agree"] == {"hash": one["final_hash"], "all_equal": True,
+                             "num_processes": procs}
+              and r["mismatch"]["all_equal"] is False,
+              f"multihost: process {pid}'s agreement {r['agree']}, "
+              f"mismatch {r['mismatch']}")
+    check(one["int4_finite"] and one["frames_shape"] == [MULTIHOST_CHUNKS,
+                                                         BIG_N, 2],
+          f"multihost: int4 finite {one['int4_finite']}, frames "
+          f"{one['frames_shape']}")
+    for part, counts in want.items():
+        summed = {}
+        for r in results:
+            for k, v in r["launches"][part].items():
+                summed[k] = summed.get(k, 0) + v
+        check(one["launches"][part] == counts and summed == counts,
+              f"multihost: {part} launches, processes {summed}, one "
+              f"controller {one['launches'][part]}, the formulas {counts}")
+        for k, v in summed.items():
+            report[k]["launches"] += v
+    print(f"multihost: {procs} processes x {MULTIHOST_SHARDS} shards on "
+          f"{dev} over gloo bitwise the one controller on virtual({shards}) "
+          f"at N={BIG_N}, {MULTIHOST_TICKS} ticks in {MULTIHOST_CHUNKS} "
+          f"chunks: energies {one['energy_total']}, final hash "
+          f"{one['final_hash']}, int4 {one['int4_hash']}, rows "
+          f"{one['rows_hash']}; agreement on both, the perturbed view "
+          f"refused on both; launches a part {want}, summed over the "
+          f"processes and on the one controller")
+    for part in one["walls"]:
+        two = max(r["walls"][part] for r in results)
+        staged = max(r["transport"][part] for r in results)
+        print(f"multihost: {part}: {two:.3f}s on 2 processes (of it "
+              f"{staged:.3f}s, {staged / two:.1%}, in the collectives "
+              f"staged through gloo), {one['walls'][part]:.3f}s on one "
+              f"controller")
+    print(f"multihost: the two processes' wall, start to exit, "
+          f"{spawn_wall:.1f}s (two CUDA contexts share one card: no "
+          f"scaling is shown)")
+    hold_first_launches(seen, report, "multihost")
+    hold_ring_launches(ring_seen, report, "multihost")
+
+
+# --------------------------------------------------------------------------
+# Phase dryrun: nbody_tpu_torch.dryrun (entry and dryrun_multichip)
+# --------------------------------------------------------------------------
+
+DRYRUN_SHARDS = 8   # __graft_entry__.dryrun_multichip's default mesh
+
+
+def dryrun_launches(n_dev: int) -> dict:
+    """The kernel launches of dryrun_multichip(n_dev) from its surfaces'
+    sizes: the int4 ring tick over 16 n stars (2 evaluations, one energy
+    pass, the general tiles: run_steps_sharded's default); the PM
+    deposits, one a shard a step in each of the two PM runners, S (steps
+    + 2) a chunk in the resident engine, the realtime loop and the
+    restored engine (the probe bundle's two); DirectSimulation(mesh=)'s
+    int4 history over 16 n + 5 stars (2 ticks in 2 snapshots: 3
+    evaluations, 2 energy passes; the float64 arm launches none)."""
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+
+    counts = dict.fromkeys(hn.LAUNCHES, 0)
+    ring_launches(counts, 16 * n_dev, n_dev, 2, "int4", snapshots=1)
+    ring_launches(counts, 16 * n_dev + 5, n_dev, 3, "int4", snapshots=2)
+    counts = {k: v for k, v in counts.items() if v}
+    counts["pm_deposit"] = (2 * n_dev               # the two PM runners
+                            + 2 * n_dev * (2 + 2)   # resident: 2 chunks of 2
+                            + 2 * n_dev * (1 + 2)   # realtime: 2 pumps of 1
+                            + 2 * (1 + 2))          # restored on 2 shards
+    return counts
+
+
+def phase_dryrun(dev, report: dict) -> None:
+    """nbody_tpu_torch.dryrun on the card: entry()'s step at 4096 stars
+    (one sym_force launch) and dryrun_multichip(8, "cuda") with JAX's OK
+    line, its launches derived from its surfaces' sizes, each tile
+    shape's first launch held against its plain version."""
+    from nbody_tpu_torch import dryrun
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+    from nbody_tpu_torch.ops import pm
+
+    reset_counters(hn)
+    t0 = time.time()
+    fn, args = dryrun.entry(str(dev))
+    out = fn(*args)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in hn.LAUNCHES.items() if v}
+    check(launched == {"sym_force": 1} and out.tick == 1
+          and bool(torch.isfinite(out.positions).all()),
+          f"dryrun: entry's step launched {launched}, tick {out.tick}")
+    report["sym_force"]["launches"] += 1
+    print(f"dryrun: entry() at {dryrun.ENTRY_STARS} stars: one tick in "
+          f"{time.time() - t0:.2f}s (first call), launches {launched}")
+    reset_counters(hn)
+    tee = Tee(sys.stdout)
+    old, sys.stdout = sys.stdout, tee
+    t0 = time.time()
+    try:
+        with first_launches(hn) as seen, first_ring_launches(hn) as ring_seen:
+            dryrun.dryrun_multichip(DRYRUN_SHARDS, str(dev))
+    finally:
+        sys.stdout = old
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    check(f"dryrun_multichip OK on {DRYRUN_SHARDS} devices" in
+          tee.buf.getvalue(), "dryrun: no OK line")
+    launched = {k: v for k, v in hn.LAUNCHES.items() if v}
+    launched["pm_deposit"] = pm.LAUNCHES["pm_deposit"]
+    want = dryrun_launches(DRYRUN_SHARDS)
+    check(launched == want, f"dryrun: launches {launched}, expected {want}")
+    for k, v in launched.items():
+        report[k]["launches"] += v
+    print(f"dryrun: dryrun_multichip({DRYRUN_SHARDS}, {str(dev)!r}) in "
+          f"{wall:.2f}s; launches {launched}")
+    hold_first_launches(seen, report, "dryrun")
+    hold_ring_launches(ring_seen, report, "dryrun")
+
+
+# --------------------------------------------------------------------------
 # Extra phase: each kernel against its plain version at the 1M shapes
 # --------------------------------------------------------------------------
 
@@ -6441,6 +6775,10 @@ def main(argv=None) -> int:
                 phase_experiments(dev, report)
             elif phase == "probes":
                 phase_probes(dev, report)
+            elif phase == "multihost":
+                phase_multihost(dev, report)
+            elif phase == "dryrun":
+                phase_dryrun(dev, report)
             elif phase == "profile":
                 phase_profile(dev, args.profile_out)
             elif phase == "scale":

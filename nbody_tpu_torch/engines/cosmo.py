@@ -444,6 +444,7 @@ class CosmologicalEngine:
         mesh the mesh's first device, which ``device`` must then name."""
         if mesh is None:
             return _resolve_device(device)
+        mesh.require_single_controller("CosmologicalEngine(mesh=)")
         home = mesh.devices[0]
         if device is not None:
             named = _normalise(_resolve_device(device))

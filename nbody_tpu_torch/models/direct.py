@@ -84,6 +84,8 @@ def _check_mesh_args(mesh, schedule: str, bounds_every: int,
     """The JAX engine's rules for the ring's options (direct.py:523-563)."""
     if schedule not in ("sym", "rows"):
         raise ValueError(f"unknown schedule: {schedule}; valid: sym, rows")
+    if mesh is not None:
+        mesh.require_single_controller("DirectSimulation(mesh=)")
     if ticks_per_dispatch is not None and mesh is None:
         raise ValueError("ticks_per_dispatch only applies to mesh runs "
                          "(single-device runs are already host-chunkable "

@@ -179,6 +179,12 @@ def poisson_accel_slabs(slabs: list, box_size: float, n_grid: int,
     out = [[] for _ in range(dim)]
     for x, m, scale, (k_sq_q, k0, *grads) in zip(spec, means, scales,
                                                  consts):
+        if not x.numel():
+            # More shards than the half spectrum's n_grid // 2 + 1
+            # columns: this shard holds none (an FFT of nothing raises).
+            for d in range(dim):
+                out[d].append(x)
+            continue
         delta_k = torch.fft.fft(x, dim=0)
         phi_k = (-4.0 * math.pi * G * m) * delta_k / k_sq_q / scale
         phi_k = torch.where(k0, torch.zeros_like(phi_k), phi_k)
@@ -209,6 +215,7 @@ class _Layout(NamedTuple):
 def _layout(positions, velocities, masses, mesh: ParticleMesh,
             n_valid) -> _Layout:
     """Phantom rows at the origin with zero mass and velocity."""
+    mesh.require_single_controller("the sharded particle mesh")
     n_total = n_valid if n_valid is not None else positions.shape[0]
     pos, vel, m = (_pad_to_shards(x, mesh.size)
                    for x in (positions, velocities, masses))
@@ -471,6 +478,7 @@ def sharded_fft_density(positions, weights, n_grid: int, box_size: float,
     slab's local axes, the all-to-all, the FFT along x. Returns the whole
     spectrum, in shard order, on shard 0's device (``torch.fft.fftn`` of
     the summed grid itself on a mesh of one)."""
+    mesh.require_single_controller("the sharded particle mesh")
     pos = _pad_to_shards(positions, mesh.size)
     w = _pad_to_shards(weights, mesh.size)
     slabs = _reduce_scatter([pm.ngp_deposit(p, ws, n_grid, box_size)

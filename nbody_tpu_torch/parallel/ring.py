@@ -32,6 +32,24 @@ device (the counterpart of the forced host-device count the JAX tests run
 the ring on), so a single card runs the tiles between shards, the even
 ring's skipped step and the reactions' trip home.
 
+Across processes (``parallel.multihost.make_global_mesh``, JAX's
+multi-controller SPMD): each process owns a run of the S shards
+(``mesh.local``), every per-shard loop visits those only, and a block list
+keeps its global index s with None at the shards of other processes. Every
+process holds the same replicated input and runs the same program; the
+five collectives then go through ``torch.distributed`` on gloo, with
+CUDA tensors staged through host memory (gloo's point-to-point ops take
+CPU tensors), so each is a host sync. ``_rotate`` exchanges the blocks
+that cross a process boundary in one ``batch_isend_irecv``; ``_reduce``
+all-gathers the per-shard values and folds them in shard order 0..S-1 on
+the process's home device, never by ``all_reduce``, whose association
+order is the backend's, so every process holds the single controller's
+bits; ``_gather`` is an all-gather and a ``cat`` in shard order, whose
+result every process holds. A single-controller mesh takes none of this
+code. The PM runners, ``CosmologicalEngine(mesh=)`` and
+``DirectSimulation(mesh=)`` need a single-controller mesh
+(``ParticleMesh.require_single_controller``).
+
 Tiles: ``tile_impl="auto"`` is the kernel path, the wrappers of
 ``ops.hopper_nbody``, which launch their CUDA kernels for CUDA tensors and
 take their plain PyTorch versions for CPU tensors. ``"jnp"`` names JAX's
@@ -60,6 +78,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from nbody_tpu_torch.config import SimConfig
 from nbody_tpu_torch.diagnostics import metrics as metrics_lib
@@ -94,12 +113,20 @@ class EnergyStream(NamedTuple):
 
 
 class ParticleMesh:
-    """A 1-D mesh: an ordered list of S devices, one per shard."""
+    """A 1-D mesh of S shards in shard order. A single-controller mesh
+    (``ParticleMesh(devices)``) holds every shard in this process:
+    ``devices`` lists S devices. A mesh across processes
+    (``ParticleMesh.across``) gives each process a run of the shards:
+    ``devices[s]`` is set for this process's shards (``local``) and None
+    for the others."""
 
     def __init__(self, devices):
         self.devices = tuple(_normalise(torch.device(d)) for d in devices)
         if not self.devices:
             raise ValueError("a mesh needs at least one device")
+        self.group = None
+        self.counts = (len(self.devices),)
+        self.rank = 0
 
     @classmethod
     def virtual(cls, n_shards: int, device) -> "ParticleMesh":
@@ -109,6 +136,24 @@ class ParticleMesh:
             raise ValueError("a mesh needs at least one shard")
         return cls([device] * n_shards)
 
+    @classmethod
+    def across(cls, local: "ParticleMesh", counts, rank: int,
+               group) -> "ParticleMesh":
+        """The mesh over every process's shards in process order: process
+        r owns ``counts[r]`` shards, this process (``rank``) those of the
+        single-controller mesh ``local``; ``group`` is the process group
+        the collectives go through."""
+        counts = tuple(int(c) for c in counts)
+        if counts[rank] != local.size or local.processes > 1:
+            raise ValueError(f"process {rank} holds a single-controller "
+                             f"mesh of {counts[rank]} shard(s), not {local}")
+        mesh = cls(local.devices)
+        lo = sum(counts[:rank])
+        mesh.devices = ((None,) * lo + local.devices
+                        + (None,) * (sum(counts) - lo - local.size))
+        mesh.group, mesh.counts, mesh.rank = group, counts, rank
+        return mesh
+
     @property
     def size(self) -> int:
         return len(self.devices)
@@ -117,8 +162,46 @@ class ParticleMesh:
     def shape(self) -> dict:
         return {AXIS: self.size}
 
+    @property
+    def processes(self) -> int:
+        return len(self.counts)
+
+    @property
+    def local(self) -> range:
+        """The shards this process owns: range(S) on a single
+        controller."""
+        lo = sum(self.counts[:self.rank])
+        return range(lo, lo + self.counts[self.rank])
+
+    @property
+    def home(self) -> torch.device:
+        """The device of this process's first shard, where reductions and
+        gathers land."""
+        return self.devices[self.local.start]
+
+    def owner(self, s: int) -> int:
+        """The process that owns shard s."""
+        for r in range(self.processes):
+            s -= self.counts[r]
+            if s < 0:
+                return r
+        raise IndexError(f"shard {s} past a mesh of {self.size}")
+
+    def require_single_controller(self, what: str) -> None:
+        """Raise unless every shard is in this process: ``what`` runs on
+        one controller only."""
+        if self.processes > 1:
+            raise ValueError(f"{what} needs a single-controller mesh (every "
+                             f"shard in this process); this mesh spans "
+                             f"{self.processes} processes")
+
     def __repr__(self) -> str:
-        return f"ParticleMesh({[str(d) for d in self.devices]})"
+        if self.processes == 1:
+            return f"ParticleMesh({[str(d) for d in self.devices]})"
+        return (f"ParticleMesh({self.size} shards over {self.processes} "
+                f"processes; process {self.rank}: shards "
+                f"{self.local.start}-{self.local.stop - 1} on "
+                f"{[str(self.devices[s]) for s in self.local]})")
 
 
 def _normalise(device: torch.device) -> torch.device:
@@ -147,7 +230,7 @@ def make_particle_mesh(n_devices: int | None = None,
 
 
 # --------------------------------------------------------------------------
-# Collectives of the single controller
+# Collectives
 # --------------------------------------------------------------------------
 
 def _pad_to_shards(x: torch.Tensor, n_shards: int, fill=0.0) -> torch.Tensor:
@@ -164,31 +247,49 @@ def _pad_to_shards(x: torch.Tensor, n_shards: int, fill=0.0) -> torch.Tensor:
     return x
 
 
+def _per_shard(mesh: ParticleMesh, fn) -> list:
+    """A block list: fn(s) at each shard s of this process, None at the
+    shards of other processes."""
+    out = [None] * mesh.size
+    for s in mesh.local:
+        out[s] = fn(s)
+    return out
+
+
 def _shards(x: torch.Tensor, mesh: ParticleMesh) -> list:
-    """x (padded to the shard boundary) as S equal blocks, block s on
-    device s (views on one device)."""
+    """x (padded to the shard boundary, the same on every process) as S
+    equal blocks, block s on device s (views on one device)."""
     b = x.shape[0] // mesh.size
-    return [x[s * b:(s + 1) * b].to(d, non_blocking=True)
-            for s, d in enumerate(mesh.devices)]
+    return _per_shard(mesh, lambda s: x[s * b:(s + 1) * b].to(
+        mesh.devices[s], non_blocking=True))
 
 
 def _gather(blocks: list, mesh: ParticleMesh) -> torch.Tensor:
-    """all_gather: the blocks concatenated in shard order on shard 0's
+    """all_gather: the blocks concatenated in shard order on the home
     device."""
-    return torch.cat([x.to(mesh.devices[0]) for x in blocks])
+    if mesh.processes > 1:
+        return _all_gather_shards(blocks, mesh).flatten(0, 1).to(mesh.home)
+    return torch.cat([x.to(mesh.home) for x in blocks])
 
 
-def _rotate(blocks: list, k: int, mesh: ParticleMesh) -> list:
-    """ppermute by k: shard s takes block (s - k) % S."""
+def _rotate(blocks: list, k: int, mesh: ParticleMesh,
+            ragged: bool = False) -> list:
+    """ppermute by k: shard s takes block (s - k) % S. ``ragged``: the
+    blocks' leading lengths differ between shards (across processes their
+    shapes then travel first)."""
     n = mesh.size
+    if mesh.processes > 1:
+        return _rotate_across(blocks, k, mesh, ragged)
     return [blocks[(s - k) % n].to(mesh.devices[s], non_blocking=True)
             for s in range(n)]
 
 
 def _reduce(values: list, op, mesh: ParticleMesh) -> torch.Tensor:
     """psum / pmax / pmin: ``op`` over per-shard values in shard order, on
-    shard 0's device."""
-    home = mesh.devices[0]
+    the home device."""
+    home = mesh.home
+    if mesh.processes > 1:
+        values = _all_gather_shards(values, mesh).to(home)
     out = values[0].to(home)
     for v in values[1:]:
         out = op(out, v.to(home))
@@ -196,12 +297,78 @@ def _reduce(values: list, op, mesh: ParticleMesh) -> torch.Tensor:
 
 
 def _replicate(x: torch.Tensor, mesh: ParticleMesh) -> list:
-    """One copy of x on every shard's device."""
-    return [x.to(d) for d in mesh.devices]
+    """One copy of x on every shard's device (across processes, x is a
+    value every process holds)."""
+    return _per_shard(mesh, lambda s: x.to(mesh.devices[s]))
 
 
-def _valid(ids: list, n_total: int) -> list:
-    return [i < n_total for i in ids]
+def _all_gather_shards(values: list, mesh: ParticleMesh) -> torch.Tensor:
+    """Every shard's value (one shape and dtype) stacked in shard order on
+    the host: one all-gather of each process's values, padded to the
+    largest process's shard count (gloo gathers one shape)."""
+    host = torch.stack([values[s].to(mesh.home) for s in mesh.local]).cpu()
+    width = max(mesh.counts)
+    if host.shape[0] < width:
+        host = torch.cat([host, host.new_zeros((width - host.shape[0],)
+                                               + tuple(host.shape[1:]))])
+    out = [torch.empty_like(host) for _ in mesh.counts]
+    dist.all_gather(out, host, group=mesh.group)
+    return torch.cat([o[:c] for o, c in zip(out, mesh.counts)])
+
+
+def _exchange(mesh: ParticleMesh, peers: dict, tensors: dict,
+              incoming) -> None:
+    """One batch of host-memory messages, posted together and waited for:
+    for each shard s of ``peers`` (in global shard order on every
+    process), tensors[s] goes to process peers[s], or comes from it where
+    s is in ``incoming``, tagged s. An empty tensor travels as nothing
+    (both ends know its shape)."""
+    ops = [dist.P2POp(dist.irecv if s in incoming else dist.isend,
+                      tensors[s], peers[s], mesh.group, s)
+           for s in peers if tensors[s].numel()]
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+
+
+def _rotate_across(blocks: list, k: int, mesh: ParticleMesh,
+                   ragged: bool) -> list:
+    """_rotate on a mesh across processes: a block that stays in this
+    process moves as on one controller, each that crosses is staged
+    through host memory. The blocks of other processes take a local
+    block's shape and dtype, or, ``ragged``, a shape sent first."""
+    n, me = mesh.size, mesh.rank
+    out = [None] * n
+    peers, tensors, incoming = {}, {}, []
+    for s in range(n):
+        t = (s - k) % n
+        src, dst = mesh.owner(t), mesh.owner(s)
+        if src == me and dst == me:
+            out[s] = blocks[t].to(mesh.devices[s], non_blocking=True)
+        elif src == me:
+            peers[s], tensors[s] = dst, blocks[t].detach().cpu().contiguous()
+        elif dst == me:
+            peers[s] = src
+            incoming.append(s)
+    template = blocks[mesh.local.start]
+    shapes = {s: tuple(template.shape) for s in incoming}
+    if ragged:
+        heads = {s: torch.tensor(x.shape, dtype=torch.int64)
+                 for s, x in tensors.items()}
+        heads.update({s: torch.empty(template.dim(), dtype=torch.int64)
+                      for s in incoming})
+        _exchange(mesh, peers, heads, incoming)
+        shapes = {s: tuple(heads[s].tolist()) for s in incoming}
+    tensors.update({s: torch.empty(shapes[s], dtype=template.dtype)
+                    for s in incoming})
+    _exchange(mesh, peers, tensors, incoming)
+    for s in incoming:
+        out[s] = tensors[s].to(mesh.devices[s])
+    return out
+
+
+def _valid(mesh: ParticleMesh, ids: list, n_total: int) -> list:
+    return _per_shard(mesh, lambda s: ids[s] < n_total)
 
 
 # --------------------------------------------------------------------------
@@ -329,14 +496,14 @@ def _ring_max_d2(mesh: ParticleMesh, pos: list, ids: list, n_total: int,
     pair {a, b} needs only one of its two shards to visit it: S//2 + 1
     ring steps, S * (S//2 + 1) launches. Max is exact: the result is
     bitwise the single-device max_d2 of the real particles."""
-    valid = _valid(ids, n_total)
+    valid = _valid(mesh, ids, n_total)
     best = [None] * mesh.size
     pos_j, valid_j = pos, valid
     for k in range(mesh.size // 2 + 1):
         if k:
             pos_j, valid_j = _rotate(pos_j, 1, mesh), _rotate(valid_j, 1,
                                                               mesh)
-        for s in range(mesh.size):
+        for s in mesh.local:
             m = hn.pair_max(pos[s], pos_j[s], valid[s], valid_j[s])
             best[s] = m if best[s] is None else torch.maximum(best[s], m)
     return _reduce(best, torch.maximum, mesh) + cfg.softening_sq
@@ -354,8 +521,8 @@ def _ring_log_bounds(mesh, pos, ids, n_total, q: Quantizer,
 def _real_rows(mesh: ParticleMesh, x: list, n_total: int) -> list:
     """Each shard's real (non-phantom) rows: phantoms are the tail of the
     padded global order, so a prefix of each shard."""
-    b = x[0].shape[0]
-    return [xs[:min(max(n_total - s * b, 0), b)] for s, xs in enumerate(x)]
+    b = x[mesh.local.start].shape[0]
+    return _per_shard(mesh, lambda s: x[s][:min(max(n_total - s * b, 0), b)])
 
 
 def _ring_pe_local(mesh: ParticleMesh, pos: list, m: list, ids: list,
@@ -376,14 +543,14 @@ def _ring_pe_local(mesh: ParticleMesh, pos: list, m: list, ids: list,
     coincident far-sentinel phantoms would give 0 * rsqrt(0) = NaN, and at
     eps^2 > 0 they add exact zeros."""
     pos_r, m_r, ids_r = (_real_rows(mesh, x, n_total) for x in (pos, m, ids))
-    local = [torch.zeros((), dtype=torch.float64, device=d)
-             for d in mesh.devices]
+    local = _per_shard(mesh, lambda s: torch.zeros(
+        (), dtype=torch.float64, device=mesh.devices[s]))
     pos_j, m_j, ids_j = pos_r, m_r, ids_r
     for k in range(mesh.size):
         if k:
-            pos_j, m_j, ids_j = (_rotate(x, 1, mesh)
+            pos_j, m_j, ids_j = (_rotate(x, 1, mesh, ragged=True)
                                  for x in (pos_j, m_j, ids_j))
-        for s in range(mesh.size):
+        for s in mesh.local:
             if not (pos_r[s].shape[0] and pos_j[s].shape[0]):
                 continue  # a shard of phantoms only (N < S - 1 tiny)
             if compensated:
@@ -405,18 +572,18 @@ def _finish_ring(mesh, acc: list, ids: list, n_total: int, q: Quantizer,
     quantization bounds), then for int8/int4 quantize on the linear grid
     over the GLOBAL acc min/max (reference: quantization.py:74-88 on the
     full (N, D) tensor)."""
-    valid = [(v < n_total)[:, None] for v in ids]
-    acc = [torch.where(v, a, 0.0) for a, v in zip(acc, valid)]
+    valid = _per_shard(mesh, lambda s: (ids[s] < n_total)[:, None])
+    acc = _per_shard(mesh, lambda s: torch.where(valid[s], acc[s], 0.0))
     if quantize_forces and q.is_int:
         inf = float("inf")
-        lo = _replicate(_reduce([torch.where(v, a, inf).min()
-                                 for a, v in zip(acc, valid)],
-                                torch.minimum, mesh), mesh)
-        hi = _replicate(_reduce([torch.where(v, a, -inf).max()
-                                 for a, v in zip(acc, valid)],
-                                torch.maximum, mesh), mesh)
-        acc = [torch.where(v, quantize_force(a, q, lo=lo[s], hi=hi[s]), 0.0)
-               for s, (a, v) in enumerate(zip(acc, valid))]
+        lo = _replicate(_reduce(_per_shard(
+            mesh, lambda s: torch.where(valid[s], acc[s], inf).min()),
+            torch.minimum, mesh), mesh)
+        hi = _replicate(_reduce(_per_shard(
+            mesh, lambda s: torch.where(valid[s], acc[s], -inf).max()),
+            torch.maximum, mesh), mesh)
+        acc = _per_shard(mesh, lambda s: torch.where(
+            valid[s], quantize_force(acc[s], q, lo=lo[s], hi=hi[s]), 0.0))
     return acc
 
 
@@ -439,7 +606,7 @@ def _ring_accelerations_local(mesh: ParticleMesh, pos: list, gm: list,
         if k:
             pos_j, gm_j, ids_j = (_rotate(x, 1, mesh)
                                   for x in (pos_j, gm_j, ids_j))
-        for s in range(mesh.size):
+        for s in mesh.local:
             a = _tile_force(pos[s], ids[s], pos_j[s], gm_j[s], ids_j[s], q,
                             cfg, log_lo[s], log_hi[s], tile_impl,
                             diagonal=k == 0)
@@ -475,9 +642,10 @@ def _ring_accelerations_sym_local(mesh: ParticleMesh, pos: list, gm: list,
         log_lo = log_hi = [None] * n
     impl = _resolve_tile_impl(tile_impl)
 
-    acc = [_diagonal_sym(pos[s], gm[s], ids[s], q, cfg, log_lo[s],
-                         log_hi[s], impl, uniform_gm) for s in range(n)]
-    racc = [torch.zeros_like(p) for p in pos]
+    acc = _per_shard(mesh, lambda s: _diagonal_sym(
+        pos[s], gm[s], ids[s], q, cfg, log_lo[s], log_hi[s], impl,
+        uniform_gm))
+    racc = _per_shard(mesh, lambda s: torch.zeros_like(pos[s]))
     pos_j, gm_j, ids_j = pos, gm, ids
 
     def visit(s):
@@ -494,16 +662,17 @@ def _ring_accelerations_sym_local(mesh: ParticleMesh, pos: list, gm: list,
     for _ in range(1, n_uncond):
         pos_j, gm_j, ids_j, racc = (_rotate(x, 1, mesh)
                                     for x in (pos_j, gm_j, ids_j, racc))
-        for s in range(n):
+        for s in mesh.local:
             visit(s)
     if n % 2 == 0 and n > 1:
         pos_j, gm_j, ids_j, racc = (_rotate(x, 1, mesh)
                                     for x in (pos_j, gm_j, ids_j, racc))
-        for s in range(half):
-            visit(s)
+        for s in mesh.local:
+            if s < half:
+                visit(s)
     if half:
         home = _rotate(racc, -half, mesh)
-        acc = [a + r for a, r in zip(acc, home)]
+        acc = _per_shard(mesh, lambda s: acc[s] + home[s])
     return _finish_ring(mesh, acc, ids, n_total, q, quantize_forces)
 
 
@@ -520,12 +689,12 @@ def _ring_accelerations_dd_local(mesh: ParticleMesh, pos: list, gm: list,
         if k:
             pos_j, gm_j, ids_j = (_rotate(x, 1, mesh)
                                   for x in (pos_j, gm_j, ids_j))
-        for s in range(mesh.size):
+        for s in mesh.local:
             a = forces.baseline_pair_accelerations(pos[s], ids[s], pos_j[s],
                                                    gm_j[s], ids_j[s], cfg)
             acc[s] = a if acc[s] is None else acc[s] + a
-    return [torch.where((i < n_total)[:, None], a, 0.0)
-            for a, i in zip(acc, ids)]
+    return _per_shard(mesh, lambda s: torch.where(
+        (ids[s] < n_total)[:, None], acc[s], 0.0))
 
 
 # --------------------------------------------------------------------------
@@ -575,22 +744,22 @@ def _make_ring_force(mesh, q: Quantizer, cfg: SimConfig, gm, ids, n_total,
     return force, bounds_of, bounds_of(pos) if bounds_reuse else None
 
 
-def _make_ring_step(cfg: SimConfig, force, bounds_of, bounds_reuse: bool,
-                    bounds_every: int):
+def _make_ring_step(mesh: ParticleMesh, cfg: SimConfig, force, bounds_of,
+                    bounds_reuse: bool, bounds_every: int):
     """KDK step over the per-shard carry (p, v, a, bounds, step_idx), the
     single-device leapfrog_step's arithmetic element for element."""
     half_dt = cfg.dt * 0.5
 
     def one_step(carry):
         p, v, a, b, k = carry
-        v = [vs + acs * half_dt for vs, acs in zip(v, a)]
-        p = [ps + vs * cfg.dt for ps, vs in zip(p, v)]
+        v = _per_shard(mesh, lambda s: v[s] + a[s] * half_dt)
+        p = _per_shard(mesh, lambda s: p[s] + v[s] * cfg.dt)
         if bounds_reuse and k % bounds_every == 0:
             # amortised global-bounds pass: recompute every k-th step on
             # the freshly drifted positions, reuse in between
             b = bounds_of(p)
         a = force(p, b)
-        v = [vs + acs * half_dt for vs, acs in zip(v, a)]
+        v = _per_shard(mesh, lambda s: v[s] + a[s] * half_dt)
         return p, v, a, b, k + 1
 
     return one_step
@@ -616,7 +785,7 @@ def _start(state, q: Quantizer, cfg: SimConfig, mesh: ParticleMesh,
                                             n_total, quantize_forces,
                                             schedule, bounds_reuse, pos_l,
                                             uniform_gm)
-    one_step = _make_ring_step(cfg, force, bounds_of, bounds_reuse,
+    one_step = _make_ring_step(mesh, cfg, force, bounds_of, bounds_reuse,
                                bounds_every)
     carry = (pos_l, vel_l, force(pos_l, b0), b0, 0)
     return n_total, masses, m_l, ids_l, one_step, carry
@@ -655,24 +824,23 @@ def run_steps_sharded(state: ParticleState, q: Quantizer, cfg: SimConfig,
         for _ in range(chunk):
             carry = one_step(carry)
         p, v = carry[0], carry[1]
-        valid = _valid(ids_l, n_total)
-        kinetic.append(0.5 * _reduce(
-            [(torch.where(ok, ms, 0.0).to(torch.float64)
-              * (vs * vs).sum(dim=-1).to(torch.float64)).sum()
-             for ms, vs, ok in zip(m_l, v, valid)], torch.add, mesh))
+        valid = _valid(mesh, ids_l, n_total)
+        kinetic.append(0.5 * _reduce(_per_shard(mesh, lambda s: (
+            torch.where(valid[s], m_l[s], 0.0).to(torch.float64)
+            * (v[s] * v[s]).sum(dim=-1).to(torch.float64)).sum()),
+            torch.add, mesh))
         potential.append(_ring_pe_local(mesh, p, m_l, ids_l, n_total, cfg))
     for _ in range(num_steps - n_chunks * chunk):
         carry = one_step(carry)
     if kinetic:
         ke, pe = torch.stack(kinetic), torch.stack(potential)
     else:
-        ke = pe = torch.zeros(1, dtype=torch.float64,
-                              device=mesh.devices[0])
+        ke = pe = torch.zeros(1, dtype=torch.float64, device=mesh.home)
     p, v, a = carry[:3]
     trim = (lambda x: x[:n_total]) if gather else (lambda x: x)
     new_state = ParticleState(
         positions=trim(_gather(p, mesh)), velocities=trim(_gather(v, mesh)),
-        masses=trim(masses.to(mesh.devices[0])),
+        masses=trim(masses.to(mesh.home)),
         accelerations=trim(_gather(a, mesh)), tick=state.tick + num_steps)
     return new_state, EnergyStream(ke, pe, ke + pe)
 
@@ -712,7 +880,7 @@ def run_with_snapshots_sharded(state: ParticleState, q: Quantizer,
     n_total, masses, m_l, ids_l, one_step, carry = _start(
         state, q, cfg, mesh, quantize_forces, schedule, n_total,
         bounds_every, uniform_gm)
-    m_full = masses.to(mesh.devices[0])[:n_total]
+    m_full = masses.to(mesh.home)[:n_total]
     snaps, frames = [], []
     for i in range(num_chunks):
         for _ in range(steps_per_chunk):
@@ -727,7 +895,7 @@ def run_with_snapshots_sharded(state: ParticleState, q: Quantizer,
     p, v, a = carry[:3]
     new_state = ParticleState(
         positions=_gather(p, mesh), velocities=_gather(v, mesh),
-        masses=masses.to(mesh.devices[0]), accelerations=_gather(a, mesh),
+        masses=masses.to(mesh.home), accelerations=_gather(a, mesh),
         tick=state.tick + steps_per_chunk * num_chunks)
     return (new_state, *_stacked(snaps, frames))
 
@@ -799,10 +967,10 @@ def _start_baseline(state: BaselineState, cfg: SimConfig,
 
     def one_step(carry):
         p, v, a = carry
-        v = [vs + acs * half_dt for vs, acs in zip(v, a)]
-        p = [ps + vs * cfg.dt for ps, vs in zip(p, v)]
+        v = _per_shard(mesh, lambda s: v[s] + a[s] * half_dt)
+        p = _per_shard(mesh, lambda s: p[s] + v[s] * cfg.dt)
         a = force(p)
-        v = [vs + acs * half_dt for vs, acs in zip(v, a)]
+        v = _per_shard(mesh, lambda s: v[s] + a[s] * half_dt)
         return p, v, a
 
     return n_total, masses, m_l, ids_l, one_step, (pos_l, vel_l,
@@ -813,7 +981,7 @@ def _baseline_state(mesh, carry, masses, tick: int, trim) -> BaselineState:
     p, v, a = carry
     return BaselineState(
         positions=trim(_gather(p, mesh)), velocities=trim(_gather(v, mesh)),
-        masses=trim(masses.to(mesh.devices[0])),
+        masses=trim(masses.to(mesh.home)),
         accelerations=trim(_gather(a, mesh)), tick=tick)
 
 
@@ -842,14 +1010,14 @@ def run_with_snapshots_sharded_baseline(state: BaselineState, cfg: SimConfig,
     ``run_with_snapshots_sharded``."""
     n_total, masses, m_l, ids_l, one_step, carry = _start_baseline(
         state, cfg, mesh, n_total)
-    m32 = [x.to(torch.float32) for x in m_l]
-    m_full = masses.to(mesh.devices[0], torch.float32)[:n_total]
+    m32 = _per_shard(mesh, lambda s: m_l[s].to(torch.float32))
+    m_full = masses.to(mesh.home, torch.float32)[:n_total]
     snaps, frames = [], []
     for i in range(num_chunks):
         for _ in range(steps_per_chunk):
             carry = one_step(carry)
-        p32 = [x.to(torch.float32) for x in carry[0]]
-        v32 = [x.to(torch.float32) for x in carry[1]]
+        p32 = _per_shard(mesh, lambda s: carry[0][s].to(torch.float32))
+        v32 = _per_shard(mesh, lambda s: carry[1][s].to(torch.float32))
         pe = _ring_pe_local(mesh, p32, m32, ids_l, n_total, cfg,
                             compensated=True)
         snap, pg = _chunk_snapshot(mesh, p32, v32, m_full,

@@ -123,7 +123,10 @@ def test_import_never_pulls_in_jax():
             "'nbody_tpu_torch.engines.ultimate', "
             "'nbody_tpu_torch.diagnostics.multiverse', "
             "'nbody_tpu_torch.realtime.engine', "
-            "'nbody_tpu_torch.realtime.visual']\n"
+            "'nbody_tpu_torch.realtime.visual', "
+            "'nbody_tpu_torch.parallel.multihost', "
+            "'nbody_tpu_torch.parallel.multihost_check', "
+            "'nbody_tpu_torch.dryrun']\n"
             "assert set(new) <= set(mods), mods\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'nbody_tpu', 'tools')]\n"
