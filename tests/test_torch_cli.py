@@ -126,7 +126,10 @@ def test_import_never_pulls_in_jax():
             "'nbody_tpu_torch.realtime.visual', "
             "'nbody_tpu_torch.parallel.multihost', "
             "'nbody_tpu_torch.parallel.multihost_check', "
-            "'nbody_tpu_torch.dryrun']\n"
+            "'nbody_tpu_torch.dryrun', "
+            "'nbody_tpu_torch.fuzz', "
+            "'nbody_tpu_torch.diagnostics.fuzz_cases', "
+            "'nbody_tpu_torch.diagnostics.tolerance']\n"
             "assert set(new) <= set(mods), mods\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'nbody_tpu', 'tools')]\n"

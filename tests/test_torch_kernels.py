@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from nbody_tpu_torch.config import SimConfig
+from nbody_tpu_torch.diagnostics.tolerance import pe_bound_rtol
 from nbody_tpu_torch.ops import forces, hopper_nbody as hn
 from nbody_tpu_torch.ops import precision as tp
 
@@ -612,15 +613,6 @@ def _pe_ids(pattern, n_i, n_j, cuda):
     return tuple(torch.from_numpy(x.astype(np.int32)).to(cuda) for x in ids)
 
 
-def _pe_rtol(n_i, n_j):
-    """chip_smoke.py's bound of each design: twice the worst-case rounding
-    of its summation order (csrc/pair_pe_rows.cu)."""
-    if hn.pe_design(n_i, n_j) == "tiled":
-        nseg, seg = hn.pe_segments(n_i, n_j)
-        return 2 * (128 + seg + nseg + 5) * 2.0 ** -24
-    return 2 * (128 + -(-n_j // 128) + 4) * 2.0 ** -24
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("pattern", ["own", "permuted", "duplicated",
                                      "overlapping", "disjoint"])
@@ -644,7 +636,7 @@ def test_tiled_pair_pe_rows_matches_plain_and_parent(cuda, dim, n_i, n_j,
         fin = torch.isfinite(want)
         assert torch.equal(torch.isfinite(got), fin)
         err = (got - want).abs()[fin]
-        assert bool((err <= _pe_rtol(n_i, n_j) * want.abs()[fin]).all())
+        assert bool((err <= pe_bound_rtol(n_i, n_j) * want.abs()[fin]).all())
         assert torch.equal(got, hn.pair_pe_rows(*args))
         first = hn.pair_pe_rows(*args, parent=True)
         if hn.pe_design(n_i, n_j) == "per_receiver":
