@@ -52,37 +52,43 @@ Phases (any failure exits non-zero before the last line is printed):
    its recorded row (GATE_ROWS) bit for bit.
 6. perf: the main path's two kernels at its own shapes by device time
    (``device_ms``: torch.profiler over 50 warm calls; a CUDA-graph replay
-   beside it, and in its place where the trace is empty), each beside its earlier design in turns (old, new, new,
-   old): sym_force at 5000 float32 and int4 and at the grid rule's edge,
-   the general sym_force's two designs (the T x T grid, the one-pass
-   body) at 131072 and at the 1M chunk shapes, the fused max's at 131072,
-   max_d2 on the pruned pass's 1024 candidates and on 5000 skipped and
-   running; throughput at N=131072, kernel-vs-plain times, the
-   equal-mass variants' two designs (the earlier two-pass tile and the
-   one-pass design) in turns at 131072 and at the 1M chunk and pair shapes
-   (209728, 209728^2 at D=2; 174784, 174784^2 at D=3), float32 and int4,
-   each held to its plain version, with the bound by the function's own
-   operations and both designs' scratch bytes; the general pair tile's two
-   designs in turns at 209728^2 and 174784^2, and row_force's (the earlier
-   kernel, the register-tiled one) at 131072, unmasked and self-masked,
-   each held to its plain version; the single-device 20-tick run at
+   beside it, and in its place where the trace is empty), each bitwise
+   its earlier design: sym_force at 5000 float32 and int4, the general
+   sym_force (the one-pass body) at 131072 and at the 1M chunk shapes, the
+   fused max's at 131072, max_d2 on the pruned pass's 1024 candidates and
+   on 5000 skipped and running; throughput at N=131072, kernel-vs-plain
+   times, the equal-mass variants' one-pass design at 131072 and at the
+   1M chunk and pair shapes (209728, 209728^2 at D=2; 174784, 174784^2 at
+   D=3), float32 and int4, each design held to its plain version, with
+   the bound by the function's own operations and both designs' scratch
+   bytes; the general pair tile at 209728^2 and 174784^2, and row_force's
+   register-tiled design at 131072, unmasked and self-masked, both
+   designs held to the plain version; the single-device 20-tick run at
    131072 (float32 and int4) with the snapshots' energy on pair_pe_rows
-   and on the plain sum in turns (ticks/s, launches, the energies within
-   1e-5); and ``dynamic_params`` runs at 5000 stars against static ones.
-7. large: N=1,048,576 through ``run_steps(..., "auto", ...)`` for 5 steps
-   (D=2 disk and D=3 Plummer sphere, seed 43, float32 and int4), with the
-   general kernels (5 steps; the parent's routes, sym_force on the T x T
-   grid, against the one-pass body) and with ``uniform_gm`` (2 steps; both
-   kernels' two-pass tile against the one-pass body), in turns: the
-   chunked path's launch
-   counts, pairs/s, one force evaluation chunked (both variants) against
-   the row kernel over all rows (the row sweep timed in both designs, in
-   turns) and all against the plain version on sampled rows; zero
+   and on the plain sum (ticks/s, launches, the energies within 1e-5);
+   and ``dynamic_params`` runs at 5000 stars against static ones.
+7. large: N=1,048,576 through ``run_steps(..., "auto", ...)`` (D=2 disk
+   and D=3 Plummer sphere, seed 43, float32 and int4) with the general
+   kernels for 5 steps (phase bench runs the ``uniform_gm`` arms): the
+   chunked path's launch counts, one force evaluation chunked (both
+   variants) against
+   the row kernel over all rows (the row sweep in both designs, each
+   timed once) and all against the plain version on sampled rows; zero
    softening routed to the row kernel; the pruned bounds pass at D=3
    bitwise equal to the full max; max_d2 at 131072 (D=2 disk) and at 1M
-   D=3 (Plummer and shell) in its register-tiled design and the 256-point
-   launch it replaced, in turns, running and skipped, bitwise.
-8. ring: the multi-device ring (``--mesh``) and its tiles pair_force
+   D=3 (Plummer and shell) in its register-tiled design, timed running and
+   skipped, bitwise the 256-point launch it replaced.
+8. bench: the port's benchmark entry points on the card:
+   ``nbody_tpu_torch.bench.main`` at full width (root bench.py's arms:
+   131072 float32, int4 and int4 with bounds_every=4, 30 steps, best of
+   3; 1,048,576 on the D=2 disk and the D=3 Plummer sphere, 5 steps, best
+   of 2; D=3 at 131072; the PM arm), its 14 keys finite and > 0;
+   ``ladder_bench.main`` at its defaults (131072, 30 steps, best of 3, the
+   seven modes) at D=2 and D=3; every arm's and mode's launches exactly
+   the formulas of PERF.md section 2 (``bench_arm_launches``,
+   ``ladder_launches``); and the reference-gate CLI
+   (``diagnostics.reference_gate.main``) on int4 at 5000 x 2000, AGREE.
+9. ring: the multi-device ring (``--mesh``) and its tiles pair_force
    (#10), pair_max (#9) and pair_pe_rows (#7): each tile against its plain
    version at (5000, 5000) one set, (32768, 32771), (1, 1000) and prime
    sizes, all seven modes, D in {2,3} (pair_max bitwise), and timed and
@@ -91,8 +97,7 @@ Phases (any failure exits non-zero before the last line is printed):
    shape 32769^2, pair_pe_rows at the S=3 and S=4 shard shapes 43691^2
    and 32769^2);
    ``cli.main`` at 131072 stars x 200 ticks with ``--mesh`` for both
-   schedules, each with pair_max in both designs in turns (int4; float32
-   once), launch counts exact; virtual shards
+   schedules, float32 and int4, launch counts exact; virtual shards
    (S in {1, 3, 4} on the one card, N in {5000, 131072, 131075}): forces
    against single-device sym_force, max d^2 bitwise, energies against the
    plain metric, launch counts exact; the reference gate through a mesh of
@@ -101,7 +106,7 @@ Phases (any failure exits non-zero before the last line is printed):
    (float32 and int4) and on two virtual shards (budget-chunked pair tile).
    Equal masses take the sym tiles' equal-mass variants (timed beside the
    general ones); phantom layouts keep the general tiles bitwise.
-9. cached: int4 ``run_with_snapshots(bounds_mode="cached")`` at 5000 x
+10. cached: int4 ``run_with_snapshots(bounds_mode="cached")`` at 5000 x
    2000 (the canonical ICs) and at 131072 x 50 on a disk and on a shell
    that defeats the pruned bounds pass, beside the exact path (at 131072
    the fused max in both designs in turns: the T x T grid, the one-pass
@@ -110,18 +115,18 @@ Phases (any failure exits non-zero before the last line is printed):
    max_d2 launch; ms a tick, violation rate, the canonical final drift
    against the int4 reference envelope (reported); the redo's walk timed
    skipped and running, bitwise the forces of the launch without it.
-10. lab: ``python -m nbody_tpu_torch.lab.kernel_lab``'s table, and each
+11. lab: ``python -m nbody_tpu_torch.lab.kernel_lab``'s table, and each
    lab kernel against its plain version at N=131072.
-11. lab_r4: ``python -m nbody_tpu_torch.lab.kernel_lab_r4``'s table (the
+12. lab_r4: ``python -m nbody_tpu_torch.lab.kernel_lab_r4``'s table (the
    round-4 lab at N=129024), every round-4 variant launched, and each
    against its plain version at N=129024, float32 and int4, timed beside
    sym_force_uniform in the same call.
-12. lab_r5: ``python -m nbody_tpu_torch.lab.kernel_lab_r5`` (the round-5
+13. lab_r5: ``python -m nbody_tpu_torch.lab.kernel_lab_r5`` (the round-5
    lab: the d^2 accuracy study on the card, then its table at N=129024),
    each precision of the tensor-core kernel launched, the study's verdict
    checked, and each precision against its plain version at N=129024,
    D=2, timed beside sym_force_uniform in the same call.
-13. pm: the particle-mesh engine (``engines/cosmo.py``). The deposit
+14. pm: the particle-mesh engine (``engines/cosmo.py``). The deposit
    kernel pm_deposit (``csrc/pm_deposit.cu``) bitwise its plain version on
    a CPU copy of its inputs, its parent design and itself run to run, NGP
    and CIC (later corners in place), N in {10000, 262144}, D in {2, 3},
@@ -140,7 +145,7 @@ Phases (any failure exits non-zero before the last line is printed):
    z=0.01 state and at the arm's shape (lattice, clustered, one cell, the
    arm's own state), the whole CIC deposit in both designs, and a profile
    of one step and of the probe bundle.
-14. pm_mesh: the sharded particle mesh (``parallel/pm_sharded.py``).
+15. pm_mesh: the sharded particle mesh (``parallel/pm_sharded.py``).
    pm_deposit bitwise its plain version at the per-shard shapes (the arm's
    262144 particles over 4 and over 3 shards, 256^3, 64^3 and 32^3); the
    three gate rows through a mesh of one (bitwise the single device) and
@@ -154,7 +159,7 @@ Phases (any failure exits non-zero before the last line is printed):
    mesh of one); a device-time breakdown of one sharded step at S = 1 and
    4; ``universe3d --mesh --probes``, ``genesis --mesh`` and
    ``universe2d --mesh`` at their defaults.
-15. ultimate: ``engines/ultimate.py``'s ``main --mode full`` at its
+16. ultimate: ``engines/ultimate.py``'s ``main --mode full`` at its
    default size (32768 particles, D=3, 64^3, int4): the five checks, the
    score, each phase's wall, and pm_deposit's launches equal to the count
    the run's chunks (steps + the probe bundle's 2), BAO epochs, structure
@@ -165,7 +170,7 @@ Phases (any failure exits non-zero before the last line is printed):
    a CPU engine from one seed with one tick-0 hash, then the mirror test
    after 10 steps; ``DeviceProfiler``'s overhead at 10 ms sampling over a
    10-step chunk, its device memory and one ``TraceCapture``.
-16. realtime: ``realtime.engine.main`` at its default size for 5 s,
+17. realtime: ``realtime.engine.main`` at its default size for 5 s,
    headless, on one card and with ``--mesh`` (a mesh of one): ticks, no
    desync, no monitor left running, pm_deposit 2 launches a tick;
    ``realtime.visual.main`` in compare mode at 2000 stars x 20 frames of
@@ -173,7 +178,7 @@ Phases (any failure exits non-zero before the last line is printed):
    set-up) as derived, no pair_pe_rows; ``MultiverseSim`` at 1024 stars x
    60 ticks: a finite report whose reversed-order divergence grows, the
    reversed force at tick 0 within 1e-5 of max|a| of a float64 CPU sum.
-17. experiments: the precision-ladder suites of
+18. experiments: the precision-ladder suites of
    ``nbody_tpu_torch.experiments`` with ``--device cuda``: stability,
    sensitivity, dark matter and SPARC at the JAX package's run_all
    arguments, falsification and jitter with ``--quick``, omniverse at its
@@ -185,7 +190,7 @@ Phases (any failure exits non-zero before the last line is printed):
    its eager launches (both timed, in turns) and float32 within 1e-4 of
    the orbit's radius of the CPU (int4's bin flips counted);
    ``ultimate.run_all_tests(quick=True)`` on the card with no error.
-18. probes: the hardware and glitch probes of
+19. probes: the hardware and glitch probes of
    ``nbody_tpu_torch.experiments``: ``extreme_mode.memory_armageddon`` at
    its defaults (its ceiling, and the reserved memory back where it was);
    ``density_limit_test.main`` at the card's default sweep (D=2 disk,
@@ -207,7 +212,7 @@ Phases (any failure exits non-zero before the last line is printed):
    131072 points in full, sym_force past it on 4096 sampled rows (the 1M
    sweep's chunk shapes are phase large's, not held again), max_d2 past
    it bitwise the design it replaced.
-19. multihost: the ring across processes (``parallel/multihost.py``):
+20. multihost: the ring across processes (``parallel/multihost.py``):
    two processes of ``python -m nbody_tpu_torch.parallel.multihost_check``
    on the card, 4 virtual shards each on cuda:0, joined over gloo at
    127.0.0.1 into one mesh of S = 8, at 131072 stars, 20 ticks in 2
@@ -221,12 +226,12 @@ Phases (any failure exits non-zero before the last line is printed):
    processes against one, and its time in the collectives staged through
    gloo; the first launch of each tile shape held against its plain
    version. The kernels are built here first: the processes load them.
-20. dryrun: ``nbody_tpu_torch.dryrun``: ``entry()``'s tick at 4096
+21. dryrun: ``nbody_tpu_torch.dryrun``: ``entry()``'s tick at 4096
    stars (one sym_force launch) and ``dryrun_multichip(8)`` on the card
    (JAX's seven surfaces on 8 virtual shards), its OK line and its
    launches derived from the surfaces' sizes (``dryrun_launches``), each
    tile shape's first launch held against its plain version.
-21. fuzz: ``nbody_tpu_torch.fuzz.run`` on the card at tools/tpu_fuzz.py's
+22. fuzz: ``nbody_tpu_torch.fuzz.run`` on the card at tools/tpu_fuzz.py's
    defaults (40 force and max cases from seed 20260819, 20 mesh cases:
    JAX's seeded case space of primes and sizes one off a block, every
    non-f64 mode, softening 0 to 0.1, equal and unequal masses,
@@ -255,12 +260,22 @@ pair where one source alone carries the columns); perf and large time
 each variant beside its general twin at 131072 and at the N=1M chunk and
 pair shapes.
 
-Two more phases run only when asked for: ``--phases profile``, the main
-path under ``torch.profiler`` at 5000 and 131072 stars, per mode: wall,
-device kernel time, busy share and the top kernels, also written as JSON
-to ``--profile-out``; and ``--phases scale``, each kernel against its
-plain version at the N=1,048,576 path's shapes (plain versions take
-minutes there).
+Three more phases run only when asked for: ``--phases ab``, phases perf
+and large with the settled parent-design A/Bs of PRs 9-12 (each
+redesigned kernel and the design it replaced timed in turns, old, new,
+new, old: sym_force's grids at 5000 and at the grid rule's edge, max_d2's
+launches, the one-pass bodies against the two-pass tile at 131072 and
+the 1M chunk and pair shapes, the fused max against the square grid,
+row_force's two kernels, the energy routes, each 1M run and the row
+sweep (and the equal-mass 1M runs), max_d2's two designs at 131072 and
+1M, and phase ring's ``--mesh`` CLI runs with pair_max's two designs;
+the default run times the current design once); ``--phases profile``, the main path under
+``torch.profiler`` at 5000 and 131072 stars, per mode: wall, device
+kernel time, busy share and the top kernels, also written as JSON to
+``--profile-out``; and ``--phases scale``, each kernel against its plain
+version at the N=1,048,576 path's shapes (plain versions take minutes
+there).
+
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -288,16 +303,17 @@ import torch
 REPO = Path(__file__).resolve().parent
 # Only the package in this checkout, never an installed copy.
 sys.path.insert(0, str(REPO))
+from nbody_tpu_torch import bench  # noqa: E402
 from nbody_tpu_torch.diagnostics import tolerance  # noqa: E402
 from nbody_tpu_torch.diagnostics.tolerance import (  # noqa: E402
     ATOL, FLIP_RATE, FLIPS_ALLOWED, RTOL, bitwise, flips_allowed, float_rule,
     pe_bound_rtol, pe_rtol, pe_rtol_tiled, quantized_flips)
 
-PHASES = ("kernels", "main", "gate", "perf", "large", "ring", "cached",
-          "lab", "lab_r4", "lab_r5", "pm", "pm_mesh", "ultimate",
+PHASES = ("kernels", "main", "gate", "perf", "large", "bench", "ring",
+          "cached", "lab", "lab_r4", "lab_r5", "pm", "pm_mesh", "ultimate",
           "realtime", "experiments", "probes", "multihost",
           "dryrun", "fuzz")  # default
-EXTRA_PHASES = ("profile", "scale")
+EXTRA_PHASES = ("ab", "profile", "scale")
 MODES = ("float32", "bfloat16", "float16", "int8", "int4", "custom")
 STARS, TICKS, INTERVAL = 5000, 2000, 100
 BIG_N = 131072
@@ -366,8 +382,6 @@ GATE_ROWS = {"float32": -0.007852, "int4": 32.506357, "float64": -0.007517,
 GATE_MODES = ("float32", "int4", "float64", "bfloat16", "float16", "int8",
               "custom")
 RING_GATE_MODES = GATE_MODES[:3]
-# A mode's name in tools/reference_cache/'s file stems.
-CACHE_STEMS = {"bfloat16": "bf16"}
 
 
 def weight_ops(mode: str) -> int:
@@ -621,6 +635,35 @@ def in_turns(time_fn, old, new) -> tuple:
     turns, old, new, new, old, in one call: ([old turns], [new turns])."""
     o1, n1, n2, o2 = time_fn(old), time_fn(new), time_fn(new), time_fn(old)
     return [o1, o2], [n1, n2]
+
+
+def design_turns(time_fn, old, new, ab: bool) -> tuple:
+    """A redesigned kernel's timings in phases perf and large: under phase
+    ab the settled parent-design A/B (PRs 9-12), in_turns; in the default
+    run this design alone, once: ([], [new])."""
+    return in_turns(time_fn, old, new) if ab else ([], [time_fn(new)])
+
+
+def mean_ms(turns: list) -> float | None:
+    """The mean of a design's turns (device_ms's tuples by their ms), None
+    where it was not timed."""
+    ms = [t[0] if isinstance(t, tuple) else t for t in turns]
+    return sum(ms) / len(ms) if ms else None
+
+
+def turns_ms_text(turns: list, fmt: str = ".4f") -> str:
+    return " / ".join(f"{t:{fmt}}" for t in turns)
+
+
+def ab_text(olds: list, news: list, old_name: str, new_name: str,
+            fmt: str = ".4f", unit: str = "ms") -> str:
+    """"old a / b ms, new c / d ms (+x%)", or "new c ms" where the earlier
+    design was not timed."""
+    text = f"{new_name} {turns_ms_text(news, fmt)} {unit}"
+    if not olds:
+        return text
+    return (f"{old_name} {turns_ms_text(olds, fmt)} {unit}, {text} "
+            f"({mean_ms(news) / mean_ms(olds) - 1:+.2%})")
 
 
 # --------------------------------------------------------------------------
@@ -1805,11 +1848,6 @@ def phase_main(dev, report: dict) -> None:
 # Phase 5: the reference gate
 # --------------------------------------------------------------------------
 
-def radius90(pos) -> float:
-    r = np.sqrt((np.asarray(pos, np.float64) ** 2).sum(1))
-    return float(np.percentile(r, 90))
-
-
 def phase_gate(dev, mesh=None, label: str = "gate",
                modes=GATE_MODES) -> None:
     """The reference gate, single-device or (``mesh``) on the ring, each
@@ -1844,47 +1882,32 @@ def phase_gate(dev, mesh=None, label: str = "gate",
 
 
 def gate_rule(mode: str, drifts, final_pos) -> tuple:
-    """The rule of tools/reference_parity.py:258-269 against the cached
-    torch-reference run of ``mode`` at 5000 x 2000: (agree, summary)."""
-    cache = REPO / "tools" / "reference_cache"
-    stem = (f"ref_s{STARS}_t{TICKS}_i{INTERVAL}_seed42_"
-            f"{CACHE_STEMS.get(mode, mode)}")
-    ref = json.loads((cache / f"{stem}.json").read_text())
-    perm_path = cache / f"{stem}_perm.json"
-    ref_perm = (json.loads(perm_path.read_text())
-                if perm_path.exists() else None)
-    spread = r_spread = 0.0
-    if ref_perm is not None:
-        spread = abs(ref["drifts"][-1] - ref_perm["drifts"][-1])
-        r_spread = abs(radius90(ref["final_pos"])
-                       - radius90(ref_perm["final_pos"]))
-    final_ref, final_our = ref["drifts"][-1], float(drifts[-1])
-    scale = max(abs(final_ref), abs(final_our), 0.05)
-    tol = max(0.5 * scale, 0.05, 2.0 * spread)
-    agree = abs(final_ref - final_our) < tol
-    r_ref, r_our = radius90(ref["final_pos"]), radius90(final_pos)
-    r_tol = max(0.1 * r_ref, 2.0 * r_spread)
-    r_agree = abs(r_ref - r_our) < r_tol
-    return agree and r_agree, (
-        f"final drift ours {final_our:+.6f}% vs reference {final_ref:+.6f}% "
-        f"(tol {tol:.4f}) {'AGREE' if agree else 'DISAGREE'}; radius90 ours "
-        f"{r_our:.4f} vs {r_ref:.4f} (tol {r_tol:.4f}) "
-        f"{'AGREE' if r_agree else 'DISAGREE'}")
+    """The rule of tools/reference_parity.py:258-269
+    (``diagnostics.reference_gate``) against the cached torch-reference
+    run of ``mode`` at 5000 x 2000 and its permuted twin where cached:
+    (agree, summary)."""
+    from nbody_tpu_torch.diagnostics import reference_gate as rg
+    run = (STARS, TICKS, INTERVAL, 42, mode)
+    twin = (rg.load_reference(*run, perturbed=True)
+            if rg.cache_path(*run, perturbed=True).exists() else None)
+    row = rg.gate_row(rg.load_reference(*run), drifts, final_pos, twin)
+    return row["agree"], rg.row_text(row)
 
 
 # --------------------------------------------------------------------------
 # Phase 6: throughput and kernel times
 # --------------------------------------------------------------------------
 
-def perf_main_shapes(dev, report: dict) -> None:
+def perf_main_shapes(dev, report: dict, ab: bool = False) -> None:
     """The main path's two kernels at its own shapes by device time
-    (device_ms, a CUDA-graph replay beside it), each kernel's earlier design
-    and this one in turns: sym_force over the canonical
-    5000 (the general kernel, off the tile), float32 and int4; max_d2 over
-    the pruned pass's 1024 candidates, over the 5000 under skip=1 (a tick
-    on the disk) and over the 5000 running (its fallback). The new
-    sym_force makes the triangular grid's tiles and the reduction a call,
-    the new max_d2 one launch."""
+    (device_ms, a CUDA-graph replay beside it), each bitwise its earlier
+    design (under phase ab also timed beside it in turns, design_turns):
+    sym_force over the canonical 5000 (the general kernel, off the tile),
+    float32 and int4 (phase ab: and the equal-mass variant at the grid
+    rule's edge); max_d2 over the pruned pass's 1024 candidates, over the
+    5000 under skip=1 (a tick on the disk) and over the 5000 running (its
+    fallback). The new sym_force makes the triangular grid's tiles and the
+    reduction a call, the new max_d2 one launch."""
     from nbody_tpu_torch.config import SimConfig
     from nbody_tpu_torch.ops import hopper_nbody as hn
     from nbody_tpu_torch.ops.precision import Quantizer
@@ -1910,10 +1933,16 @@ def perf_main_shapes(dev, report: dict) -> None:
               f"{what}: not one launch each of {kernels} a call: {launched}")
 
     def turns_text(olds, news, old_name, new_name):
-        return (f"{old_name} {olds[0][0]:.5f} / {olds[1][0]:.5f} ms "
-                f"({olds[0][1] or 'untraced'}), {new_name} "
-                f"{news[0][0]:.5f} / {news[1][0]:.5f} ms "
+        text = (f"{new_name} {' / '.join(f'{t[0]:.5f}' for t in news)} ms "
                 f"({news[0][1] or 'untraced'})")
+        if not olds:
+            return text
+        return (f"{old_name} {olds[0][0]:.5f} / {olds[1][0]:.5f} ms "
+                f"({olds[0][1] or 'untraced'}), {text}: "
+                f"{mean_ms(news) / mean_ms(olds) - 1:+.2%}")
+
+    def graphs(old, new):
+        return (graph_ms(old) if ab else None), graph_ms(new)
 
     route = hn.sym_schedule(STARS)
     for mode in ("float32", "int4"):
@@ -1928,26 +1957,23 @@ def perf_main_shapes(dev, report: dict) -> None:
 
         check(torch.equal(old(), new()), f"sym_force N={STARS} {mode}: the "
                                          f"grids differ")
-        olds, news = in_turns(device_ms, old, new)
-        old_ms = (olds[0][0] + olds[1][0]) / 2
-        ms = (news[0][0] + news[1][0]) / 2
+        olds, news = design_turns(device_ms, old, new, ab)
+        old_ms, ms = mean_ms(olds), mean_ms(news)
         launches_a_call(f"sym_force N={STARS} {mode}", news[0][1],
                         ["sym_force_tri" if route == "triangle"
                          else "sym_force_tiles", "reduce_partials"], new,
                         "sym_force")
         plain_ms = device_ms(
             lambda: hn.sym_force_plain(pos, gm, bounds, q, False), 10)[0]
-        g_old, g_new = graph_ms(old), graph_ms(new)
+        g_old, g_new = graphs(old, new)
         work = (STARS * (STARS - 1) / 2, pair_ops("sym_gm", 2, mode),
                 sym_bytes(STARS, 2))
         b_ms = bound(*work)[0]
         print(f"perf: sym_force N={STARS} D=2 {mode}, device time "
               f"(profiler, {DEVICE_REPS} calls a turn): "
-              f"{turns_text(olds, news, 'square', route)}: "
-              f"{ms / old_ms - 1:+.2%}; CUDA-graph replay square "
-              f"{ms_text(g_old)}, {route} "
-              f"{ms_text(g_new)}; plain {plain_ms:.4f} ms; bound {b_ms:.5f} "
-              f"ms")
+              f"{turns_text(olds, news, 'square', route)}; CUDA-graph "
+              f"replay square {ms_text(g_old)}, {route} {ms_text(g_new)}; "
+              f"plain {plain_ms:.4f} ms; bound {b_ms:.5f} ms")
         entry = report["sym_force"]
         if mode == "float32":
             set_timing(entry, ms, plain_ms, f"N={STARS} D=2 float32, device "
@@ -1959,25 +1985,24 @@ def perf_main_shapes(dev, report: dict) -> None:
             entry.update(int4_ms=ms, int4_old_schedule_ms=old_ms,
                          int4_plain_ms=plain_ms, int4_bound_ms=b_ms)
 
-    # The grid rule's edge: the largest N the triangle serves (T = 256,
-    # N = 16384, equal masses: the equal-mass variant).
-    edge = hn.TRIANGLE_MAX_TILES * hn.TILE
-    pe, me = make_inputs(edge, 2, True, seed=7, dev=dev)
-    ge = (cfg.G * me).contiguous()
-    for mode in ("float32", "int4"):
-        q = Quantizer.from_string(mode)
-        bounds = force_bounds(q, pe, cfg.softening_sq, dev)
-        olds, news = in_turns(
-            device_ms,
-            lambda: hn.sym_force(pe, ge, bounds, q, False, uniform=True,
-                                 parent=True),
-            lambda: hn.sym_force(pe, ge, bounds, q, False, uniform=True))
-        old_ms, ms = (olds[0][0] + olds[1][0]) / 2, (news[0][0] + news[1][0]) / 2
-        print(f"perf: sym_force_uniform N={edge} D=2 {mode} (the grid rule's "
-              f"edge), device time: "
-              f"{turns_text(olds, news, 'square', hn.sym_schedule(edge))}: "
-              f"{ms / old_ms - 1:+.2%}")
-    del pe, me, ge
+    if ab:
+        # The grid rule's edge: the largest N the triangle serves (T =
+        # 256, N = 16384, equal masses: the equal-mass variant).
+        edge = hn.TRIANGLE_MAX_TILES * hn.TILE
+        pe, me = make_inputs(edge, 2, True, seed=7, dev=dev)
+        ge = (cfg.G * me).contiguous()
+        for mode in ("float32", "int4"):
+            q = Quantizer.from_string(mode)
+            bounds = force_bounds(q, pe, cfg.softening_sq, dev)
+            olds, news = in_turns(
+                device_ms,
+                lambda: hn.sym_force(pe, ge, bounds, q, False, uniform=True,
+                                     parent=True),
+                lambda: hn.sym_force(pe, ge, bounds, q, False, uniform=True))
+            print(f"perf: sym_force_uniform N={edge} D=2 {mode} (the grid "
+                  f"rule's edge), device time: "
+                  f"{turns_text(olds, news, 'square', hn.sym_schedule(edge))}")
+        del pe, me, ge
 
     r = torch.linalg.vector_norm(pos - pos.mean(0), dim=1)
     cand = pos.index_select(0, torch.topk(r, 1024).indices).contiguous()
@@ -1996,26 +2021,25 @@ def perf_main_shapes(dev, report: dict) -> None:
         check(torch.equal(old(), new())
               and torch.equal(new(), hn.max_d2_plain(x, skip)),
               f"max_d2 {label}: the designs or the plain version differ")
-        olds, news = in_turns(device_ms, old, new)
+        olds, news = design_turns(device_ms, old, new, ab)
         launches_a_call(f"max_d2 {label}", news[0][1], ["max_d2_single"],
                         new, "max_d2")
-        old_ms = (olds[0][0] + olds[1][0]) / 2
-        ms = (news[0][0] + news[1][0]) / 2
+        old_ms, ms = mean_ms(olds), mean_ms(news)
         plain_ms = device_ms(lambda: hn.max_d2_plain(x, skip), 10)[0]
-        g_old, g_new = graph_ms(old), graph_ms(new)
+        g_old, g_new = graphs(old, new)
         n = x.shape[0]
         # A skipped launch reads the flag and writes the 0.
         work = ((0, 0, 8) if skip is not None
                 else (n * (n - 1) / 2, pair_ops("max", 2, ""), 4 * (2 * n + 1)))
         print(f"perf: max_d2 {label} D=2, device time (profiler, "
               f"{DEVICE_REPS} calls a turn): "
-              f"{turns_text(olds, news, 'two launches', 'single')}: "
-              f"{ms / old_ms - 1:+.2%}; CUDA-graph replay two launches "
-              f"{ms_text(g_old)}, single {ms_text(g_new)}; plain "
-              f"{plain_ms:.4f} ms; bound {bound(*work)[0]:.6f} ms")
+              f"{turns_text(olds, news, 'two launches', 'single')}; "
+              f"CUDA-graph replay two launches {ms_text(g_old)}, single "
+              f"{ms_text(g_new)}; plain {plain_ms:.4f} ms; bound "
+              f"{bound(*work)[0]:.6f} ms")
         if "running" not in label:
             tick["ms"] += ms
-            tick["old"] += old_ms
+            tick["old"] = None if old_ms is None else tick["old"] + old_ms
             tick["plain"] += plain_ms
     n = cand.shape[0]
     set_timing(report["max_d2"], tick["ms"], tick["plain"],
@@ -2024,19 +2048,22 @@ def perf_main_shapes(dev, report: dict) -> None:
                pair_ops("max", 2, ""), 4 * (2 * n + 1) + 8)
     report["max_d2"].update(schedule="single", old_schedule="two launches",
                             old_schedule_ms=tick["old"])
+    against = ("" if tick["old"] is None else
+               f" against two launches {tick['old']:.5f} ms "
+               f"({tick['ms'] / tick['old'] - 1:+.2%})")
     print(f"perf: max_d2 a tick of the pruned pass ({n} candidates + {STARS} "
-          f"skipped): single {tick['ms']:.5f} ms against two launches "
-          f"{tick['old']:.5f} ms ({tick['ms'] / tick['old'] - 1:+.2%})")
+          f"skipped): single {tick['ms']:.5f} ms{against}")
 
 
 def design_ab(report: dict, key: str, shape: str, args: tuple, mode: str,
-              dim: int) -> tuple:
+              dim: int, ab: bool = False) -> tuple:
     """A sym kernel that has a one-pass design (the equal-mass variants,
     the general sym_force and pair_sym_force) at one timed shape, ``args`` its
     wrapper's positional arguments (sym_force: pos, gm, bounds, q,
     self_masked; pair_sym_force: pos_a, gm_a, pos_b, gm_b, bounds, q): the
-    earlier two-pass design and the one-pass design in turns (old, new,
-    new, old; CUDA events, 3 calls a turn), each held to the plain version
+    one-pass design timed (CUDA events, 3 calls a turn; under phase ab the
+    earlier two-pass design beside it in turns, old, new, new, old), both
+    designs held to the plain version
     (the float rule with the summed-|terms| scale where |a| alone does not
     hold; the int modes the flip rule after quantize_force, a pair tile
     the float rule alone), the one-pass
@@ -2098,14 +2125,14 @@ def design_ab(report: dict, key: str, shape: str, args: tuple, mode: str,
           f"{key} {shape}: the one-pass design not bitwise run to run")
     check(not tally.failures, f"{key} {shape} vs plain:\n  "
           + "\n  ".join(tally.failures))
-    olds, news = in_turns(lambda f: cuda_ms(f, 3), old, new)
-    old_ms, ms = sum(olds) / 2, sum(news) / 2
+    olds, news = design_turns(lambda f: cuda_ms(f, 3), old, new, ab)
+    old_ms, ms = mean_ms(olds), mean_ms(news)
     b_ms = bound(*work)[0]
-    print(f"perf: {key} {shape} {mode}: two-pass {olds[0]:.4f} / "
-          f"{olds[1]:.4f} ms, one-pass {news[0]:.4f} / {news[1]:.4f} ms "
-          f"({ms / old_ms - 1:+.2%}); bound {b_ms:.4f} ms ({work[1]} ops a "
-          f"pair, pair_ops {OWN_OPS[key]}; {b_ms / old_ms:.1%} / "
-          f"{b_ms / ms:.1%} of it); plain {plain_ms:.1f} ms (wall); vs "
+    share = ("" if old_ms is None else f"{b_ms / old_ms:.1%} / ")
+    print(f"perf: {key} {shape} {mode}: "
+          f"{ab_text(olds, news, 'two-pass', 'one-pass')}; bound "
+          f"{b_ms:.4f} ms ({work[1]} ops a pair, pair_ops {OWN_OPS[key]}; "
+          f"{share}{b_ms / ms:.1%} of it); plain {plain_ms:.1f} ms (wall); vs "
           f"plain worst err {tally.worst_err[0]:.3e}, err/bound "
           f"{tally.worst_ratio[0]:.4f}, "
           f"quantize_force flips {tally.flips}; scratch two-pass "
@@ -2118,11 +2145,12 @@ def design_ab(report: dict, key: str, shape: str, args: tuple, mode: str,
     return ms, plain_ms, work
 
 
-def row_ab(dev, report: dict) -> None:
+def row_ab(dev, report: dict, ab: bool = False) -> None:
     """row_force at N=131072 (D=2 disk, unequal masses, softening 0.1),
     float32 and int4, unmasked and self-masked (the run-time softening's
-    path): the earlier kernel and the register-tiled design in turns (old,
-    new, new, old; CUDA events, 3 calls a turn), both held to the plain
+    path): the register-tiled design timed (CUDA events, 3 calls a turn;
+    under phase ab the earlier kernel beside it in turns, old, new, new,
+    old), both held to the plain
     version, the new one bitwise run to run; the bound by the function's
     own operations (pair_ops("rows")). Float32 unmasked goes into the
     kernels line; every row into report["row_force"]["designs"]."""
@@ -2160,16 +2188,16 @@ def row_ab(dev, report: dict) -> None:
             check(not tally.failures, f"row_force N={BIG_N} {mode} "
                   f"masked={masked} vs plain:\n  " + "\n  ".join(
                       tally.failures))
-            olds, news = in_turns(lambda f: cuda_ms(f, 3), old, new)
-            old_ms, ms = sum(olds) / 2, sum(news) / 2
+            olds, news = design_turns(lambda f: cuda_ms(f, 3), old, new,
+                                      ab)
+            old_ms, ms = mean_ms(olds), mean_ms(news)
             work = (BIG_N * (BIG_N - 1), pair_ops("rows", 2, mode),
                     sym_bytes(BIG_N, 2))
             b_ms = bound(*work)[0]
+            share = "" if old_ms is None else f"{b_ms / old_ms:.1%} / "
             print(f"perf: row_force N={BIG_N} D=2 {mode} self_masked="
-                  f"{masked}: earlier {olds[0]:.4f} / {olds[1]:.4f} ms, "
-                  f"tiled {news[0]:.4f} / {news[1]:.4f} ms "
-                  f"({ms / old_ms - 1:+.2%}); bound {b_ms:.4f} ms ("
-                  f"{work[1]} ops a pair; {b_ms / old_ms:.1%} / "
+                  f"{masked}: {ab_text(olds, news, 'earlier', 'tiled')}; "
+                  f"bound {b_ms:.4f} ms ({work[1]} ops a pair; {share}"
                   f"{b_ms / ms:.1%} of it); plain {plain_ms:.1f} ms (wall); "
                   f"vs plain worst err {tally.worst_err[0]:.3e}, err/bound "
                   f"{tally.worst_ratio[0]:.4f}, quantize_force flips "
@@ -2194,11 +2222,12 @@ PERF_TICKS, PERF_INTERVAL = 20, 10   # the single-device run at 131072
 ENERGY_SPEEDUP = {"float32": 5.0, "int4": 3.0}   # kernel energy vs plain
 
 
-def big_energy_ab(dev, report: dict) -> None:
+def big_energy_ab(dev, report: dict, ab: bool = False) -> None:
     """The single-device main path at N=131072 (D=2 disk, equal masses):
     20 ticks with a snapshot every 10, float32 and int4, the snapshots'
     potential energy on pair_pe_rows (metrics.energy_route) and on the
-    plain O(N^2) sum in turns (plain, kernel, kernel, plain): ticks/s,
+    plain O(N^2) sum (plain, kernel; under phase ab in turns, plain,
+    kernel, kernel, plain): ticks/s,
     launches exact (21 sym_force_uniform; 2 pair_pe_rows on the kernel
     route, none on the plain one), the two routes' energies within 1e-5
     relative of each other (the same trajectory: the energy does not feed
@@ -2219,7 +2248,8 @@ def big_energy_ab(dev, report: dict) -> None:
     rates = {}
     for mode in ("float32", "int4"):
         energies = {}
-        for design in ("plain", "kernel", "kernel", "plain"):
+        for design in (("plain", "kernel", "kernel", "plain") if ab
+                       else ("plain", "kernel")):
             reset_counters(hn)
             sim = DirectSimulation(p0, v0, m0, precision=mode, device=dev)
             fence(sim.state.positions)
@@ -2253,13 +2283,12 @@ def big_energy_ab(dev, report: dict) -> None:
             del sim
         rel = max(float(np.abs(k / p - 1).max())
                   for k in energies["kernel"] for p in energies["plain"])
-        plain, kernel = (sum(rates[(mode, d)]) / 2 for d in ("plain",
-                                                            "kernel"))
+        plain, kernel = (mean_ms(rates[(mode, d)]) for d in ("plain",
+                                                             "kernel"))
         print(f"perf: N={BIG_N} {mode} ticks/s, energy plain "
-              f"{rates[(mode, 'plain')][0]:.3f} / "
-              f"{rates[(mode, 'plain')][1]:.3f}, on pair_pe_rows "
-              f"{rates[(mode, 'kernel')][0]:.3f} / "
-              f"{rates[(mode, 'kernel')][1]:.3f} ({kernel / plain:.2f}x); "
+              f"{turns_ms_text(rates[(mode, 'plain')], '.3f')}, on "
+              f"pair_pe_rows {turns_ms_text(rates[(mode, 'kernel')], '.3f')}"
+              f" ({kernel / plain:.2f}x); "
               f"the routes' potential energies within {rel:.3e} relative")
         check(rel <= 1e-5, f"N={BIG_N} {mode}: the energy routes differ by "
                            f"{rel:.3e}")
@@ -2278,7 +2307,9 @@ def big_energy_ab(dev, report: dict) -> None:
           f"plain sum, no pair_pe_rows launch")
 
 
-def phase_perf(dev, report: dict) -> None:
+def phase_perf(dev, report: dict, ab: bool = False) -> None:
+    """Phase perf; ``ab`` (phase ab) adds the settled parent-design A/Bs
+    (design_turns)."""
     from nbody_tpu_torch.config import SimConfig
     from nbody_tpu_torch.models.direct import DirectSimulation
     from nbody_tpu_torch.ops import hopper_nbody as hn
@@ -2286,10 +2317,10 @@ def phase_perf(dev, report: dict) -> None:
     from nbody_tpu_torch.ops.precision import Quantizer, dist_sq_log_bounds
 
     cfg = SimConfig()
-    perf_main_shapes(dev, report)
+    perf_main_shapes(dev, report, ab)
     # (kernel, N, mode) whose times go into the kernels line: 131072 and
-    # the cached-bounds scan's shapes (its 5000 by device time). Each
-    # unflagged variant also beside the earlier T x T grid.
+    # the cached-bounds scan's shapes (its 5000 by device time). Under
+    # phase ab each variant also beside its earlier design.
     timed = {("sym_force_uniform", BIG_N, "float32"),
              ("sym_force_max", STARS, "int4"),
              ("sym_force_uniform_max", BIG_N, "int4")}
@@ -2316,7 +2347,7 @@ def phase_perf(dev, report: dict) -> None:
                 if not fused:   # N=131072: both designs
                     ms, plain_ms, work = design_ab(
                         report, key, f"N={n} D=2", (pos, gm, bounds, q,
-                                                    False), mode, 2)
+                                                    False), mode, 2, ab)
                     if (key, n, mode) in timed:
                         set_timing(report[key], ms, plain_ms,
                                    f"N={n} D=2 {mode}", *work)
@@ -2345,21 +2376,23 @@ def phase_perf(dev, report: dict) -> None:
                 if n == STARS:
                     plain_ms = plain_ms2 = device_ms(plain, 10)[0]
                     ms = device_ms(kernel)[0]
-                else:   # both designs in turns, the one-pass body's
-                    # max bitwise max_d2's, its forces the unflagged's
+                else:   # the one-pass body's max bitwise max_d2's, its
+                    # forces the unflagged's; under phase ab beside the
+                    # square grid in turns
                     check(bitwise(kernel(), hn.sym_force(
                         pos, gm, bounds, q, False, uniform=uniform))
                           and bitwise(mx, hn.max_d2(pos)),
                           f"{key} N={n}: the fused max or its forces")
                     plain_ms = cuda_ms(plain, 1)
-                    olds, news = in_turns(lambda f: cuda_ms(f, 3),
-                                          lambda: kernel(True), kernel)
-                    ms, old_ms = sum(news) / 2, sum(olds) / 2
-                    line = (f"; {hn.sym_design(n, 2, q, fused_max=True)}"
-                            f" {news[0]:.4f} / {news[1]:.4f} against the "
-                            f"square {olds[0]:.4f} / {olds[1]:.4f} "
-                            f"({ms / old_ms - 1:+.2%}); share of the bound "
-                            f"{b_ms / old_ms:.1%} -> {b_ms / ms:.1%}")
+                    olds, news = design_turns(lambda f: cuda_ms(f, 3),
+                                              lambda: kernel(True), kernel,
+                                              ab)
+                    ms, old_ms = mean_ms(news), mean_ms(olds)
+                    share = ("" if old_ms is None
+                             else f"{b_ms / old_ms:.1%} -> ")
+                    design = hn.sym_design(n, 2, q, fused_max=True)
+                    line = (f"; {ab_text(olds, news, 'the square', design)}"
+                            f"; share of the bound {share}{b_ms / ms:.1%}")
                     if (key, n, mode) in timed:
                         report[key].update(
                             design="one_pass", old_design="square",
@@ -2386,15 +2419,16 @@ def phase_perf(dev, report: dict) -> None:
                   f"plain {plain_ms:.4f} ms, bound {bound(*work)[0]:.4f} ms")
         del pos, m, gm
 
-    big_energy_ab(dev, report)
+    big_energy_ab(dev, report, ab)
 
     # The row sweep at N=131072 in both designs (its plain version at the
     # 1M path's shape takes minutes; --phases scale has it), then the N=1M
     # path's chunk shapes: sym_force on one chunk and the pair tile on a
     # chunk pair (D=2 chunk 209728 and D=3 174784), the general sym_force,
     # the general pair tile and the equal-mass variants in both designs
-    # (design_ab: in turns, each held to its plain version).
-    row_ab(dev, report)
+    # (design_ab: each held to its plain version; under phase ab timed in
+    # turns).
+    row_ab(dev, report, ab)
     for dim in (2, 3):
         chunk = hn.sym_chunk_size(LARGE_N, dim)
         pos, m = make_inputs(2 * chunk, dim, True, seed=8, dev=dev)
@@ -2419,7 +2453,7 @@ def phase_perf(dev, report: dict) -> None:
                     ("pair_sym_force_uniform", f"{chunk}x{chunk} D={dim}",
                      (pa, ga, pb, gb, bounds, q))):
                 ms, plain_ms, work = design_ab(report, key, shape, args, mode,
-                                               dim)
+                                               dim, ab)
                 if key.startswith("pair") and with_plain:
                     set_timing(report[key], ms, plain_ms,
                                f"{shape} float32 (plain: wall)", *work)
@@ -2501,7 +2535,9 @@ def hold_large(name, got, want, pos, gm, bounds, q, rows=None,
     return err
 
 
-def phase_large(dev, report: dict) -> None:
+def phase_large(dev, report: dict, ab: bool = False) -> None:
+    """Phase large; ``ab`` (phase ab) adds the settled parent-design A/Bs:
+    each 1M run, the row sweep and max_d2 in both designs in turns."""
     from nbody_tpu_torch.cli import force_path
     from nbody_tpu_torch.config import SimConfig
     from nbody_tpu_torch.models.direct import _resolve_impl, run_steps
@@ -2512,7 +2548,7 @@ def phase_large(dev, report: dict) -> None:
 
     cfg = SimConfig()
     pos, _ = make_inputs(BIG_N, 2, True, seed=7, dev=dev)
-    max_d2_ab(hn, f"N={BIG_N} D=2 disk", pos, report, 5)
+    max_d2_ab(hn, f"N={BIG_N} D=2 disk", pos, report, 5, ab)
     del pos
     gen = torch.Generator().manual_seed(LARGE_SEED)
     rows = torch.randperm(LARGE_N, generator=gen)[:SAMPLED_ROWS].to(dev)
@@ -2528,21 +2564,23 @@ def phase_large(dev, report: dict) -> None:
         check(impl == "kernel_sym_chunked", f"D={dim}: auto picked {impl}")
         for mode in ("float32", "int4"):
             q = Quantizer.from_string(mode)
-            # The general kernels, then the equal-mass variants, each in
-            # their two designs in turns (two-pass, one-pass, one-pass,
-            # two-pass), from the same ICs: the general ones for
-            # LARGE_STEPS steps, their "two-pass" the earlier routes of
-            # sym_force alone (the T x T grid; sym_design_routes), the
-            # pair tile one-pass in both; the equal-mass ones for
-            # EQUAL_AB_STEPS (the run's time limit), their "two-pass" both
-            # kernels' two-pass tile (equal_mass_design). Every chunk is a
-            # multiple of TILE (209728 / 209664 at D=2, 174784 / 174656 at
-            # D=3), so the one-pass rule takes every launch of either kind.
+            # The general kernels for LARGE_STEPS steps; under phase ab
+            # also the equal-mass variants, from the same ICs, for
+            # EQUAL_AB_STEPS (phase bench runs their 1M arms, bench.py's,
+            # with the same launch counts), and each in its two designs
+            # in turns (two-pass, one-pass, one-pass, two-pass): the
+            # general ones' "two-pass" the earlier routes of sym_force
+            # alone (the T x T grid; sym_design_routes), the pair tile
+            # one-pass in both; the equal-mass ones' both kernels'
+            # two-pass tile (equal_mass_design). Every chunk is a
+            # multiple of TILE (209728 / 209664 at D=2, 174784 / 174656
+            # at D=3), so the one-pass rule takes every launch of either
+            # kind.
             finals, walls = {}, {}
-            for uniform in (False, True):
+            for uniform in (False, True) if ab else (False,):
                 steps = EQUAL_AB_STEPS if uniform else LARGE_STEPS
-                for design in ("two_pass", "one_pass", "one_pass",
-                               "two_pass"):
+                for design in (("two_pass", "one_pass", "one_pass",
+                                "two_pass") if ab else ("one_pass",)):
                     label = (f"{'equal-mass' if uniform else 'general'} "
                              f"{design.replace('_', '-')}")
                     sym = hn._variant("sym_force", uniform)
@@ -2577,7 +2615,7 @@ def phase_large(dev, report: dict) -> None:
                                             f"{want}")
                     print(f"large: D={dim} {mode} {label}: force path "
                           f"{force_path(launched)}")
-                    if design == "one_pass":
+                    if design == "one_pass" and uniform not in finals:
                         for k in (sym, pair):
                             report[k]["launches"] += launched[k]
                     if q.is_int:
@@ -2592,15 +2630,13 @@ def phase_large(dev, report: dict) -> None:
                     del state
                 key = "sym_force_uniform" if uniform else "sym_force"
                 kind = "equal-mass" if uniform else "general"
-                old, new = walls[(uniform, "two_pass")], walls[(uniform,
-                                                                "one_pass")]
-                old_ms, new_ms = sum(old) / 2, sum(new) / 2
-                print(f"large: D={dim} {mode} {kind} step, two-pass "
-                      f"{old[0]:.1f} / {old[1]:.1f} ms, one-pass {new[0]:.1f}"
-                      f" / {new[1]:.1f} ms ({new_ms / old_ms - 1:+.2%})")
+                old = walls.get((uniform, "two_pass"), [])
+                new = walls[(uniform, "one_pass")]
+                print(f"large: D={dim} {mode} {kind} step, "
+                      f"{ab_text(old, new, 'two-pass', 'one-pass', '.1f')}")
                 report[key].setdefault("step_ms_1M", []).append(
-                    {"dim": dim, "mode": mode, "two_pass_ms": old_ms,
-                     "one_pass_ms": new_ms})
+                    {"dim": dim, "mode": mode, "two_pass_ms": mean_ms(old),
+                     "one_pass_ms": mean_ms(new)})
 
             # One evaluation on the general run's final positions: the
             # chunked path, general and equal-mass, and the row kernel over
@@ -2629,10 +2665,12 @@ def phase_large(dev, report: dict) -> None:
                 if dim == 2 and mode == "float32":
                     report[hn._variant("pair_sym_force", uniform)][
                         "chunked_eval_ms_1M_D2"] = t_chunked * 1e3
-            # The row sweep in its two designs in turns (the earlier
-            # kernel, register-tiled, register-tiled, the earlier kernel).
+            # The row sweep in its two designs (under phase ab in turns:
+            # the earlier kernel, register-tiled, register-tiled, the
+            # earlier kernel).
             sweeps, t_rows = {}, {}
-            for design in ("per_receiver", "tiled", "tiled", "per_receiver"):
+            for design in (("per_receiver", "tiled", "tiled", "per_receiver")
+                           if ab else ("per_receiver", "tiled")):
                 t0 = time.time()
                 with row_design(hn, design):
                     sweeps[design] = hn.accelerations_rows(
@@ -2644,14 +2682,14 @@ def phase_large(dev, report: dict) -> None:
                            pair_ops("rows", dim, mode),
                            sym_bytes(LARGE_N, dim))[0]
             old, new = t_rows["per_receiver"], t_rows["tiled"]
+            sweep = ab_text(old, new, "earlier kernel", "register-tiled",
+                            ".1f")
             print(f"large: D={dim} {mode}: one evaluation, row sweep, "
-                  f"earlier kernel {old[0]:.1f} / {old[1]:.1f} ms, "
-                  f"register-tiled {new[0]:.1f} / {new[1]:.1f} ms "
-                  f"({sum(new) / sum(old) - 1:+.2%}; bound {b_rows:.1f}; "
-                  f"wall, with its bounds pass)")
+                  f"{sweep} (bound {b_rows:.1f}; wall, with its bounds "
+                  f"pass)")
             report["row_force"].setdefault("eval_ms_1M", []).append(
-                {"dim": dim, "mode": mode, "earlier_ms": sum(old) / 2,
-                 "tiled_ms": sum(new) / 2, "bound_ms": b_rows})
+                {"dim": dim, "mode": mode, "earlier_ms": mean_ms(old),
+                 "tiled_ms": mean_ms(new), "bound_ms": b_rows})
             rowsweep = sweeps["tiled"]
             plain = hn.row_force_plain(pos, gm, bounds, q, False, rows=rows,
                                        block=512)
@@ -2667,7 +2705,7 @@ def phase_large(dev, report: dict) -> None:
                            rows)
             del state, pos, gm, chunked, rowsweep, sweeps, plain
         if dim == 3:
-            bounds_pass_checks(hn, cfg, pos0, dev, report)
+            bounds_pass_checks(hn, cfg, pos0, dev, report, ab)
         del pos0, vel0, m0
 
     # Zero softening routes the chunked path to the row sweep. The D=3
@@ -2699,39 +2737,41 @@ def phase_large(dev, report: dict) -> None:
     report["row_force"]["step_ms_1M_D3_zero_softening"] = wall / 2 * 1e3
 
 
-def max_d2_ab(hn, name: str, pos, report: dict, reps: int) -> None:
-    """max_d2 over ``pos`` in the design it routes to and the one that
-    replaced (parent=True) in turns: running (CUDA events, ``reps`` calls
-    a turn) and skipped (device time, device_ms), the running results
-    bitwise each other; the bound by the pairs."""
+def max_d2_ab(hn, name: str, pos, report: dict, reps: int,
+              ab: bool = False) -> None:
+    """max_d2 over ``pos`` in the design it routes to, bitwise the one
+    that it replaced (parent=True), timed (under phase ab both in turns):
+    running (CUDA events, ``reps`` calls a turn) and skipped (device time,
+    device_ms); the bound by the pairs."""
     n, dim = pos.shape
     one = torch.ones((), dtype=torch.int32, device=pos.device)
-    olds, news = in_turns(lambda f: cuda_ms(f, reps),
-                          lambda: hn.max_d2(pos, parent=True),
-                          lambda: hn.max_d2(pos))
-    s_olds, s_news = in_turns(lambda f: device_ms(f)[0],
-                              lambda: hn.max_d2(pos, skip=one, parent=True),
-                              lambda: hn.max_d2(pos, skip=one))
-    ms, old_ms = sum(news) / 2, sum(olds) / 2
-    skip_ms, skip_old = sum(s_news) / 2, sum(s_olds) / 2
+    olds, news = design_turns(lambda f: cuda_ms(f, reps),
+                              lambda: hn.max_d2(pos, parent=True),
+                              lambda: hn.max_d2(pos), ab)
+    s_olds, s_news = design_turns(
+        lambda f: device_ms(f)[0],
+        lambda: hn.max_d2(pos, skip=one, parent=True),
+        lambda: hn.max_d2(pos, skip=one), ab)
+    ms, old_ms = mean_ms(news), mean_ms(olds)
+    skip_ms, skip_old = mean_ms(s_news), mean_ms(s_olds)
     b_ms = bound(n * (n - 1) / 2, pair_ops("max", dim, ""),
                  4 * (dim * n + 1))[0]
     check(bitwise(hn.max_d2(pos), hn.max_d2(pos, parent=True)),
           f"max_d2 {name}: the designs differ")
     old, new = hn.max_d2_design(n, True), hn.max_d2_design(n)
-    print(f"large: time max_d2 {name}: {old} {olds[0]:.4f} / {olds[1]:.4f} "
-          f"ms, {new} {news[0]:.4f} / {news[1]:.4f} ms "
-          f"({ms / old_ms - 1:+.2%}); bound {b_ms:.4f} ms ({b_ms / old_ms:.1%}"
-          f" / {b_ms / ms:.1%} of it); skipped (device time) {old} "
-          f"{s_olds[0]:.5f} / {s_olds[1]:.5f} ms, {new} {s_news[0]:.5f} / "
-          f"{s_news[1]:.5f} ms ({skip_ms / skip_old - 1:+.2%}); bitwise")
+    share = "" if old_ms is None else f"{b_ms / old_ms:.1%} / "
+    print(f"large: time max_d2 {name}: {ab_text(olds, news, old, new)}; "
+          f"bound {b_ms:.4f} ms ({share}{b_ms / ms:.1%} of it); skipped "
+          f"(device time) {ab_text(s_olds, s_news, old, new, '.5f')}; "
+          f"bitwise")
     report["max_d2"].setdefault("designs", []).append(
         {"shape": name, old + "_ms": old_ms, new + "_ms": ms,
          "bound_ms": b_ms, "skipped_" + old + "_ms": skip_old,
          "skipped_" + new + "_ms": skip_ms})
 
 
-def bounds_pass_checks(hn, cfg, plummer, dev, report: dict) -> None:
+def bounds_pass_checks(hn, cfg, plummer, dev, report: dict,
+                       ab: bool = False) -> None:
     """The pruned bounds pass at D=3, N=1M bitwise equal to the full
     max_d2, on the Plummer ICs and on a shell that forces the fallback;
     the full max_d2 there in both designs in turns (max_d2_ab)."""
@@ -2740,7 +2780,7 @@ def bounds_pass_checks(hn, cfg, plummer, dev, report: dict) -> None:
         hn.BOUNDS_FALLBACKS.clear()
         pruned = hn.max_pairwise_dist_sq_pruned(geom, cfg)
         took = hn.bounds_fallbacks(dev)
-        max_d2_ab(hn, f"N={LARGE_N} D=3 {name}", geom, report, 1)
+        max_d2_ab(hn, f"N={LARGE_N} D=3 {name}", geom, report, 1, ab)
         full = hn.max_dist_sq(geom, cfg)
         print(f"large: bounds pass D=3 {name}: pruned {pruned.item()!r}, "
               f"full max_d2 {full.item()!r}, fallback taken: {bool(took)}")
@@ -2752,6 +2792,157 @@ def bounds_pass_checks(hn, cfg, plummer, dev, report: dict) -> None:
             cand = geom[torch.topk(r, 1024).indices]
             check(hn.max_d2(cand) < hn.max_d2(geom),
                   "shell: the candidates alone hold the max")
+
+
+# --------------------------------------------------------------------------
+# Phase bench: the port's bench, ladder and reference-gate entry points
+# --------------------------------------------------------------------------
+
+# Root bench.py's line on the card, in its order (the port adds "device").
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "int4_value",
+              "int4_vs_baseline", "int4_bounds4_value", "n1m_f32_value",
+              "n1m_int4_value", "dim3_f32_value", "dim3_int4_value",
+              "n1m_dim3_f32_value", "n1m_dim3_int4_value",
+              "pm256_int4_engine_ms_per_step")
+LADDER_DIMS = (2, 3)
+BENCH_GATE_MODE = "int4"   # the reference-gate CLI's one mode on the card
+
+
+def force_launches(n: int, dim: int, mode: str, evals: int,
+                   bound_passes: int | None = None) -> dict:
+    """PERF.md section 2's launches of ``evals`` force evaluations of equal
+    masses at n (D=dim) through "auto": one sym_force_uniform an
+    evaluation while one launch fits, else C sym_force_uniform + C(C-1)/2
+    pair_sym_force_uniform (C chunks); in the int modes two max_d2 a
+    pruned bounds pass (the candidates, the full set under its flag), one
+    pass an evaluation unless ``bound_passes`` says how many; nothing for
+    the float64 baseline."""
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+    from nbody_tpu_torch.ops.precision import Quantizer
+    if mode in ("float64", "f64"):
+        return {}
+    if hn.sym_force_fits(n, dim):
+        want = {"sym_force_uniform": evals}
+    else:
+        c = -(-n // hn.sym_chunk_size(n, dim))
+        want = {"sym_force_uniform": evals * c,
+                "pair_sym_force_uniform": evals * c * (c - 1) // 2}
+    if Quantizer.from_string(mode).is_int:
+        want["max_d2"] = 2 * (evals if bound_passes is None
+                              else bound_passes)
+    return want
+
+
+def bench_arm_launches(arm) -> dict:
+    """The launches a bench arm's timed calls make: its steps' force
+    evaluations (with bounds_every=4 one bounds pass each fourth step); the
+    PM arm one pm_deposit a step and two a chunk's probe bundle, each with
+    its fill and its long-run pass, and no other kernel."""
+    from nbody_tpu_torch.ops import pm
+    if arm.name.startswith("pm256"):
+        deposits = arm.steps // bench.PM_CHUNK * (bench.PM_CHUNK + 2)
+        return dict.fromkeys(pm.LAUNCHES, deposits)
+    passes = arm.calls * -(-arm.steps // arm.bounds_every)
+    return force_launches(arm.n, arm.dim, arm.mode, arm.calls * arm.steps,
+                          passes)
+
+
+def ladder_launches(arm) -> dict:
+    """A ladder mode's launches from its set-up on: one evaluation at
+    DirectSimulation's set-up, then the warm-up call and the timed calls'
+    steps."""
+    return force_launches(arm.n, arm.dim, arm.mode,
+                          1 + arm.steps * (1 + arm.calls))
+
+
+def hold_arms(label: str, arms: list, want_fn, report: dict,
+              card: str) -> None:
+    """Each arm's launches exactly want_fn's, added to the kernels line;
+    each arm's row printed with the card."""
+    for arm in arms:
+        want = want_fn(arm)
+        check(arm.launches == want, f"{label}: {arm.name}: launches "
+                                    f"{arm.launches}, expected {want}")
+        for k, v in arm.launches.items():
+            if k in report:
+                report[k]["launches"] += v
+        rate = ("" if arm.name.startswith("pm256")
+                else f", {arm.pairs_per_sec:.4e} pairs/s")
+        print(f"{label}: {arm.name}: N={arm.n} D={arm.dim}, {arm.steps} "
+              f"steps a call, best of {arm.calls}: {arm.ms_per_step:.4f} "
+              f"ms/step{rate}; launches {arm.launches} (exact); card {card}")
+
+
+def phase_bench(dev, report: dict) -> None:
+    """The port's benchmark entry points on the card: ``bench.main`` at
+    full width (its 14 keys finite and > 0, each arm's launches exact,
+    the 1M arms and the PM arm included), ``ladder_bench.main`` at its
+    defaults for D=2 and D=3 (seven rows each, the launches exact, none
+    for float64), and the reference-gate CLI on one mode at 5000 x 2000
+    (AGREE; its launches those of the canonical run)."""
+    from nbody_tpu_torch import ladder_bench
+    from nbody_tpu_torch.diagnostics import reference_gate as rg
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+
+    card = card_line()
+    arms = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    result = bench.main(["--device", str(dev)], arms=arms)
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    check(tuple(result) == BENCH_KEYS + ("device",),
+          f"bench: the line's keys {list(result)}")
+    bad = [k for k in BENCH_KEYS if k not in ("metric", "unit")
+           and not (math.isfinite(result[k]) and result[k] > 0)]
+    check(not bad, f"bench: not finite and > 0: {bad}")
+    check(result["metric"] == f"pairwise_interactions_per_sec_chip_N"
+                              f"{bench.N}_f32"
+          and result["device"]["kind"] == torch.cuda.get_device_name(dev),
+          f"bench: metric {result['metric']}, device {result['device']}")
+    hold_arms("bench", arms, bench_arm_launches, report, card)
+    print(f"bench: bench.main in {wall:.1f}s, peak {peak:.2f} GiB "
+          f"allocated; its line {json.dumps(result)}")
+
+    for dim in LADDER_DIMS:
+        arms = []
+        t0 = time.time()
+        rep = ladder_bench.main(["--dim", str(dim), "--device", str(dev)],
+                                arms=arms)
+        wall = time.time() - t0
+        modes = ladder_bench.DEFAULT_MODES.split(",")
+        rows = rep["rows"]
+        check([r["mode"] for r in rows] == modes
+              and all(r["dim"] == dim and r["n"] == BIG_N and r["steps"]
+                      == ladder_bench.mode_steps(r["mode"], 30, None)
+                      and math.isfinite(r["pairs_per_sec"])
+                      and r["pairs_per_sec"] > 0 for r in rows),
+              f"ladder D={dim}: rows {rows}")
+        hold_arms(f"ladder D={dim}", arms, ladder_launches, report, card)
+        print(f"ladder D={dim}: ladder_bench.main in {wall:.1f}s (float64: "
+              f"the plain native-f64 baseline, no kernel)")
+
+    out = REPO / "output" / "chip_smoke_reference_gate"
+    reset_counters(hn)
+    t0 = time.time()
+    rc = rg.main(["--modes", BENCH_GATE_MODE, "--perturb", "--device",
+                  str(dev), "--output", str(out)])
+    wall = time.time() - t0
+    launched = {k: v for k, v in hn.LAUNCHES.items() if v}
+    row = json.loads((out / "reference_parity.json").read_text())[
+        BENCH_GATE_MODE]
+    same = f"{row['final_drift_ours']:+.6f}" == \
+        f"{GATE_ROWS[BENCH_GATE_MODE]:+.6f}"
+    print(f"bench: reference_gate.main {BENCH_GATE_MODE} at {STARS} x "
+          f"{TICKS} on the card: {rg.row_text(row)}; {wall:.1f}s; launches "
+          f"{launched}; {'bit for bit' if same else 'NOT'} phase gate's "
+          f"row ({GATE_ROWS[BENCH_GATE_MODE]:+.6f}%)")
+    # N=5000 is off the tile: the general sym_force, an evaluation at
+    # set-up and one a tick; the energies' plain sum at N <= 16384.
+    check(rc == 0 and row["agree"], f"bench: reference_gate.main "
+                                    f"{BENCH_GATE_MODE} DISAGREE (rc {rc})")
+    check(launched == {"sym_force": TICKS + 1, "max_d2": 2 * (TICKS + 1)},
+          f"bench: reference_gate.main launched {launched}")
 
 
 # --------------------------------------------------------------------------
@@ -3100,15 +3291,17 @@ def pe_shard_ab(dev, report: dict, hold_pe) -> None:
     report["pair_pe_rows"]["shard_ab"] = shapes
 
 
-def ring_cli(dev, report: dict) -> None:
+def ring_cli(dev, report: dict, ab: bool = False) -> None:
     """``python -m nbody_tpu_torch --stars 131072 --ticks 200 --compare
     float32,int4 --mesh`` and its ``--schedule rows`` twin through
     cli.main, with the launch counters read around each: a mesh of the one
     card, so per mode 201 force evaluations (the entry force and 200
-    ticks) and 2 energy passes, each of one tile. Each schedule runs in
-    both designs of pair_max (the int modes' bounds pass) in turns: the
-    earlier two launches, the register-tiled launch (float32 and int4),
-    the register-tiled launch and the earlier two launches (int4)."""
+    ticks) and 2 energy passes, each of one tile. Under phase ab (PR 11's
+    A/B) each schedule runs in both designs of pair_max (the int modes'
+    bounds pass) in turns: the earlier two launches, the register-tiled
+    launch (float32 and int4), the register-tiled launch and the earlier
+    two launches (int4); the default run, the register-tiled launch
+    once."""
     from nbody_tpu_torch import cli
     from nbody_tpu_torch.ops import hopper_nbody as hn
 
@@ -3117,9 +3310,13 @@ def ring_cli(dev, report: dict) -> None:
               "pair_pe_rows": 0}
     rates = {}
     for schedule in ("sym", "rows"):
-        for turn, design in enumerate(("two_launch", "tiled", "tiled",
-                                       "two_launch")):
-            modes = "float32,int4" if turn == 1 else "int4"
+        turns = (("two_launch", "tiled", "tiled", "two_launch") if ab
+                 else ("tiled",))
+        float32_run = False   # float32 once, with the first tiled turn
+        for design in turns:
+            modes = ("float32,int4" if design == "tiled" and not float32_run
+                     else "int4")
+            float32_run |= design == "tiled"
             argv = ["--device", str(dev), "--stars", str(BIG_N), "--ticks",
                     str(RING_TICKS), "--snapshot-interval",
                     str(RING_INTERVAL), "--mesh", "--schedule", schedule,
@@ -3178,14 +3375,15 @@ def ring_cli(dev, report: dict) -> None:
         check(n > 0, f"{k} was never launched on the mesh path")
     ticks = {}
     for schedule in ("sym", "rows"):
-        old, new = (rates[(schedule, d, "int4_sim")]
+        old, new = (rates.get((schedule, d, "int4_sim"), [])
                     for d in ("two_launch", "tiled"))
+        pair_max = ab_text(old, new, "two launches", "register-tiled",
+                           ".3f", "ticks/s")
         print(f"ring: --mesh {BIG_N} x {RING_TICKS} --schedule {schedule} "
-              f"int4 ticks/s, pair_max two launches {old[0]} / {old[1]}, "
-              f"register-tiled {new[0]} / {new[1]}; float32 "
-              f"{rates[(schedule, 'tiled', 'float32')][0]}")
-        ticks[schedule] = {"two_launch": sum(old) / 2,
-                           "tiled": sum(new) / 2}
+              f"int4, pair_max {pair_max}; float32 "
+              f"{rates[(schedule, 'tiled', 'float32')][0]} ticks/s")
+        ticks[schedule] = {"two_launch": mean_ms(old),
+                           "tiled": mean_ms(new)}
     report["pair_max"]["mesh_int4_ticks_per_s"] = ticks
 
 
@@ -3800,12 +3998,11 @@ def phase_lab_r5(dev, report: dict) -> None:
 # Phase 13: the particle-mesh cosmology engine
 # --------------------------------------------------------------------------
 
-# bench.py:207-253's PM arm on one device: 262144 particles, D=3, a 256^3
-# grid, a 400 Mpc box, z = 80, seed 1, pipelined dispatch/collect in
-# chunks of 10 steps of dz = 0.1 with every detector live.
-PM_ARM = dict(num_particles=262144, start_redshift=80.0, dim=3, n_grid=256,
-              box_size_mpc=400.0, seed=1)
-PM_ARM_DZ, PM_ARM_CHUNK, PM_ARM_WARM, PM_ARM_TIMED = 0.1, 10, 2, 4
+# bench.py:207-253's PM arm (nbody_tpu_torch.bench.pm_arm): 262144
+# particles, D=3, a 256^3 grid, a 400 Mpc box, z = 80, seed 1, pipelined
+# dispatch/collect in chunks of 10 steps of dz = 0.1 with every detector
+# live.
+PM_ARM_TIMED = 4
 # The gate: the reference's universe_2d rows cached under
 # tools/reference_cache/ (N, mode).
 PM_GATE_ROWS = ((10000, "float32"), (10000, "int4"), (1024, "float32"))
@@ -4164,52 +4361,32 @@ def no_host_sync():
 
 
 def pm_arm(dev, precision: str, mesh=None, timed: int = PM_ARM_TIMED):
-    """bench.py's PM arm (through the sharded PM on ``mesh``): PM_ARM_WARM
-    warm-up chunks, then ``timed`` chunks pipelined (dispatch k+1, collect
-    k) by the host clock, every dispatch inside no_host_sync; the
-    deposit's launches counted over the timed chunks, S of them where one
-    device launches one. Returns (engine, ms a step, (deposits, fills,
-    long passes), peak bytes allocated)."""
+    """bench's PM arm (``bench.pm_arm``; through the sharded PM on
+    ``mesh``): its warm-up chunks, then ``timed`` chunks pipelined
+    (dispatch k+1, collect k) by the host clock, every dispatch inside
+    no_host_sync; the deposit's launches counted over the timed chunks, S
+    of them where one device launches one. Returns (engine, ms a step,
+    (deposits, fills, long passes), peak bytes allocated)."""
     from nbody_tpu_torch import native
-    from nbody_tpu_torch.engines import cosmo
-    from nbody_tpu_torch.ops import hopper_nbody as hn
     from nbody_tpu_torch.ops import pm
 
     torch.cuda.reset_peak_memory_stats(dev)
-    eng = cosmo.CosmologicalEngine(precision=precision, device=dev,
-                                   mesh=mesh, **PM_ARM)
     shards = 1 if mesh is None else mesh.size
-    for _ in range(PM_ARM_WARM):
-        eng.step(PM_ARM_DZ, PM_ARM_CHUNK)
-    torch.cuda.synchronize()
-    reset_counters(hn)
-    glitches = eng.glitch_detector.get_glitch_count()
-    t0 = time.perf_counter()
-    pending = None
-    for _ in range(timed):
-        with no_host_sync():
-            nxt = eng.dispatch_step(PM_ARM_DZ, PM_ARM_CHUNK)
-        if pending is not None:
-            eng.collect_step(pending)
-        pending = nxt
-    eng.collect_step(pending)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) / (timed * PM_ARM_CHUNK) * 1e3
+    eng, arm = bench.pm_arm(dev, precision, mesh, timed, guard=no_host_sync)
+    ms = arm.ms_per_step
     peak = torch.cuda.max_memory_allocated(dev)
-    launches = pm.LAUNCHES["pm_deposit"]
-    fills = pm.LAUNCHES["pm_deposit_fill"]
-    longs = pm.LAUNCHES["pm_deposit_long"]
-    others = {k: v for k, v in hn.LAUNCHES.items() if v}
+    launches, fills, longs = (arm.launches.get(k, 0) for k in pm.LAUNCHES)
+    others = {k: v for k, v in arm.launches.items() if k not in pm.LAUNCHES}
     pos = eng.positions
     check(bool(torch.isfinite(pos).all()) and float(pos.min()) >= 0
-          and float(pos.max()) <= PM_ARM["box_size_mpc"]
+          and float(pos.max()) <= bench.PM_ARM["box_size_mpc"]
           and np.isfinite(eng.history["energy"]).all()
           and np.isfinite(eng.history["clustering"]).all(),
           f"pm arm {precision}: non-finite or out-of-box state")
     where = "" if mesh is None else f" on a mesh of {shards}"
-    check(launches == timed * (PM_ARM_CHUNK + 2) * shards and not others,
+    check(launches == timed * (bench.PM_CHUNK + 2) * shards and not others,
           f"pm arm {precision}{where}: pm_deposit launched {launches} times "
-          f"in {timed} chunks of {PM_ARM_CHUNK} (other kernels {others})")
+          f"in {timed} chunks of {bench.PM_CHUNK} (other kernels {others})")
     check(fills == launches and longs == launches,
           f"pm arm {precision}{where}: {launches} deposits launched {fills} "
           f"fills and {longs} long passes (one each a deposit of more than "
@@ -4217,10 +4394,9 @@ def pm_arm(dev, precision: str, mesh=None, timed: int = PM_ARM_TIMED):
     label = "pm" if mesh is None else "pm_mesh"
     print(f"{label}: arm {precision}{where} N={eng.num_particles} D=3 256^3 "
           f"(pipelined, every detector live): {ms:.3f} ms a step over "
-          f"{timed * PM_ARM_CHUNK} steps, z={eng.redshift:.2f}; "
-          f"glitches {eng.glitch_detector.get_glitch_count() - glitches} in "
-          f"the timed chunks ({eng.glitch_detector.get_glitch_summary()} "
-          f"over the run); entropy route {native.route()}; pm_deposit "
+          f"{arm.steps} steps, z={eng.redshift:.2f}; glitches "
+          f"{eng.glitch_detector.get_glitch_summary()} over the run; "
+          f"entropy route {native.route()}; pm_deposit "
           f"launches {launches} (fills {fills}, long passes {longs}); "
           f"clustering {eng.history['clustering'][-1]:.4f}"
           f", BAO {eng.history['bao_scale'][-1]:.2f} Mpc; peak "
@@ -4264,7 +4440,7 @@ def pm_breakdown(eng) -> None:
     from nbody_tpu_torch.engines import cosmo
     from nbody_tpu_torch.ops.precision import quantize_force
 
-    sched, _ = eng._build_schedule(PM_ARM_DZ, 1)
+    sched, _ = eng._build_schedule(bench.PM_DZ, 1)
     ex = eng.exploit_engine
     obs = (torch.zeros(3, device=eng.device),
            torch.eye(3, device=eng.device)[0])
@@ -4394,7 +4570,7 @@ def pm_mesh_deposit_checks(dev, report: dict) -> None:
     from nbody_tpu_torch.ops import pm
     from nbody_tpu_torch.parallel.ring import _pad_to_shards
 
-    n, box = PM_ARM["num_particles"], PM_ARM["box_size_mpc"]
+    n, box = bench.PM_ARM["num_particles"], bench.PM_ARM["box_size_mpc"]
     layouts = pm_layouts(n, 3, 256, box, 3)
     rand = torch.from_numpy(np.random.default_rng(5).uniform(
         0.5, 1.5, n).astype(np.float32))
@@ -4517,7 +4693,7 @@ def pm_mesh_breakdown(dev, eng) -> None:
     from nbody_tpu_torch.parallel import pm_sharded
 
     state, q, cfg = eng._trimmed_state(), eng.quantizer, eng.cfg
-    sched, _ = eng._build_schedule(PM_ARM_DZ, 1)
+    sched, _ = eng._build_schedule(bench.PM_DZ, 1)
     n_grid = cfg.n_grid
     for shards in (1, 4):
         mesh = (pm_sharded.make_particle_mesh(1, dev) if shards == 1
@@ -6705,6 +6881,12 @@ def main(argv=None) -> int:
                 phase_perf(dev, report)
             elif phase == "large":
                 phase_large(dev, report)
+            elif phase == "bench":
+                phase_bench(dev, report)
+            elif phase == "ab":
+                phase_perf(dev, report, ab=True)
+                phase_large(dev, report, ab=True)
+                ring_cli(dev, report, ab=True)
             elif phase == "ring":
                 phase_ring(dev, report)
             elif phase == "cached":

@@ -129,7 +129,10 @@ def test_import_never_pulls_in_jax():
             "'nbody_tpu_torch.dryrun', "
             "'nbody_tpu_torch.fuzz', "
             "'nbody_tpu_torch.diagnostics.fuzz_cases', "
-            "'nbody_tpu_torch.diagnostics.tolerance']\n"
+            "'nbody_tpu_torch.diagnostics.tolerance', "
+            "'nbody_tpu_torch.bench', "
+            "'nbody_tpu_torch.ladder_bench', "
+            "'nbody_tpu_torch.diagnostics.reference_gate']\n"
             "assert set(new) <= set(mods), mods\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'nbody_tpu', 'tools')]\n"
