@@ -36,6 +36,13 @@ Int-sim grid bounds (``run_steps`` / ``run_with_snapshots``):
 evaluation, ``bounds_every=k`` reuses bounds for k steps, and
 ``bounds_mode='cached'`` speculates with the cached grid and verifies it
 with the kernel's fused max (``CachedBoundsStepper``).
+
+Spans (``utils.profiler.span``; recorded only while a profiler records):
+a single-device history is ``nbody.history``, each tick ``nbody.tick``,
+each force evaluation ``nbody.force`` (two a tick under cached bounds),
+the int modes' bounds pass ``nbody.bounds`` (inside the force span), each
+snapshot ``nbody.snapshot`` and the history's copy to the host
+``nbody.to_host``. The ring's runners are not spanned.
 """
 
 from __future__ import annotations
@@ -61,6 +68,7 @@ from nbody_tpu_torch.ops.precision import (
     dist_sq_log_bounds,
 )
 from nbody_tpu_torch.parallel import ring
+from nbody_tpu_torch.utils.profiler import span
 
 IMPLS = ("auto", "dense", "tiled", "kernel", "kernel_rows",
          "kernel_streamed", "kernel_sym_chunked")
@@ -161,8 +169,10 @@ def leapfrog_step(state: ParticleState, q: Quantizer, cfg: SimConfig,
     half_dt = dt * 0.5
     vel = state.velocities + state.accelerations * half_dt
     pos = state.positions + vel * dt
-    acc = force(pos, state.masses, q, cfg, quantize_forces=quantize_forces,
-                softening_sq=softening_sq)
+    with span("nbody.force"):
+        acc = force(pos, state.masses, q, cfg,
+                    quantize_forces=quantize_forces,
+                    softening_sq=softening_sq)
     vel = vel + acc * half_dt
     return ParticleState(pos, vel, state.masses, acc, state.tick + 1)
 
@@ -173,7 +183,8 @@ def leapfrog_step_baseline(state: BaselineState,
     half_dt = cfg.dt * 0.5
     vel = state.velocities + state.accelerations * half_dt
     pos = state.positions + vel * cfg.dt
-    acc = forces.baseline_accelerations(pos, state.masses, cfg)
+    with span("nbody.force"):
+        acc = forces.baseline_accelerations(pos, state.masses, cfg)
     vel = vel + acc * half_dt
     return BaselineState(pos, vel, state.masses, acc, state.tick + 1)
 
@@ -244,15 +255,18 @@ class CachedBoundsStepper:
         half_dt = self.dt * 0.5
         vel = s.velocities + s.accelerations * half_dt
         pos = s.positions + vel * self.dt
-        acc, max_d2 = self.force(pos, s.masses, log_lo=self._log_lo,
-                                 log_hi=self.hi, emit_max=True)
+        with span("nbody.force"):
+            acc, max_d2 = self.force(pos, s.masses, log_lo=self._log_lo,
+                                     log_hi=self.hi, emit_max=True)
         log_max = dist_sq_log_bounds(self.q, max_d2, self.soft)[1]
         violated = ((log_max > self.hi)
                     | (log_max < self.hi - 3.0 * self._headroom))
         new_hi = log_max + self._headroom
-        redo = self.force(pos, s.masses, log_lo=self._log_lo, log_hi=new_hi,
-                          skip=(~violated).to(torch.int32),
-                          count=hn.redo_counter(dev))
+        with span("nbody.force"):
+            redo = self.force(pos, s.masses, log_lo=self._log_lo,
+                              log_hi=new_hi,
+                              skip=(~violated).to(torch.int32),
+                              count=hn.redo_counter(dev))
         acc = torch.where(violated, redo, acc)
         self.hi = torch.where(violated, new_hi, self.hi)
         self.log_max = log_max
@@ -309,12 +323,16 @@ def _stepper(q: Quantizer, cfg: SimConfig, impl: str, quantize_forces: bool,
         nonlocal k, bounds
         vel = s.velocities + s.accelerations * half_dt
         pos = s.positions + vel * dt
-        if k % bounds_every == 0:
-            bounds = dist_sq_log_bounds(
-                q, max_pass(pos, cfg, softening_sq=softening_sq), soft)
-        acc = force(pos, s.masses, q, cfg, quantize_forces=quantize_forces,
-                    softening_sq=softening_sq, log_lo=bounds[0],
-                    log_hi=bounds[1])
+        with span("nbody.force"):
+            if k % bounds_every == 0:
+                with span("nbody.bounds"):
+                    bounds = dist_sq_log_bounds(
+                        q, max_pass(pos, cfg, softening_sq=softening_sq),
+                        soft)
+            acc = force(pos, s.masses, q, cfg,
+                        quantize_forces=quantize_forces,
+                        softening_sq=softening_sq, log_lo=bounds[0],
+                        log_hi=bounds[1])
         vel = vel + acc * half_dt
         k += 1
         return ParticleState(pos, vel, s.masses, acc, s.tick + 1)
@@ -348,14 +366,16 @@ def run_steps(state: ParticleState, q: Quantizer, cfg: SimConfig, impl: str,
                     bounds_every, dt, softening_sq, uniform_gm, bounds_mode,
                     headroom)
     for _ in range(num_steps):
-        state = step(state)
+        with span("nbody.tick"):
+            state = step(state)
     return state
 
 
 def run_steps_baseline(state: BaselineState, cfg: SimConfig,
                        num_steps: int) -> BaselineState:
     for _ in range(num_steps):
-        state = leapfrog_step_baseline(state, cfg)
+        with span("nbody.tick"):
+            state = leapfrog_step_baseline(state, cfg)
     return state
 
 
@@ -372,15 +392,23 @@ def _concat_chunk_parts(parts):
 
 def _run_chunks(state, step: Callable, steps_per_chunk: int, num_chunks: int,
                 snap_fn: Callable):
-    snaps, frames = [], []
-    for _ in range(num_chunks):
-        for _ in range(steps_per_chunk):
-            state = step(state)
-        snap, frame = snap_fn(state)
-        snaps.append(snap)
-        frames.append(frame)
-    return (state, metrics_lib.stack_snapshots(snaps),
-            torch.stack(frames).cpu().numpy())
+    """One history on one device, in spans (``utils.profiler.span``):
+    ``nbody.history`` around it, ``nbody.tick`` around each step,
+    ``nbody.snapshot`` around each snapshot and ``nbody.to_host`` around
+    the history's one copy to the host."""
+    with span("nbody.history"):
+        snaps, frames = [], []
+        for _ in range(num_chunks):
+            for _ in range(steps_per_chunk):
+                with span("nbody.tick"):
+                    state = step(state)
+            with span("nbody.snapshot"):
+                snap, frame = snap_fn(state)
+            snaps.append(snap)
+            frames.append(frame)
+        with span("nbody.to_host"):
+            return (state, metrics_lib.stack_snapshots(snaps),
+                    torch.stack(frames).cpu().numpy())
 
 
 @hn.guard_uniform_gm(("masses", (0,)))

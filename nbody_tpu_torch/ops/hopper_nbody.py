@@ -84,6 +84,7 @@ from nbody_tpu_torch.ops.precision import (
     dist_sq_log_bounds,
     quantize_force,
 )
+from nbody_tpu_torch.utils.profiler import span
 
 # Launches of each kernel in this process (reset by whoever reads them);
 # the sym kernels count each variant apart: "_uniform" the equal-mass one,
@@ -1183,9 +1184,11 @@ def kernel_bounds(pos: torch.Tensor, q: Quantizer, cfg: SimConfig,
         zero = torch.zeros((), dtype=torch.float32, device=pos.device)
         return torch.stack([zero, zero, soft_t])
     if log_lo is None or log_hi is None:
-        log_lo, log_hi = dist_sq_log_bounds(
-            q, max_pairwise_dist_sq_pruned(pos, cfg, softening_sq=soft_t),
-            soft_t)
+        with span("nbody.bounds"):
+            log_lo, log_hi = dist_sq_log_bounds(
+                q, max_pairwise_dist_sq_pruned(pos, cfg,
+                                               softening_sq=soft_t),
+                soft_t)
     return torch.stack([_scalar(log_lo, pos.device),
                         _scalar(log_hi, pos.device), soft_t])
 

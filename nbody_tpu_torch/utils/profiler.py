@@ -1,4 +1,5 @@
-"""Device profiling: timing fence, sampling thread, step timing, traces.
+"""Device profiling: timing fence, sampling thread, step timing, traces,
+program spans.
 
 PyTorch counterpart of ``nbody_tpu.utils.profiler`` (reference:
 gpu_profiler.py:34-468). The reference samples clocks, power,
@@ -10,7 +11,10 @@ JAX package samples none of those, and neither does this module:
   timings ended by ``fence`` (``torch.cuda.synchronize``);
 * it reports the channels it does not sample as None and names them in
   every analysis (``unavailable_channels``);
-* ``TraceCapture`` wraps ``torch.profiler`` and writes a Chrome trace.
+* ``TraceCapture`` wraps ``torch.profiler`` and writes a Chrome trace;
+* ``span`` marks a stretch of the program (``nbody.tick``, ...) on the
+  profiler's timeline while a profiler records, and costs one C call
+  otherwise.
 
 Channels on the card, read by ``chip_smoke.py`` phase ultimate on an
 "NVIDIA H100 80GB HBM3" (700 W):
@@ -34,6 +38,7 @@ clock_mhz / throttle    not sampled (None; step-time jitter CV is the
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -43,11 +48,27 @@ from pathlib import Path
 from typing import Callable, Dict, List, Optional
 
 import torch
+from torch.autograd import _profiler_enabled
+from torch.profiler import record_function
 
 from nbody_tpu_torch.utils.reproducibility import DeviceState, get_device_state
 
 # The channels no sample holds (JAX's list).
 UNSAMPLED = ["power_watts", "clock_mhz", "temperature_c", "throttle_reasons"]
+
+
+# The one context every span returns while no profiler records.
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that marks ``name`` on the profiler's timeline: a
+    ``record_function`` range (a host event, mirrored on the device's
+    timeline over the work launched inside it) while a profiler records
+    (``torch.profiler.profile``, ``TraceCapture``), else one shared null
+    context, so the off path is one C call and no allocation. A span never
+    synchronises, launches nothing and reads no device value."""
+    return record_function(name) if _profiler_enabled() else _NO_SPAN
 
 
 def fence(x):
@@ -176,9 +197,6 @@ class DeviceProfiler:
         fence(out)
         self.step_times_ms.append((time.perf_counter() - t0) * 1e3)
         return out
-
-    def record_step_ms(self, ms: float):
-        self.step_times_ms.append(ms)
 
     # -- analysis -----------------------------------------------------------
 
@@ -314,9 +332,10 @@ def measure_instrumentation_overhead(workload_fn: Callable[[], None],
 
 class TraceCapture:
     """``torch.profiler`` context: an op- and kernel-level timeline written
-    as a Chrome trace (``path``, under ``log_dir``) on exit. The card's
-    events are traced where CUPTI delivers them; a window can come back
-    without device events, so nothing should rest on them."""
+    as a Chrome trace (``path``, under ``log_dir``) on exit, the program's
+    spans (``span``) among its events. The card's events are traced where
+    CUPTI delivers them; a window can come back without device events, so
+    nothing should rest on them."""
 
     def __init__(self, log_dir: str = "output/torch_trace"):
         self.log_dir = log_dir
