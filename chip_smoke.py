@@ -269,7 +269,11 @@ the 1M chunk and pair shapes, the fused max against the square grid,
 row_force's two kernels, the energy routes, each 1M run and the row
 sweep (and the equal-mass 1M runs), max_d2's two designs at 131072 and
 1M, and phase ring's ``--mesh`` CLI runs with pair_max's two designs;
-the default run times the current design once); ``--phases profile``, the main path under
+the default run times the current design once; and the int chain's
+table against the chain kernels, ``int_table_ab``: bitwise over 100
+launches at 131072 int4, in turns at 131072 int4 / int8 / custom-64 and
+the 1M int4 / int8 pair tiles, and both bodies' SASS instructions a
+pair); ``--phases profile``, the main path under
 ``torch.profiler`` at 5000 and 131072 stars, per mode: wall, device
 kernel time, busy share and the top kernels, also written as JSON to
 ``--profile-out``; and ``--phases scale``, each kernel against its plain
@@ -1570,6 +1574,121 @@ ODD_NS = (192, 320, 448)      # 3, 5, 7 tiles: ragged 256-receiver tails
 ODD_PAIRS = ((192, 320), (320, 192))
 RAGGED_TAILS = (16448, 16576)  # 257 and 259 tiles: past the rule's edge
 RAGGED_PAIRS = ((16448, 320), (16576, 16448))
+
+
+@contextlib.contextmanager
+def int_chain_route(hn, design: str):
+    """Runs the one-pass int launches inside on ``design``: "table" (the
+    wrapper's rule, hn.int_chain_design) or "chain" (the chain kernels,
+    the body before the table, for every level count), for an A/B."""
+    saved = hn.INT_TABLE_MAX_LEVELS
+    if design == "chain":
+        hn.INT_TABLE_MAX_LEVELS = 0
+    try:
+        yield
+    finally:
+        hn.INT_TABLE_MAX_LEVELS = saved
+
+
+def sass_per_pair(lib_path: Path, mangled: str, marker: str) -> float | None:
+    """SASS instructions a pair of a one-pass kernel's non-generic batch at
+    D=2 (R C = 32 pairs a batch): the length of the smallest loop, in the
+    SASS (cuobjdump) of the function whose mangled name holds ``mangled``,
+    with 32 ``marker`` instructions (one a pair), over 32; None where
+    cuobjdump or the loop is not found."""
+    from nbody_tpu_torch import _build
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    try:
+        text = subprocess.run([str(tool), "-sass", str(lib_path)],
+                              capture_output=True, text=True,
+                              timeout=300).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    funcs = re.split(r"\n\s*Function : ", text)
+    body = next((f for f in funcs[1:] if mangled in f.split()[0]), "")
+    ins = [m.group(1) for m in re.finditer(
+        r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", body)]
+    best = None
+    for end, line in enumerate(ins):
+        m = re.search(r"BRA\s+.*?0x([0-9a-f]+)", line)
+        if m is None or line.startswith("@!PT"):
+            continue
+        start = int(m.group(1), 16) // 16
+        if start >= end:
+            continue
+        ops = [re.sub(r"^@!?U?P\w+\s+", "", b).split()[0]
+               for b in ins[start:end + 1]]
+        if sum(op.startswith(marker) for op in ops) == 32 and (
+                best is None or len(ops) < best):
+            best = len(ops)
+    return None if best is None else best / 32
+
+
+def int_table_ab(dev, report: dict) -> None:
+    """The int chain's table against the chain kernels (the body before
+    it): at N=131072 int4 on a disk the table's forces bitwise the chain's
+    over LAUNCH_RUNS launches, no block on the chain; device time in turns
+    (CUDA events) of sym_force at 131072 in int4, int8 and custom-64 and of
+    the 1M int4 and int8 pair tiles (209728^2 D=2, 174784^2 D=3), which set
+    hn.INT_TABLE_MAX_LEVELS; and the SASS instructions a pair of both
+    bodies (sym_one_pass<3, 2> non-generic batch)."""
+    from nbody_tpu_torch import _build
+    from nbody_tpu_torch.config import SimConfig
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+    from nbody_tpu_torch.ops.precision import Quantizer
+
+    cfg = SimConfig()
+    pos, m = make_inputs(BIG_N, 2, True, seed=5, dev=dev)
+    gm = (cfg.G * m).contiguous()
+    q = Quantizer.from_string("int4")
+    bounds = force_bounds(q, pos, cfg.softening_sq, dev)
+    run = lambda: hn.sym_force(pos, gm, bounds, q, False, uniform=True)
+    with int_chain_route(hn, "chain"):
+        want = run()
+    hn.INT_CHAIN_FALLBACKS.clear()
+    for k in range(LAUNCH_RUNS):
+        check(bitwise(run(), want), f"ab: int4 table launch {k + 1} not "
+                                    f"bitwise the chain's")
+    fell = hn.int_chain_fallbacks(pos.device)
+    check(fell == 0, f"ab: {fell} blocks on the chain at the exact grid")
+    print(f"ab: int chain table: sym_force N={BIG_N} int4 bitwise the "
+          f"chain over {LAUNCH_RUNS} launches, 0 blocks on the chain")
+    shapes = [("sym_force", BIG_N, 2, mode, levels) for mode, levels in
+              (("int4", 16), ("int8", 256), ("custom", 64))]
+    shapes += [("pair_sym_force", hn.sym_chunk_size(LARGE_N, dim), dim,
+                mode, 0) for dim in (2, 3) for mode in ("int4", "int8")]
+    for kernel, n, dim, mode, levels in shapes:
+        q = Quantizer.from_string(mode, custom_levels=levels or 64)
+        if kernel == "sym_force":
+            p, g = pos, gm
+        else:
+            p, mm = make_inputs(2 * n, dim, True, seed=8, dev=dev)
+            g = (cfg.G * mm).contiguous()
+        b = force_bounds(q, p, cfg.softening_sq, dev)
+        if kernel == "sym_force":
+            fn = lambda: hn.sym_force(p, g, b, q, False, uniform=True)
+        else:
+            fn = lambda: hn.pair_sym_force(p[:n], g[:n], p[n:], g[n:], b, q,
+                                           uniform=True)
+        reps = 10 if kernel == "sym_force" else 3
+
+        def timed(design):
+            with int_chain_route(hn, design):
+                return cuda_ms(fn, reps)
+
+        chain, table = in_turns(timed, "chain", "table")
+        shape = f"{n}" if kernel == "sym_force" else f"{n}^2"
+        print(f"ab: int chain table: {kernel} {shape} D={dim} {mode} "
+              f"({q.levels} levels): {ab_text(chain, table, 'chain', 'table')}")
+        del p, g
+    lib = _build.BUILD_ROOT / _build._digest() / "libsym_force.so"
+    per_pair = {name: sass_per_pair(lib, f"sym_one_pass{mangled}", marker)
+                for name, mangled, marker in (
+                    ("chain", "ILi3ELi2ELb0ELb0ELb0E", "FRND"),
+                    ("table", "ILi3ELi2ELb0ELb0ELb1E", "FSEL"))}
+    print(f"ab: int chain table: SASS instructions a pair (sym_one_pass<3, "
+          f"2>, non-generic batch): chain {per_pair['chain']}, table "
+          f"{per_pair['table']}")
 
 
 @contextlib.contextmanager
@@ -6887,6 +7006,7 @@ def main(argv=None) -> int:
                 phase_perf(dev, report, ab=True)
                 phase_large(dev, report, ab=True)
                 ring_cli(dev, report, ab=True)
+                int_table_ab(dev, report)
             elif phase == "ring":
                 phase_ring(dev, report)
             elif phase == "cached":

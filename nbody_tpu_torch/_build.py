@@ -34,6 +34,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_U, _L = ctypes.c_uint, ctypes.c_longlong
 # C functions of each source: name -> argtypes (every one returns an int).
 SIGNATURES = {
     "sym_force": {
@@ -44,7 +45,10 @@ SIGNATURES = {
         "nbody_sym_force_lab": [_P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _P,
                                 _P, _P],
         "nbody_sym_force_one_pass": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _I,
-                                     _I, _I, _P, _P, _P, _P, _P, _P, _P],
+                                     _I, _I, _P, _P, _P, _P, _P, _P, _I, _P,
+                                     _P],
+        "nbody_int_table_sweep": [_P, _I, _F, _F, _U, _L, _P, _P, _P, _P],
+        "nbody_int_table_bytes": [_I],
         "nbody_one_pass_receivers": [],
         "nbody_sym_force_one_pass_resident": [_I, _I, _I, _I],
     },
@@ -78,7 +82,7 @@ SIGNATURES = {
                                  _F, _I, _I, _P, _P, _P, _P, _P],
         "nbody_pair_sym_force_one_pass": [_P, _P, _I, _P, _P, _I, _P, _I, _I,
                                           _I, _F, _F, _I, _I, _P, _P, _P, _P,
-                                          _P],
+                                          _I, _P, _P],
         "nbody_pair_sym_force_one_pass_resident": [_I, _I, _I],
     },
     "pair_pe_rows": {

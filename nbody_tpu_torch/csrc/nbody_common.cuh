@@ -18,7 +18,9 @@
 //     never build with --use_fast_math, a different log moves the bin
 //     edges. The two multiply-adds round twice (mul, then add) as the JAX
 //     chain and the plain version do, so a kernel and its plain version
-//     agree bin for bin.
+//     agree bin for bin. one_pass.cuh's table kernels take the same
+//     weights from per-launch tables of the chain's own bin edges and
+//     weights, bit for bit.
 //   * int-sim base 2 (MODE_INT_B2, the r4 lab's knob A only,
 //     tools/kernel_lab_r4.py:108-122): the same chain on log2f / exp2f
 //     (the accurate versions) with ln 2 folded into norm_a and log2(e)
@@ -128,17 +130,27 @@ __device__ __forceinline__ float raw_d2(const float (&dx)[D]) {
   return s;
 }
 
+// The int chain's two halves: the grid index k (a float holding an integer)
+// of x = max(d^2, min_d2), and the weight of an index. one_pass.cuh's
+// per-launch tables are built from these same operations.
+template <int MODE>
+__device__ __forceinline__ float int_chain_k(float x, const IntGrid& g) {
+  const float log_d2 = MODE == MODE_INT_B2 ? log2f(x) : logf(x);
+  return rintf(__fadd_rn(__fmul_rn(log_d2, g.norm_a), g.norm_b));
+}
+
+template <int MODE>
+__device__ __forceinline__ float int_chain_w(float k, const IntGrid& g) {
+  const float arg = fminf(__fadd_rn(__fmul_rn(k, g.arg_k), g.arg_0),
+                          g.arg_cap);
+  return MODE == MODE_INT_B2 ? exp2f(arg) : expf(arg);
+}
+
 // w = quantized |r|^-3 of the softened d^2.
 template <int MODE>
 __device__ __forceinline__ float pair_w(float d2, const IntGrid& g) {
-  if (MODE == MODE_INT || MODE == MODE_INT_B2) {
-    const float x = fmaxf(d2, g.min_d2);
-    const float log_d2 = MODE == MODE_INT_B2 ? log2f(x) : logf(x);
-    const float k = rintf(__fadd_rn(__fmul_rn(log_d2, g.norm_a), g.norm_b));
-    const float arg = fminf(__fadd_rn(__fmul_rn(k, g.arg_k), g.arg_0),
-                            g.arg_cap);
-    return MODE == MODE_INT_B2 ? exp2f(arg) : expf(arg);
-  }
+  if (MODE == MODE_INT || MODE == MODE_INT_B2)
+    return int_chain_w<MODE>(int_chain_k<MODE>(fmaxf(d2, g.min_d2), g), g);
   float d2q = d2;
   if (MODE == MODE_BF16) d2q = __bfloat162float(__float2bfloat16_rn(d2));
   if (MODE == MODE_F16) d2q = __half2float(__float2half_rn(d2));

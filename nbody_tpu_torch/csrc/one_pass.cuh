@@ -58,6 +58,15 @@
 // the pairs it evaluates, one fmaxf a pair, and the launch folds the
 // blocks' maxima by ticket (max_reduce.cuh), so a fused launch is the
 // force launch and its reduction, where the two-pass tile took four.
+//
+// The int chain by table (the kernels' TABLE instances, MODE_INT launches
+// up to hopper_nbody.INT_TABLE_MAX_LEVELS levels): each block builds the
+// launch's bin edges and weights from the accurate chain in its prologue
+// (op_build_table, further down) and takes a pair's w by one shared load
+// and a compare where the block proves that all its pairs fall in the
+// table (op_reach), the same bits as the chain at ~21 SASS instructions a
+// pair against ~54 (int4, D = 2). The chain instances, the float modes'
+// included, are the body as it was.
 
 #pragma once
 
@@ -170,19 +179,280 @@ __device__ __forceinline__ void op_fold(float (&v)[C][D]) {
 // the self pair skipped when self-masked), or nothing.
 enum OpKind { OP_BOTH = 0, OP_ROWS = 1, OP_NONE = 2 };
 
+// The int chain by table (the kernels' TABLE instances, which an int
+// launch with int_table set runs: hopper_nbody.int_chain_design). In one
+// launch the grid scalars are
+// fixed, and every operation of the chain's index k = rint(log(x) norm_a +
+// norm_b) is monotone in x = max(d^2 + eps^2, min_d2) (fmul by norm_a >= 0,
+// fadd, rint, and the accurate logf, which the card's exhaustive test
+// confirms float by float over the grids it runs). So k is a step
+// function of x, and the weight expf(min(k arg_k + arg_0, arg_cap)) a
+// function of k alone. The block builds, in its prologue and in shared
+// memory, from the chain's own operations (int_chain_k / int_chain_w):
+//
+//   * the edges e_j, j = 1..E: the least float x >= lo = max(eps^2,
+//     min_d2) at which k reaches k0 + j, k0 = k(lo), by bisection over the
+//     bit patterns of the positive floats, one thread an edge (+inf where
+//     no float reaches it); E = levels + OP_TABLE_SLACK bins;
+//   * the weights w_i of bins k0 + i, i < E;
+//   * buckets of the bit pattern, bucket(x) = bits(x) >> shift, at the
+//     largest shift at which the first m edges fall in m distinct buckets
+//     (m as large as op_table_buckets(levels) buckets allow): each bucket
+//     holds at most one edge, as {edge (or +inf), w below it, w from it
+//     on}. The table covers [lo, e_m).
+//
+// A pair then costs a max, a shift, an address, one 16-byte shared load, a
+// compare and a select, and gets exactly the chain's w, on one condition:
+// lo <= x < e_m. The block proves it once (op_reach): every coordinate
+// of its receivers and of its segment's sources finite, and the d^2 of
+// their bounding boxes' far corners, formed by the same monotone float
+// operations as a pair's, below e_m. A block that cannot (bounds stale
+// by more than the table's slack, coordinates not finite, an invalid grid:
+// lo not a positive finite float, or k0 not an integer below 2^22) runs
+// every pair on the accurate chain and counts itself in `fallbacks`
+// (op_run_table): the weights are the chain's, bit for bit, whatever the
+// bounds. The slack and
+// the bucket count are the host's too (hopper_nbody.int_table_bytes sizes
+// the dynamic shared memory).
+constexpr int OP_TABLE_SLACK = 8;
+
+__host__ __device__ constexpr int op_table_edges(int levels) {
+  return levels + OP_TABLE_SLACK;
+}
+
+// Four buckets an edge and a few: the largest shift puts a bucket at more
+// than half the least edge spacing, in units of the bit pattern, whose
+// spacings differ by at most a factor of 2 over an octave.
+__host__ __device__ constexpr int op_table_buckets(int levels) {
+  return 4 * op_table_edges(levels) + 8;
+}
+
+__host__ __device__ constexpr size_t op_table_bytes(int levels) {
+  return (size_t)op_table_buckets(levels) * sizeof(float4) +
+         (size_t)(2 * op_table_edges(levels) + 1) * sizeof(float);
+}
+
+// Whether a table of `levels` fits the dynamic shared memory a launch takes
+// without an opt-in (48 KiB).
+__host__ __device__ constexpr bool op_table_fits(int levels) {
+  return levels >= 1 && op_table_bytes(levels) <= 48 * 1024;
+}
+
+struct OpTable {
+  const float4* bucket;  // indexed by bits(x) >> shift: the buckets - base
+  int shift;
+  float end;             // e_m: the table covers [lo, end); -inf if empty
+  const volatile IntGrid* grid;  // the chain's grid in shared memory
+};
+
+// Where a body takes its weights: the mode's pair_w on the grid in
+// registers (OP_W_CHAIN), the block's table (OP_W_TABLE), or pair_w on the
+// grid read from shared memory at each use (OP_W_SHARED_CHAIN: the table
+// kernels' chain, four registers lighter, the same bits).
+enum OpWeights { OP_W_CHAIN = 0, OP_W_TABLE = 1, OP_W_SHARED_CHAIN = 2 };
+
+__device__ __forceinline__ IntGrid op_grid(const volatile IntGrid& v) {
+  IntGrid g;
+  g.norm_a = v.norm_a;
+  g.norm_b = v.norm_b;
+  g.arg_k = v.arg_k;
+  g.arg_0 = v.arg_0;
+  g.arg_cap = v.arg_cap;
+  g.min_d2 = v.min_d2;
+  return g;
+}
+
+// The table's w of a softened d^2 whose x = max(d^2, min_d2) lies in
+// [lo, end): the chain's, bit for bit.
+__device__ __forceinline__ float op_table_w(float d2, const IntGrid& g,
+                                            const OpTable& tb) {
+  const float x = fmaxf(d2, g.min_d2);
+  const float4 e = tb.bucket[__float_as_uint(x) >> tb.shift];
+  return x >= e.x ? e.z : e.y;
+}
+
+// The least float x at or above bit pattern lo_u (where the chain's k is
+// below `target`) at which k reaches target; +inf if none does.
+__device__ __forceinline__ float op_table_edge(unsigned lo_u, float target,
+                                               const IntGrid& g) {
+  unsigned lo = lo_u, hi = 0x7f800000u;  // +inf
+  if (!(int_chain_k<MODE_INT>(__uint_as_float(hi), g) >= target))
+    return __uint_as_float(hi);
+  while (hi - lo > 1) {
+    const unsigned mid = lo + (hi - lo) / 2;
+    if (int_chain_k<MODE_INT>(__uint_as_float(mid), g) >= target)
+      hi = mid;
+    else
+      lo = mid;
+  }
+  return __uint_as_float(hi);
+}
+
+// Builds the block's table in `smem` (op_table_bytes(levels), 16-byte
+// aligned) from the grid g and eps^2 = soft; every thread of the block
+// calls it (three barriers). meta, if not null, receives {m, shift, base,
+// buckets used} (the card's test export).
+__device__ __forceinline__ OpTable op_build_table(const IntGrid& g,
+                                                  float soft, int levels,
+                                                  float4* smem, int* meta) {
+  __shared__ int ctl[3];  // shift, base, m
+  const int t = threadIdx.x;
+  const int E = op_table_edges(levels);
+  float* edge = reinterpret_cast<float*>(smem + op_table_buckets(levels));
+  float* w = edge + E + 1;  // edge[1..E], w[0..E-1]
+  const float lo = fmaxf(soft, g.min_d2);
+  const unsigned lo_u = __float_as_uint(lo);
+  const float k0 = int_chain_k<MODE_INT>(lo, g);
+  const bool valid = lo > 0.f && lo_u < 0x7f800000u && fabsf(k0) < 4194304.f;
+  if (valid) {
+    for (int j = t + 1; j <= E; j += blockDim.x)
+      edge[j] = op_table_edge(lo_u, k0 + (float)j, g);
+    for (int i = t; i < E; i += blockDim.x)
+      w[i] = int_chain_w<MODE_INT>(i == 0 ? k0 : k0 + (float)i, g);
+  }
+  __syncthreads();
+  if (t < 32) {
+    // Lane s: how many edges the buckets of shift s keep apart.
+    const unsigned base = lo_u >> t;
+    int m = 0;
+    if (valid) {
+      int prev = -1;
+      for (int j = 1; j <= E; ++j) {
+        const int r = (int)((__float_as_uint(edge[j]) >> t) - base);
+        if (r <= prev || r >= op_table_buckets(levels)) break;
+        prev = r;
+        m = j;
+      }
+    }
+    int key = m * 32 + t;  // the most edges; then the largest shift
+    for (int off = 16; off > 0; off >>= 1)
+      key = max(key, __shfl_xor_sync(0xffffffffu, key, off));
+    if (t == 0) {
+      ctl[0] = key & 31;
+      ctl[1] = (int)(lo_u >> (key & 31));
+      ctl[2] = key >> 5;
+    }
+  }
+  __syncthreads();
+  const int shift = ctl[0];
+  const unsigned base = (unsigned)ctl[1];
+  const int m = ctl[2];
+  auto rel = [&](float x) {
+    return (int)((__float_as_uint(x) >> shift) - base);
+  };
+  // Bin i's buckets: those after the one that holds e_i, up to the one
+  // that holds e_{i+1}; x never reaches e_m (op_reach), so the last
+  // bucket's upper weight is NaN.
+  for (int i = t; i < m; i += blockDim.x) {
+    const int last = rel(edge[i + 1]);
+    const float up = i + 1 < m ? w[i + 1] : __int_as_float(0x7fffffff);
+    for (int b = i == 0 ? 0 : rel(edge[i]) + 1; b < last; ++b)
+      smem[b] = make_float4(__int_as_float(0x7f800000), w[i], w[i], 0.f);
+    smem[last] = make_float4(edge[i + 1], w[i], up, 0.f);
+  }
+  if (t == 0 && meta != nullptr) {
+    meta[0] = m;
+    meta[1] = shift;
+    meta[2] = (int)base;
+    meta[3] = m > 0 ? rel(edge[m]) + 1 : 0;
+  }
+  __syncthreads();
+  return OpTable{smem - base, shift,
+                 m > 0 ? edge[m] : __int_as_float(0xff800000), nullptr};
+}
+
+// The block's bound on x = max(d^2 + eps^2, min_d2) over every pair of
+// its receivers (receiver tile I of recv, the lane's OP_R of op_block's;
+// zero past n_recv, as op_block holds them: inside the bound) and the
+// sources of tiles [Jb, Je) of src: from the bounding boxes, per dimension
+// the larger of hi_s - lo_r and hi_r - lo_s, then raw_d2's operations,
+// + soft, max with min_d2. Each operation is monotone, so a pair's
+// computed x is at most it; +inf if a coordinate is not finite (its pairs
+// could form NaN). One barrier.
+template <int D>
+__device__ __forceinline__ float op_reach(const float* __restrict__ recv,
+                                          int n_recv, int I,
+                                          const float* __restrict__ src,
+                                          int Jb, int Je, float soft,
+                                          float min_d2) {
+  __shared__ float part[OP_WARPS][4 * D + 1];
+  const int t = threadIdx.x;
+  const int i_first = I * OP_RW + (t >> 5) * 32 * OP_R + (t & 31);
+  float lr[D], hr[D], ls[D], hs[D];
+  bool bad = false;
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    lr[d] = ls[d] = __int_as_float(0x7f800000);
+    hr[d] = hs[d] = -lr[d];
+  }
+#pragma unroll
+  for (int r = 0; r < OP_R; ++r) {
+    const int i = i_first + 32 * r;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const float v = i < n_recv ? recv[(size_t)i * D + d] : 0.f;
+      lr[d] = fminf(lr[d], v);
+      hr[d] = fmaxf(hr[d], v);
+      bad |= !(fabsf(v) <= 3.402823466e38f);
+    }
+  }
+  for (size_t j = (size_t)Jb * BT + t; j < (size_t)Je * BT; j += OP_THREADS)
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const float v = src[j * D + d];
+      ls[d] = fminf(ls[d], v);
+      hs[d] = fmaxf(hs[d], v);
+      bad |= !(fabsf(v) <= 3.402823466e38f);
+    }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      lr[d] = fminf(lr[d], __shfl_xor_sync(0xffffffffu, lr[d], off));
+      hr[d] = fmaxf(hr[d], __shfl_xor_sync(0xffffffffu, hr[d], off));
+      ls[d] = fminf(ls[d], __shfl_xor_sync(0xffffffffu, ls[d], off));
+      hs[d] = fmaxf(hs[d], __shfl_xor_sync(0xffffffffu, hs[d], off));
+    }
+  bad = __any_sync(0xffffffffu, bad);
+  if ((t & 31) == 0) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      part[t >> 5][d] = lr[d];
+      part[t >> 5][D + d] = hr[d];
+      part[t >> 5][2 * D + d] = ls[d];
+      part[t >> 5][3 * D + d] = hs[d];
+    }
+    part[t >> 5][4 * D] = bad ? 1.f : 0.f;
+  }
+  __syncthreads();
+  float far[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    const float a = fminf(part[0][d], part[1][d]);
+    const float b = fmaxf(part[0][D + d], part[1][D + d]);
+    const float c = fminf(part[0][2 * D + d], part[1][2 * D + d]);
+    const float e = fmaxf(part[0][3 * D + d], part[1][3 * D + d]);
+    far[d] = fmaxf(__fsub_rn(e, a), __fsub_rn(b, c));
+  }
+  if (part[0][4 * D] != 0.f || part[1][4 * D] != 0.f)
+    return __int_as_float(0x7f800000);
+  return fmaxf(__fadd_rn(raw_d2<D>(far), soft), min_d2);
+}
+
 // One source tile against the lane's R receivers; the warp's reaction sums
 // of the tile's BT sources go to colw[BT][D]. GENERIC honours kind[r] (the
 // diagonal band and a ragged receiver tile); otherwise every row is OP_BOTH.
 // GM: masses per particle, the source's G m staged with it and the
 // receivers' in gmi. EMIT: best takes the max of the raw d^2 of every pair
-// evaluated (an OP_NONE row evaluates none).
-template <int MODE, int D, bool GENERIC, bool GM, bool EMIT>
+// evaluated (an OP_NONE row evaluates none). W: where w comes from
+// (OpWeights).
+template <int MODE, int D, bool GENERIC, bool GM, bool EMIT, int W>
 __device__ __forceinline__ void op_tile(
     const typename OpTraits<D, GM>::Vec* __restrict__ xs,
     const float (&xi)[OP_R][D], const float (&gmi)[OP_R],
-    float (&row)[OP_R][D], float soft, const IntGrid& g, int lane,
-    const int (&kind)[OP_R], int self_masked, float* __restrict__ colw,
-    float& best) {
+    float (&row)[OP_R][D], float soft, const IntGrid& g, const OpTable& tb,
+    int lane, const int (&kind)[OP_R], int self_masked,
+    float* __restrict__ colw, float& best) {
   constexpr int C = OpTraits<D, GM>::C;
   const int f = op_perm<C>(lane);
 #pragma unroll 1
@@ -203,7 +473,11 @@ __device__ __forceinline__ void op_tile(
         for (int d = 0; d < D; ++d) dx[d] = __fsub_rn(xj[d], xi[r][d]);
         const float r2 = raw_d2<D>(dx);
         if (EMIT) best = fmaxf(best, r2);
-        const float w = pair_w<MODE>(__fadd_rn(r2, soft), g);
+        const float w =
+            W == OP_W_TABLE ? op_table_w(__fadd_rn(r2, soft), g, tb)
+            : W == OP_W_SHARED_CHAIN
+                ? pair_w<MODE>(__fadd_rn(r2, soft), op_grid(*tb.grid))
+                : pair_w<MODE>(__fadd_rn(r2, soft), g);
         if (GENERIC && kind[r] == OP_ROWS) {
           // The receiver's index in the tile is 32 (r & 1) + lane.
           if (self_masked && src == 32 * (r & 1) + lane) continue;
@@ -260,16 +534,21 @@ __device__ __forceinline__ typename OpTraits<D, GM>::Vec op_load_src(
 // a row's OpKind from its base tile index and J; `generic_until` is the
 // first J past the diagonal band (-1 for none), `ragged` whether some row of
 // this receiver tile falls past n_recv. GM: gm_recv and gm_src hold the
-// sets' G m (unread otherwise). Returns the lane's max of the raw d^2 of
-// the pairs it evaluated under EMIT, else 0.
-template <int MODE, int D, bool NEG, bool GM, bool EMIT, typename KindOf>
+// sets' G m (unread otherwise). W: where the weights come from (OpWeights;
+// tb holds the table and the shared grid, op_run_table); but for
+// OP_W_CHAIN the row sums go to `rows`, for the caller to store
+// (op_store_rows). Returns the lane's max of the raw d^2 of the pairs it
+// evaluated under EMIT, else 0.
+template <int MODE, int D, bool NEG, bool GM, bool EMIT, int W,
+          typename KindOf>
 __device__ __forceinline__ float op_block(
     const float* __restrict__ recv, const float* __restrict__ gm_recv,
     int n_recv, const float* __restrict__ src,
     const float* __restrict__ gm_src, const float* __restrict__ bounds,
     int levels, float arg_cap, float min_d2, int self_masked, int I, int S,
     int TI, int nsegmax, int Jb, int Je, int generic_until, bool ragged,
-    KindOf kind_of, float* __restrict__ rpart, float* __restrict__ cpart) {
+    KindOf kind_of, float* __restrict__ rpart, float* __restrict__ cpart,
+    const OpTable& tb, float (&rows)[OP_R][D]) {
   using Vec = typename OpTraits<D, GM>::Vec;
   __shared__ Vec xs[2][BT];
   __shared__ float colbuf[2][OP_WARPS][BT * D];
@@ -299,22 +578,32 @@ __device__ __forceinline__ float op_block(
   __syncthreads();
   for (int J = Jb, k = 0; J < Je; ++J, ++k) {
     const int buf = k & 1;
+    // The next tile into the other buffer (every thread has read it, at
+    // the last barrier): in the table kernels straight to shared memory,
+    // so that no register holds it over the tile; else held and stored
+    // after.
     Vec nxt{};
-    if (J + 1 < Je) nxt = op_load_src<D, GM>(src, gm_src, J + 1, t);
+    if (J + 1 < Je) {
+      if constexpr (W != OP_W_CHAIN)
+        xs[buf ^ 1][t] = op_load_src<D, GM>(src, gm_src, J + 1, t);
+      else
+        nxt = op_load_src<D, GM>(src, gm_src, J + 1, t);
+    }
     float* colw = colbuf[buf][warp];
     if (J < generic_until || ragged) {
       int kind[OP_R];
 #pragma unroll
       for (int r = 0; r < OP_R; ++r)
         kind[r] = kind_of(T0 + (warp * 32 * OP_R + 32 * r) / BT, J);
-      op_tile<MODE, D, true, GM, EMIT>(xs[buf], xi, gmi, row, soft, g, lane,
-                                       kind, self_masked, colw, best);
+      op_tile<MODE, D, true, GM, EMIT, W>(xs[buf], xi, gmi, row, soft, g, tb,
+                                          lane, kind, self_masked, colw,
+                                          best);
     } else {
       const int none[OP_R] = {};
-      op_tile<MODE, D, false, GM, EMIT>(xs[buf], xi, gmi, row, soft, g, lane,
-                                        none, 0, colw, best);
+      op_tile<MODE, D, false, GM, EMIT, W>(xs[buf], xi, gmi, row, soft, g,
+                                           tb, lane, none, 0, colw, best);
     }
-    xs[buf ^ 1][t] = nxt;
+    if constexpr (W == OP_W_CHAIN) xs[buf ^ 1][t] = nxt;
     __syncthreads();
     // Tile J's reactions: warp 0 + warp 1, one thread a source.
 #pragma unroll
@@ -326,12 +615,81 @@ __device__ __forceinline__ float op_block(
       cpart[(((size_t)J * TI + I) * BT + t) * D + d] = NEG ? -s : s;
     }
   }
+  if constexpr (W != OP_W_CHAIN) {
+#pragma unroll
+    for (int r = 0; r < OP_R; ++r)
+#pragma unroll
+      for (int d = 0; d < D; ++d) rows[r][d] = row[r][d];
+    return best;
+  }
   float* out = rpart + (((size_t)I * nsegmax + S) * OP_RW + warp * 32 * OP_R +
                         lane) * D;
 #pragma unroll
   for (int r = 0; r < OP_R; ++r)
 #pragma unroll
     for (int d = 0; d < D; ++d) out[32 * r * D + d] = row[r][d];
+  return best;
+}
+
+// The lane's row sums of receiver tile I, segment S, to rpart, as
+// op_block stores them.
+template <int D>
+__device__ __forceinline__ void op_store_rows(const float (&row)[OP_R][D],
+                                              float* __restrict__ rpart,
+                                              int I, int S, int nsegmax) {
+  const int t = threadIdx.x;
+  float* out = rpart + (((size_t)I * nsegmax + S) * OP_RW +
+                        (t >> 5) * 32 * OP_R + (t & 31)) * D;
+#pragma unroll
+  for (int r = 0; r < OP_R; ++r)
+#pragma unroll
+    for (int d = 0; d < D; ++d) out[32 * r * D + d] = row[r][d];
+}
+
+// The table kernels' block (MODE_INT): op_block's arguments, the block's
+// table built (op_build_table, in the launch's dynamic shared memory) and
+// the chain's grid put in shared memory; then op_block on the table where
+// op_reach proves that every pair falls in it, else on the chain (the grid
+// from shared memory), counted in *fallbacks. A ragged receiver tile
+// (pair_one_pass's last, rows past the set) takes the chain uncounted: the
+// table's body has no ragged rows, and so holds no row kinds over its walk.
+template <int D, bool NEG, bool GM, bool EMIT, typename KindOf>
+__device__ __forceinline__ float op_run_table(
+    const float* __restrict__ recv, const float* __restrict__ gm_recv,
+    int n_recv, const float* __restrict__ src,
+    const float* __restrict__ gm_src, const float* __restrict__ bounds,
+    int levels, float arg_cap, float min_d2, int self_masked, int I, int S,
+    int TI, int nsegmax, int Jb, int Je, int generic_until, bool ragged,
+    KindOf kind_of, float* __restrict__ rpart, float* __restrict__ cpart,
+    int* __restrict__ fallbacks) {
+  extern __shared__ float4 op_table_smem[];
+  __shared__ IntGrid grid;
+  const float soft = bounds[2];
+  const IntGrid g = int_grid(bounds, levels, arg_cap, min_d2);
+  if (threadIdx.x == 0) grid = g;
+  const float reach = op_reach<D>(recv, n_recv, I, src, Jb, Je, soft, min_d2);
+  OpTable tb = op_build_table(g, soft, levels, op_table_smem, nullptr);
+  tb.grid = &grid;
+  // A warp vote of a block-wide value: the branch is uniform, so the body
+  // keeps the block's bookkeeping in uniform registers. The rows are
+  // stored once, after either body.
+  const bool covered = __all_sync(0xffffffffu, reach < tb.end);
+  float row[OP_R][D];
+  float best;
+  if (covered && !ragged) {
+    best = op_block<MODE_INT, D, NEG, GM, EMIT, OP_W_TABLE>(
+        recv, gm_recv, n_recv, src, gm_src, bounds, levels, arg_cap, min_d2,
+        self_masked, I, S, TI, nsegmax, Jb, Je, generic_until, false, kind_of,
+        rpart, cpart, tb, row);
+  } else {
+    if (!covered && threadIdx.x == 0 && fallbacks != nullptr)
+      atomicAdd(fallbacks, 1);
+    best = op_block<MODE_INT, D, NEG, GM, EMIT, OP_W_SHARED_CHAIN>(
+        recv, gm_recv, n_recv, src, gm_src, bounds, levels, arg_cap, min_d2,
+        self_masked, I, S, TI, nsegmax, Jb, Je, generic_until, ragged,
+        kind_of, rpart, cpart, tb, row);
+  }
+  op_store_rows<D>(row, rpart, I, S, nsegmax);
   return best;
 }
 
@@ -353,7 +711,10 @@ __device__ __forceinline__ float op_block(
 // square), and the block's max goes to fold_by_ticket over all gridDim.x
 // gridDim.y blocks, those past the last segment with 0: *max_out is
 // bitwise max_d2's, and the forces are the same bits as without it.
-template <int MODE, int D, bool GM, bool EMIT>
+//
+// TABLE (MODE_INT): the table kernel, op_run_table's weights, its blocks
+// that fall back to the chain counted in *fallbacks (may be null).
+template <int MODE, int D, bool GM, bool EMIT, bool TABLE = false>
 __global__ void __launch_bounds__(OP_THREADS,
                                   GM ? OP_MIN_BLOCKS_GM : OP_MIN_BLOCKS)
 sym_one_pass(const float* __restrict__ pos, const float* __restrict__ gm,
@@ -361,7 +722,7 @@ sym_one_pass(const float* __restrict__ pos, const float* __restrict__ gm,
              float arg_cap, float min_d2, int self_masked, int seg,
              float* __restrict__ rpart, float* __restrict__ cpart,
              float* __restrict__ block_max, int* __restrict__ ticket,
-             float* __restrict__ max_out) {
+             float* __restrict__ max_out, int* __restrict__ fallbacks) {
   const int S = blockIdx.x;
   const int I = blockIdx.y;
   const int T = n / BT;
@@ -373,10 +734,18 @@ sym_one_pass(const float* __restrict__ pos, const float* __restrict__ gm,
     auto kind_of = [T](int a, int J) {
       return a >= T || a > J ? OP_NONE : (a == J ? OP_ROWS : OP_BOTH);
     };
-    best = op_block<MODE, D, false, GM, EMIT>(
-        pos, gm, n, pos, gm, bounds, levels, arg_cap, min_d2, self_masked, I,
-        S, gridDim.y, gridDim.x, Jb, Je, T0 + OP_SUB, false, kind_of, rpart,
-        cpart);
+    if constexpr (TABLE)
+      best = op_run_table<D, false, GM, EMIT>(
+          pos, gm, n, pos, gm, bounds, levels, arg_cap, min_d2, self_masked,
+          I, S, gridDim.y, gridDim.x, Jb, Je, T0 + OP_SUB, false, kind_of,
+          rpart, cpart, fallbacks);
+    else {
+      float unused[OP_R][D];
+      best = op_block<MODE, D, false, GM, EMIT, OP_W_CHAIN>(
+          pos, gm, n, pos, gm, bounds, levels, arg_cap, min_d2, self_masked,
+          I, S, gridDim.y, gridDim.x, Jb, Je, T0 + OP_SUB, false, kind_of,
+          rpart, cpart, OpTable{}, unused);
+    }
   }
   if constexpr (EMIT)
     fold_by_ticket<OP_THREADS>(best, block_max,
@@ -389,8 +758,8 @@ sym_one_pass(const float* __restrict__ pos, const float* __restrict__ gm,
 // pair_sym_force): receiver tile I = blockIdx.y of A against segment
 // S = blockIdx.x of B's tiles; a ragged last receiver tile skips its rows
 // past na. Reaction partials are stored negated, so reduce_partials sums
-// them as the two-pass tile's.
-template <int MODE, int D, bool GM>
+// them as the two-pass tile's. TABLE: as sym_one_pass's.
+template <int MODE, int D, bool GM, bool TABLE = false>
 __global__ void __launch_bounds__(OP_THREADS,
                                   GM ? OP_MIN_BLOCKS_GM : OP_MIN_BLOCKS)
 pair_one_pass(const float* __restrict__ pa, const float* __restrict__ gma,
@@ -398,18 +767,26 @@ pair_one_pass(const float* __restrict__ pa, const float* __restrict__ gma,
               const float* __restrict__ gmb, int nb,
               const float* __restrict__ bounds, int levels, float arg_cap,
               float min_d2, int seg, float* __restrict__ rpart,
-              float* __restrict__ cpart) {
+              float* __restrict__ cpart, int* __restrict__ fallbacks) {
   const int S = blockIdx.x;
   const int I = blockIdx.y;
   const int Ta = na / BT;
   const int Jb = S * seg;
   const int Je = min(nb / BT, Jb + seg);
   auto kind_of = [Ta](int a, int) { return a < Ta ? OP_BOTH : OP_NONE; };
-  op_block<MODE, D, true, GM, false>(pa, gma, na, pb, gmb, bounds, levels,
+  if constexpr (TABLE)
+    op_run_table<D, true, GM, false>(pa, gma, na, pb, gmb, bounds, levels,
                                      arg_cap, min_d2, 0, I, S, gridDim.y,
                                      gridDim.x, Jb, Je, -1,
                                      (I + 1) * OP_SUB > Ta, kind_of, rpart,
-                                     cpart);
+                                     cpart, fallbacks);
+  else {
+    float unused[OP_R][D];
+    op_block<MODE, D, true, GM, false, OP_W_CHAIN>(
+        pa, gma, na, pb, gmb, bounds, levels, arg_cap, min_d2, 0, I, S,
+        gridDim.y, gridDim.x, Jb, Je, -1, (I + 1) * OP_SUB > Ta, kind_of,
+        rpart, cpart, OpTable{}, unused);
+  }
 }
 
 // sym_one_pass's fixed-order reduction: particle p sums its receiver
@@ -451,15 +828,66 @@ __global__ void sym_one_pass_reduce(const float* __restrict__ rpart,
   for (int d = 0; d < D; ++d) out[(size_t)p * D + d] = s[d];
 }
 
-// Blocks of an instance a SM holds at once (-1 if the query fails).
+// The card's exhaustive test of the table (a test export: no path of the
+// program launches it). Each block builds the table of (bounds, levels)
+// as op_block does; its threads then take the floats x of bit patterns
+// u_lo + i, i < count, in turn, as softened d^2: where lo <= x < e_m the
+// table's weight, elsewhere the chain's (a block that falls back), each
+// against pair_w<MODE_INT>(x). tally[0] counts the x that differ bitwise,
+// tally[1] the x outside the table, tally[2] takes the least bit pattern
+// that differs (atomicMin; start it at ~0). Block 0 writes meta {m, shift,
+// base, buckets used} and edges e_1..e_E (E = op_table_edges(levels)).
+__global__ void __launch_bounds__(OP_THREADS) int_table_sweep(
+    const float* __restrict__ bounds, int levels, float arg_cap,
+    float min_d2, unsigned u_lo, unsigned long long count,
+    unsigned long long* __restrict__ tally, int* __restrict__ meta,
+    float* __restrict__ edges) {
+  extern __shared__ float4 op_table_smem[];
+  const IntGrid g = int_grid(bounds, levels, arg_cap, min_d2);
+  const float lo = fmaxf(bounds[2], min_d2);
+  const OpTable tb = op_build_table(g, bounds[2], levels, op_table_smem,
+                                    blockIdx.x == 0 ? meta : nullptr);
+  if (blockIdx.x == 0) {
+    const float* edge = reinterpret_cast<const float*>(
+        op_table_smem + op_table_buckets(levels));
+    for (int j = threadIdx.x; j < op_table_edges(levels); j += blockDim.x)
+      edges[j] = edge[j + 1];
+  }
+  unsigned long long bad = 0, past = 0, first = ~0ull;
+  for (unsigned long long i = (unsigned long long)blockIdx.x * blockDim.x +
+                              threadIdx.x;
+       i < count; i += (unsigned long long)gridDim.x * blockDim.x) {
+    const unsigned u = u_lo + (unsigned)i;
+    const float x = __uint_as_float(u);
+    const float chain = pair_w<MODE_INT>(x, g);
+    const bool in = x >= lo && x < tb.end;
+    past += !in;
+    float w = op_table_w(in ? x : lo, g, tb);
+    if (!in) w = pair_w<MODE_INT>(x, g);
+    if (__float_as_uint(w) != __float_as_uint(chain)) {
+      ++bad;
+      first = min(first, (unsigned long long)u);
+    }
+  }
+  atomicAdd(&tally[0], bad);
+  atomicAdd(&tally[1], past);
+  atomicMin(&tally[2], first);
+}
+
+// Blocks of an instance a SM holds at once with `smem` bytes of dynamic
+// shared memory (-1 if the query fails).
 template <typename K>
-int op_resident(K kernel) {
+int op_resident(K kernel, size_t smem = 0) {
   int blocks = -1;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
-                                                    OP_THREADS, 0) !=
+                                                    OP_THREADS, smem) !=
       cudaSuccess)
     blocks = -1;
   return blocks;
 }
+
+// The dynamic shared memory at which the int table kernels' residency is
+// reported: int4's table.
+constexpr int OP_RESIDENT_LEVELS = 16;
 
 }  // namespace

@@ -58,7 +58,10 @@
 // Which launch takes it: hopper_nbody.uniform_design of the receiver tiles
 // (T > 256) and (mode family, D); parent=True takes the tile above. A
 // ragged last receiver tile (Ta not a multiple of 4: 209728 is 3277 tiles)
-// skips its rows past na, so every multiple of BT is served.
+// skips its rows past na, so every multiple of BT is served. An int launch
+// of up to hopper_nbody.INT_TABLE_MAX_LEVELS levels runs the table
+// instance (one_pass.cuh; its ragged tile on the chain): the 1M int4 chunk
+// pair at 35.7 ms where the chain took 76.0.
 //
 // The general function in the same one-pass design (nbody_pair_sym_force_
 // one_pass with uniform = 0; pair_one_pass<MODE, D, true>): it replaces
@@ -223,13 +226,17 @@ extern "C" int nbody_pair_sym_force(const float* pa, const float* gma, int na,
 // (every G m read, nothing scaled); seg >= 1 source tiles a block; scratch
 // rpart (TI, nseg, OP_RW, dim) and cpart (Tb, TI, BT, dim) f32 with
 // Ta = na / BT, Tb = nb / BT, TI = ceil(Ta / OP_SUB), nseg = ceil(Tb / seg);
-// rows (na, dim), cols (nb, dim) f32. Returns cudaGetLastError().
+// rows (na, dim), cols (nb, dim) f32; int_table and fallbacks as
+// nbody_sym_force_one_pass's. Returns cudaGetLastError().
 extern "C" int nbody_pair_sym_force_one_pass(
     const float* pa, const float* gma, int na, const float* pb,
     const float* gmb, int nb, const float* bounds, int dim, int mode,
     int levels, float arg_cap, float min_d2, int uniform, int seg,
-    float* rpart, float* cpart, float* rows, float* cols, void* stream) {
+    float* rpart, float* cpart, float* rows, float* cols, int int_table,
+    int* fallbacks, void* stream) {
   if (na <= 0 || nb <= 0 || na % BT != 0 || nb % BT != 0 || seg <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (int_table && (mode != MODE_INT || !op_table_fits(levels)))
     return (int)cudaErrorInvalidValue;
   const int TI = (na / BT + OP_SUB - 1) / OP_SUB;
   const int nseg = (nb / BT + seg - 1) / seg;
@@ -239,14 +246,25 @@ extern "C" int nbody_pair_sym_force_one_pass(
     constexpr int M = decltype(m)::value;
     constexpr int DD = decltype(d)::value;
     const dim3 grid(nseg, TI);
+    auto run = [&](auto gm_flag) {
+      constexpr bool G = decltype(gm_flag)::value;
+      if constexpr (M == MODE_INT) {
+        if (int_table) {
+          pair_one_pass<M, DD, G, true>
+              <<<grid, OP_THREADS, op_table_bytes(levels), s>>>(
+                  pa, gma, na, pb, gmb, nb, bounds, levels, arg_cap, min_d2,
+                  seg, rpart, cpart, fallbacks);
+          return;
+        }
+      }
+      pair_one_pass<M, DD, G><<<grid, OP_THREADS, 0, s>>>(
+          pa, gma, na, pb, gmb, nb, bounds, levels, arg_cap, min_d2, seg,
+          rpart, cpart, nullptr);
+    };
     if (uniform)
-      pair_one_pass<M, DD, false><<<grid, OP_THREADS, 0, s>>>(
-          pa, gma, na, pb, gmb, nb, bounds, levels, arg_cap, min_d2, seg,
-          rpart, cpart);
+      run(std::false_type{});
     else
-      pair_one_pass<M, DD, true><<<grid, OP_THREADS, 0, s>>>(
-          pa, gma, na, pb, gmb, nb, bounds, levels, arg_cap, min_d2, seg,
-          rpart, cpart);
+      run(std::true_type{});
     launch_reduce<DD, OP_RW>(rpart, na, nseg, rows, s,
                              uniform ? gmb : nullptr);
     launch_reduce<DD>(cpart, nb, TI, cols, s, uniform ? gma : nullptr);
@@ -256,15 +274,25 @@ extern "C" int nbody_pair_sym_force_one_pass(
 }
 
 // Blocks of pair_one_pass<mode, dim, !uniform> a SM holds at once (-1: no
-// instance).
+// instance); the int mode's are the table kernel's, at int4's table.
 extern "C" int nbody_pair_sym_force_one_pass_resident(int mode, int dim,
                                                       int uniform) {
   int blocks = -1;
   dispatch(mode, dim, [&](auto m, auto d) {
     constexpr int M = decltype(m)::value;
     constexpr int DD = decltype(d)::value;
-    blocks = uniform ? op_resident(pair_one_pass<M, DD, false>)
-                     : op_resident(pair_one_pass<M, DD, true>);
+    auto query = [&](auto gm_flag) {
+      constexpr bool G = decltype(gm_flag)::value;
+      if constexpr (M == MODE_INT)
+        blocks = op_resident(pair_one_pass<M, DD, G, true>,
+                             op_table_bytes(OP_RESIDENT_LEVELS));
+      else
+        blocks = op_resident(pair_one_pass<M, DD, G>);
+    };
+    if (uniform)
+      query(std::false_type{});
+    else
+      query(std::true_type{});
   });
   return blocks;
 }

@@ -94,7 +94,10 @@
 // Which launch takes it: hopper_nbody.sym_design, by uniform_design's
 // fixed rule of (T, mode, D): T > ONE_PASS_MIN_TILES (256, the triangle's
 // edge) and the (mode family, D) in ONE_PASS_ROUTES; parent=True takes the
-// T x T grid of the two-pass tile. The same body with G m per particle
+// T x T grid of the two-pass tile. An int launch of up to
+// hopper_nbody.INT_TABLE_MAX_LEVELS levels runs the body's table instance
+// (one_pass.cuh: the chain's weights from per-launch tables, the same
+// bits, the int4 body at 7.2 ms where the chain took 15.2 at 131072). The same body with G m per particle
 // (one_pass.cuh's GM) serves the general launch under the same rule, and
 // its EMIT flag the fused max of either kind: the T x T grid's two-pass
 // tile for unequal masses held ~23% / 15% of its bound (float32 / int4)
@@ -558,7 +561,10 @@ extern "C" int nbody_sym_force_lab(const float* pos, const float* gm,
 // ceil(T / seg); out (n, dim) f32. The fused max (int mode only): max_out
 // (one float, the raw max d^2), block_max (TI nsegmax floats) and ticket
 // (one device int, 0, left 0: max_d2's, so the launches share a stream),
-// all null for none. Two launches: the body and its reduction. Returns
+// all null for none. int_table (int mode only): the table kernel, the
+// weights from each block's table of the chain (one_pass.cuh), the blocks
+// that fall back to the chain counted in *fallbacks (a device int, may be
+// null). Two launches: the body and its reduction. Returns
 // cudaGetLastError().
 extern "C" int nbody_sym_force_one_pass(const float* pos, const float* gm,
                                         const float* bounds, int n, int dim,
@@ -567,10 +573,13 @@ extern "C" int nbody_sym_force_one_pass(const float* pos, const float* gm,
                                         int uniform, int seg, float* rpart,
                                         float* cpart, float* block_max,
                                         int* ticket, float* max_out,
-                                        float* out, void* stream) {
+                                        float* out, int int_table,
+                                        int* fallbacks, void* stream) {
   if (n <= 0 || n % BT != 0 || seg <= 0) return (int)cudaErrorInvalidValue;
   const bool fused = max_out != nullptr;
   if (fused && (mode != MODE_INT || block_max == nullptr || ticket == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (int_table && (mode != MODE_INT || !op_table_fits(levels)))
     return (int)cudaErrorInvalidValue;
   const int T = n / BT;
   const int TI = (T + OP_SUB - 1) / OP_SUB;
@@ -582,10 +591,20 @@ extern "C" int nbody_sym_force_one_pass(const float* pos, const float* gm,
     constexpr int M = decltype(m)::value;
     constexpr int DD = decltype(d)::value;
     auto run = [&](auto gm_flag, auto emit) {
-      sym_one_pass<M, DD, decltype(gm_flag)::value, decltype(emit)::value>
-          <<<grid, OP_THREADS, 0, s>>>(pos, gm, bounds, n, levels, arg_cap,
-                                       min_d2, self_masked, seg, rpart, cpart,
-                                       block_max, ticket, max_out);
+      constexpr bool G = decltype(gm_flag)::value;
+      constexpr bool E = decltype(emit)::value;
+      if constexpr (M == MODE_INT) {
+        if (int_table) {
+          sym_one_pass<M, DD, G, E, true>
+              <<<grid, OP_THREADS, op_table_bytes(levels), s>>>(
+                  pos, gm, bounds, n, levels, arg_cap, min_d2, self_masked,
+                  seg, rpart, cpart, block_max, ticket, max_out, fallbacks);
+          return;
+        }
+      }
+      sym_one_pass<M, DD, G, E><<<grid, OP_THREADS, 0, s>>>(
+          pos, gm, bounds, n, levels, arg_cap, min_d2, self_masked, seg,
+          rpart, cpart, block_max, ticket, max_out, nullptr);
     };
     auto by_gm = [&](auto emit) {
       if (uniform)
@@ -608,11 +627,42 @@ extern "C" int nbody_sym_force_one_pass(const float* pos, const float* gm,
   return (int)cudaGetLastError();
 }
 
+// The test export of the int chain's table (one_pass.cuh's
+// int_table_sweep, which no path of the program launches): bounds (3,) f32
+// on the device, the int grid of `levels`; the floats of bit patterns
+// u_lo + i, i < count, each against pair_w<MODE_INT>. tally (3,) uint64
+// {mismatches, past the table, least mismatching pattern} (zero the first
+// two and set the third to ~0 before), meta (4,) int {m, shift, base, top}
+// and edges (op_table_edges(levels),) f32 on the device. Returns
+// cudaGetLastError().
+extern "C" int nbody_int_table_sweep(const float* bounds, int levels,
+                                     float arg_cap, float min_d2,
+                                     unsigned u_lo, long long count,
+                                     unsigned long long* tally, int* meta,
+                                     float* edges, void* stream) {
+  if (count <= 0 || !op_table_fits(levels)) return (int)cudaErrorInvalidValue;
+  const long long blocks = (count + OP_THREADS - 1) / OP_THREADS;
+  int_table_sweep<<<(int)(blocks < 4096 ? blocks : 4096), OP_THREADS,
+                    op_table_bytes(levels),
+                    static_cast<cudaStream_t>(stream)>>>(
+      bounds, levels, arg_cap, min_d2, u_lo, (unsigned long long)count,
+      tally, meta, edges);
+  return (int)cudaGetLastError();
+}
+
+// Dynamic shared bytes of the int chain's table at `levels`
+// (hopper_nbody.int_table_bytes holds the same formula).
+extern "C" int nbody_int_table_bytes(int levels) {
+  return (int)op_table_bytes(levels);
+}
+
 // Receivers a block of the one-pass design (hopper_nbody.ONE_PASS_RECEIVERS).
 extern "C" int nbody_one_pass_receivers() { return OP_RW; }
 
 // Blocks of sym_one_pass<mode, dim, !uniform, fused> a SM holds at once
-// (-1: no instance; the fused max exists for the int mode only).
+// (-1: no instance; the fused max exists for the int mode only); the int
+// mode's are the table kernel's, at int4's table (the int launches' kernel
+// up to hopper_nbody.INT_TABLE_MAX_LEVELS levels).
 extern "C" int nbody_sym_force_one_pass_resident(int mode, int dim,
                                                  int uniform, int fused) {
   int blocks = -1;
@@ -620,8 +670,13 @@ extern "C" int nbody_sym_force_one_pass_resident(int mode, int dim,
     constexpr int M = decltype(m)::value;
     constexpr int DD = decltype(d)::value;
     auto query = [&](auto gm_flag, auto emit) {
-      blocks = op_resident(sym_one_pass<M, DD, decltype(gm_flag)::value,
-                                        decltype(emit)::value>);
+      constexpr bool G = decltype(gm_flag)::value;
+      constexpr bool E = decltype(emit)::value;
+      if constexpr (M == MODE_INT)
+        blocks = op_resident(sym_one_pass<M, DD, G, E, true>,
+                             op_table_bytes(OP_RESIDENT_LEVELS));
+      else
+        blocks = op_resident(sym_one_pass<M, DD, G, E>);
     };
     auto by_gm = [&](auto emit) {
       if (uniform)

@@ -12,9 +12,13 @@ shard count and schedule (``mesh_case``).
 of the pure shape functions that pick what a Hopper launch runs
 (``hopper_nbody.sym_schedule``, ``uniform_design``, ``sym_design``,
 ``pair_design``, ``row_segments`` / ``pair_max_segments`` /
-``pe_segments``, ``pe_design`` and ``max_d2_design``), and meshes with
-phantom rows. Their positions come from the same adversarial cloud as the
-drawn cases'; modes, D, softening and masses rotate through the ladder.
+``pe_segments``, ``pe_design`` and ``max_d2_design``), meshes with
+phantom rows, and the int chain's table (``int_chain_design``: level
+counts on both sides of its cut, pairs whose softened d^2 lands exactly on
+a bin edge or one float below it, and bounds stale enough that pairs fall
+past the table's last edge). Their positions come from the same
+adversarial cloud as the drawn cases'; modes, D, softening and masses
+rotate through the ladder.
 """
 
 from __future__ import annotations
@@ -140,7 +144,8 @@ class EdgeCase:
 
     @property
     def q(self) -> Quantizer:
-        return Quantizer(self.mode)
+        return Quantizer(self.mode,
+                         custom_levels=self.opts.get("levels", 64))
 
     @property
     def opts(self) -> dict:
@@ -181,7 +186,7 @@ class EdgeCase:
 
 
 ONE_SET = ("sym_force", "sym_force_max", "redo", "max_d2", "pruned",
-           "row_force", "chunked", "ring")
+           "row_force", "chunked", "ring", "int_table")
 
 # Sizes of the sym routes: T = 256 / 257 around the triangle's and the
 # one-pass body's edge, T mod 4 = 1, 2, 3, 0 past it (the one-pass body's
@@ -205,6 +210,10 @@ PE_ID_PATTERNS = ("own", "permuted", "duplicated", "overlapping", "disjoint")
 # (past TILED_MIN_N).
 RING_MESHES = ((20011, 3), (16411, 5), (4099, 8), (32771, 2))
 EDGE_SEED = 20260820
+# The int chain's table cases: a one-pass sym_force shape (257 tiles); the
+# patterns ``fuzz.hold_int_table`` builds.
+TABLE_N = 16448
+TABLE_PATTERNS = ("cloud", "on_edge", "stale")
 
 
 def first_split(segments, n_i: int | None = None) -> int:
@@ -233,6 +242,8 @@ def route_design(route: str, shape: tuple, dim: int, q: Quantizer,
         return hn.max_d2_design(shape[0], **flags)
     if route == "pe_design":
         return hn.pe_design(shape[0], shape[1])
+    if route == "int_chain_design":
+        return hn.int_chain_design(q.levels)
     if route in ("row_segments", "pair_max_segments", "pe_segments"):
         n_i = shape[0]
         n_j = shape[1] if len(shape) > 1 else shape[0]
@@ -249,6 +260,7 @@ ROUTE_DESIGNS = {
     "pair_design": {"one_pass", "two_pass"},
     "max_d2_design": {"single_64", "single_256", "tiled", "two_launch"},
     "pe_design": {"tiled", "per_receiver"},
+    "int_chain_design": {"table", "chain"},
     "row_segments": {"one segment", "segments"},
     "pair_max_segments": {"one segment", "segments"},
     "pe_segments": {"one segment", "segments"},
@@ -337,4 +349,13 @@ def edge_cases() -> list:
         for schedule in MESH_SCHEDULES:
             add("ring", "pe_design", (n, shards), False,
                 schedule=schedule)
+    for levels in (hn.INT_TABLE_MAX_LEVELS, hn.INT_TABLE_MAX_LEVELS + 1):
+        for equal in (True, False):
+            add("int_table", "int_chain_design", (TABLE_N,), equal,
+                modes=[Precision.CUSTOM], softenings=soft, levels=levels,
+                pattern="cloud")
+    for pattern in TABLE_PATTERNS[1:]:
+        for equal in (True, False):
+            add("int_table", "int_chain_design", (TABLE_N,), equal,
+                modes=int_modes, softenings=soft, pattern=pattern)
     return out

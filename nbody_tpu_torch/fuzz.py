@@ -29,7 +29,9 @@ case runs ``ring_accelerations`` under both schedules on
 ``run_edge_case`` runs one case of the route-edge tier
 (``fuzz_cases.edge_cases``): its kernel in the design its route gives and
 in the parent design, against the plain version and run to run
-(``chip_smoke.py``'s phase fuzz runs every one on the card).
+(``chip_smoke.py``'s phase fuzz runs every one on the card); an int
+chain's table case (``hold_int_table``) holds the table's route and the
+chain's bit for bit.
 
 The rules are ``diagnostics/tolerance.py``'s, the same that
 ``chip_smoke.py`` holds each kernel to: the float rule with the
@@ -56,7 +58,7 @@ from nbody_tpu_torch.config import SimConfig
 from nbody_tpu_torch.diagnostics import fuzz_cases, metrics
 from nbody_tpu_torch.diagnostics.tolerance import Tallies, pe_bound_rtol
 from nbody_tpu_torch.models.direct import _resolve_device
-from nbody_tpu_torch.ops import forces, hopper_nbody as hn
+from nbody_tpu_torch.ops import forces, hopper_nbody as hn, int_table
 from nbody_tpu_torch.ops.precision import Quantizer
 from nbody_tpu_torch.parallel import ring
 
@@ -365,6 +367,59 @@ def hold_sym_flags(case, pos, m, gm, bounds, q: Quantizer, cfg: SimConfig,
            f"the count gained {ran}")
 
 
+def hold_int_table(case, pos, m, cfg: SimConfig, tallies: Tallies) -> None:
+    """An int chain's table case: sym_force at the case's pattern, "cloud"
+    (the cloud and its exact grid), "on_edge" (the cloud's first particle
+    at the origin and the next ones at offsets whose softened d^2 is each
+    kept edge of the launch's table, or one float below it, under the
+    cloud's exact grid) or "stale" (the grid of the cloud 100 times
+    smaller: pairs past the table's last edge), against the plain version,
+    run to run, and bit for bit the other route of int_chain_design (the
+    table with the chain's weights, or the chain); on the card a stale grid
+    counts blocks in INT_CHAIN_FALLBACKS."""
+    q, label, pattern = case.q, case.name, case.opts["pattern"]
+    masked = hn._self_masked(cfg, None)
+    gm = (cfg.G * m).contiguous()
+    bounds = hn.kernel_bounds(pos, q, cfg)
+    if pattern == "on_edge":
+        edges = int_table.edges_of(bounds, q).numpy()
+        radius = float(pos.abs().max())
+        edges = edges[edges < radius * radius]
+        below = (edges.view(np.int32) - 1).view(np.float32)
+        offsets, _ = int_table.offsets_on(np.concatenate([edges, below]),
+                                          cfg.softening_sq, case.dim)
+        k = min(len(offsets), pos.shape[0] - 1)
+        pos = pos.clone()
+        pos[0] = 0.0
+        pos[1:k + 1] = torch.from_numpy(offsets[:k]).to(pos.device)
+    elif pattern == "stale":
+        bounds = hn.kernel_bounds(pos * 0.01, q, cfg)
+    uniform = case.equal_masses
+    t = tallies[hn._variant("sym_force", uniform and pos.shape[0] % hn.TILE
+                            == 0)]
+    hn.INT_CHAIN_FALLBACKS.clear()
+    got = hn.sym_force(pos, gm, bounds, q, masked, uniform=uniform)
+    fell = hn.int_chain_fallbacks(pos.device)
+    saved = hn.INT_TABLE_MAX_LEVELS
+    hn.INT_TABLE_MAX_LEVELS = (0 if case.design == "table"
+                               else q.levels)
+    try:
+        other = hn.sym_force(pos, gm, bounds, q, masked, uniform=uniform)
+    finally:
+        hn.INT_TABLE_MAX_LEVELS = saved
+    plain = (hn.sym_force_uniform_plain if uniform
+             and pos.shape[0] % hn.TILE == 0 else hn.sym_force_plain)
+    t.hold(label, got, plain(pos, gm, bounds, q, masked),
+           hn.sym_force_term_scale(pos, gm, bounds, q, masked), q)
+    t.hold_bitwise(label, got, hn.sym_force(pos, gm, bounds, q, masked,
+                                            uniform=uniform), "run to run")
+    t.hold_bitwise(label, got, other, "the other route of int_chain_design")
+    if (pattern == "stale" and pos.device.type == "cuda"
+            and hn.sym_design(pos.shape[0], case.dim, q) == "one_pass"):
+        t.note(label, fell > 0, 0.0, 0.0,
+               "no block counted in INT_CHAIN_FALLBACKS")
+
+
 def hold_pair(case, sets, cfg: SimConfig, tallies: Tallies) -> None:
     """pair_sym_force, pair_force, pair_max or pair_pe_rows at the case's
     two sets (pair_pe_rows: one set where the counts are equal), each
@@ -452,6 +507,8 @@ def run_edge_case(case, device, tallies: Tallies) -> str:
         hold_sym_flags(case, pos, m, gm, bounds, q, cfg, tallies)
     elif case.kernel in ("max_d2", "pruned"):
         hold_max(tallies, case.name, pos, cfg)
+    elif case.kernel == "int_table":
+        hold_int_table(case, pos, m, cfg, tallies)
     elif case.kernel == "ring":
         hold_ring(tallies, case.name, pos, m, q, cfg, case.shape[1],
                   (case.opts["schedule"],),

@@ -50,6 +50,13 @@ no fallback from a failed launch. Every launch adds one to
 that it went through the kernels. The kernel sources carry the notes on
 design and numerics.
 
+Int modes of up to ``INT_TABLE_MAX_LEVELS`` levels take the one-pass
+body's table instances (``int_chain_design``; ``ops/int_table.py`` holds
+their plain model and the card's test export): the chain's weights from
+per-launch tables of its own bin edges, the same bits; the blocks that
+cannot prove their pairs inside the table run the chain and count
+themselves in ``INT_CHAIN_FALLBACKS`` (``int_chain_fallbacks``).
+
 Equal masses: ``uniform=True`` on the sym kernels' wrappers is the
 caller's assertion that every G*m is equal; the variant serves only sizes
 that are multiples of ``TILE`` and a wrapper takes the general kernel
@@ -104,6 +111,14 @@ BOUNDS_FALLBACKS: dict = {}
 # a device int32 like BOUNDS_FALLBACKS. Read with redo_launches().
 REDO_LAUNCHES: dict = {}
 
+# Blocks of the one-pass body's int launches that fell back from the int
+# chain's table to the accurate chain (some pair of the block could fall
+# past the table's last edge: bounds stale by more than its slack; or a
+# coordinate that is not finite), per device: a device int32 the kernel
+# increments, one a block. Read with int_chain_fallbacks(), never inside a
+# tick.
+INT_CHAIN_FALLBACKS: dict = {}
+
 # Per-block maxima scratch of max_d2: the kernel's grid-stride loop uses
 # at most this many blocks.
 MAX_D2_BLOCKS = 1024
@@ -143,6 +158,14 @@ ONE_PASS_SEGMENT_TILES = 16
 ONE_PASS_MIN_TILES = TRIANGLE_MAX_TILES
 ONE_PASS_ROUTES = frozenset({("float", 2), ("float", 3), ("int", 2),
                              ("int", 3)})
+# The one-pass body's int launches with at most this many levels take the
+# chain's weights from a per-launch table of its bin edges and weights
+# (csrc/one_pass.cuh), the others the chain itself (``int_chain_design``);
+# the table's edges are the accurate chain's, so both give the same bits.
+INT_TABLE_MAX_LEVELS = 256
+# Bins the table holds past the grid's top level (one_pass.cuh's
+# OP_TABLE_SLACK), and its buckets per edge (op_table_buckets).
+INT_TABLE_SLACK = 8
 # The register-tiled row sweep (csrc/row_force.cu's row_tiled): receivers a
 # block (4 a thread, 128 threads), sources a staged tile (the inner sum),
 # and the blocks that row_segments aims the grid at (receiver blocks x
@@ -263,6 +286,32 @@ def pair_design(n_a: int, n_b: int, dim: int, q: Quantizer,
             and uniform_design(_tiles(n_a), q, dim) == "one_pass"):
         return "one_pass"
     return "two_pass"
+
+
+def int_chain_design(levels: int) -> str:
+    """Where the one-pass body's int launches of a grid of ``levels``
+    levels take the chain's weights, a fixed function of the level count:
+    "table" (per-launch tables of the accurate chain's bin edges and
+    weights, csrc/one_pass.cuh) up to INT_TABLE_MAX_LEVELS, else "chain"
+    (logf and expf a pair). Both give the same bits."""
+    return "table" if 1 <= levels <= INT_TABLE_MAX_LEVELS else "chain"
+
+
+def int_table_bytes(levels: int) -> int:
+    """Dynamic shared bytes of the table at ``levels`` (one_pass.cuh's
+    op_table_bytes): 16 bytes a bucket, four buckets an edge and eight,
+    and two floats an edge and one."""
+    edges = levels + INT_TABLE_SLACK
+    return (4 * edges + 8) * 16 + (2 * edges + 1) * 4
+
+
+def _one_pass_int_args(q: Quantizer, device: torch.device) -> tuple:
+    """(int_table, fallbacks) of a one-pass launch: the table for an int
+    grid that int_chain_design sends there, with INT_CHAIN_FALLBACKS's
+    counter on ``device``; (0, None) otherwise."""
+    if q.is_int and int_chain_design(q.levels) == "table":
+        return 1, _ptr(_device_counter(INT_CHAIN_FALLBACKS, device))
+    return 0, None
 
 
 def _one_pass_tiles(receiver_tiles: int) -> int:
@@ -509,6 +558,12 @@ def _library():
     if lib.nbody_sym_force_tile() != TILE:
         raise RuntimeError(f"csrc tile {lib.nbody_sym_force_tile()} != "
                            f"hopper_nbody.TILE {TILE}")
+    for levels in (1, 16, INT_TABLE_MAX_LEVELS):
+        if lib.nbody_int_table_bytes(levels) != int_table_bytes(levels):
+            raise RuntimeError(f"csrc int table bytes at {levels} levels "
+                               f"{lib.nbody_int_table_bytes(levels)} != "
+                               f"hopper_nbody.int_table_bytes "
+                               f"{int_table_bytes(levels)}")
     if lib.nbody_one_pass_receivers() != ONE_PASS_RECEIVERS:
         raise RuntimeError(f"csrc one-pass receivers "
                            f"{lib.nbody_one_pass_receivers()} != "
@@ -616,13 +671,24 @@ def _int_grid(bounds: torch.Tensor, q: Quantizer) -> tuple:
     return norm_a, norm_b, arg_k, arg_0, arg_cap
 
 
+def _chain_k(x: torch.Tensor, grid) -> torch.Tensor:
+    """The int chain's grid index of x = max(d^2, min_d2), as the kernels
+    compute it (csrc/nbody_common.cuh's int_chain_k)."""
+    norm_a, norm_b = grid[0], grid[1]
+    return torch.round(torch.log(x) * norm_a + norm_b)
+
+
+def _chain_w(k: torch.Tensor, grid) -> torch.Tensor:
+    """The int chain's weight of grid index k (int_chain_w)."""
+    arg_k, arg_0, arg_cap = grid[2], grid[3], grid[4]
+    return torch.exp(torch.minimum(k * arg_k + arg_0, arg_cap))
+
+
 def _pair_weight(d2: torch.Tensor, q: Quantizer, grid) -> torch.Tensor:
     """w = quantized |r|^-3 of softened d^2, as the kernels compute it."""
     if q.is_int:
-        norm_a, norm_b, arg_k, arg_0, arg_cap = grid
-        log_d2 = torch.log(torch.clamp(d2, min=q.min_dist_sq))
-        k = torch.round(log_d2 * norm_a + norm_b)
-        return torch.exp(torch.minimum(k * arg_k + arg_0, arg_cap))
+        return _chain_w(_chain_k(torch.clamp(d2, min=q.min_dist_sq), grid),
+                        grid)
     if q.mode == Precision.BFLOAT16:
         d2 = d2.to(torch.bfloat16).to(torch.float32)
     elif q.mode == Precision.FLOAT16:
@@ -839,7 +905,8 @@ def sym_force(pos: torch.Tensor, gm: torch.Tensor, bounds: torch.Tensor,
                 int(self_masked), int(uniform), ONE_PASS_SEGMENT_TILES,
                 _ptr(rpart), _ptr(cpart), _opt_ptr(block_max),
                 _ptr(ticket(pos.device)) if fused else None,
-                _opt_ptr(max_out), _ptr(out), _stream(pos.device))
+                _opt_ptr(max_out), _ptr(out),
+                *_one_pass_int_args(q, pos.device), _stream(pos.device))
         _raise_on(rc, "sym_force")
         LAUNCHES[_variant("sym_force", uniform, fused)] += 1
         return out
@@ -956,7 +1023,8 @@ def pair_sym_force(pos_a: torch.Tensor, gm_a: torch.Tensor,
                 _ptr(pos_a), _ptr(gm_a), n_a, _ptr(pos_b), _ptr(gm_b), n_b,
                 _ptr(bounds), dim, *_int_args(q), int(uniform),
                 ONE_PASS_SEGMENT_TILES, _ptr(rpart), _ptr(cpart), _ptr(rows),
-                _ptr(cols), _stream(pos_a.device))
+                _ptr(cols), *_one_pass_int_args(q, pos_a.device),
+                _stream(pos_a.device))
         _raise_on(rc, "pair_sym_force")
         LAUNCHES[_variant("pair_sym_force", uniform)] += 1
         return rows, cols
@@ -1064,6 +1132,13 @@ def bounds_fallbacks(device) -> int:
     """How often the pruned bounds pass on ``device`` ran its full-set
     max_d2 launch since BOUNDS_FALLBACKS was last cleared (host read)."""
     return _read_counter(BOUNDS_FALLBACKS, device)
+
+
+def int_chain_fallbacks(device) -> int:
+    """How many blocks of the one-pass body on ``device`` fell back from
+    the int chain's table to the accurate chain since INT_CHAIN_FALLBACKS
+    was last cleared (host read)."""
+    return _read_counter(INT_CHAIN_FALLBACKS, device)
 
 
 def redo_counter(device: torch.device) -> torch.Tensor:

@@ -263,7 +263,7 @@ def test_edge_cases_cover_the_kernels_and_the_ladder():
     assert {c.kernel for c in cases} == {
         "sym_force", "sym_force_max", "redo", "max_d2", "pruned", "chunked",
         "pair_sym_force", "row_force", "pair_force", "pair_max",
-        "pair_pe_rows", "ring"}
+        "pair_pe_rows", "ring", "int_table"}
     assert {c.dim for c in cases} == {2, 3}
     assert {c.mode for c in cases} == set(fuzz_cases.MODES)
     assert {c.equal_masses for c in cases} == {True, False}

@@ -19,10 +19,15 @@ against ``pallas_accelerations_sym(uniform_gm=True)`` and
 ``pallas_pair_force_sym(uniform_gm=True)`` in Pallas interpret mode, with
 the tolerances of tests/test_torch_uniform.py (float rtol 2e-5, atol 1e-6;
 int modes after quantize_force the flip rule; the raw int pair tile <2% of
-components off by >1e-4 max|a|). The ``gpu`` tests hold the one-pass
-kernels against their plain versions at those odd shapes and at ragged
-256-receiver tails, and bitwise run to run over 100 launches; they skip
-without a card:
+components off by >1e-4 max|a|). The int chain's per-launch table
+(``ops/int_table.py``, ``hopper_nbody.int_chain_design``): its plain model
+against ``_pair_weight`` float by float around every edge and on strided
+sweeps, and the route a function of the level count alone. The ``gpu``
+tests hold the one-pass kernels against their plain versions at those odd
+shapes and at ragged 256-receiver tails, bitwise run to run over 100
+launches, the card's table against the chain on every float of its range
+(the int4 disk's grids, random grids, every level count the route sends
+to tables), and its fallback under stale bounds; they skip without a card:
 
     python -m pytest --noconftest -q -m gpu tests/test_torch_sym_uniform.py
 """
@@ -35,6 +40,7 @@ import torch
 
 from nbody_tpu_torch.config import SimConfig
 from nbody_tpu_torch.ops import hopper_nbody as hn
+from nbody_tpu_torch.ops import int_table as it
 from nbody_tpu_torch.ops import precision as tp
 
 torch.set_num_threads(1)
@@ -336,6 +342,133 @@ def test_pair_uniform_plain_matches_jax_at_odd_multiples_of_64(n_a, n_b, dim,
 
 
 # --------------------------------------------------------------------------
+# The int chain's table: its plain model and its route
+# --------------------------------------------------------------------------
+
+# (levels, log span, eps^2, offset of log_lo from log(lo)): the int4 disk's
+# span, narrower and wider ones, a softening above min_d2, a grid whose
+# log_lo is not log(lo) (k0 != 0), the custom and int8 level counts.
+TABLE_GRIDS = ((16, 12.8, 0.01, 0.0), (16, 2.0, 0.01, 0.0),
+               (16, 30.0, 0.25, 0.0), (16, 9.0, 0.001, -1.3),
+               (64, 11.0, 0.01, 0.0), (256, 12.8, 0.01, 0.0),
+               (2, 5.0, 0.01, 0.7), (100, 0.5, 0.01, 0.0))
+
+
+def _table_grid(levels, span, soft, offset):
+    q = tp.Quantizer(tp.Precision.CUSTOM, custom_levels=levels)
+    lo = math.log(max(soft, q.min_dist_sq)) + offset
+    return q, torch.tensor([lo, lo + span, soft], dtype=torch.float32)
+
+
+def _sweep_floats(table, step):
+    """Every float within 512 bit patterns of each kept edge, and every
+    step-th float from lo to twice the table's end."""
+    edges = it._bits(table.edge[:table.m])
+    near = (edges[:, None] + torch.arange(-512, 513)[None, :]).flatten()
+    lo = int(it._bits(table.lo))
+    hi = int(it._bits(torch.tensor(min(2 * table.end, 3e38))))
+    u = torch.cat([near, torch.arange(lo, hi, step)])
+    u = u[(u >= lo) & (u < 0x7F800000)]
+    return it._floats(u)
+
+
+@pytest.mark.parametrize("grid", TABLE_GRIDS)
+def test_int_table_model_matches_the_chain(grid):
+    """The plain build's k and w equal _pair_weight's chain, bit for bit,
+    on every float it covers; NaN (the chain's block) past its end."""
+    q, bounds = _table_grid(*grid)
+    table = it.table_plain(bounds, q)
+    assert table.m >= min(q.levels, 8)
+    chain = hn._int_grid(bounds, q)
+    x = _sweep_floats(table, 4099)
+    k, w = it.lookup_plain(x, table, q)
+    inside = (x >= table.lo) & (x < table.end)
+    assert bool(inside.any()) and bool((~inside).any())
+    assert bool(torch.isnan(w[~inside]).all())
+    want_k = hn._chain_k(torch.clamp(x, min=q.min_dist_sq), chain)
+    want_w = hn._pair_weight(x, q, chain)
+    assert torch.equal(k[inside], want_k[inside])
+    assert torch.equal(w[inside].view(torch.int32),
+                       want_w[inside].view(torch.int32))
+
+
+@pytest.mark.parametrize("grid", TABLE_GRIDS)
+def test_int_table_edges_are_the_least_floats_of_each_index(grid):
+    """e_j is the least float at which the chain's k reaches k0 + j: k
+    there is k0 + j and one float below it k0 + j - 1; the kept edges are
+    strictly increasing and each lies in a bucket of its own."""
+    q, bounds = _table_grid(*grid)
+    table = it.table_plain(bounds, q)
+    chain = hn._int_grid(bounds, q)
+    kept = table.edge[:table.m]
+    below = it._floats(it._bits(kept) - 1)
+    j = torch.arange(1, table.m + 1, dtype=torch.float32)
+    assert torch.equal(hn._chain_k(kept, chain), table.k0 + j)
+    assert torch.equal(hn._chain_k(torch.clamp(below, min=q.min_dist_sq),
+                                   chain), table.k0 + j - 1)
+    buckets = it._bits(kept) >> table.shift
+    assert bool((buckets[1:] > buckets[:-1]).all())
+    assert int(buckets[-1]) - table.base < it.buckets(q.levels)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("grid", TABLE_GRIDS[:4])
+def test_offsets_land_on_the_table_edges(grid, dim):
+    """The fuzz's on-edge pairs: an offset from the origin whose softened
+    d^2, formed as the kernels form it, is a kept edge (the chain's k
+    steps there) or the float below it; most edges are reached."""
+    q, bounds = _table_grid(*grid)
+    soft = float(bounds[2])
+    edges = it.edges_of(bounds, q)
+    below = it._floats(it._bits(edges) - 1)
+    targets = torch.cat([edges, below]).numpy()
+    offsets, hit = it.offsets_on(targets, soft, dim)
+    assert len(hit) >= 0.75 * len(targets)
+    o = torch.from_numpy(offsets)
+    d2 = o[:, 0] * o[:, 0]
+    for d in range(1, dim):
+        d2 = d2 + o[:, d] * o[:, d]
+    x = d2 + torch.tensor(soft)
+    assert torch.equal(x, torch.tensor(hit, dtype=torch.float32))
+    k = hn._chain_k(torch.clamp(x, min=q.min_dist_sq), hn._int_grid(bounds,
+                                                                     q))
+    on_edge = torch.isin(x, edges)
+    k0 = it.table_plain(bounds, q).k0
+    want = k0 + torch.searchsorted(edges, x, right=True).to(torch.float32)
+    assert bool(on_edge.any()) and bool((~on_edge).any())
+    assert torch.equal(k, want)
+
+
+@pytest.mark.parametrize("levels", [1, 2, 16, 64, 255, 256, 257, 4096])
+@pytest.mark.parametrize("mode", ["int8", "int4", "custom", "float32",
+                                  "bf16", "f16"])
+def test_int_chain_design_depends_only_on_levels(levels, mode):
+    """Table or chain is a function of the level count alone: every int
+    mode with that many levels takes int_chain_design(levels)'s route,
+    with the device counter; the float modes pass neither."""
+    q = tp.Quantizer.from_string(mode, custom_levels=levels)
+    want = "table" if 1 <= levels <= hn.INT_TABLE_MAX_LEVELS else "chain"
+    assert hn.int_chain_design(levels) == want
+    flag, counter = hn._one_pass_int_args(q, torch.device("cpu"))
+    if q.is_int:
+        assert (flag == 1) == (hn.int_chain_design(q.levels) == "table")
+        assert (counter is None) == (flag == 0)
+    else:
+        assert (flag, counter) == (0, None)
+
+
+def test_int_table_fits_every_routed_level_count():
+    """A table of every level count the route sends there fits the dynamic
+    shared memory a launch takes without an opt-in, as one_pass.cuh's
+    op_table_bytes reckons it."""
+    for levels in (1, 16, 64, hn.INT_TABLE_MAX_LEVELS):
+        edges = levels + hn.INT_TABLE_SLACK
+        assert hn.int_table_bytes(levels) == (
+            it.buckets(levels) * 16 + (2 * edges + 1) * 4)
+        assert hn.int_table_bytes(levels) <= 48 * 1024
+
+
+# --------------------------------------------------------------------------
 # On the card: the one-pass kernels against their plain versions
 # --------------------------------------------------------------------------
 
@@ -442,3 +575,86 @@ def test_one_pass_bitwise_over_100_launches(cuda, monkeypatch, mode):
         r, c = hn.pair_sym_force(p1, g1, pos[16448:], gm[16448:], bounds, q,
                                  uniform=True)
         assert torch.equal(r, r0) and torch.equal(c, c0)
+
+
+def _card_sweep(bounds, q):
+    """The card's table against the chain on every float from lo to twice
+    its end (to the largest float): 0 mismatches, and the floats past its
+    end taken by the chain."""
+    meta = it.sweep(bounds, q, 0, 1)
+    lo = max(float(bounds[2]), q.min_dist_sq)
+    u_lo = int(it._bits(torch.tensor(lo)))
+    end = float(meta["edge"][meta["m"] - 1]) if meta["m"] else lo
+    u_end = int(it._bits(torch.tensor(end)))
+    u_hi = min(int(it._bits(torch.tensor(min(2 * end, 3.4e38)))),
+               0x7F7FFFFF)
+    got = it.sweep(bounds, q, u_lo, u_hi - u_lo + 1)
+    assert got["mismatches"] == 0, (bounds.tolist(), q.levels, got["first"])
+    assert got["outside"] == u_hi - min(u_end, u_hi + 1) + 1
+    return got
+
+
+@pytest.mark.gpu
+def test_int_table_exhaustive_on_the_card(cuda):
+    """On every float of its range the table built on the card gives the
+    accurate chain's weight bit for bit: the int4 disk's grids at its ICs
+    and after each of ticks 1-100, 50 seeded random grids, and each level
+    count the route sends to tables (on the disk's IC grid)."""
+    from nbody_tpu_torch.models.direct import DirectSimulation
+    from nbody_tpu_torch.models.galaxy import create_disk_galaxy
+
+    q4 = _q("int4")
+    p0, v0, m0 = create_disk_galaxy(torch.Generator().manual_seed(42),
+                                    num_stars=131072, device=cuda)
+    sim = DirectSimulation(p0, v0, m0, precision="int4", device=cuda)
+    grids = [hn.kernel_bounds(sim.positions.contiguous(), q4, CFG)]
+    for _ in range(100):
+        sim.step(1)
+        grids.append(hn.kernel_bounds(sim.positions.contiguous(), q4, CFG))
+    for bounds in grids:
+        assert _card_sweep(bounds, q4)["m"] == q4.levels + hn.INT_TABLE_SLACK
+    rng = np.random.default_rng(20261018)
+    for _ in range(50):
+        lo = math.log(0.01) + rng.uniform(-2.0, 1.0)
+        bounds = torch.tensor([lo, lo + rng.uniform(0.5, 25.0),
+                               rng.choice([0.0, 0.01, 0.25])],
+                              dtype=torch.float32, device=cuda)
+        _card_sweep(bounds, q4)
+    for levels in range(1, hn.INT_TABLE_MAX_LEVELS + 1):
+        q = tp.Quantizer(tp.Precision.CUSTOM, custom_levels=levels)
+        assert hn.int_chain_design(levels) == "table"
+        _card_sweep(grids[0], q)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["int4", "custom", "int8"])
+def test_int_table_falls_back_under_stale_bounds(cuda, monkeypatch, mode):
+    """The one-pass body with the table equals the chain's route bit for
+    bit: under the exact grid, with no block on the chain up to 64 levels
+    (int8's 8 slack bins span less than the bounding boxes' factor of up to
+    2 in d^2 over a block's largest pair), and under the grid of a cloud
+    100 times smaller (pairs past the table's end) with blocks counted in
+    INT_CHAIN_FALLBACKS; sym_force and pair_sym_force."""
+    n = 16448
+    pos, gm, exact, q = _card_inputs(n + 320, 2, mode, cuda)
+    stale = hn.kernel_bounds(pos * 0.01, q, CFG)
+    runs = {}
+    for route in ("table", "chain"):
+        if route == "chain":
+            monkeypatch.setattr(hn, "INT_TABLE_MAX_LEVELS", 0)
+        for label, bounds in (("exact", exact), ("stale", stale)):
+            hn.INT_CHAIN_FALLBACKS.clear()
+            out = (hn.sym_force(pos[:n], gm[:n], bounds, q, False,
+                                uniform=True),
+                   *hn.pair_sym_force(pos[:n], gm[:n], pos[n:], gm[n:],
+                                      bounds, q, uniform=True))
+            runs[route, label] = (out, hn.int_chain_fallbacks(pos.device))
+    for label in ("exact", "stale"):
+        (table, fell), (chain, none) = runs["table", label], runs[
+            "chain", label]
+        assert all(torch.equal(a, b) for a, b in zip(table, chain)), label
+        assert none == 0
+        if label == "stale":
+            assert fell > 0
+        elif q.levels <= 64:
+            assert fell == 0
