@@ -42,7 +42,8 @@ a single-device history is ``nbody.history``, each tick ``nbody.tick``,
 each force evaluation ``nbody.force`` (two a tick under cached bounds),
 the int modes' bounds pass ``nbody.bounds`` (inside the force span), each
 snapshot ``nbody.snapshot`` and the history's copy to the host
-``nbody.to_host``. The ring's runners are not spanned.
+``nbody.to_host``. The ring's runners (``parallel/ring.py``) record the
+same names, and their collectives ``nbody.ring.*``.
 """
 
 from __future__ import annotations

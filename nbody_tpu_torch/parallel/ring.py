@@ -22,8 +22,14 @@ shards:
 * ``axis_index`` is the loop index, so the even ring's half-distance step
   (JAX's ``lax.cond``) is a host-side ``if`` that costs no sync.
 
-A shard's tensor is never updated in place: on one device the rotation
-aliases one tensor between shards.
+A shard's tensor is never updated in place inside a tick: on one device
+the rotation aliases one tensor between shards. On a single-controller
+CUDA mesh with exact bounds every tick the runners capture the entry force
+and one tick as CUDA graphs across the cards (``_TickGraphs``: one replay
+a tick, so the host no longer enqueues each shard's operations and copies
+in turn); the graphs read and write static per-shard buffers, written in
+place only at a tick's end, and give the eager ticks' bits
+(``graph_ticks(mesh)``: whether a mesh's last run took them).
 
 Why one controller: it is what ``shard_map`` over local devices is, and
 JAX's ``--mesh`` takes local devices only; NCCL cannot put two ranks on
@@ -50,6 +56,17 @@ code. The PM runners, ``CosmologicalEngine(mesh=)`` and
 ``DirectSimulation(mesh=)`` need a single-controller mesh
 (``ParticleMesh.require_single_controller``).
 
+Spans and counters (``utils.profiler.span``; recorded only while a
+profiler records): the runners' loops carry the single-device loop's
+names (``nbody.history``, ``nbody.tick``, ``nbody.force``,
+``nbody.bounds`` around the max ring pass with its reduce and replicated
+grid, ``nbody.snapshot``, ``nbody.to_host``), each ``_rotate`` is
+``nbody.ring.rotate``, each ``_reduce`` and ``_replicate``
+``nbody.ring.reduce``, the energy ring pass ``nbody.ring.energy``; a
+tick that is a graph replay records ``nbody.tick`` alone. ``TRAFFIC``
+counts the collectives and the bytes they move between shards, read as
+``hopper_nbody.LAUNCHES`` is (a replay adds its eager tick's counts).
+
 Tiles: ``tile_impl="auto"`` is the kernel path, the wrappers of
 ``ops.hopper_nbody``, which launch their CUDA kernels for CUDA tensors and
 take their plain PyTorch versions for CPU tensors. ``"jnp"`` names JAX's
@@ -75,6 +92,9 @@ zeroed afterwards, as in JAX.
 
 from __future__ import annotations
 
+import contextlib
+import functools
+import warnings
 from typing import NamedTuple
 
 import torch
@@ -91,6 +111,7 @@ from nbody_tpu_torch.ops.precision import (
     quantize_distance_squared,
     quantize_force,
 )
+from nbody_tpu_torch.utils.profiler import span
 
 AXIS = "shards"
 
@@ -100,6 +121,17 @@ _PAD_FAR = 2.0e18
 
 SCHEDULES = ("sym", "rows")
 TILE_IMPLS = ("auto", "jnp")
+
+# The collectives of this process (reset by whoever reads them, as
+# hopper_nbody.LAUNCHES): "rotations" the _rotate calls, "reduces" the
+# _reduce calls; "moved_bytes" the bytes that _shards, _rotate, _reduce,
+# _replicate and _gather hand from one shard to another, counted at the
+# receiving shard whether or not the two shards share a device (a
+# virtual mesh counts what a mesh of S cards moves); "moved_bytes_peer"
+# the part of them that crosses devices (peer copies between cards, or,
+# across processes, host-staged messages).
+TRAFFIC = {"rotations": 0, "reduces": 0, "moved_bytes": 0,
+           "moved_bytes_peer": 0}
 
 
 class EnergyStream(NamedTuple):
@@ -256,10 +288,47 @@ def _per_shard(mesh: ParticleMesh, fn) -> list:
     return out
 
 
+def _moved(x: torch.Tensor, mesh: ParticleMesh, src: int,
+           dst: int) -> None:
+    """Count in TRAFFIC that x goes from shard src to shard dst (blocks
+    of their own sizes: a ragged rotation, a rotation across
+    processes)."""
+    if src == dst:
+        return
+    n = x.nbytes
+    TRAFFIC["moved_bytes"] += n
+    if mesh.devices[src] != mesh.devices[dst]:
+        TRAFFIC["moved_bytes_peer"] += n
+
+
+@functools.lru_cache(maxsize=None)
+def _hops(devices: tuple, start: int, stop: int, k) -> tuple:
+    """(blocks moved, of them across devices) by one collective of a mesh
+    on ``devices`` whose shards start..stop-1 are this process's: a
+    rotation by k, or (k None) a fold onto or a hand-out from shard
+    ``start``."""
+    n = len(devices)
+    if k is None:
+        pairs = [(start, s) for s in range(start + 1, stop)]
+    else:
+        pairs = [((s - k) % n, s) for s in range(n) if (s - k) % n != s]
+    return len(pairs), sum(devices[a] != devices[b] for a, b in pairs)
+
+
+def _count(mesh: ParticleMesh, nbytes: int, k=None) -> None:
+    """Count in TRAFFIC one collective's blocks of nbytes each
+    (``_hops``)."""
+    moves, peer = _hops(mesh.devices, mesh.local.start, mesh.local.stop, k)
+    TRAFFIC["moved_bytes"] += moves * nbytes
+    TRAFFIC["moved_bytes_peer"] += peer * nbytes
+
+
 def _shards(x: torch.Tensor, mesh: ParticleMesh) -> list:
-    """x (padded to the shard boundary, the same on every process) as S
-    equal blocks, block s on device s (views on one device)."""
+    """x (padded to the shard boundary, the same on every process, on the
+    home device) as S equal blocks, block s on device s (views on one
+    device)."""
     b = x.shape[0] // mesh.size
+    _count(mesh, x[:b].nbytes)
     return _per_shard(mesh, lambda s: x[s * b:(s + 1) * b].to(
         mesh.devices[s], non_blocking=True))
 
@@ -267,6 +336,7 @@ def _shards(x: torch.Tensor, mesh: ParticleMesh) -> list:
 def _gather(blocks: list, mesh: ParticleMesh) -> torch.Tensor:
     """all_gather: the blocks concatenated in shard order on the home
     device."""
+    _count(mesh, blocks[mesh.local.start].nbytes)
     if mesh.processes > 1:
         return _all_gather_shards(blocks, mesh).flatten(0, 1).to(mesh.home)
     return torch.cat([x.to(mesh.home) for x in blocks])
@@ -278,28 +348,40 @@ def _rotate(blocks: list, k: int, mesh: ParticleMesh,
     blocks' leading lengths differ between shards (across processes their
     shapes then travel first)."""
     n = mesh.size
-    if mesh.processes > 1:
-        return _rotate_across(blocks, k, mesh, ragged)
-    return [blocks[(s - k) % n].to(mesh.devices[s], non_blocking=True)
-            for s in range(n)]
+    TRAFFIC["rotations"] += 1
+    with span("nbody.ring.rotate"):
+        if mesh.processes > 1:
+            return _rotate_across(blocks, k, mesh, ragged)
+        if ragged:
+            for s in range(n):
+                _moved(blocks[(s - k) % n], mesh, (s - k) % n, s)
+        else:
+            _count(mesh, blocks[0].nbytes, k % n)
+        return [blocks[(s - k) % n].to(mesh.devices[s], non_blocking=True)
+                for s in range(n)]
 
 
 def _reduce(values: list, op, mesh: ParticleMesh) -> torch.Tensor:
     """psum / pmax / pmin: ``op`` over per-shard values in shard order, on
     the home device."""
     home = mesh.home
-    if mesh.processes > 1:
-        values = _all_gather_shards(values, mesh).to(home)
-    out = values[0].to(home)
-    for v in values[1:]:
-        out = op(out, v.to(home))
-    return out
+    TRAFFIC["reduces"] += 1
+    with span("nbody.ring.reduce"):
+        _count(mesh, values[mesh.local.start].nbytes)
+        if mesh.processes > 1:
+            values = _all_gather_shards(values, mesh).to(home)
+        out = values[0].to(home)
+        for v in values[1:]:
+            out = op(out, v.to(home))
+        return out
 
 
 def _replicate(x: torch.Tensor, mesh: ParticleMesh) -> list:
     """One copy of x on every shard's device (across processes, x is a
     value every process holds)."""
-    return _per_shard(mesh, lambda s: x.to(mesh.devices[s]))
+    with span("nbody.ring.reduce"):
+        _count(mesh, x.nbytes)
+        return _per_shard(mesh, lambda s: x.to(mesh.devices[s]))
 
 
 def _all_gather_shards(values: list, mesh: ParticleMesh) -> torch.Tensor:
@@ -344,6 +426,7 @@ def _rotate_across(blocks: list, k: int, mesh: ParticleMesh,
         t = (s - k) % n
         src, dst = mesh.owner(t), mesh.owner(s)
         if src == me and dst == me:
+            _moved(blocks[t], mesh, t, s)
             out[s] = blocks[t].to(mesh.devices[s], non_blocking=True)
         elif src == me:
             peers[s], tensors[s] = dst, blocks[t].detach().cpu().contiguous()
@@ -363,6 +446,7 @@ def _rotate_across(blocks: list, k: int, mesh: ParticleMesh,
                     for s in incoming})
     _exchange(mesh, peers, tensors, incoming)
     for s in incoming:
+        _moved(tensors[s], mesh, (s - k) % n, s)
         out[s] = tensors[s].to(mesh.devices[s])
     return out
 
@@ -513,9 +597,10 @@ def _ring_log_bounds(mesh, pos, ids, n_total, q: Quantizer,
                      cfg: SimConfig) -> tuple:
     """Per-shard (log_lo, log_hi) lists of the int-sim grid from the
     ring max pass."""
-    lo, hi = dist_sq_log_bounds(q, _ring_max_d2(mesh, pos, ids, n_total,
-                                                cfg), cfg.softening_sq)
-    return _replicate(lo, mesh), _replicate(hi, mesh)
+    with span("nbody.bounds"):
+        lo, hi = dist_sq_log_bounds(q, _ring_max_d2(mesh, pos, ids, n_total,
+                                                    cfg), cfg.softening_sq)
+        return _replicate(lo, mesh), _replicate(hi, mesh)
 
 
 def _real_rows(mesh: ParticleMesh, x: list, n_total: int) -> list:
@@ -542,28 +627,29 @@ def _ring_pe_local(mesh: ParticleMesh, pos: list, m: list, ids: list,
     Phantom rows are left out (not masked): at zero softening two
     coincident far-sentinel phantoms would give 0 * rsqrt(0) = NaN, and at
     eps^2 > 0 they add exact zeros."""
-    pos_r, m_r, ids_r = (_real_rows(mesh, x, n_total) for x in (pos, m, ids))
-    local = _per_shard(mesh, lambda s: torch.zeros(
-        (), dtype=torch.float64, device=mesh.devices[s]))
-    pos_j, m_j, ids_j = pos_r, m_r, ids_r
-    for k in range(mesh.size):
-        if k:
-            pos_j, m_j, ids_j = (_rotate(x, 1, mesh, ragged=True)
-                                 for x in (pos_j, m_j, ids_j))
-        for s in mesh.local:
-            if not (pos_r[s].shape[0] and pos_j[s].shape[0]):
-                continue  # a shard of phantoms only (N < S - 1 tiny)
-            if compensated:
-                part = metrics_lib.pair_potential_sum(
-                    pos_r[s], m_r[s], ids_r[s], pos_j[s], m_j[s], ids_j[s],
-                    cfg.softening_sq)
-            else:
-                part = hn.pair_pe_rows(pos_r[s], m_r[s], ids_r[s], pos_j[s],
-                                       m_j[s], ids_j[s],
-                                       cfg.softening_sq).to(
-                                           torch.float64).sum()
-            local[s] = local[s] + part
-    return -0.5 * cfg.G * _reduce(local, torch.add, mesh)
+    with span("nbody.ring.energy"):
+        pos_r, m_r, ids_r = (_real_rows(mesh, x, n_total)
+                             for x in (pos, m, ids))
+        local = _per_shard(mesh, lambda s: torch.zeros(
+            (), dtype=torch.float64, device=mesh.devices[s]))
+        pos_j, m_j, ids_j = pos_r, m_r, ids_r
+        for k in range(mesh.size):
+            if k:
+                pos_j, m_j, ids_j = (_rotate(x, 1, mesh, ragged=True)
+                                     for x in (pos_j, m_j, ids_j))
+            for s in mesh.local:
+                if not (pos_r[s].shape[0] and pos_j[s].shape[0]):
+                    continue  # a shard of phantoms only (N < S - 1 tiny)
+                if compensated:
+                    part = metrics_lib.pair_potential_sum(
+                        pos_r[s], m_r[s], ids_r[s], pos_j[s], m_j[s],
+                        ids_j[s], cfg.softening_sq)
+                else:
+                    part = hn.pair_pe_rows(
+                        pos_r[s], m_r[s], ids_r[s], pos_j[s], m_j[s],
+                        ids_j[s], cfg.softening_sq).to(torch.float64).sum()
+                local[s] = local[s] + part
+        return -0.5 * cfg.G * _reduce(local, torch.add, mesh)
 
 
 def _finish_ring(mesh, acc: list, ids: list, n_total: int, q: Quantizer,
@@ -754,11 +840,12 @@ def _make_ring_step(mesh: ParticleMesh, cfg: SimConfig, force, bounds_of,
         p, v, a, b, k = carry
         v = _per_shard(mesh, lambda s: v[s] + a[s] * half_dt)
         p = _per_shard(mesh, lambda s: p[s] + v[s] * cfg.dt)
-        if bounds_reuse and k % bounds_every == 0:
-            # amortised global-bounds pass: recompute every k-th step on
-            # the freshly drifted positions, reuse in between
-            b = bounds_of(p)
-        a = force(p, b)
+        with span("nbody.force"):
+            if bounds_reuse and k % bounds_every == 0:
+                # amortised global-bounds pass: recompute every k-th step
+                # on the freshly drifted positions, reuse in between
+                b = bounds_of(p)
+            a = force(p, b)
         v = _per_shard(mesh, lambda s: v[s] + a[s] * half_dt)
         return p, v, a, b, k + 1
 
@@ -769,8 +856,12 @@ def _start(state, q: Quantizer, cfg: SimConfig, mesh: ParticleMesh,
            quantize_forces: bool, schedule: str, n_total, bounds_every: int,
            uniform_gm: bool):
     """Shard a ParticleState and build its step; returns (n_total, padded
-    masses, per-shard masses and ids, one_step, carry with the entry
-    force). ``uniform_gm`` is switched off on a layout with phantom rows."""
+    masses, per-shard masses and ids, ``ticks(carry, n)``, carry with the
+    entry force). ``uniform_gm`` is switched off on a layout with phantom
+    rows. A single-controller CUDA mesh (``_graphable``) runs its entry
+    force and ticks as CUDA graphs (``_TickGraphs``) where the bounds are
+    exact every tick; each tick is then a graph replay, the arithmetic
+    the same."""
     _check_run_args(schedule, bounds_every)
     if n_total is None:
         n_total = state.positions.shape[0]
@@ -787,8 +878,178 @@ def _start(state, q: Quantizer, cfg: SimConfig, mesh: ParticleMesh,
                                             uniform_gm)
     one_step = _make_ring_step(mesh, cfg, force, bounds_of, bounds_reuse,
                                bounds_every)
-    carry = (pos_l, vel_l, force(pos_l, b0), b0, 0)
-    return n_total, masses, m_l, ids_l, one_step, carry
+    if not bounds_reuse and _graphable(mesh):
+        key = (mesh.devices, tuple(x.shape for x in pos_l), pos_l[0].dtype,
+               gm_l[0].dtype, q, cfg, quantize_forces, schedule, n_total,
+               uniform_gm)
+        tg = _TickGraphs.get(key, mesh, force, one_step, pos_l, vel_l,
+                             gm_l, ids_l)
+        if tg is not None:
+            with span("nbody.force"):
+                carry = tg.enter(pos_l, vel_l, gm_l, ids_l)
+            return n_total, masses, m_l, ids_l, tg.ticks, carry
+    with span("nbody.force"):
+        carry = (pos_l, vel_l, force(pos_l, b0), b0, 0)
+    return (n_total, masses, m_l, ids_l, functools.partial(_ticks, one_step),
+            carry)
+
+
+def _ticks(one_step, carry, n: int):
+    """n ticks of one_step, each in a ``nbody.tick`` span."""
+    for _ in range(n):
+        with span("nbody.tick"):
+            carry = one_step(carry)
+    return carry
+
+
+def _graphable(mesh: ParticleMesh) -> bool:
+    return mesh.processes == 1 and all(d.type == "cuda"
+                                       for d in mesh.devices)
+
+
+def graph_ticks(mesh: ParticleMesh) -> bool:
+    """Whether the layout last run on ``mesh`` runs its ticks as CUDA
+    graphs: False before a run, on a mesh that is not ``_graphable`` and
+    where the capture failed (eager ticks then)."""
+    return any(tg is not None and tg.mesh.devices == mesh.devices
+               for tg in _TickGraphs._cache.values())
+
+
+def _capture(mesh: ParticleMesh, fn):
+    """fn() captured as one CUDA graph over every card of the mesh: the
+    home card's side stream begins the capture, each other card's side
+    stream joins it and is that card's current stream (its allocations in
+    a pool of its own) until it joins back. fn reads and writes only
+    tensors that outlive the graph and returns nothing. Returns (graph,
+    pools, the LAUNCHES and TRAFFIC counts that fn's one pass adds), the
+    counters left as they were (the capture ran nothing)."""
+    devices = list(dict.fromkeys(mesh.devices))
+    streams = [torch.cuda.Stream(d) for d in devices]
+    pools = []
+    for d in devices[1:]:
+        with torch.cuda.device(d):
+            pools.append(torch.cuda.MemPool())
+    counters = (hn.LAUNCHES, TRAFFIC)
+    before = [dict(c) for c in counters]
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.stream(streams[0]):
+            graph.capture_begin(capture_error_mode="relaxed")
+            try:
+                with contextlib.ExitStack() as joined:
+                    for st, pool in zip(streams[1:], pools):
+                        st.wait_stream(streams[0])
+                        joined.enter_context(torch.cuda.stream(st))
+                        joined.enter_context(
+                            torch.cuda.use_mem_pool(pool, st.device))
+                    fn()
+                    for st in streams[1:]:
+                        streams[0].wait_stream(st)
+            finally:
+                graph.capture_end()
+        counts = [{k: v - b.get(k, 0) for k, v in c.items()
+                   if v != b.get(k, 0)} for c, b in zip(counters, before)]
+    finally:
+        for c, b in zip(counters, before):
+            c.update({k: b.get(k, 0) for k in c})
+    return graph, pools, counts
+
+
+class _TickGraphs:
+    """A CUDA mesh's entry force and one tick as two CUDA graphs over
+    static per-shard buffers: the carry's p, v and a, and the G*m and ids
+    blocks the force reads. Captured once per layout (the last one is
+    kept) after an eager force has built every kernel and cache; a call
+    copies its state in, replays the entry force, then one graph a tick.
+    Each replay adds the counts of the eager pass it stands for to
+    LAUNCHES and TRAFFIC, and records ``nbody.force`` / ``nbody.tick``
+    (the spans inside a tick are recorded by the eager runs only)."""
+
+    _cache: dict = {}
+
+    @classmethod
+    def get(cls, key, mesh, force, one_step, pos, vel, gm, ids):
+        """The graphs of this layout, captured now if they are not kept;
+        None (with a warning, eager ticks then) where the capture fails."""
+        if key not in cls._cache:
+            cls._cache.clear()
+            try:
+                cls._cache[key] = cls(mesh, force, one_step, pos, vel, gm,
+                                      ids)
+            except RuntimeError as e:
+                for d in dict.fromkeys(mesh.devices):
+                    torch.cuda.synchronize(d)
+                warnings.warn(f"ring ticks run eagerly: CUDA-graph capture "
+                              f"failed ({str(e).splitlines()[0]})")
+                cls._cache[key] = None
+        return cls._cache[key]
+
+    def __init__(self, mesh, force, one_step, pos, vel, gm, ids):
+        self.mesh = mesh
+        self.p = [x.clone() for x in pos]
+        self.v = [x.clone() for x in vel]
+        self.gm, self.ids = gm, ids
+        # The eager force at this call's state: the call's entry force.
+        self.a = [a.clone() for a in force(self.p, None)]
+        self.entered = True
+
+        def entry():
+            for dst, a in zip(self.a, force(self.p, None)):
+                dst.copy_(a)
+
+        def tick():
+            p, v, a, _, _ = one_step((self.p, self.v, self.a, None, 0))
+            for dst, src in zip(self.p + self.v + self.a, p + v + a):
+                dst.copy_(src)
+
+        self.entry = _capture(mesh, entry)
+        self.tick = _capture(mesh, tick)
+
+    def _join(self, into_home: bool) -> None:
+        """Order the home card's current stream after every other card's
+        (before replays), or theirs after it (after replays)."""
+        home = torch.cuda.current_stream(self.mesh.home)
+        for d in dict.fromkeys(self.mesh.devices):
+            if d != self.mesh.home:
+                other = torch.cuda.current_stream(d)
+                if into_home:
+                    home.wait_stream(other)
+                else:
+                    other.wait_stream(home)
+
+    @staticmethod
+    def _replay(captured) -> None:
+        graph, _, counts = captured
+        graph.replay()
+        for c, add in zip((hn.LAUNCHES, TRAFFIC), counts):
+            for k, v in add.items():
+                c[k] += v
+
+    def enter(self, pos, vel, gm, ids) -> tuple:
+        """The carry of a call at ``pos``, ``vel``: the entry force's (the
+        eager one of the capturing call, a replay in every later one)."""
+        if self.entered:
+            self.entered = False
+            return self.p, self.v, self.a, None, 0
+        for dst, src in zip(self.p + self.v + self.gm + self.ids,
+                            pos + vel + gm + ids):
+            if dst is not src:
+                dst.copy_(src)
+        self._join(True)
+        self._replay(self.entry)
+        self._join(False)
+        return self.p, self.v, self.a, None, 0
+
+    def ticks(self, carry, n: int) -> tuple:
+        """n ticks on from the carry ``enter`` or ``ticks`` returned, each
+        a replay in a ``nbody.tick`` span."""
+        if n:
+            self._join(True)
+            for _ in range(n):
+                with span("nbody.tick"):
+                    self._replay(self.tick)
+            self._join(False)
+        return self.p, self.v, self.a, None, carry[4] + n
 
 
 @hn.guard_uniform_gm(("masses", (0,)))
@@ -814,24 +1075,24 @@ def run_steps_sharded(state: ParticleState, q: Quantizer, cfg: SimConfig,
     host unless called through ``hopper_nbody.prevalidated``): the sym
     schedule's tiles take their equal-mass variants, switched off when
     N % S != 0 (phantom rows)."""
-    n_total, masses, m_l, ids_l, one_step, carry = _start(
+    n_total, masses, m_l, ids_l, ticks, carry = _start(
         state, q, cfg, mesh, quantize_forces, schedule, n_total,
         bounds_every, uniform_gm)
     kinetic, potential = [], []
     chunk = min(steps_per_chunk, num_steps)
     n_chunks = num_steps // chunk if chunk else 0
     for _ in range(n_chunks):
-        for _ in range(chunk):
-            carry = one_step(carry)
+        carry = ticks(carry, chunk)
         p, v = carry[0], carry[1]
-        valid = _valid(mesh, ids_l, n_total)
-        kinetic.append(0.5 * _reduce(_per_shard(mesh, lambda s: (
-            torch.where(valid[s], m_l[s], 0.0).to(torch.float64)
-            * (v[s] * v[s]).sum(dim=-1).to(torch.float64)).sum()),
-            torch.add, mesh))
-        potential.append(_ring_pe_local(mesh, p, m_l, ids_l, n_total, cfg))
-    for _ in range(num_steps - n_chunks * chunk):
-        carry = one_step(carry)
+        with span("nbody.snapshot"):
+            valid = _valid(mesh, ids_l, n_total)
+            kinetic.append(0.5 * _reduce(_per_shard(mesh, lambda s: (
+                torch.where(valid[s], m_l[s], 0.0).to(torch.float64)
+                * (v[s] * v[s]).sum(dim=-1).to(torch.float64)).sum()),
+                torch.add, mesh))
+            potential.append(_ring_pe_local(mesh, p, m_l, ids_l, n_total,
+                                            cfg))
+    carry = ticks(carry, num_steps - n_chunks * chunk)
     if kinetic:
         ke, pe = torch.stack(kinetic), torch.stack(potential)
     else:
@@ -876,28 +1137,32 @@ def run_with_snapshots_sharded(state: ParticleState, q: Quantizer,
     Snapshot, PE from the energy ring. Returns (resident padded state,
     Snapshots of numpy arrays stacked over chunks, position frames
     (num_chunks, n_total, D) as numpy), copied to the host once.
-    ``uniform_gm`` follows run_steps_sharded."""
-    n_total, masses, m_l, ids_l, one_step, carry = _start(
-        state, q, cfg, mesh, quantize_forces, schedule, n_total,
-        bounds_every, uniform_gm)
-    m_full = masses.to(mesh.home)[:n_total]
-    snaps, frames = [], []
-    for i in range(num_chunks):
-        for _ in range(steps_per_chunk):
-            carry = one_step(carry)
-        p, v = carry[0], carry[1]
-        pe = _ring_pe_local(mesh, p, m_l, ids_l, n_total, cfg)
-        snap, pg = _chunk_snapshot(mesh, p, v, m_full,
-                                   state.tick + (i + 1) * steps_per_chunk,
-                                   pe, n_total, cfg, num_bins)
-        snaps.append(snap)
-        frames.append(pg)
-    p, v, a = carry[:3]
-    new_state = ParticleState(
-        positions=_gather(p, mesh), velocities=_gather(v, mesh),
-        masses=masses.to(mesh.home), accelerations=_gather(a, mesh),
-        tick=state.tick + steps_per_chunk * num_chunks)
-    return (new_state, *_stacked(snaps, frames))
+    ``uniform_gm`` follows run_steps_sharded. The history is one
+    ``nbody.history`` span, the single-device history's spans inside."""
+    with span("nbody.history"):
+        n_total, masses, m_l, ids_l, ticks, carry = _start(
+            state, q, cfg, mesh, quantize_forces, schedule, n_total,
+            bounds_every, uniform_gm)
+        m_full = masses.to(mesh.home)[:n_total]
+        snaps, frames = [], []
+        for i in range(num_chunks):
+            carry = ticks(carry, steps_per_chunk)
+            p, v = carry[0], carry[1]
+            with span("nbody.snapshot"):
+                pe = _ring_pe_local(mesh, p, m_l, ids_l, n_total, cfg)
+                snap, pg = _chunk_snapshot(
+                    mesh, p, v, m_full,
+                    state.tick + (i + 1) * steps_per_chunk, pe, n_total,
+                    cfg, num_bins)
+            snaps.append(snap)
+            frames.append(pg)
+        p, v, a = carry[:3]
+        new_state = ParticleState(
+            positions=_gather(p, mesh), velocities=_gather(v, mesh),
+            masses=masses.to(mesh.home), accelerations=_gather(a, mesh),
+            tick=state.tick + steps_per_chunk * num_chunks)
+        with span("nbody.to_host"):
+            return (new_state, *_stacked(snaps, frames))
 
 
 def ring_potential_energy(positions, masses, cfg: SimConfig,
@@ -960,8 +1225,9 @@ def _start_baseline(state: BaselineState, cfg: SimConfig,
     gm_l = _shards(cfg.G * masses, mesh)
 
     def force(p):
-        return _ring_accelerations_dd_local(mesh, p, gm_l, ids_l, n_total,
-                                            cfg)
+        with span("nbody.force"):
+            return _ring_accelerations_dd_local(mesh, p, gm_l, ids_l,
+                                                n_total, cfg)
 
     half_dt = cfg.dt * 0.5
 
@@ -993,8 +1259,7 @@ def run_steps_sharded_baseline(state: BaselineState, cfg: SimConfig,
     ring force). ``gather=False`` keeps the returned state padded."""
     n_total, masses, _, _, one_step, carry = _start_baseline(state, cfg,
                                                              mesh, n_total)
-    for _ in range(num_steps):
-        carry = one_step(carry)
+    carry = _ticks(one_step, carry, num_steps)
     trim = (lambda x: x[:n_total]) if gather else (lambda x: x)
     return _baseline_state(mesh, carry, masses, state.tick + num_steps, trim)
 
@@ -1008,24 +1273,29 @@ def run_with_snapshots_sharded_baseline(state: BaselineState, cfg: SimConfig,
     the precision-ladder compare); metrics see the state rounded to f32,
     and the energy ring is the compensated one. Same contract as
     ``run_with_snapshots_sharded``."""
-    n_total, masses, m_l, ids_l, one_step, carry = _start_baseline(
-        state, cfg, mesh, n_total)
-    m32 = _per_shard(mesh, lambda s: m_l[s].to(torch.float32))
-    m_full = masses.to(mesh.home, torch.float32)[:n_total]
-    snaps, frames = [], []
-    for i in range(num_chunks):
-        for _ in range(steps_per_chunk):
-            carry = one_step(carry)
-        p32 = _per_shard(mesh, lambda s: carry[0][s].to(torch.float32))
-        v32 = _per_shard(mesh, lambda s: carry[1][s].to(torch.float32))
-        pe = _ring_pe_local(mesh, p32, m32, ids_l, n_total, cfg,
-                            compensated=True)
-        snap, pg = _chunk_snapshot(mesh, p32, v32, m_full,
-                                   state.tick + (i + 1) * steps_per_chunk,
-                                   pe, n_total, cfg, num_bins)
-        snaps.append(snap)
-        frames.append(pg)
-    new_state = _baseline_state(
-        mesh, carry, masses, state.tick + steps_per_chunk * num_chunks,
-        lambda x: x)
-    return (new_state, *_stacked(snaps, frames))
+    with span("nbody.history"):
+        n_total, masses, m_l, ids_l, one_step, carry = _start_baseline(
+            state, cfg, mesh, n_total)
+        m32 = _per_shard(mesh, lambda s: m_l[s].to(torch.float32))
+        m_full = masses.to(mesh.home, torch.float32)[:n_total]
+        snaps, frames = [], []
+        for i in range(num_chunks):
+            carry = _ticks(one_step, carry, steps_per_chunk)
+            with span("nbody.snapshot"):
+                p32 = _per_shard(mesh,
+                                 lambda s: carry[0][s].to(torch.float32))
+                v32 = _per_shard(mesh,
+                                 lambda s: carry[1][s].to(torch.float32))
+                pe = _ring_pe_local(mesh, p32, m32, ids_l, n_total, cfg,
+                                    compensated=True)
+                snap, pg = _chunk_snapshot(
+                    mesh, p32, v32, m_full,
+                    state.tick + (i + 1) * steps_per_chunk, pe, n_total,
+                    cfg, num_bins)
+            snaps.append(snap)
+            frames.append(pg)
+        new_state = _baseline_state(
+            mesh, carry, masses, state.tick + steps_per_chunk * num_chunks,
+            lambda x: x)
+        with span("nbody.to_host"):
+            return (new_state, *_stacked(snaps, frames))
