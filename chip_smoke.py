@@ -268,8 +268,7 @@ launches, the one-pass bodies against the two-pass tile at 131072 and
 the 1M chunk and pair shapes, the fused max against the square grid,
 row_force's two kernels, the energy routes, each 1M run and the row
 sweep (and the equal-mass 1M runs), max_d2's two designs at 131072 and
-1M, and phase ring's ``--mesh`` CLI runs with pair_max's two designs;
-the default run times the current design once; and the int chain's
+1M; the default run times the current design once; and the int chain's
 table against the chain kernels, ``int_table_ab``: bitwise over 100
 launches at 131072 int4, in turns at 131072 int4 / int8 / custom-64 and
 the 1M int4 / int8 pair tiles, and both bodies' SASS instructions a
@@ -1716,20 +1715,6 @@ def row_design(hn, design: str):
         yield
     finally:
         hn.ROW_DESIGN = saved
-
-
-@contextlib.contextmanager
-def pair_max_design(hn, design: str):
-    """Runs the pair_max launches inside in ``design``: "tiled" (the
-    register-tiled launch, the wrapper's default) or "two_launch" (the
-    earlier design, parent=True), for an A/B of a whole path."""
-    saved = hn.pair_max
-    if design == "two_launch":
-        hn.pair_max = functools.partial(saved, parent=True)
-    try:
-        yield
-    finally:
-        hn.pair_max = saved
 
 
 @contextlib.contextmanager
@@ -3410,100 +3395,74 @@ def pe_shard_ab(dev, report: dict, hold_pe) -> None:
     report["pair_pe_rows"]["shard_ab"] = shapes
 
 
-def ring_cli(dev, report: dict, ab: bool = False) -> None:
+def ring_cli(dev, report: dict) -> None:
     """``python -m nbody_tpu_torch --stars 131072 --ticks 200 --compare
     float32,int4 --mesh`` and its ``--schedule rows`` twin through
     cli.main, with the launch counters read around each: a mesh of the one
     card, so per mode 201 force evaluations (the entry force and 200
-    ticks) and 2 energy passes, each of one tile. Under phase ab (PR 11's
-    A/B) each schedule runs in both designs of pair_max (the int modes'
-    bounds pass) in turns: the earlier two launches, the register-tiled
-    launch (float32 and int4), the register-tiled launch and the earlier
-    two launches (int4); the default run, the register-tiled launch
-    once."""
+    ticks) and 2 energy passes, each of one tile; the int4 bounds each
+    evaluation, the single device's pruned pass on the card (the
+    candidates' max_d2 and the full set's, skipped on the disk)."""
     from nbody_tpu_torch import cli
     from nbody_tpu_torch.ops import hopper_nbody as hn
 
     evals, passes = RING_TICKS + 1, RING_TICKS // RING_INTERVAL
-    totals = {"sym_force_uniform": 0, "pair_force": 0, "pair_max": 0,
+    totals = {"sym_force_uniform": 0, "pair_force": 0, "max_d2": 0,
               "pair_pe_rows": 0}
-    rates = {}
+    ticks = {}
     for schedule in ("sym", "rows"):
-        turns = (("two_launch", "tiled", "tiled", "two_launch") if ab
-                 else ("tiled",))
-        float32_run = False   # float32 once, with the first tiled turn
-        for design in turns:
-            modes = ("float32,int4" if design == "tiled" and not float32_run
-                     else "int4")
-            float32_run |= design == "tiled"
-            argv = ["--device", str(dev), "--stars", str(BIG_N), "--ticks",
-                    str(RING_TICKS), "--snapshot-interval",
-                    str(RING_INTERVAL), "--mesh", "--schedule", schedule,
-                    "--compare", modes, "--output",
-                    str(REPO / "output" / "chip_smoke_ring")]
-            print(f"ring: nbody_tpu_torch.cli.main({argv}), pair_max "
-                  f"{design}")
-            reset_counters(hn)
-            tee = Tee(sys.stdout)
-            old, sys.stdout = sys.stdout, tee
-            try:
-                with pair_max_design(hn, design):
-                    histories = cli.main(argv)
-            finally:
-                sys.stdout = old
-            for k in totals:
-                if k != "pair_max" or design == "tiled":
-                    totals[k] += hn.LAUNCHES[k]
-            text = tee.buf.getvalue()
-            check(f"Mesh: 1 device(s), schedule={schedule}" in text,
-                  f"{schedule}: no mesh line")
-            for block in text.split("Running simulation: ")[1:]:
-                mode = block.split()[0]
-                launched = json.loads(re.search(
-                    r"kernel launches: (\{.*\})", block).group(1))
-                rate = re.search(r"(\d+) ticks in ([\d.]+)s \(([\d.]+) "
-                                 r"ticks/s", block)
-                path = re.search(r"force path: (.*)", block).group(1)
-                is_int = mode == "int4_sim"
-                want = dict.fromkeys(hn.LAUNCHES, 0)
-                # The ring's energy pass a snapshot, and the CLI's first
-                # snapshot (single-device, past hn.TILED_MIN_N on #7).
-                want["pair_pe_rows"] = passes + 1
-                want["pair_max"] = evals if is_int else 0
-                # Equal masses, N % 1 == 0 and 131072 % 64 == 0: the sym
-                # schedule's diagonal is the equal-mass variant.
-                want["sym_force_uniform" if schedule == "sym"
-                     else "pair_force"] = evals
-                print(f"ring: --schedule {schedule} (pair_max {design}) "
-                      f"{mode}: {rate.group(1)} ticks in {rate.group(2)}s "
-                      f"({rate.group(3)} ticks/s); launches {launched}; "
-                      f"force path: {path}")
-                rates.setdefault((schedule, design, mode), []).append(
-                    float(rate.group(3)))
-                check(launched == want, f"{schedule} {mode}: launches "
-                                        f"{launched}, expected {want}")
-                check(path.startswith(f"ring, {schedule}"),
-                      f"{schedule} {mode}: force path {path!r}")
-            for mode, h in histories.items():
-                check(len(h.total_energy) == passes + 1
-                      and np.isfinite(h.total_energy).all(),
-                      f"{schedule} {mode}: history not finite / wrong "
-                      f"length")
+        argv = ["--device", str(dev), "--stars", str(BIG_N), "--ticks",
+                str(RING_TICKS), "--snapshot-interval", str(RING_INTERVAL),
+                "--mesh", "--schedule", schedule, "--compare",
+                "float32,int4", "--output",
+                str(REPO / "output" / "chip_smoke_ring")]
+        print(f"ring: nbody_tpu_torch.cli.main({argv})")
+        reset_counters(hn)
+        tee = Tee(sys.stdout)
+        old, sys.stdout = sys.stdout, tee
+        try:
+            histories = cli.main(argv)
+        finally:
+            sys.stdout = old
+        for k in totals:
+            totals[k] += hn.LAUNCHES[k]
+        text = tee.buf.getvalue()
+        check(f"Mesh: 1 device(s), schedule={schedule}" in text,
+              f"{schedule}: no mesh line")
+        for block in text.split("Running simulation: ")[1:]:
+            mode = block.split()[0]
+            launched = json.loads(re.search(
+                r"kernel launches: (\{.*\})", block).group(1))
+            rate = re.search(r"(\d+) ticks in ([\d.]+)s \(([\d.]+) "
+                             r"ticks/s", block)
+            path = re.search(r"force path: (.*)", block).group(1)
+            is_int = mode == "int4_sim"
+            want = dict.fromkeys(hn.LAUNCHES, 0)
+            # The ring's energy pass a snapshot, and the CLI's first
+            # snapshot (single-device, past hn.TILED_MIN_N on #7).
+            want["pair_pe_rows"] = passes + 1
+            want["max_d2"] = 2 * evals if is_int else 0
+            # Equal masses, N % 1 == 0 and 131072 % 64 == 0: the sym
+            # schedule's diagonal is the equal-mass variant.
+            want["sym_force_uniform" if schedule == "sym"
+                 else "pair_force"] = evals
+            print(f"ring: --schedule {schedule} {mode}: {rate.group(1)} "
+                  f"ticks in {rate.group(2)}s ({rate.group(3)} ticks/s); "
+                  f"launches {launched}; force path: {path}")
+            if is_int:
+                ticks[schedule] = float(rate.group(3))
+            check(launched == want, f"{schedule} {mode}: launches "
+                                    f"{launched}, expected {want}")
+            check(path.startswith(f"ring, {schedule}"),
+                  f"{schedule} {mode}: force path {path!r}")
+        for mode, h in histories.items():
+            check(len(h.total_energy) == passes + 1
+                  and np.isfinite(h.total_energy).all(),
+                  f"{schedule} {mode}: history not finite / wrong length")
     for k, n in totals.items():
         report[k]["launches"] += n
         check(n > 0, f"{k} was never launched on the mesh path")
-    ticks = {}
-    for schedule in ("sym", "rows"):
-        old, new = (rates.get((schedule, d, "int4_sim"), [])
-                    for d in ("two_launch", "tiled"))
-        pair_max = ab_text(old, new, "two launches", "register-tiled",
-                           ".3f", "ticks/s")
-        print(f"ring: --mesh {BIG_N} x {RING_TICKS} --schedule {schedule} "
-              f"int4, pair_max {pair_max}; float32 "
-              f"{rates[(schedule, 'tiled', 'float32')][0]} ticks/s")
-        ticks[schedule] = {"two_launch": mean_ms(old),
-                           "tiled": mean_ms(new)}
-    report["pair_max"]["mesh_int4_ticks_per_s"] = ticks
+    report["max_d2"]["mesh_int4_ticks_per_s"] = ticks
 
 
 def ring_virtual(dev, report: dict) -> None:
@@ -3569,6 +3528,17 @@ def ring_virtual(dev, report: dict) -> None:
             check(torch.equal(got_max, max_single),
                   f"S={n_shards} N={n}: ring max {got_max.item()!r} != "
                   f"single-device {max_single.item()!r}")
+            reset_counters(hn)
+            got_max = ring._ring_bounds_max(mesh, ring._shards(padded, mesh),
+                                            ring._shards(ids, mesh), n, cfg)
+            check(hn.LAUNCHES["max_d2"] == pruned_launches(n)
+                  and hn.LAUNCHES["pair_max"] == 0,
+                  f"S={n_shards}: {hn.LAUNCHES['max_d2']} max_d2, "
+                  f"{hn.LAUNCHES['pair_max']} pair_max launches in one "
+                  f"pruned bounds pass")
+            check(torch.equal(got_max, max_single),
+                  f"S={n_shards} N={n}: pruned ring max {got_max.item()!r} "
+                  f"!= single-device {max_single.item()!r}")
             for mode in ("float32", "int4"):
                 q = Quantizer.from_string(mode)
                 single = singles[mode]
@@ -3592,7 +3562,7 @@ def ring_virtual(dev, report: dict) -> None:
                     want = ({"sym_force": s, "pair_sym_force": s * (s - 1) // 2}
                             if schedule == "sym" else {"pair_force": s * s})
                     if q.is_int:
-                        want["pair_max"] = s * (s // 2 + 1)
+                        want["max_d2"] = pruned_launches(n)
                     want = {k: v for k, v in want.items() if v}
                     check(launched == want, f"S={s} N={n} {mode} {schedule}: "
                                             f"launches {launched}, expected "
@@ -3644,7 +3614,7 @@ def ring_equal_mass(dev) -> None:
                 pair = hn._variant("pair_sym_force", uniform)
                 want = {sym: s, pair: s * (s - 1) // 2}
                 if q.is_int:
-                    want["pair_max"] = s * (s // 2 + 1)
+                    want["max_d2"] = pruned_launches(BIG_N)
                 want = {k: v for k, v in want.items() if v}
                 check(launched == want, f"S={s} {mode} uniform={uniform}: "
                                         f"launches {launched}, want {want}")
@@ -3713,7 +3683,7 @@ def ring_large(dev) -> None:
                     evals * (s * c * (c - 1) // 2 + s * (s - 1) // 2 * k),
                 "pair_pe_rows": s * s}
         if mode == "int4":
-            want["pair_max"] = evals * s * (s // 2 + 1)
+            want["max_d2"] = evals * pruned_launches(LARGE_N)
         torch.cuda.reset_peak_memory_stats(dev)
         reset_counters(hn)
         sim = DirectSimulation(p0, v0, masses, precision=mode, mesh=mesh)
@@ -6390,16 +6360,17 @@ RING_TILES = ("pair_sym_force", "pair_force", "pair_max", "pair_pe_rows")
 def ring_launches(counts: dict, n: int, shards: int, evals: int,
                   precision: str, schedule: str = "sym",
                   equal_masses: bool = False, snapshots: int = 0,
-                  dim: int = 2) -> None:
+                  dim: int = 2, processes: int = 1) -> None:
     """Add the launches of ``evals`` ring force evaluations and
     ``snapshots`` energy passes over n particles on S shards to counts
     (PERF.md section 2's ring formulas): sym, S sym_force and S(S-1)/2
     pair_sym_force an evaluation (k each where the pair tile takes k
     source chunks; the equal-mass variants for equal masses on a layout
     without phantoms at multiples of TILE); rows, S^2 pair_force; an int
-    mode, S(S/2+1) pair_max; an energy pass, pair_pe_rows for every pair
-    of shards that both hold real rows. The float64 baseline's ring
-    launches nothing."""
+    mode, on one controller the single device's pruned pass
+    (pruned_launches), across ``processes`` S(S/2+1) pair_max; an energy
+    pass, pair_pe_rows for every pair of shards that both hold real rows.
+    The float64 baseline's ring launches nothing."""
     from nbody_tpu_torch.ops import hopper_nbody as hn
     from nbody_tpu_torch.ops.precision import Quantizer
     from nbody_tpu_torch.parallel import ring
@@ -6420,7 +6391,19 @@ def ring_launches(counts: dict, n: int, shards: int, evals: int,
         counts[hn._variant("pair_sym_force", uniform)] += (
             evals * shards * (shards - 1) // 2 * k)
     if Quantizer.from_string(precision).is_int:
-        counts["pair_max"] += evals * shards * (shards // 2 + 1)
+        if processes == 1:
+            counts["max_d2"] += evals * pruned_launches(n)
+        else:
+            counts["pair_max"] += evals * shards * (shards // 2 + 1)
+
+
+def pruned_launches(n: int) -> int:
+    """The max_d2 launches of one pruned bounds pass over n particles:
+    the candidates' and the full set's (skipped unless they fall short);
+    up to PRUNED_CANDIDATES one, of every particle."""
+    from nbody_tpu_torch.ops import hopper_nbody as hn
+
+    return 1 + (n > hn.PRUNED_CANDIDATES)
 
 
 @contextlib.contextmanager
@@ -6515,11 +6498,12 @@ def hold_ring_launches(seen: dict, report: dict, label: str) -> None:
           f"pair_pe_rows worst err/bound {pe_worst:.4f}")
 
 
-def multihost_launches(n: int, shards: int) -> dict:
+def multihost_launches(n: int, shards: int, processes: int) -> dict:
     """The kernel launches of multihost_check's parts by part, from their
-    sizes: the float32 history (TICKS + 1 evaluations, CHUNKS energy
-    passes, equal masses), the int4 and rows runs (SHORT_STEPS + 1
-    evaluations, one energy pass each); the agreement launches none."""
+    sizes, over ``processes`` processes (summed): the float32 history
+    (TICKS + 1 evaluations, CHUNKS energy passes, equal masses), the int4
+    and rows runs (SHORT_STEPS + 1 evaluations, one energy pass each);
+    the agreement launches none."""
     from nbody_tpu_torch.ops import hopper_nbody as hn
     from nbody_tpu_torch.parallel.multihost_check import SHORT_STEPS
 
@@ -6531,7 +6515,8 @@ def multihost_launches(n: int, shards: int) -> dict:
             ("rows", SHORT_STEPS + 1, "float32", "rows", 1)):
         counts = dict.fromkeys(hn.LAUNCHES, 0)
         ring_launches(counts, n, shards, evals, mode, schedule,
-                      equal_masses=schedule == "sym", snapshots=snaps)
+                      equal_masses=schedule == "sym", snapshots=snaps,
+                      processes=processes)
         want[part] = {k: v for k, v in counts.items() if v}
     want["agreement"] = {}
     return want
@@ -6567,7 +6552,8 @@ def phase_multihost(dev, report: dict) -> None:
         one = multihost_check.run_parts(ring.ParticleMesh.virtual(shards, dev),
                                         pos, vel, m, MULTIHOST_TICKS,
                                         MULTIHOST_CHUNKS)
-    want = multihost_launches(BIG_N, shards)
+    want = multihost_launches(BIG_N, shards, procs)
+    want_one = multihost_launches(BIG_N, shards, 1)
     for pid, r in enumerate(results):
         check(r["multihost_active"] and r["num_processes"] == procs
               and r["global_shards"] == shards
@@ -6590,9 +6576,11 @@ def phase_multihost(dev, report: dict) -> None:
         for r in results:
             for k, v in r["launches"][part].items():
                 summed[k] = summed.get(k, 0) + v
-        check(one["launches"][part] == counts and summed == counts,
+        check(one["launches"][part] == want_one[part] and summed == counts,
               f"multihost: {part} launches, processes {summed}, one "
-              f"controller {one['launches'][part]}, the formulas {counts}")
+              f"controller {one['launches'][part]}, the formulas {counts} "
+              f"and {want_one[part]} (the one controller's pruned bounds "
+              f"pass)")
         for k, v in summed.items():
             report[k]["launches"] += v
     print(f"multihost: {procs} processes x {MULTIHOST_SHARDS} shards on "
@@ -7005,7 +6993,6 @@ def main(argv=None) -> int:
             elif phase == "ab":
                 phase_perf(dev, report, ab=True)
                 phase_large(dev, report, ab=True)
-                ring_cli(dev, report, ab=True)
                 int_table_ab(dev, report)
             elif phase == "ring":
                 phase_ring(dev, report)

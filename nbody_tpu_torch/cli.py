@@ -100,7 +100,7 @@ Precision modes:
 
 RING_KERNELS = ("sym_force", "sym_force_uniform", "pair_sym_force",
                 "pair_sym_force_uniform", "row_force", "pair_force",
-                "pair_max", "pair_pe_rows")
+                "max_d2", "pair_max", "pair_pe_rows")
 EQUAL_MASS = ("sym_force_uniform", "sym_force_uniform_max",
               "pair_sym_force_uniform")
 

@@ -103,17 +103,18 @@ def _timed_transport(mesh: ring.ParticleMesh, seconds: list):
 def run_parts(mesh: ring.ParticleMesh, pos, vel, m, ticks: int, chunks: int,
               process_id: int = 0) -> dict:
     """The check's four parts on ``mesh`` from the ICs (pos, vel, m):
-    energies, frame shape and final hashes, the kernel launches of this
-    process, the wall of each part (s) and its time in the collectives
-    across processes (s; 0 on a single controller)."""
+    energies, frame shape and final hashes, the kernel launches and the
+    ring's TRAFFIC counts of this process, the wall of each part (s) and
+    its time in the collectives across processes (s; 0 on a single
+    controller)."""
     stars = pos.shape[0]
     cfg = SimConfig()
     q32, q4 = Quantizer.from_string("float32"), Quantizer.from_string("int4")
     uniform = bool(m.numel() > 0 and (m == m[0]).all())
-    out, walls, launches, transport = {}, {}, {}, {}
+    out, walls, launches, transport, traffic = {}, {}, {}, {}, {}
 
     def part(name, fn):
-        before = dict(hn.LAUNCHES)
+        before, moved = dict(hn.LAUNCHES), dict(ring.TRAFFIC)
         seconds = [0.0]
         t0 = time.perf_counter()
         with _timed_transport(mesh, seconds):
@@ -123,6 +124,7 @@ def run_parts(mesh: ring.ParticleMesh, pos, vel, m, ticks: int, chunks: int,
         transport[name] = seconds[0]
         launches[name] = {k: v - before[k] for k, v in hn.LAUNCHES.items()
                           if v != before[k]}
+        traffic[name] = {k: v - moved[k] for k, v in ring.TRAFFIC.items()}
         return result
 
     state, snaps, frames = part("history", lambda: (
@@ -160,7 +162,8 @@ def run_parts(mesh: ring.ParticleMesh, pos, vel, m, ticks: int, chunks: int,
         return agree, multihost.cross_host_state_agreement(bad, vel_f)
 
     out["agree"], out["mismatch"] = part("agreement", agreement)
-    out.update(launches=launches, walls=walls, transport=transport)
+    out.update(launches=launches, walls=walls, transport=transport,
+               traffic=traffic)
     return out
 
 

@@ -4,8 +4,10 @@ PyTorch counterpart of ``nbody_tpu.parallel.ring``. Particles are sharded
 over a 1-D mesh of S devices; the O(N^2) interaction is computed by
 rotating *source* blocks around the ring while each shard accumulates the
 forces on its resident receiver block. The int-sim modes take their
-global log-grid bounds from a max ring pass first, and snapshots take the
-potential energy from an energy ring pass.
+global log-grid bounds first: on one controller from the single
+device's pruned pass on the positions gathered onto the home device,
+across processes from a max ring pass; snapshots take the potential
+energy from an energy ring pass.
 
 One controller drives every shard. JAX writes the ring as a per-device
 body under ``shard_map``; here a ``ParticleMesh`` is an ordered list of S
@@ -59,13 +61,14 @@ code. The PM runners, ``CosmologicalEngine(mesh=)`` and
 Spans and counters (``utils.profiler.span``; recorded only while a
 profiler records): the runners' loops carry the single-device loop's
 names (``nbody.history``, ``nbody.tick``, ``nbody.force``,
-``nbody.bounds`` around the max ring pass with its reduce and replicated
+``nbody.bounds`` around the bounds pass with its reduce and replicated
 grid, ``nbody.snapshot``, ``nbody.to_host``), each ``_rotate`` is
 ``nbody.ring.rotate``, each ``_reduce`` and ``_replicate``
 ``nbody.ring.reduce``, the energy ring pass ``nbody.ring.energy``; a
 tick that is a graph replay records ``nbody.tick`` alone. ``TRAFFIC``
-counts the collectives and the bytes they move between shards, read as
-``hopper_nbody.LAUNCHES`` is (a replay adds its eager tick's counts).
+counts the collectives, the bytes they move between shards and the
+pruned bounds passes, read as ``hopper_nbody.LAUNCHES`` is (a replay adds
+its eager tick's counts).
 
 Tiles: ``tile_impl="auto"`` is the kernel path, the wrappers of
 ``ops.hopper_nbody``, which launch their CUDA kernels for CUDA tensors and
@@ -129,9 +132,12 @@ TILE_IMPLS = ("auto", "jnp")
 # receiving shard whether or not the two shards share a device (a
 # virtual mesh counts what a mesh of S cards moves); "moved_bytes_peer"
 # the part of them that crosses devices (peer copies between cards, or,
-# across processes, host-staged messages).
+# across processes, host-staged messages); "bounds_passes" the bounds
+# passes that took the pruned pass on the home device (``_ring_bounds_max``:
+# single-controller meshes), so that hopper_nbody.bounds_fallbacks(home) /
+# TRAFFIC["bounds_passes"] is the share whose full-set max_d2 ran.
 TRAFFIC = {"rotations": 0, "reduces": 0, "moved_bytes": 0,
-           "moved_bytes_peer": 0}
+           "moved_bytes_peer": 0, "bounds_passes": 0}
 
 
 class EnergyStream(NamedTuple):
@@ -593,13 +599,31 @@ def _ring_max_d2(mesh: ParticleMesh, pos: list, ids: list, n_total: int,
     return _reduce(best, torch.maximum, mesh) + cfg.softening_sq
 
 
+def _ring_bounds_max(mesh: ParticleMesh, pos: list, ids: list, n_total: int,
+                     cfg: SimConfig) -> torch.Tensor:
+    """The exact global max softened pairwise d^2 of the int grid, on the
+    home device. On one controller the shards' positions are gathered
+    onto the home device, where their real prefix is the single-device
+    tensor row for row, and the single device's pruned pass runs on it
+    (its full-set max_d2 launch, skipped unless the candidates fall
+    short, counts in the home device's BOUNDS_FALLBACKS). Across
+    processes, where the gather is a host all-gather of every position,
+    the max ring pass. Bitwise the single-device max_d2 of the real
+    particles (+ eps^2) either way."""
+    if mesh.processes > 1:
+        return _ring_max_d2(mesh, pos, ids, n_total, cfg)
+    TRAFFIC["bounds_passes"] += 1
+    return hn.max_pairwise_dist_sq_pruned(_gather(pos, mesh)[:n_total], cfg)
+
+
 def _ring_log_bounds(mesh, pos, ids, n_total, q: Quantizer,
                      cfg: SimConfig) -> tuple:
     """Per-shard (log_lo, log_hi) lists of the int-sim grid from the
-    ring max pass."""
+    ring's exact global max (``_ring_bounds_max``)."""
     with span("nbody.bounds"):
-        lo, hi = dist_sq_log_bounds(q, _ring_max_d2(mesh, pos, ids, n_total,
-                                                    cfg), cfg.softening_sq)
+        lo, hi = dist_sq_log_bounds(q, _ring_bounds_max(mesh, pos, ids,
+                                                        n_total, cfg),
+                                    cfg.softening_sq)
         return _replicate(lo, mesh), _replicate(hi, mesh)
 
 
@@ -955,6 +979,12 @@ def _capture(mesh: ParticleMesh, fn):
     return graph, pools, counts
 
 
+# hopper_nbody's registries of device counters that a tick's kernels
+# write (the pruned bounds pass's fallbacks, the int table's, the max
+# fold's tickets): a graph holds the tensors it captured.
+_GRAPH_COUNTERS = (hn.BOUNDS_FALLBACKS, hn.INT_CHAIN_FALLBACKS, hn.TICKETS)
+
+
 class _TickGraphs:
     """A CUDA mesh's entry force and one tick as two CUDA graphs over
     static per-shard buffers: the carry's p, v and a, and the G*m and ids
@@ -963,7 +993,9 @@ class _TickGraphs:
     copies its state in, replays the entry force, then one graph a tick.
     Each replay adds the counts of the eager pass it stands for to
     LAUNCHES and TRAFFIC, and records ``nbody.force`` / ``nbody.tick``
-    (the spans inside a tick are recorded by the eager runs only)."""
+    (the spans inside a tick are recorded by the eager runs only). The
+    graphs keep the device counters they write alive, and are captured
+    anew once a registry no longer holds one (cleared since)."""
 
     _cache: dict = {}
 
@@ -971,7 +1003,9 @@ class _TickGraphs:
     def get(cls, key, mesh, force, one_step, pos, vel, gm, ids):
         """The graphs of this layout, captured now if they are not kept;
         None (with a warning, eager ticks then) where the capture fails."""
-        if key not in cls._cache:
+        kept = cls._cache.get(key)
+        if key not in cls._cache or (kept is not None
+                                     and not kept.counters_current()):
             cls._cache.clear()
             try:
                 cls._cache[key] = cls(mesh, force, one_step, pos, vel, gm,
@@ -1004,6 +1038,14 @@ class _TickGraphs:
 
         self.entry = _capture(mesh, entry)
         self.tick = _capture(mesh, tick)
+        self.counters = [dict(r) for r in _GRAPH_COUNTERS]
+
+    def counters_current(self) -> bool:
+        """Whether every device counter the graphs write is still the one
+        its registry holds."""
+        return all(r.get(k) is t for r, held in zip(_GRAPH_COUNTERS,
+                                                     self.counters)
+                   for k, t in held.items())
 
     def _join(self, into_home: bool) -> None:
         """Order the home card's current stream after every other card's

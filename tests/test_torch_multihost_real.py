@@ -87,6 +87,23 @@ def test_processes_match_the_single_process_bit_for_bit(layout_results):
             assert r[key] == single[key], key
 
 
+def test_processes_keep_the_full_bounds_ring_pass(layout_results):
+    """Across processes the int4 bounds take the max ring pass, not the
+    pruned pass on the home device that one controller takes: no pruned
+    pass counted, S//2 rotations of positions and of masks more a pass
+    than the one controller makes, the same kernel launches (none on the
+    CPU)."""
+    n, k, _, results, single = layout_results
+    passes = multihost_check.SHORT_STEPS + 1   # the entry force, each tick
+    assert single["traffic"]["int4"]["bounds_passes"] == passes
+    for r in results:
+        assert r["traffic"]["int4"]["bounds_passes"] == 0
+        assert (r["traffic"]["int4"]["rotations"]
+                == single["traffic"]["int4"]["rotations"]
+                + passes * 2 * (n * k // 2))
+        assert r["launches"] == single["launches"]
+
+
 def test_hash_agreement_and_mismatch(layout_results):
     """Agreement on identical state; a perturbation local to process 1 is
     seen by every process."""

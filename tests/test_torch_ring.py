@@ -172,6 +172,64 @@ def test_ring_max_d2_matches_jax_and_single_device(n_shards):
                               np.nextafter(want, np.float32(0))), (g, want)
 
 
+@functools.lru_cache(maxsize=None)
+def _bounds_case(state, n_shards):
+    """(n, positions, JAX's ring max) past PRUNED_CANDIDATES, with the
+    phantoms _n gives (1032 is 0 mod 2, 3 and 4)."""
+    n = hn.PRUNED_CANDIDATES + 8 + _n(n_shards)
+    pos = _bounds_positions(state, n)
+    return n, pos, _jax_ring_max(pos, n, n_shards)
+
+
+def _bounds_positions(state, n):
+    """The disk (JAX's ICs), whose largest radii hold the diameter; a thin
+    shell of radius 5 and a coincident cloud, where every point is a
+    candidate and the pruned pass must fall back."""
+    if state == "disk":
+        return _ics(n)[0]
+    if state == "shell":
+        th = np.linspace(0.0, 2.0 * np.pi, n, endpoint=False)
+        return (5.0 * np.stack([np.cos(th), np.sin(th)], 1)).astype(
+            np.float32)
+    return np.tile(np.float32([1.5, -2.0]), (n, 1))
+
+
+@pytest.mark.parametrize("state", ["disk", "shell", "cloud"])
+@pytest.mark.parametrize("schedule", ["sym", "rows"])
+@pytest.mark.parametrize("n_shards", [1, 2, 3, 4])
+def test_ring_bounds_take_the_pruned_pass_on_the_home_device(
+        n_shards, schedule, state, monkeypatch):
+    """Past PRUNED_CANDIDATES, with phantoms as _n gives them: the ring's
+    bound, the pruned pass on the gathered positions, is bitwise the
+    single-device max_d2 of the real particles + eps^2 (and JAX's ring
+    pass), its log grid that of the single-device max on every shard, in
+    both schedules; every pass counts in TRAFFIC["bounds_passes"], and
+    BOUNDS_FALLBACKS counts exactly those whose candidates fell short
+    (the shell and the cloud), and no pair_max pass runs."""
+    n, pos, jax_max = _bounds_case(state, n_shards)
+    mesh, q = _mesh(n_shards), tp.Quantizer.from_string("int4")
+    padded, _, _, ids = ring._padded(_t(pos), None, torch.ones(n), mesh)
+    pos_l, ids_l = ring._shards(padded, mesh), ring._shards(ids, mesh)
+    hn.BOUNDS_FALLBACKS.clear()
+    ring.TRAFFIC["bounds_passes"] = 0
+    monkeypatch.setattr(hn, "pair_max", lambda *a, **k: pytest.fail(
+        "a pair_max pass ran"))
+    got = ring._ring_bounds_max(mesh, pos_l, ids_l, n, CFG)
+    want = hn.max_d2(_t(pos)) + CFG.softening_sq
+    assert torch.equal(got, want)
+    g = np.float32(got)
+    assert g == jax_max or g in (np.nextafter(jax_max, np.float32(np.inf)),
+                                 np.nextafter(jax_max, np.float32(0)))
+    lo, hi = ring._ring_log_bounds(mesh, pos_l, ids_l, n, q, CFG)
+    want_lo, want_hi = tp.dist_sq_log_bounds(q, want, CFG.softening_sq)
+    assert all(torch.equal(x, want_lo) for x in lo)
+    assert all(torch.equal(x, want_hi) for x in hi)
+    ring.ring_accelerations(_t(pos), torch.full((n,), 1.0 / n), q, CFG,
+                            mesh, schedule=schedule)
+    assert ring.TRAFFIC["bounds_passes"] == 3
+    assert hn.bounds_fallbacks("cpu") == (0 if state == "disk" else 3)
+
+
 @pytest.mark.parametrize("compensated", [False, True])
 @pytest.mark.parametrize("n_shards", [1, 2, 3, 4])
 def test_ring_potential_energy_matches_jax(n_shards, compensated):

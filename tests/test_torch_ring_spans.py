@@ -6,9 +6,10 @@ A history on the ring records the single-device loop's spans
 ``nbody.snapshot``, ``nbody.to_host``) and the ring's own
 (``nbody.ring.rotate``, ``nbody.ring.reduce``, ``nbody.ring.energy``); with
 no profiler a span is one shared null context, and spans change no bit of
-a run. ``ring.TRAFFIC`` counts one tick's rotations, reduces and moved
-bytes as the sym schedule's formulas in S, N and D give them, the same on
-a virtual mesh as on S cards, and no byte crosses a device on one device.
+a run. ``ring.TRAFFIC`` counts one tick's rotations, reduces, moved bytes
+and bounds passes as the sym schedule's formulas in S, N and D give them,
+on either side of PRUNED_CANDIDATES, the same on a virtual mesh as on S
+cards, and no byte crosses a device on one device.
 """
 
 import numpy as np
@@ -66,21 +67,24 @@ def _reset():
 
 def _per_tick(shards: int, n: int, dim: int) -> dict:
     """One int4 tick of the sym schedule with exact bounds, N % S == 0,
-    written out: the max pass rotates positions and masks S//2 times, the
-    force pass positions, G m, ids and reactions S//2 times and the
-    reactions once more home; the bounds pass reduces its max and
-    replicates lo and hi, the force quantization reduces and replicates
-    its min and max (4-byte scalars)."""
+    written out: the bounds pass gathers the positions onto the home
+    device (the pruned pass runs there, on either side of
+    PRUNED_CANDIDATES) and replicates lo and hi; the force pass rotates
+    positions, G m, ids and reactions S//2 times and the reactions once
+    more home; the force quantization reduces and replicates its min and
+    max (4-byte scalars)."""
     h = shards // 2
-    return {"rotations": 2 * h + 4 * h + 1, "reduces": 3,
-            "moved_bytes": (h * n * (4 * dim + 1) + h * n * (8 * dim + 8)
-                            + 4 * n * dim + 7 * (shards - 1) * 4),
-            "moved_bytes_peer": 0}
+    return {"rotations": 4 * h + 1, "reduces": 2,
+            "moved_bytes": ((shards - 1) * (n // shards) * 4 * dim
+                            + h * n * (8 * dim + 8) + 4 * n * dim
+                            + 6 * (shards - 1) * 4),
+            "moved_bytes_peer": 0, "bounds_passes": 1}
 
 
+@pytest.mark.parametrize("n", [N, 1104])
 @pytest.mark.parametrize("shards", [2, 3, 4])
-def test_one_tick_moves_what_the_schedule_says(shards):
-    state = make_state(*_ics(), "cpu")
+def test_one_tick_moves_what_the_schedule_says(shards, n):
+    state = make_state(*_ics(n), "cpu")
     q, cfg = Quantizer.from_string("int4"), SimConfig()
     mesh = ring.ParticleMesh.virtual(shards, "cpu")
 
@@ -91,7 +95,7 @@ def test_one_tick_moves_what_the_schedule_says(shards):
         return dict(ring.TRAFFIC)
 
     one, two = run(1), run(2)
-    assert {k: two[k] - one[k] for k in one} == _per_tick(shards, N, 2)
+    assert {k: two[k] - one[k] for k in one} == _per_tick(shards, n, 2)
 
 
 def test_a_history_records_each_span():
