@@ -61,7 +61,6 @@ SIGNATURES = {
     },
     "max_dist_sq": {
         "nbody_max_d2": [_P, _I, _I, _P, _P, _P, _I, _P, _I, _P, _P],
-        "nbody_pair_max": [_P, _P, _I, _P, _P, _I, _I, _P, _I, _P, _P],
         "nbody_pair_max_tiled": [_P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P,
                                  _P],
         "nbody_pair_max_geometry": [],
@@ -70,8 +69,6 @@ SIGNATURES = {
         "nbody_max_d2_tiled_resident": [_I],
     },
     "row_force": {
-        "nbody_row_force": [_P, _I, _P, _P, _I, _P, _I, _I, _I, _F, _F, _I,
-                            _P, _P],
         "nbody_row_force_tiled": [_P, _I, _P, _P, _I, _P, _I, _I, _I, _F, _F,
                                   _I, _I, _P, _P, _P],
         "nbody_row_force_geometry": [],
@@ -94,7 +91,6 @@ SIGNATURES = {
         "nbody_pair_pe_tiled_resident": [_I],
     },
     "pm_deposit": {
-        "nbody_pm_deposit": [_P, _P, _P, _P, _P, _I, _I, _P],
         "nbody_pm_deposit_runs": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
                                   _P],
     },

@@ -12,12 +12,9 @@
 // pairs I <= J in a grid-stride loop (thread per receiver row, source tile
 // staged in shared memory), each block keeps its running max and stores
 // it, and the block that takes the last integer ticket takes the max of
-// those values in the same launch and resets the ticket. Max is exact, so
-// the result does not depend on the order and is bitwise the plain
-// version's. The earlier schedule, max_d2_tiles over all T x T pairs of
-// 256-point tiles and then max_d2_reduce (both helpers in max_reduce.cuh,
-// shared with sym_force.cu's fused max and pair_max), stays reachable
-// (a null ticket) to compare the two.
+// those values in the same launch and resets the ticket (fold_by_ticket,
+// max_reduce.cuh). Max is exact, so the result does not depend on the
+// order and is bitwise the plain version's.
 //
 // d^2 is subtract-form and never contracted into an FMA:
 // __fadd_rn(__fmul_rn(dx,dx), __fmul_rn(dy,dy)) (+ dz^2), op for op what
@@ -29,7 +26,7 @@
 // launches the full set unconditionally and lets the device decide
 // whether the candidates already sufficed, so the step never waits on the
 // host. With 256-point tiles a skipped launch over 5000 points reads the
-// flag in 210 blocks (the earlier schedule: 400, then a second launch).
+// flag in 210 blocks.
 // `count` (nullable, on the device) gains 1 whenever the launch ran, so a
 // run can read afterwards how often the pruned pass took its full-set
 // fallback.
@@ -48,27 +45,15 @@
 // the fixed costs of a launch set its time, hence one launch that spreads
 // over the card.
 //
-// Two sets: nbody_pair_max replaces _pair_max_kernel / pallas_pair_max
-// (TPU kernel #9), the tile of the multi-device ring's bounds pass: the
-// max of raw d^2 over every (receiver, source) pair of two sets, where a
-// pair counts only if both ends are valid (the TPU kernel multiplies d^2
-// by v_i * v_j; d^2 >= 0 and the max starts at 0, so skipping an invalid
-// pair is the same). It is an entry here rather than a file of its own
-// because it is this kernel on two sets: the same tile walk over all
-// Ta x Tb tile pairs instead of the upper triangle, the same capped grid,
-// and the same per-block maxima and reduction, so its max of one set
-// against itself, all valid, is bitwise max_d2's. What bounds it is the
-// same: ~6 fp32 ops per pair, na * nb pairs (the ring's pass visits
-// S * (S/2 + 1) shard pairs, N^2 / 2 pairs and more in all). That design
-// (pair_max_tiles, then max_d2_reduce; nbody_pair_max) stays reachable
-// through the wrapper's parent=True.
-//
-// The register-tiled design (pair_max_tiled; nbody_pair_max_tiled), the
-// wrapper's default. The first design took two launches, a thread held one
-// receiver and reloaded it from device memory for every tile pair of its
-// walk, and every pair passed a validity branch: 7.79 ms at 131072^2
-// against max_d2's 2.19 for half the pairs, ~1.8x slower a pair
-// (PERF.md). What this one does about each:
+// Two sets: nbody_pair_max_tiled replaces _pair_max_kernel /
+// pallas_pair_max (TPU kernel #9), the tile of the multi-device ring's
+// bounds pass: the max of raw d^2 over every (receiver, source) pair of two
+// sets, where a pair counts only if both ends are valid (the TPU kernel
+// multiplies d^2 by v_i * v_j; d^2 >= 0 and the max starts at 0, so
+// skipping an invalid pair is the same). Its max of one set against
+// itself, all valid, is bitwise max_d2's. What bounds it: ~6 fp32 ops per
+// pair, na * nb pairs (the ring's pass visits S * (S/2 + 1) shard pairs,
+// N^2 / 2 pairs and more in all). The design (pair_max_tiled):
 //   * one launch: each block stores its max and the block that takes the
 //     last ticket folds them (fold_by_ticket, as max_d2_single does; the
 //     ticket is max_d2's, hopper_nbody.TICKETS);
@@ -114,52 +99,11 @@ namespace {
 
 constexpr int MT = MAX_RT;
 
-template <int D>
-__global__ void __launch_bounds__(MT)
-max_d2_tiles(const float* __restrict__ pos, int n, const int* __restrict__ skip,
-             float* __restrict__ block_max) {
-  if (skip != nullptr && *skip != 0) return;
-  const int t = threadIdx.x;
-  const long long T = (n + MT - 1) / MT;
-  __shared__ float xj_s[D][MT];
-  float best = 0.f;
-  for (long long p = blockIdx.x; p < T * T; p += gridDim.x) {
-    const int I = (int)(p / T);
-    const int J = (int)(p % T);
-    if (I > J) continue;  // block-uniform
-    const int j0 = J * MT;
-    const int jcnt = min(MT, n - j0);
-    __syncthreads();  // the previous pair's readers are done with xj_s
-    if (t < jcnt) {
-#pragma unroll
-      for (int d = 0; d < D; ++d) xj_s[d][t] = pos[(size_t)(j0 + t) * D + d];
-    }
-    __syncthreads();
-    const int i = I * MT + t;
-    if (i < n) {
-      float xi[D];
-#pragma unroll
-      for (int d = 0; d < D; ++d) xi[d] = pos[(size_t)i * D + d];
-      for (int j = 0; j < jcnt; ++j) {
-        const float dx0 = __fsub_rn(xj_s[0][j], xi[0]);
-        float d2 = __fmul_rn(dx0, dx0);
-#pragma unroll
-        for (int d = 1; d < D; ++d) {
-          const float dx = __fsub_rn(xj_s[d][j], xi[d]);
-          d2 = __fadd_rn(d2, __fmul_rn(dx, dx));
-        }
-        best = fmaxf(best, d2);
-      }
-    }
-  }
-  store_block_max<MT>(best, block_max + blockIdx.x);
-}
-
 // The single launch: tiles of S receivers and S sources, a grid of at most
 // `capacity` blocks walking the T (T + 1) / 2 tile pairs I <= J (J-major,
-// tri_tile), each pair's d^2 formed op for op as in max_d2_tiles; then each
-// block stores its max, takes an integer ticket, and the block that takes
-// the last one folds the per-block maxima into out (max is exact: any
+// tri_tile), each pair's d^2 subtract-form as above; then each block
+// stores its max, takes an integer ticket, and the block that takes the
+// last one folds the per-block maxima into out (max is exact: any
 // block, any order, the same bits), counts the run and leaves the ticket 0.
 // A skipped launch returns at once in every block; block 0 writes the 0.
 template <int D, int S>
@@ -222,54 +166,6 @@ void launch_single(const float* pos, int n, int tile, const int* skip,
                                            ticket, out);
 }
 
-// One block's max of pair d^2 over valid pairs of receivers pa (validity
-// va) and sources pb (validity vb); tile pairs walked as in max_d2_tiles,
-// all Ta x Tb of them.
-template <int D>
-__global__ void __launch_bounds__(MT)
-pair_max_tiles(const float* __restrict__ pa, const unsigned char* __restrict__ va,
-               int na, const float* __restrict__ pb,
-               const unsigned char* __restrict__ vb, int nb,
-               float* __restrict__ block_max) {
-  const int t = threadIdx.x;
-  const long long Ta = (na + MT - 1) / MT;
-  const long long Tb = (nb + MT - 1) / MT;
-  __shared__ float xj_s[D][MT];
-  __shared__ unsigned char vj_s[MT];
-  float best = 0.f;
-  for (long long p = blockIdx.x; p < Ta * Tb; p += gridDim.x) {
-    const int I = (int)(p / Tb);
-    const int J = (int)(p % Tb);
-    const int j0 = J * MT;
-    const int jcnt = min(MT, nb - j0);
-    __syncthreads();  // the previous pair's readers are done with xj_s
-    if (t < jcnt) {
-#pragma unroll
-      for (int d = 0; d < D; ++d) xj_s[d][t] = pb[(size_t)(j0 + t) * D + d];
-      vj_s[t] = vb[j0 + t];
-    }
-    __syncthreads();
-    const int i = I * MT + t;
-    if (i < na && va[i]) {
-      float xi[D];
-#pragma unroll
-      for (int d = 0; d < D; ++d) xi[d] = pa[(size_t)i * D + d];
-      for (int j = 0; j < jcnt; ++j) {
-        if (!vj_s[j]) continue;
-        const float dx0 = __fsub_rn(xj_s[0][j], xi[0]);
-        float d2 = __fmul_rn(dx0, dx0);
-#pragma unroll
-        for (int d = 1; d < D; ++d) {
-          const float dx = __fsub_rn(xj_s[d][j], xi[d]);
-          d2 = __fadd_rn(d2, __fmul_rn(dx, dx));
-        }
-        best = fmaxf(best, d2);
-      }
-    }
-  }
-  store_block_max<MT>(best, block_max + blockIdx.x);
-}
-
 // The register-tiled pair_max (pair_max_tiled), one launch.
 constexpr int PM_R = 4;                      // receivers a thread
 constexpr int PM_THREADS = 128;              // threads a block
@@ -306,7 +202,7 @@ __device__ __forceinline__ PmVec<D> pm_load(const float* __restrict__ p,
 // Receiver block b = blockIdx.x (receivers b 512 + 128 r + t, r = 0..3, in
 // registers) against segment S = blockIdx.y (source tiles S seg .. S seg +
 // seg - 1, each staged once, double-buffered, one barrier a tile); each
-// pair's raw d^2 as max_d2_tiles forms it, into one running max a
+// pair's raw d^2 as max_d2_single forms it, into one running max a
 // receiver; then the fold by ticket over the gridDim.x gridDim.y blocks.
 template <int D>
 __global__ void __launch_bounds__(PM_THREADS)
@@ -431,65 +327,33 @@ max_d2_tiled(const float* __restrict__ pos, int n,
 }  // namespace
 
 // pos (n, dim) f32 on the device; skip, count: nullable device ints;
-// block_max: scratch of `capacity` floats; out: one float, the raw max d^2
-// (0 when skipped). `ticket` (nullable; one device int, 0) takes the
-// single launch with tiles of `tile` (64 or 256) points and leaves it 0;
-// null takes the two-launch schedule (max_d2_tiles, then max_d2_reduce).
-// Returns cudaGetLastError().
+// block_max: scratch of `capacity` floats; ticket: one device int, 0, left
+// 0; out: one float, the raw max d^2 (0 when skipped). The single launch
+// with tiles of `tile` (64 or 256) points. Returns cudaGetLastError().
 extern "C" int nbody_max_d2(const float* pos, int n, int dim, const int* skip,
                             int* count, float* block_max, int capacity,
                             int* ticket, int tile, float* out, void* stream) {
   if (n <= 0 || (dim != 2 && dim != 3) || capacity <= 0 ||
-      (ticket != nullptr && tile != 64 && tile != MT))
+      ticket == nullptr || (tile != 64 && tile != MT))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ticket != nullptr) {
-    if (dim == 2)
-      launch_single<2>(pos, n, tile, skip, count, block_max, capacity, ticket,
-                       out, s);
-    else
-      launch_single<3>(pos, n, tile, skip, count, block_max, capacity, ticket,
-                       out, s);
-    return (int)cudaGetLastError();
-  }
-  const long long T = (n + MT - 1) / MT;
-  const int nb = (int)(T * T < capacity ? T * T : capacity);
   if (dim == 2)
-    max_d2_tiles<2><<<nb, MT, 0, s>>>(pos, n, skip, block_max);
+    launch_single<2>(pos, n, tile, skip, count, block_max, capacity, ticket,
+                     out, s);
   else
-    max_d2_tiles<3><<<nb, MT, 0, s>>>(pos, n, skip, block_max);
-  max_d2_reduce<<<1, MT, 0, s>>>(block_max, nb, skip, count, out);
+    launch_single<3>(pos, n, tile, skip, count, block_max, capacity, ticket,
+                     out, s);
   return (int)cudaGetLastError();
 }
 
 // Receivers pa (na, dim), sources pb (nb, dim) f32; va (na,), vb (nb,)
-// validity bytes (0 or 1); block_max: scratch of `capacity` floats; out:
-// one float, the max raw d^2 over valid pairs (0 if there is none). All on
-// the device. Returns cudaGetLastError().
-extern "C" int nbody_pair_max(const float* pa, const unsigned char* va, int na,
-                              const float* pb, const unsigned char* vb, int nb,
-                              int dim, float* block_max, int capacity,
-                              float* out, void* stream) {
-  if (na <= 0 || nb <= 0 || (dim != 2 && dim != 3) || capacity <= 0)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long pairs =
-      (long long)((na + MT - 1) / MT) * ((nb + MT - 1) / MT);
-  const int grid = (int)(pairs < capacity ? pairs : capacity);
-  if (dim == 2)
-    pair_max_tiles<2><<<grid, MT, 0, s>>>(pa, va, na, pb, vb, nb, block_max);
-  else
-    pair_max_tiles<3><<<grid, MT, 0, s>>>(pa, va, na, pb, vb, nb, block_max);
-  max_d2_reduce<<<1, MT, 0, s>>>(block_max, grid, nullptr, nullptr, out);
-  return (int)cudaGetLastError();
-}
-
-// The register-tiled design: the same sets as nbody_pair_max, seg >= 1
-// source tiles (of PM_TILE) a segment, nseg = ceil(ceil(nb / PM_TILE) /
-// seg) segments, grid (ceil(na / PM_RW), nseg); block_max: scratch of one
-// float a block; ticket: one device int, 0, left 0 (shared with
-// nbody_max_d2's single launch: the two must run on one stream). One
-// launch. Returns cudaGetLastError().
+// validity bytes (0 or 1), all on the device; seg >= 1 source tiles (of
+// PM_TILE) a segment, nseg = ceil(ceil(nb / PM_TILE) / seg) segments,
+// grid (ceil(na / PM_RW), nseg); block_max: scratch of one float a block;
+// ticket: one device int, 0, left 0 (shared with nbody_max_d2's single
+// launch: the two must run on one stream); out: one float, the max raw d^2
+// over valid pairs (0 if there is none). One launch. Returns
+// cudaGetLastError().
 extern "C" int nbody_pair_max_tiled(const float* pa, const unsigned char* va,
                                     int na, const float* pb,
                                     const unsigned char* vb, int nb, int dim,

@@ -1,14 +1,17 @@
 // The fixed reduction of per-block maxima of raw d^2, shared by
-// max_dist_sq.cu (max_d2, pair_max) and sym_force.cu's fused max.
+// max_dist_sq.cu (max_d2, pair_max), sym_force.cu's fused max and the
+// one-pass body's (one_pass.cuh).
 //
 // A kernel keeps each block's running max and stores it with
-// store_block_max; max_stage folds any number of such values into at most
-// `capacity` per-block maxima (a capped grid-stride loop); max_d2_reduce
-// takes the max of those in one block. The one-launch kernels (max_d2's
-// single launch, pair_max's register-tiled one and the one-pass sym_force's
-// fused max) fold theirs in the block that takes the last ticket instead
-// (fold_by_ticket). Max is exact, so the result does not depend on the
-// order: the fused max of sym_force is bitwise max_d2's.
+// store_block_max. The one-launch kernels (max_d2's single and
+// register-tiled launches, pair_max's register-tiled one and the one-pass
+// sym_force's fused max) fold theirs in the block that takes the last
+// ticket (fold_by_ticket). sym_force.cu's fused max on the T x T grid
+// stores one max a tile pair instead: max_stage folds any number of such
+// values into at most `capacity` per-block maxima (a capped grid-stride
+// loop), and max_d2_reduce takes the max of those in one block. Max is
+// exact, so the result does not depend on the order: the fused max of
+// sym_force is bitwise max_d2's.
 
 #pragma once
 
@@ -16,7 +19,8 @@
 
 namespace {
 
-// Threads of max_stage and max_d2_reduce (and of max_dist_sq.cu's tiles).
+// Threads of max_stage and max_d2_reduce (and of max_dist_sq.cu's
+// 256-point tile).
 constexpr int MAX_RT = 256;
 
 // *slot = the max of `best` over the block's NT threads (thread 0 writes).

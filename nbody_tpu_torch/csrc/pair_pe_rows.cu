@@ -33,9 +33,9 @@
 // the sources' (D + 2) words each.
 //
 // The register-tiled design (pair_pe_tiled; nbody_pair_pe_rows_tiled), the
-// wrapper's route past 16384 receivers (hopper_nbody.pe_design). The first
+// wrapper's route past 16384 receivers (hopper_nbody.pe_design). The
 // design above (pair_pe_rows_kernel; nbody_pair_pe_rows, every smaller
-// launch and parent=True) spends four shared loads a pair (x, y, m, id) and
+// launch) spends four shared loads a pair (x, y, m, id) and
 // an integer compare and branch, `idj_s[j] == idi`, on every pair: 15.2 ms
 // at 131072^2 against the register-tiled row sweep's 8.9 over the same
 // pairs with more arithmetic (PERF.md). What this one does about each:

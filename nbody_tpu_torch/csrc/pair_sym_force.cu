@@ -56,7 +56,7 @@
 //      reaction partials (Tb, TI, 64, D), TI = ceil(Ta / 4), 4x smaller,
 //      stored negated so that reduce_partials sums both as above.
 // Which launch takes it: hopper_nbody.uniform_design of the receiver tiles
-// (T > 256) and (mode family, D); parent=True takes the tile above. A
+// (T > 256); smaller sets take the tile above. A
 // ragged last receiver tile (Ta not a multiple of 4: 209728 is 3277 tiles)
 // skips its rows past na, so every multiple of BT is served. An int launch
 // of up to hopper_nbody.INT_TABLE_MAX_LEVELS levels runs the table
@@ -73,9 +73,8 @@
 // (pair_ops "sym_gm"), against ~21 plus the w tile's store and reload on
 // the two-pass tile below. No scale in the reduction. The same rule routes
 // it (hopper_nbody.pair_design, uniform or not): both sets multiples of
-// BT, more than 256 receiver tiles and (mode family, D) in ONE_PASS_ROUTES;
-// ragged or phantom sets (the ring's 131075) keep the two-pass tile, and
-// parent=True reaches it.
+// BT and more than 256 receiver tiles; ragged or phantom sets (the ring's
+// 131075) keep the two-pass tile.
 //
 // Requires eps^2 > 0 (bounds[2]), as the TPU kernel does: the sets are
 // disjoint, so no pair is masked, and a coincident pair at zero softening

@@ -50,10 +50,6 @@
 // or the longest run's chain of dependent FADDs (~4 cycles each at the SM
 // clock), whichever is larger: an order-preserving sum of one cell cannot
 // be split.
-//
-// The parent (first) design stays reachable as nbody_pm_deposit: a thread
-// a cell, each block binary-searching its range of sorted keys, each
-// thread walking its cell's run one dependent load pair an add.
 
 #include <cuda_runtime.h>
 
@@ -61,7 +57,6 @@
 
 namespace {
 
-constexpr int DB = 256;   // parent: cells (threads) a block
 constexpr int FB = 256;   // fill: threads a block
 constexpr int FILL_PER_SM = 16;
 constexpr int RB = 256;   // run pass: sorted particles (threads) a block
@@ -72,44 +67,6 @@ constexpr int PER = 4;                    // weights a stager a piece
 constexpr int PIECE = STAGERS * PER;      // 896, a multiple of 8
 constexpr int PAD = 8;                    // the adder's look-ahead reads
 constexpr int LONG_PER_SM = 8;            // 2048 threads a SM / LB
-
-// ---------------------------------------------------------------- parent
-
-// First index in [lo, hi) whose key is >= target (hi if none).
-__device__ __forceinline__ int lower_bound(const int* __restrict__ keys,
-                                           int lo, int hi, long long target) {
-  while (lo < hi) {
-    const int mid = lo + ((hi - lo) >> 1);
-    if ((long long)keys[mid] < target)
-      lo = mid + 1;
-    else
-      hi = mid;
-  }
-  return lo;
-}
-
-__global__ void __launch_bounds__(DB)
-    pm_deposit_cells(const int* __restrict__ keys,
-                     const long long* __restrict__ perm,
-                     const float* __restrict__ w,
-                     const float* __restrict__ prev, float* __restrict__ out,
-                     int n, int cells) {
-  __shared__ int range[2];
-  const long long c0 = (long long)blockIdx.x * DB;
-  if (threadIdx.x < 2)
-    range[threadIdx.x] = lower_bound(keys, 0, n, c0 + threadIdx.x * DB);
-  __syncthreads();
-  const long long c = c0 + threadIdx.x;
-  if (c >= cells) return;
-  const int hi = range[1];
-  float s = 0.0f;
-  for (int k = lower_bound(keys, range[0], hi, c); k < hi && keys[k] == c;
-       ++k)
-    s = __fadd_rn(s, w[perm[k]]);
-  out[c] = prev != nullptr ? __fadd_rn(prev[c], s) : s;
-}
-
-// ------------------------------------------------------ run-centric design
 
 // out = 0 or prev + 0 over `cells` cells (none when accumulating), float4
 // at a time where both pointers are 16-byte aligned; zeroes the counter.
@@ -304,21 +261,9 @@ cudaError_t sm_count(int* sms) {
 
 }  // namespace
 
-// The parent design. keys: n int32 cell keys sorted stably; perm: the n
-// int64 indices that sort them (torch.sort's); w: n f32 weights in
-// particle order; prev: `cells` f32 or null; out: `cells` f32 (may not
-// alias prev). Launches on `stream`; returns the CUDA error of the launch.
-extern "C" int nbody_pm_deposit(const int* keys, const long long* perm,
-                                const float* w, const float* prev, float* out,
-                                int n, int cells, void* stream) {
-  if (n < 0 || cells <= 0) return (int)cudaErrorInvalidValue;
-  const int blocks = (int)(((long long)cells + DB - 1) / DB);
-  pm_deposit_cells<<<blocks, DB, 0, static_cast<cudaStream_t>(stream)>>>(
-      keys, perm, w, prev, out, n, cells);
-  return (int)cudaGetLastError();
-}
-
-// The run-centric design, the same arguments and contract, plus: long_run
+// keys: n int32 cell keys sorted stably; perm: the n int64 indices that
+// sort them (torch.sort's); w: n f32 weights in particle order; prev:
+// `cells` f32 or null; out: `cells` f32 (may not alias prev); long_run
 // (R >= 1), the longest run a thread sums; accumulate: add into out in
 // place (prev null), touching only occupied cells; scratch: int32 of
 // 1 + ceil(n / (R + 1)), the long-run count then the work list. Launches

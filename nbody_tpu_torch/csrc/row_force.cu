@@ -21,35 +21,21 @@
 // diff = 0, an exact zero term, and the ring gives zero softening's
 // diagonal block to the self-masked one-set form.
 //
-// The earlier design (row_force_kernel, parent=True): one thread per
-// receiver row, RB rows per block. The block walks all sources in tiles of
-// RB staged in shared memory, j ascending; each tile's terms are summed
-// with fmaf in registers and the tile sum is then added to the row: a
-// fixed order, so two runs give the same bits. The
-// two-level sum keeps the rounding error near that of the sym kernel's
-// per-tile partials: one fmaf chain over all N terms rounded ~5x worse
-// where terms cancel (softening 0.05, N = 5000), beyond the plain
-// version's tolerance. A ragged tail is handled by counts, with no padded
-// pairs.
-//
 // Numerics: csrc/nbody_common.cuh.
 //
-// What bounds either design on the H100: arithmetic, N^2 pair evaluations
-// (twice the sym kernel's N^2 / 2) of 14 fp32 ops (D = 2 float32) plus an
-// rsqrt (float modes) or a logf + expf (int modes). Every thread of a
-// block reads the same source from shared memory (a broadcast); device
-// memory sees N / RB passes over the (N, D) positions and G*m, which at
-// N = 1M is ~16 MB a pass, held in the 50 MB L2. Receivers and sources are
-// separate pointers and counts, so the two-set form costs nothing over the
-// one-set form.
-
-// The register-tiled design (row_tiled; nbody_row_force_tiled), the
-// wrappers' default since the earlier one-thread-a-receiver kernel above
-// (row_force_kernel; nbody_row_force, reached by parent=True) spent ~23
-// issue slots a pair against the function's ~12 instructions (14 fp32 ops,
-// pair_ops "rows", D = 2 float32): D + 1 shared loads a pair and the
-// self-mask's index test on every pair of every launch, #10's too. What it
-// does about each:
+// What bounds it on the H100: arithmetic, N^2 pair evaluations (twice the
+// sym kernel's N^2 / 2) of 14 fp32 ops (D = 2 float32) plus an rsqrt
+// (float modes) or a logf + expf (int modes). Device memory sees one pass
+// over the (N, D) positions and G*m a receiver block, which at N = 1M is
+// ~16 MB a pass, held in the 50 MB L2. Receivers and sources are separate
+// pointers and counts, so the two-set form costs nothing over the one-set
+// form.
+//
+// The design (row_tiled; nbody_row_force_tiled). A kernel of one thread a
+// receiver spent ~23 issue slots a pair against the function's ~12
+// instructions (14 fp32 ops, pair_ops "rows", D = 2 float32): D + 1 shared
+// loads a pair and the self-mask's index test on every pair of every
+// launch, #10's too. What this one does about each:
 //   * R = ROW_R = 4 receivers a thread, ROW_THREADS = 128 threads a block
 //     (512 receivers: thread t holds b 512 + 128 r + t), in registers with
 //     their sums: one shared load a source serves 4 pairs;
@@ -69,74 +55,19 @@
 //     block writing its rows' segment sums to rpart (ceil(n_i / 512), nseg,
 //     512, D) f32, which reduce_partials sums over the segments in order
 //     (one segment: the block writes the rows themselves, no reduction).
-// The accuracy structure stays: each 128-source tile's terms are summed by
-// fmaf in registers, then added to the row's sum (one long chain fails the
-// plain version's tolerance, as above). A ragged last source tile is
-// padded in shared memory with inert far sentinels (x = 2e18, the TPU
-// kernels' far sentinel, G m = 0: d^2 ~ 8e36 stays finite and its w and
-// its term are 0); receivers past
-// n_i compute and are never written.
+// Each 128-source tile's terms are summed by fmaf in registers, j
+// ascending, then added to the row's sum: a fixed order, so two runs give
+// the same bits. The two-level sum keeps the rounding error near that of
+// the sym kernel's per-tile partials: one fmaf chain over all N terms
+// rounded ~5x worse where terms cancel (softening 0.05, N = 5000), beyond
+// the plain version's tolerance. A ragged last source tile is padded in
+// shared memory with inert far sentinels (x = 2e18, the TPU kernels' far
+// sentinel, G m = 0: d^2 ~ 8e36 stays finite and its w and its term are
+// 0); receivers past n_i compute and are never written.
 
 #include "nbody_common.cuh"
 
 namespace {
-
-constexpr int RB = 128;
-
-template <int MODE, int D>
-__global__ void __launch_bounds__(RB)
-row_force_kernel(const float* __restrict__ pos_i, int n_i,
-                 const float* __restrict__ pos_j, const float* __restrict__ gm,
-                 int n, const float* __restrict__ bounds, int levels,
-                 float arg_cap, float min_d2, int self_masked,
-                 float* __restrict__ out) {
-  __shared__ float xj_s[D][RB];
-  __shared__ float gmj_s[RB];
-  const int t = threadIdx.x;
-  const int i = blockIdx.x * RB + t;
-  const bool live = i < n_i;
-
-  const float soft = bounds[2];
-  IntGrid g{};
-  if (MODE == MODE_INT) g = int_grid(bounds, levels, arg_cap, min_d2);
-
-  float xi[D], acc[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    xi[d] = live ? pos_i[(size_t)i * D + d] : 0.f;
-    acc[d] = 0.f;
-  }
-  for (int j0 = 0; j0 < n; j0 += RB) {
-    const int jcnt = min(RB, n - j0);
-    __syncthreads();  // the previous tile's readers are done
-    if (t < jcnt) {
-#pragma unroll
-      for (int d = 0; d < D; ++d) xj_s[d][t] = pos_j[(size_t)(j0 + t) * D + d];
-      gmj_s[t] = gm[j0 + t];
-    }
-    __syncthreads();
-    if (!live) continue;
-    float part[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) part[d] = 0.f;
-    for (int j = 0; j < jcnt; ++j) {
-      if (self_masked && j0 + j == i) continue;
-      float dx[D];
-#pragma unroll
-      for (int d = 0; d < D; ++d) dx[d] = __fsub_rn(xj_s[d][j], xi[d]);
-      const float w = pair_w<MODE>(__fadd_rn(raw_d2<D>(dx), soft), g);
-      const float fr = __fmul_rn(gmj_s[j], w);
-#pragma unroll
-      for (int d = 0; d < D; ++d) part[d] = fmaf(fr, dx[d], part[d]);
-    }
-#pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] = __fadd_rn(acc[d], part[d]);
-  }
-  if (live) {
-#pragma unroll
-    for (int d = 0; d < D; ++d) out[(size_t)i * D + d] = acc[d];
-  }
-}
 
 constexpr int ROW_R = 4;          // receivers a thread
 constexpr int ROW_THREADS = 128;  // threads a block
@@ -240,32 +171,11 @@ row_tiled(const float* __restrict__ pos_i, int n_i,
 // Receivers pos_i (n_i, dim), sources pos_j (n_j, dim) with gm (n_j,) =
 // G * m, all f32 (pos_i may be pos_j: one set); bounds (3,) f32 =
 // [log_lo, log_hi, eps^2] on the device; out (n_i, dim) f32. self_masked
-// skips source j == receiver i by index. Returns cudaGetLastError().
-extern "C" int nbody_row_force(const float* pos_i, int n_i, const float* pos_j,
-                               const float* gm, int n_j, const float* bounds,
-                               int dim, int mode, int levels, float arg_cap,
-                               float min_d2, int self_masked, float* out,
-                               void* stream) {
-  if (n_i <= 0 || n_j <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int blocks = (n_i + RB - 1) / RB;
-  const bool known = dispatch(mode, dim, [&](auto m, auto d) {
-    constexpr int M = decltype(m)::value;
-    constexpr int DD = decltype(d)::value;
-    row_force_kernel<M, DD><<<blocks, RB, 0, s>>>(
-        pos_i, n_i, pos_j, gm, n_j, bounds, levels, arg_cap, min_d2,
-        self_masked, out);
-  });
-  if (!known) return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
-}
-
-// The register-tiled design: the same arguments as nbody_row_force, plus
-// seg >= 1 source tiles (of ROW_TILE) a segment, nseg = ceil(ceil(n_j /
-// ROW_TILE) / seg) segments, and rpart: (ceil(n_i / ROW_RW), nseg, ROW_RW,
-// dim) f32 scratch, unused (may be null) when nseg == 1. One launch, or two
-// with the fixed-order reduction over the segments. Returns
-// cudaGetLastError().
+// skips source j == receiver i by index. seg >= 1 source tiles (of
+// ROW_TILE) a segment, nseg = ceil(ceil(n_j / ROW_TILE) / seg) segments,
+// and rpart: (ceil(n_i / ROW_RW), nseg, ROW_RW, dim) f32 scratch, unused
+// (may be null) when nseg == 1. One launch, or two with the fixed-order
+// reduction over the segments. Returns cudaGetLastError().
 extern "C" int nbody_row_force_tiled(const float* pos_i, int n_i,
                                      const float* pos_j, const float* gm,
                                      int n_j, const float* bounds, int dim,

@@ -35,8 +35,8 @@
 // Two grids for an unflagged launch (no skip, count or fused max: the
 // engine's tick), the same tile pairs, the same bits:
 //   * the T x T grid (above), whose T (T - 1) / 2 blocks with I > J exit at
-//     once: the earlier design, kept for the flagged and lab variants and
-//     for large T;
+//     once: the flagged and lab variants' grid, and the grid of a ragged
+//     launch at large T;
 //   * the triangular grid (`triangle`; sym_force_tri): one block per tile
 //     pair I <= J. At N=5000 (T = 79) the 3081 empty blocks are ~10% of
 //     the T x T grid's device time; at T in the thousands they cost
@@ -92,9 +92,8 @@
 //      row partials shrink 16x and the reaction partials 4x (0.67 GB at
 //      131072); sym_one_pass_reduce sums them in a fixed order.
 // Which launch takes it: hopper_nbody.sym_design, by uniform_design's
-// fixed rule of (T, mode, D): T > ONE_PASS_MIN_TILES (256, the triangle's
-// edge) and the (mode family, D) in ONE_PASS_ROUTES; parent=True takes the
-// T x T grid of the two-pass tile. An int launch of up to
+// fixed rule of T: T > ONE_PASS_MIN_TILES (256, the triangle's edge), in
+// every mode and D. An int launch of up to
 // hopper_nbody.INT_TABLE_MAX_LEVELS levels runs the body's table instance
 // (one_pass.cuh: the chain's weights from per-launch tables, the same
 // bits, the int4 body at 7.2 ms where the chain took 15.2 at 131072). The same body with G m per particle

@@ -126,7 +126,7 @@ class EdgeCase:
     ops.hopper_nbody, or "chunked", "pruned", "redo" or "ring"), ``route``
     the shape function whose edge it stands on, ``shape`` its sizes
     ((n,), (n_a, n_b), or (n, shards)), ``design`` what the route gives
-    at ``design_shape`` under ``flags`` (its keyword arguments: "parent",
+    at ``design_shape`` under ``flags`` (its keyword arguments:
     "fused_max", "flagged"). ``extra`` holds a case's own options:
     "chunk", "pattern", "schedule", "skip"."""
 
@@ -239,7 +239,7 @@ def route_design(route: str, shape: tuple, dim: int, q: Quantizer,
     if route == "pair_design":
         return hn.pair_design(shape[0], shape[1], dim, q)
     if route == "max_d2_design":
-        return hn.max_d2_design(shape[0], **flags)
+        return hn.max_d2_design(shape[0])
     if route == "pe_design":
         return hn.pe_design(shape[0], shape[1])
     if route == "int_chain_design":
@@ -258,7 +258,7 @@ ROUTE_DESIGNS = {
     "uniform_design": {"one_pass", "two_pass"},
     "sym_design": {"one_pass", "triangle", "square"},
     "pair_design": {"one_pass", "two_pass"},
-    "max_d2_design": {"single_64", "single_256", "tiled", "two_launch"},
+    "max_d2_design": {"single_64", "single_256", "tiled"},
     "pe_design": {"tiled", "per_receiver"},
     "int_chain_design": {"table", "chain"},
     "row_segments": {"one segment", "segments"},
@@ -313,8 +313,8 @@ def edge_cases() -> list:
             modes=int_modes, skip=skip)
     for n in MAX_D2_NS:
         add("max_d2", "max_d2_design", (n,), False)
-    add("max_d2", "max_d2_design", (MAX_D2_NS[0],), False,
-        {"parent": True})
+    # The 64-point tile's edge again, at the ladder's next draw (D=3).
+    add("max_d2", "max_d2_design", (MAX_D2_NS[0],), False)
     for n in PRUNED_NS:
         add("pruned", "max_d2_design", (n,), False)
     for n, chunk in CHUNKED:

@@ -20,12 +20,6 @@ import torch
 from nbody_tpu_torch.config import SimConfig
 from nbody_tpu_torch.ops import hopper_nbody as hn
 
-# Which sum the routed potential energy takes on the card: "kernel" (the
-# route of energy_route) or "plain" (the O(N^2) f64 sum of f32 terms at
-# every N), which an A/B of a whole path sets for that path's run.
-ENERGY_DESIGN = "kernel"
-
-
 # --------------------------------------------------------------------------
 # Energies (reference: simulation.py:170-196)
 # --------------------------------------------------------------------------
@@ -72,9 +66,8 @@ def potential_energy(positions, masses, cfg: SimConfig,
     run-time value)."""
     if softening_sq is None:
         softening_sq = cfg.softening_sq
-    if ENERGY_DESIGN == "kernel" and energy_route(
-            positions.shape[0], positions.device.type,
-            compensated) == "kernel":
+    if energy_route(positions.shape[0], positions.device.type,
+                    compensated) == "kernel":
         return pe_rows_energy(positions, masses, cfg, softening_sq)
     pos = positions.to(torch.float32)
     m = masses.to(torch.float32)

@@ -99,9 +99,10 @@ def bitwise(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def pe_rtol(n_sources: int) -> float:
-    """pair_pe_rows' first design against its plain version, relative to
-    the row: twice the worst-case rounding of its two-level order, 128
-    terms a tile and one add per tile, plus a few ulp for the terms."""
+    """pair_pe_rows' one-thread-a-receiver design against its plain
+    version, relative to the row: twice the worst-case rounding of its
+    two-level order, 128 terms a tile and one add per tile, plus a few ulp
+    for the terms."""
     return 2 * (128 + -(-n_sources // 128) + 4) * 2.0 ** -24
 
 
@@ -114,9 +115,9 @@ def pe_rtol_tiled(n_i: int, n_j: int) -> float:
     return 2 * (128 + seg + nseg + 5) * 2.0 ** -24
 
 
-def pe_bound_rtol(n_i: int, n_j: int, parent: bool = False) -> float:
+def pe_bound_rtol(n_i: int, n_j: int) -> float:
     """The bound of the design a pair_pe_rows launch runs (pe_design)."""
-    if hn.pe_design(n_i, n_j, parent) == "tiled":
+    if hn.pe_design(n_i, n_j) == "tiled":
         return pe_rtol_tiled(n_i, n_j)
     return pe_rtol(n_j)
 

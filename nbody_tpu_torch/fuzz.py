@@ -18,17 +18,16 @@ runs with cfg's softening and again with it as a run-time value (the
 diagonal masked, as the engine's dynamic softening runs it), and holds
 each run (a) against ``forces.dense_accelerations`` on the same device,
 finite everywhere, (b) launch by launch against the kernel's plain
-version on the same inputs, and where a launch has an earlier design
-(``parent=True``), that design too, and (c) against itself run again, bit
-for bit. Then the max pass on the same cloud (``hold_max``). Each mesh
+version on the same inputs, and (c) against itself run again, bit for
+bit. Then the max pass on the same cloud (``hold_max``). Each mesh
 case runs ``ring_accelerations`` under both schedules on
 ``ParticleMesh.virtual(S, device)`` against the dense oracle, and
 ``ring_potential_energy`` within PE_RTOL of ``metrics.potential_energy``
 (``hold_ring``).
 
 ``run_edge_case`` runs one case of the route-edge tier
-(``fuzz_cases.edge_cases``): its kernel in the design its route gives and
-in the parent design, against the plain version and run to run
+(``fuzz_cases.edge_cases``): its kernel in the design its route gives,
+against the plain version and run to run
 (``chip_smoke.py``'s phase fuzz runs every one on the card); an int
 chain's table case (``hold_int_table``) holds the table's route and the
 chain's bit for bit.
@@ -101,36 +100,32 @@ def counterpart(impl: str, pos, m, q, cfg, uniform: bool = False,
 
 
 class Launch(NamedTuple):
-    """One kernel launch of a case: ``run(parent)`` gives its raw results
-    (a tuple), ``plain`` and ``scales`` its plain version's and their
-    summed |terms| on the same inputs; ``has_parent`` whether
-    ``parent=True`` reaches another design; ``stage`` "raw" for a whole
-    evaluation, "tile" for a partial sum (Tally.hold)."""
+    """One kernel launch of a case: ``run()`` gives its raw results (a
+    tuple), ``plain`` and ``scales`` its plain version's and their summed
+    |terms| on the same inputs; ``stage`` "raw" for a whole evaluation,
+    "tile" for a partial sum (Tally.hold)."""
 
     kernel: str
     shape: str
     run: Callable
     plain: tuple
     scales: tuple
-    has_parent: bool
     stage: str
 
 
 def pair_sym_launch(p, g, pj, gj, bounds, q: Quantizer,
                     uniform: bool) -> Launch:
     """One pair_sym_force launch (a tile: rows and reactions)."""
-    k, kj, dim = p.shape[0], pj.shape[0], p.shape[1]
+    k, kj = p.shape[0], pj.shape[0]
     uni = uniform and k % hn.TILE == 0 and kj % hn.TILE == 0
     plain = (hn.pair_sym_force_uniform_plain if uni
              else hn.pair_sym_force_plain)
     return Launch(hn._variant("pair_sym_force", uni), f"{k}x{kj}",
-                  lambda parent: hn.pair_sym_force(
-                      p, g, pj, gj, bounds, q, uniform=uniform,
-                      parent=parent),
+                  lambda: hn.pair_sym_force(p, g, pj, gj, bounds, q,
+                                            uniform=uniform),
                   plain(p, g, pj, gj, bounds, q),
                   (hn.pair_force_term_scale(p, pj, gj, bounds, q),
-                   hn.pair_force_term_scale(pj, p, g, bounds, q)),
-                  hn.pair_design(k, kj, dim, q) == "one_pass", "tile")
+                   hn.pair_force_term_scale(pj, p, g, bounds, q)), "tile")
 
 
 def launches(impl: str, pos, gm, bounds, q, masked: bool, uniform: bool,
@@ -138,18 +133,16 @@ def launches(impl: str, pos, gm, bounds, q, masked: bool, uniform: bool,
     """The kernel launches ``impl`` makes at these inputs: the row sweep;
     sym_force over all N; or the chunked path's sym_force a chunk and
     pair_sym_force a chunk pair."""
-    n, dim = pos.shape
+    n = pos.shape[0]
     if impl == "tiled":
         return []
     if impl in ("pallas_rows", "pallas_streamed") or (
             impl == "pallas_sym_chunked" and masked):
         return [Launch("row_force", f"{n}",
-                       lambda parent: (hn.row_force(pos, gm, bounds, q,
-                                                    masked, parent=parent),),
+                       lambda: (hn.row_force(pos, gm, bounds, q, masked),),
                        (hn.row_force_plain(pos, gm, bounds, q, masked),),
                        (hn.sym_force_term_scale(pos, gm, bounds, q,
-                                                masked),),
-                       hn.ROW_DESIGN == "tiled", "raw")]
+                                                masked),), "raw")]
     if impl == "pallas_sym":
         chunk = n
     spans = [slice(a, min(a + chunk, n)) for a in range(0, n, chunk)]
@@ -161,11 +154,10 @@ def launches(impl: str, pos, gm, bounds, q, masked: bool, uniform: bool,
         plain = hn.sym_force_uniform_plain if uni else hn.sym_force_plain
         out.append(Launch(
             hn._variant("sym_force", uni), f"{k}",
-            lambda parent, p=p, g=g: (hn.sym_force(
-                p, g, bounds, q, masked, uniform=uniform, parent=parent),),
+            lambda p=p, g=g: (hn.sym_force(p, g, bounds, q, masked,
+                                           uniform=uniform),),
             (plain(p, g, bounds, q, masked),),
             (hn.sym_force_term_scale(p, g, bounds, q, masked),),
-            hn.sym_design(k, dim, q) != "square",
             "raw" if len(spans) == 1 else "tile"))
         for sj in spans[i + 1:]:
             out.append(pair_sym_launch(p, g, pos[sj].contiguous(),
@@ -176,18 +168,15 @@ def launches(impl: str, pos, gm, bounds, q, masked: bool, uniform: bool,
 
 def hold_launches(tallies: Tallies, label: str, items: list,
                   q: Quantizer) -> None:
-    """Each launch against its plain version, run to run bit for bit, and
-    its parent design (where it has another) against the plain version."""
+    """Each launch against its plain version and run to run bit for
+    bit."""
     for it in items:
         case = f"{label} [{it.kernel} {it.shape}]"
-        got, again = it.run(False), it.run(False)
+        got, again = it.run(), it.run()
         t = tallies[it.kernel]
         for g, a, w, s in zip(got, again, it.plain, it.scales):
             t.hold(case, g, w, s, q, it.stage)
             t.hold_bitwise(case, g, a, "run to run")
-        if it.has_parent:
-            for g, w, s in zip(it.run(True), it.plain, it.scales):
-                t.hold(case + " parent", g, w, s, q, it.stage)
 
 
 def run_force_case(seed: int, device, tallies: Tallies) -> str:
@@ -227,17 +216,15 @@ def run_force_case(seed: int, device, tallies: Tallies) -> str:
 
 
 def hold_max(tallies: Tallies, label: str, pos, cfg: SimConfig) -> None:
-    """max_d2 in its design and its parent's bitwise the plain max and
-    itself run to run; its skip flag set (zero, no count) and unset (the
-    max, one count); the pruned pass bitwise the full max, run to run, and
-    within MAX_RTOL of forces.max_pairwise_dist_sq."""
+    """max_d2 bitwise the plain max and itself run to run; its skip flag
+    set (zero, no count) and unset (the max, one count); the pruned pass
+    bitwise the full max, run to run, and within MAX_RTOL of
+    forces.max_pairwise_dist_sq."""
     t = tallies["max_d2"]
     want = hn.max_d2_plain(pos)
     got = hn.max_d2(pos)
     t.hold_bitwise(label, got, want, "max_d2_plain")
     t.hold_bitwise(label, hn.max_d2(pos), got, "run to run")
-    t.hold_bitwise(label + " parent", hn.max_d2(pos, parent=True), want,
-                   "max_d2_plain")
     one = torch.ones((), dtype=torch.int32, device=pos.device)
     count = torch.zeros((), dtype=torch.int32, device=pos.device)
     t.hold_bitwise(label + " skipped", hn.max_d2(pos, skip=one, count=count),
@@ -423,7 +410,7 @@ def hold_int_table(case, pos, m, cfg: SimConfig, tallies: Tallies) -> None:
 def hold_pair(case, sets, cfg: SimConfig, tallies: Tallies) -> None:
     """pair_sym_force, pair_force, pair_max or pair_pe_rows at the case's
     two sets (pair_pe_rows: one set where the counts are equal), each
-    against its plain version, its parent design and itself run to run."""
+    against its plain version and itself run to run."""
     q, label = case.q, case.name
     (xi, mi), (xj, mj) = sets
     gi, gj = (cfg.G * mi).contiguous(), (cfg.G * mj).contiguous()
@@ -435,11 +422,9 @@ def hold_pair(case, sets, cfg: SimConfig, tallies: Tallies) -> None:
         lo_hi = (bounds[0], bounds[1]) if q.is_int else (None, None)
         hold_launches(tallies, label, [Launch(
             "pair_force", f"{xi.shape[0]}x{xj.shape[0]}",
-            lambda parent: (hn.pair_force(xi, xj, gj, q, cfg, *lo_hi,
-                                          parent=parent),),
+            lambda: (hn.pair_force(xi, xj, gj, q, cfg, *lo_hi),),
             (hn.pair_force_plain(xi, xj, gj, q, cfg, *lo_hi),),
-            (hn.pair_force_term_scale(xi, xj, gj, bounds, q),),
-            hn.ROW_DESIGN == "tiled", "tile")], q)
+            (hn.pair_force_term_scale(xi, xj, gj, bounds, q),), "tile")], q)
     elif case.kernel == "pair_max":
         t = tallies["pair_max"]
         vi = torch.ones(xi.shape[0], dtype=torch.bool, device=xi.device)
@@ -449,9 +434,6 @@ def hold_pair(case, sets, cfg: SimConfig, tallies: Tallies) -> None:
         got = hn.pair_max(xi, xj, vi, vj)
         t.hold_bitwise(label, got, want, "pair_max_plain")
         t.hold_bitwise(label, hn.pair_max(xi, xj, vi, vj), got, "run to run")
-        t.hold_bitwise(label + " parent", hn.pair_max(xi, xj, vi, vj,
-                                                      parent=True), want,
-                       "pair_max_plain")
     else:
         if xi.shape[0] == xj.shape[0]:
             xj, mj = xi, mi
@@ -463,18 +445,12 @@ def hold_pair(case, sets, cfg: SimConfig, tallies: Tallies) -> None:
         t.hold_rel(label, got, want, pe_bound_rtol(n_i, n_j),
                    "pair_pe_rows_plain")
         t.hold_bitwise(label, hn.pair_pe_rows(*args), got, "run to run")
-        parent = hn.pair_pe_rows(*args, parent=True)
-        t.hold_rel(label + " parent", parent, want,
-                   pe_bound_rtol(n_i, n_j, parent=True),
-                   "pair_pe_rows_plain")
-        if hn.pe_design(n_i, n_j) == "per_receiver":
-            t.hold_bitwise(label, got, parent, "the first design")
 
 
 def run_edge_case(case, device, tallies: Tallies) -> str:
     """One case of the route-edge tier (a ``fuzz_cases.EdgeCase``): its
-    kernel in the design its route gives and in the parent design,
-    against the plain version and run to run; a ring against the
+    kernel in the design its route gives, against the plain version and
+    run to run; a ring against the
     row-blocked oracle (``forces.tiled_accelerations``: the dense oracle's
     pair block in O(1024 N) memory) and its energy against the compensated
     metric. Returns its name."""

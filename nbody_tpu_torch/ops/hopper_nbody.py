@@ -148,16 +148,13 @@ PAIR_SEGMENT_TILES = 32
 # block walks.
 ONE_PASS_RECEIVERS = 256
 ONE_PASS_SEGMENT_TILES = 16
-# (mode family, D) whose sym_force launches without skip or count (either
-# kind of masses, with or without the fused max), and whose
-# pair_sym_force launches of either kind, over more than ONE_PASS_MIN_TILES
-# receiver tiles take the one-pass design (``sym_design``,
-# ``pair_design``); the others keep the two-pass tile. The edge is the
-# triangle's: sym_force at T <= 256 keeps the triangular grid (the fused
-# max there the T x T grid).
+# sym_force launches without skip or count (either kind of masses, with
+# or without the fused max), and pair_sym_force launches of either kind,
+# over more than this many receiver tiles take the one-pass design
+# (``sym_design``, ``pair_design``); smaller ones keep the two-pass tile.
+# The edge is the triangle's: sym_force at T <= 256 keeps the triangular
+# grid (the fused max there the T x T grid).
 ONE_PASS_MIN_TILES = TRIANGLE_MAX_TILES
-ONE_PASS_ROUTES = frozenset({("float", 2), ("float", 3), ("int", 2),
-                             ("int", 3)})
 # The one-pass body's int launches with at most this many levels take the
 # chain's weights from a per-launch table of its bin edges and weights
 # (csrc/one_pass.cuh), the others the chain itself (``int_chain_design``);
@@ -203,10 +200,6 @@ PRUNED_CANDIDATES = 1024
 PE_RECEIVERS = 512
 PE_SOURCE_TILE = 128
 PE_TARGET_BLOCKS = 16384
-# The row sweep's design for every launch that does not pass parent=True:
-# "tiled" (row_tiled), or "per_receiver" (the earlier kernel, one thread a
-# receiver), which an A/B of a whole path sets for that path's run.
-ROW_DESIGN = "tiled"
 # Bytes of per-tile partials one force evaluation may hold on the card:
 # sym_force alone while its scratch fits (the "auto" routing), else the
 # chunked path's diagonal sym_force plus one pair tile together. 16 GB of
@@ -236,53 +229,51 @@ def _tiles(n: int) -> int:
 def sym_schedule(n: int) -> str:
     """The grid of an unflagged sym_force launch over n particles, a fixed
     function of T = ceil(n / TILE): "triangle" (one block per tile pair
-    I <= J) up to TRIANGLE_MAX_TILES, else "square" (the T x T grid, the
-    earlier design). Both are followed by the same fixed-order reduction
-    and give the same bits."""
+    I <= J) up to TRIANGLE_MAX_TILES, else "square" (the T x T grid). Both
+    are followed by the same fixed-order reduction and give the same
+    bits."""
     return "triangle" if _tiles(n) <= TRIANGLE_MAX_TILES else "square"
 
 
 def uniform_design(tiles: int, q: Quantizer, dim: int) -> str:
     """The design of an unflagged equal-mass launch (sym_force_uniform over
     ``tiles`` tiles, or pair_sym_force_uniform over ``tiles`` receiver
-    tiles), a fixed function of (T, mode, D): "one_pass" (csrc/one_pass.cuh:
-    t = w diff formed once, added into the rows and the reactions in the same
-    iteration) past ONE_PASS_MIN_TILES for the (mode family, D) in
-    ONE_PASS_ROUTES, else "two_pass" (the earlier design: the w tile in
-    shared memory, a reaction pass after the row pass)."""
-    family = "int" if q.is_int else "float"
-    return ("one_pass" if tiles > ONE_PASS_MIN_TILES
-            and (family, dim) in ONE_PASS_ROUTES else "two_pass")
+    tiles), a fixed function of T (the same in every mode and D):
+    "one_pass" (csrc/one_pass.cuh: t = w diff formed once, added into the
+    rows and the reactions in the same iteration) past ONE_PASS_MIN_TILES,
+    else "two_pass" (the w tile in shared memory, a reaction pass after the
+    row pass)."""
+    return "one_pass" if tiles > ONE_PASS_MIN_TILES else "two_pass"
 
 
 def sym_design(n: int, dim: int, q: Quantizer, flagged: bool = False,
-               parent: bool = False, fused_max: bool = False) -> str:
+               fused_max: bool = False) -> str:
     """What a sym_force launch over n particles runs on the card, a fixed
-    function of (n, mode family, D) and its flags: "one_pass" (n a multiple
+    function of n and its flags (the same in every mode and D):
+    "one_pass" (n a multiple
     of TILE that uniform_design routes there, either kind of masses, with
     or without the fused max: csrc/one_pass.cuh's body, with G m per
     particle for unequal masses), "triangle" (any other launch without
     the fused max that sym_schedule routes there), else "square": the
     T x T grid of the two-pass tile, which a ``flagged`` launch (skip or
     count: the cached redo, walking the tile pairs under a skip flag
-    without the fused max) and ``parent=True`` always take, and the fused
-    max at T <= 256 (csrc/sym_force.cu). Each design serves both kinds of
-    masses, so the kind picks no route."""
-    if flagged or parent:
+    without the fused max) always takes, and the fused max at T <= 256
+    (csrc/sym_force.cu). Each design serves both kinds of masses, so the
+    kind picks no route."""
+    if flagged:
         return "square"
     if n % TILE == 0 and uniform_design(_tiles(n), q, dim) == "one_pass":
         return "one_pass"
     return "square" if fused_max else sym_schedule(n)
 
 
-def pair_design(n_a: int, n_b: int, dim: int, q: Quantizer,
-                parent: bool = False) -> str:
+def pair_design(n_a: int, n_b: int, dim: int, q: Quantizer) -> str:
     """What a pair_sym_force launch runs on the card, either kind:
     "one_pass" (sets that are multiples of TILE that uniform_design routes
     there by their receiver tiles: the equal-mass variant's one-pass body,
     or with unequal masses the same body with G m per particle), else
-    "two_pass", which ``parent=True`` always takes."""
-    if (not parent and n_a % TILE == 0 and n_b % TILE == 0
+    "two_pass" (ragged and small sets)."""
+    if (n_a % TILE == 0 and n_b % TILE == 0
             and uniform_design(_tiles(n_a), q, dim) == "one_pass"):
         return "one_pass"
     return "two_pass"
@@ -383,13 +374,13 @@ def pe_segments(n_i: int, n_j: int) -> tuple:
                      PE_TARGET_BLOCKS)
 
 
-def pe_design(n_i: int, n_j: int, parent: bool = False) -> str:
+def pe_design(n_i: int, n_j: int) -> str:
     """What a pair_pe_rows launch over n_i receivers and n_j sources runs
     on the card: "tiled" (pair_pe_tiled: 4 receivers a thread, the id
     mask only on tiles whose id ranges meet) past TILED_MIN_N receivers,
-    else "per_receiver" (the first design, one thread a receiver, the id
-    compare on every pair), which ``parent=True`` always takes."""
-    return "tiled" if n_i > TILED_MIN_N and not parent else "per_receiver"
+    else "per_receiver" (one thread a receiver, the id compare on every
+    pair)."""
+    return "tiled" if n_i > TILED_MIN_N else "per_receiver"
 
 
 def pe_scratch(n_i: int, n_j: int) -> tuple | None:
@@ -436,18 +427,15 @@ def max_d2_tile(n: int) -> int:
     return 64 if n <= MAX_D2_SMALL_N else 256
 
 
-def max_d2_design(n: int, parent: bool = False) -> str:
+def max_d2_design(n: int) -> str:
     """What a max_d2 launch over n points runs on the card, a fixed
     function of n: "single_64" (one launch, 64-point tiles) to
     MAX_D2_SMALL_N, "single_256" (256-point tiles) to TILED_MIN_N, else
     "tiled" (pair_max's register-tiled body over the triangle of 512-point
-    units). ``parent=True`` reaches the design each replaced: "two_launch"
-    (the T x T grid of 256-point tiles, then the reduction) to
-    TILED_MIN_N, "single_256" beyond. Every design gives the same bits."""
+    units). Every design gives the same bits."""
     if n <= TILED_MIN_N:
-        return ("two_launch" if parent else
-                f"single_{max_d2_tile(n)}")
-    return "single_256" if parent else "tiled"
+        return f"single_{max_d2_tile(n)}"
+    return "tiled"
 
 
 @functools.lru_cache(maxsize=None)
@@ -844,8 +832,7 @@ def sym_force(pos: torch.Tensor, gm: torch.Tensor, bounds: torch.Tensor,
               q: Quantizer, self_masked: bool, uniform: bool = False,
               max_out: torch.Tensor | None = None,
               skip: torch.Tensor | None = None,
-              count: torch.Tensor | None = None,
-              parent: bool = False) -> torch.Tensor:
+              count: torch.Tensor | None = None) -> torch.Tensor:
     """Kernel #1 wrapper: CUDA kernel for a CUDA tensor, the plain version
     for a CPU tensor. Same arguments and result as sym_force_plain.
 
@@ -864,9 +851,7 @@ def sym_force(pos: torch.Tensor, gm: torch.Tensor, bounds: torch.Tensor,
     multiple of TILE without skip or count takes the one-pass design
     (either kind, with or without the fused max: the body and its
     reduction, the fused max folded by max_d2's ticket in the body), else
-    ``sym_schedule(N)``'s grid; ``parent=True`` takes the T x T grid of the
-    two-pass tile (the earlier designs: the same bits as the triangle,
-    another summation order than the one-pass design) to compare them."""
+    ``sym_schedule(N)``'s grid."""
     n, dim = _check_force_args(pos, gm, bounds)
     # The engine's tick calls this with no flag and no fused max: that path
     # pays for none of their checks.
@@ -890,7 +875,7 @@ def sym_force(pos: torch.Tensor, gm: torch.Tensor, bounds: torch.Tensor,
     tiles = _tiles(n)
     fused = max_out is not None
     design = sym_design(n, dim, q, skip is not None or count is not None,
-                        parent, fused)
+                        fused)
     if design == "one_pass":
         with torch.cuda.device(pos.device):
             rpart, cpart = (torch.empty(shape, dtype=torch.float32,
@@ -936,45 +921,34 @@ def sym_force(pos: torch.Tensor, gm: torch.Tensor, bounds: torch.Tensor,
 
 
 def row_force(pos: torch.Tensor, gm: torch.Tensor, bounds: torch.Tensor,
-              q: Quantizer, self_masked: bool,
-              parent: bool = False) -> torch.Tensor:
+              q: Quantizer, self_masked: bool) -> torch.Tensor:
     """Kernels #4 / #8 wrapper: CUDA kernel for a CUDA tensor, the plain
     version for a CPU tensor. Same arguments and result as
     row_force_plain (all rows). The register-tiled design (its segment
-    reduction included: one count a call); ``parent=True`` takes the
-    earlier kernel, one thread a receiver, to compare them."""
+    reduction included: one count a call)."""
     n, dim = _check_force_args(pos, gm, bounds)
     if pos.device.type == "cpu":
         return row_force_plain(pos, gm, bounds, q, self_masked)
-    out = _launch_rows(pos, pos, gm, bounds, q, self_masked, "row_force",
-                       parent)
+    out = _launch_rows(pos, pos, gm, bounds, q, self_masked, "row_force")
     LAUNCHES["row_force"] += 1
     return out
 
 
 def _launch_rows(recv, src, gm, bounds, q: Quantizer, self_masked: bool,
-                 what: str, parent: bool) -> torch.Tensor:
+                 what: str) -> torch.Tensor:
     """One call of csrc/row_force.cu: recv's accelerations due to src, in
-    the register-tiled design (ROW_DESIGN, unless ``parent``) or the
-    earlier kernel."""
+    the register-tiled design."""
     lib = _library()
     n_i, n_j, dim = recv.shape[0], src.shape[0], recv.shape[1]
     with torch.cuda.device(recv.device):
         out = torch.empty_like(recv)
-        if parent or ROW_DESIGN != "tiled":
-            rc = lib.nbody_row_force(
-                _ptr(recv), n_i, _ptr(src), _ptr(gm), n_j, _ptr(bounds), dim,
-                *_int_args(q), int(self_masked), _ptr(out),
-                _stream(recv.device))
-        else:
-            shape = row_scratch(n_i, n_j, dim)
-            rpart = (None if shape is None else
-                     torch.empty(shape, dtype=torch.float32,
-                                 device=recv.device))
-            rc = lib.nbody_row_force_tiled(
-                _ptr(recv), n_i, _ptr(src), _ptr(gm), n_j, _ptr(bounds), dim,
-                *_int_args(q), int(self_masked), row_segments(n_i, n_j)[1],
-                _opt_ptr(rpart), _ptr(out), _stream(recv.device))
+        shape = row_scratch(n_i, n_j, dim)
+        rpart = (None if shape is None else
+                 torch.empty(shape, dtype=torch.float32, device=recv.device))
+        rc = lib.nbody_row_force_tiled(
+            _ptr(recv), n_i, _ptr(src), _ptr(gm), n_j, _ptr(bounds), dim,
+            *_int_args(q), int(self_masked), row_segments(n_i, n_j)[1],
+            _opt_ptr(rpart), _ptr(out), _stream(recv.device))
     _raise_on(rc, what)
     return out
 
@@ -992,7 +966,7 @@ def _check_two_sets(receivers, sources, n_what: str = "sources") -> tuple:
 def pair_sym_force(pos_a: torch.Tensor, gm_a: torch.Tensor,
                    pos_b: torch.Tensor, gm_b: torch.Tensor,
                    bounds: torch.Tensor, q: Quantizer,
-                   uniform: bool = False, parent: bool = False) -> tuple:
+                   uniform: bool = False) -> tuple:
     """Kernel #6 wrapper: CUDA kernel for CUDA tensors, the plain version
     for CPU tensors. Same arguments and result (rows, cols) as
     pair_sym_force_plain. ``uniform=True`` asserts that each set's gm is
@@ -1000,9 +974,7 @@ def pair_sym_force(pos_a: torch.Tensor, gm_a: torch.Tensor,
     (pair_sym_force_uniform_plain) when both set sizes are multiples of
     TILE, else the general kernel. Either kind takes ``pair_design``'s
     design (the one-pass body for sets that are multiples of TILE past
-    ONE_PASS_MIN_TILES receiver tiles, by ``uniform_design``), and
-    ``parent=True`` the two-pass tile (the earlier design) to compare
-    them."""
+    ONE_PASS_MIN_TILES receiver tiles, by ``uniform_design``)."""
     _check_force_args(pos_a, gm_a, bounds)
     n_a, n_b, dim = _check_two_sets(pos_a, pos_b)
     _check_f32("gm_b", gm_b, (n_b,), pos_a.device)
@@ -1012,7 +984,7 @@ def pair_sym_force(pos_a: torch.Tensor, gm_a: torch.Tensor,
                  else pair_sym_force_plain)
         return plain(pos_a, gm_a, pos_b, gm_b, bounds, q)
     lib = _library()
-    if pair_design(n_a, n_b, dim, q, parent) == "one_pass":
+    if pair_design(n_a, n_b, dim, q) == "one_pass":
         with torch.cuda.device(pos_a.device):
             rpart, cpart = (torch.empty(shape, dtype=torch.float32,
                                         device=pos_a.device)
@@ -1078,25 +1050,22 @@ def _check_flag(name: str, t: torch.Tensor | None, device) -> None:
 
 
 def max_d2(pos: torch.Tensor, skip: torch.Tensor | None = None,
-           count: torch.Tensor | None = None,
-           parent: bool = False) -> torch.Tensor:
+           count: torch.Tensor | None = None) -> torch.Tensor:
     """Kernel #2 / #3 wrapper: CUDA kernel for a CUDA tensor, the plain
     version for a CPU tensor. ``skip`` is an optional int32 flag on the
     same device: when nonzero the launch returns at once with 0. ``count``
     is an optional int32 on the same device that gains 1 when the launch
-    was not skipped. One launch in ``max_d2_design(N)``; ``parent=True``
-    takes the design that one replaced (the same bits) to compare them."""
+    was not skipped. One launch in ``max_d2_design(N)``."""
     n, dim = _check_positions(pos)
     _check_flag("skip", skip, pos.device)
     _check_flag("count", count, pos.device)
     if pos.device.type == "cpu":
         return max_d2_plain(pos, skip, count)
     lib = _library()
-    design = max_d2_design(n, parent)
     dev = pos.device
     with torch.cuda.device(dev):
         out = torch.empty(1, dtype=torch.float32, device=dev)
-        if design == "tiled":
+        if max_d2_design(n) == "tiled":
             cap = max_d2_tiled_blocks(dev)
             block_max = torch.empty(cap, dtype=torch.float32, device=dev)
             rc = lib.nbody_max_d2_tiled(
@@ -1108,8 +1077,7 @@ def max_d2(pos: torch.Tensor, skip: torch.Tensor | None = None,
                                     device=dev)
             rc = lib.nbody_max_d2(
                 _ptr(pos), n, dim, _opt_ptr(skip), _opt_ptr(count),
-                _ptr(block_max), MAX_D2_BLOCKS,
-                None if design == "two_launch" else _ptr(ticket(dev)),
+                _ptr(block_max), MAX_D2_BLOCKS, _ptr(ticket(dev)),
                 max_d2_tile(n), _ptr(out), _stream(dev))
     _raise_on(rc, "max_d2")
     LAUNCHES["max_d2"] += 1
@@ -1442,15 +1410,13 @@ def pair_force_term_scale(receivers: torch.Tensor, sources: torch.Tensor,
 
 def pair_force(receivers: torch.Tensor, sources: torch.Tensor,
                gm_sources: torch.Tensor, q: Quantizer, cfg: SimConfig,
-               log_lo=None, log_hi=None,
-               parent: bool = False) -> torch.Tensor:
+               log_lo=None, log_hi=None) -> torch.Tensor:
     """Kernel #10 wrapper, the counterpart of ``pallas_pair_force``:
     accelerations of ``receivers`` due to ``sources`` (disjoint or equal
     sets) with ``gm_sources`` = G * m_j, through csrc/row_force.cu for CUDA
     tensors and pair_force_plain for CPU tensors. eps^2 is cfg's; int-sim
     modes need the global ``log_lo``/``log_hi`` (ValueError otherwise).
-    Nothing here waits on the host. ``parent=True`` takes the earlier
-    kernel, as row_force's."""
+    Nothing here waits on the host."""
     n_i, n_j, dim = _check_two_sets(receivers, sources)
     _check_f32("gm_sources", gm_sources, (n_j,), receivers.device)
     if receivers.device.type == "cpu":
@@ -1458,7 +1424,7 @@ def pair_force(receivers: torch.Tensor, sources: torch.Tensor,
                                 log_lo, log_hi)
     bounds = _pair_bounds(receivers, q, cfg, log_lo, log_hi)
     out = _launch_rows(receivers, sources, gm_sources, bounds, q, False,
-                       "pair_force", parent)
+                       "pair_force")
     LAUNCHES["pair_force"] += 1
     return out
 
@@ -1491,15 +1457,13 @@ def pair_max_plain(receivers: torch.Tensor, sources: torch.Tensor,
 
 
 def pair_max(receivers: torch.Tensor, sources: torch.Tensor,
-             valid_i: torch.Tensor, valid_j: torch.Tensor,
-             parent: bool = False) -> torch.Tensor:
+             valid_i: torch.Tensor, valid_j: torch.Tensor) -> torch.Tensor:
     """Kernel #9 wrapper, the counterpart of ``pallas_pair_max``: CUDA
     kernel for CUDA tensors, pair_max_plain for CPU tensors. ``valid_i`` /
     ``valid_j`` are bool masks of the receivers and sources. Bitwise the
     plain version's, and for one set against itself, all valid, bitwise
     max_d2's. One register-tiled launch over ``pair_max_segments``' grid,
-    folded by max_d2's ticket; ``parent=True`` takes the earlier two
-    launches (the same bits) to compare them."""
+    folded by max_d2's ticket."""
     n_i, n_j, dim = _check_two_sets(receivers, sources)
     _check_mask("valid_i", valid_i, n_i, receivers.device)
     _check_mask("valid_j", valid_j, n_j, receivers.device)
@@ -1509,21 +1473,13 @@ def pair_max(receivers: torch.Tensor, sources: torch.Tensor,
     dev = receivers.device
     with torch.cuda.device(dev):
         out = torch.empty(1, dtype=torch.float32, device=dev)
-        if parent:
-            block_max = torch.empty(MAX_D2_BLOCKS, dtype=torch.float32,
-                                    device=dev)
-            rc = lib.nbody_pair_max(
-                _ptr(receivers), _ptr(valid_i), n_i, _ptr(sources),
-                _ptr(valid_j), n_j, dim, _ptr(block_max), MAX_D2_BLOCKS,
-                _ptr(out), _stream(dev))
-        else:
-            nseg, seg = pair_max_segments(n_i, n_j)
-            block_max = torch.empty(-(-n_i // PAIR_MAX_RECEIVERS) * nseg,
-                                    dtype=torch.float32, device=dev)
-            rc = lib.nbody_pair_max_tiled(
-                _ptr(receivers), _ptr(valid_i), n_i, _ptr(sources),
-                _ptr(valid_j), n_j, dim, seg, _ptr(block_max),
-                _ptr(ticket(dev)), _ptr(out), _stream(dev))
+        nseg, seg = pair_max_segments(n_i, n_j)
+        block_max = torch.empty(-(-n_i // PAIR_MAX_RECEIVERS) * nseg,
+                                dtype=torch.float32, device=dev)
+        rc = lib.nbody_pair_max_tiled(
+            _ptr(receivers), _ptr(valid_i), n_i, _ptr(sources),
+            _ptr(valid_j), n_j, dim, seg, _ptr(block_max),
+            _ptr(ticket(dev)), _ptr(out), _stream(dev))
     _raise_on(rc, "pair_max")
     LAUNCHES["pair_max"] += 1
     return out[0]
@@ -1561,15 +1517,14 @@ def _check_ids(name: str, t: torch.Tensor, n: int, device) -> None:
 
 
 def pair_pe_rows(receivers, m_recv, ids_recv, sources, m_src, ids_src,
-                 softening_sq, parent: bool = False) -> torch.Tensor:
+                 softening_sq) -> torch.Tensor:
     """Kernel #7 wrapper, the counterpart of ``pallas_pair_pe_rows``: CUDA
     kernel for CUDA tensors, pair_pe_rows_plain for CPU tensors. Masses
     f32, ids int32 (any value: equal ids mask the pair), ``softening_sq``
     a float or a 0-d tensor. (n_i,) f32 row sums in a fixed order; the
     caller sums them in f64. Past TILED_MIN_N receivers the register-tiled
     design (``pe_design``; the id ranges of its receiver blocks and source
-    tiles from ``id_ranges``, on the device); ``parent=True`` takes the
-    first design at every shape."""
+    tiles from ``id_ranges``, on the device), else one thread a receiver."""
     n_i, n_j, _ = _check_two_sets(receivers, sources)
     _check_f32("m_recv", m_recv, (n_i,), receivers.device)
     _check_f32("m_src", m_src, (n_j,), receivers.device)
@@ -1583,7 +1538,7 @@ def pair_pe_rows(receivers, m_recv, ids_recv, sources, m_src, ids_src,
     with torch.cuda.device(dev):
         soft = _scalar(softening_sq, dev)
         out = torch.empty(n_i, dtype=torch.float32, device=dev)
-        if pe_design(n_i, n_j, parent) == "tiled":
+        if pe_design(n_i, n_j) == "tiled":
             _, seg = pe_segments(n_i, n_j)
             shape = pe_scratch(n_i, n_j)
             rpart = None if shape is None else torch.empty(

@@ -40,9 +40,9 @@ import torch
 from nbody_tpu_torch.ops.precision import Quantizer, quantize_distance_squared
 
 # Launches of the deposit's kernels in this process (reset by whoever
-# reads them): "pm_deposit" one a deposit (a segment sum), either design;
-# "pm_deposit_fill" and "pm_deposit_long" the run-centric design's fill
-# and long-run launches (``deposit_launches``).
+# reads them): "pm_deposit" one a deposit (a segment sum);
+# "pm_deposit_fill" and "pm_deposit_long" its fill and long-run launches
+# (``deposit_launches``).
 LAUNCHES = {"pm_deposit": 0, "pm_deposit_fill": 0, "pm_deposit_long": 0}
 # The longest run of sorted particles (one cell's) that one thread of the
 # deposit kernel sums; a longer run goes to the long pass, a block a run.
@@ -163,17 +163,13 @@ def long_list_size(n: int, long_run: int = LONG_RUN) -> int:
     return 1 + -(-n // (long_run + 1))
 
 
-def deposit_launches(n: int, long_run: int = LONG_RUN,
-                     parent: bool = False) -> dict:
+def deposit_launches(n: int, long_run: int = LONG_RUN) -> dict:
     """The kernel launches of one deposit of n sorted particles, by
-    ``LAUNCHES`` key: the parent design one; the run-centric design the
-    fill (always: it also zeroes the long-run count), the run pass (counted
-    as "pm_deposit", the deposit's own count) and the long pass when a run
-    could exceed ``long_run`` (n > long_run: the host cannot see the runs
-    without a read, so the pass launches and finds its list empty where no
-    run is that long)."""
-    if parent:
-        return {"pm_deposit": 1}
+    ``LAUNCHES`` key: the fill (always: it also zeroes the long-run count),
+    the run pass (counted as "pm_deposit", the deposit's own count) and the
+    long pass when a run could exceed ``long_run`` (n > long_run: the host
+    cannot see the runs without a read, so the pass launches and finds its
+    list empty where no run is that long)."""
     return {"pm_deposit": 1, "pm_deposit_fill": 1,
             "pm_deposit_long": int(n > long_run)}
 
@@ -181,7 +177,7 @@ def deposit_launches(n: int, long_run: int = LONG_RUN,
 def deposit_sorted(sorted_keys: torch.Tensor, perm: torch.Tensor,
                    w: torch.Tensor, num_segments: int,
                    prev: torch.Tensor | None = None, *,
-                   into: torch.Tensor | None = None, parent: bool = False,
+                   into: torch.Tensor | None = None,
                    long_run: int = LONG_RUN,
                    long_list: torch.Tensor | None = None) -> torch.Tensor:
     """One deposit by csrc/pm_deposit.cu on keys already sorted by
@@ -191,15 +187,14 @@ def deposit_sorted(sorted_keys: torch.Tensor, perm: torch.Tensor,
     written, an empty one as prev + 0). ``into``: a grid the sums are added
     to in place, only occupied cells touched (bitwise the out-of-place sum
     for a grid that holds no -0.0, as no deposit grid does); returned.
-    ``parent``: the first design (a thread a cell; no ``into``).
     ``long_run``: the longest run a thread sums. ``long_list``: int32 of
     ``long_list_size(n, long_run)`` on the card, the long pass's scratch;
     after the call its first element is the number of runs longer than
     ``long_run`` (a scratch of the wrapper's own when None)."""
     from nbody_tpu_torch import _build
 
-    if into is not None and (prev is not None or parent):
-        raise ValueError("deposit_sorted: into excludes prev and parent")
+    if into is not None and prev is not None:
+        raise ValueError("deposit_sorted: into excludes prev")
     if into is not None and (into.dtype != torch.float32
                              or into.shape != (num_segments,)
                              or not into.is_contiguous()
@@ -219,44 +214,35 @@ def deposit_sorted(sorted_keys: torch.Tensor, perm: torch.Tensor,
     base = None if prev is None else ptr(prev)
     stream = ctypes.c_void_p(torch.cuda.current_stream(w.device).cuda_stream)
     lib = _build.library()
-    if parent:
-        out = torch.empty(num_segments, dtype=torch.float32, device=w.device)
-        rc = lib.nbody_pm_deposit(ptr(sorted_keys), ptr(perm), ptr(w), base,
-                                  ptr(out), n, num_segments, stream)
-    else:
-        out = (torch.empty(num_segments, dtype=torch.float32,
-                           device=w.device) if into is None else into)
-        size = long_list_size(n, long_run)
-        if long_list is None:
-            long_list = torch.empty(size, dtype=torch.int32, device=w.device)
-        elif (long_list.dtype != torch.int32 or long_list.numel() < size
-              or long_list.device != w.device):
-            raise ValueError(f"deposit_sorted: long_list must be int32 of "
-                             f"{size} on the weights' device")
-        rc = lib.nbody_pm_deposit_runs(
-            ptr(sorted_keys), ptr(perm), ptr(w), base, ptr(out), n,
-            num_segments, long_run, int(into is not None), ptr(long_list),
-            stream)
+    out = (torch.empty(num_segments, dtype=torch.float32, device=w.device)
+           if into is None else into)
+    size = long_list_size(n, long_run)
+    if long_list is None:
+        long_list = torch.empty(size, dtype=torch.int32, device=w.device)
+    elif (long_list.dtype != torch.int32 or long_list.numel() < size
+          or long_list.device != w.device):
+        raise ValueError(f"deposit_sorted: long_list must be int32 of "
+                         f"{size} on the weights' device")
+    rc = lib.nbody_pm_deposit_runs(
+        ptr(sorted_keys), ptr(perm), ptr(w), base, ptr(out), n, num_segments,
+        long_run, int(into is not None), ptr(long_list), stream)
     if rc != 0:
         raise RuntimeError(f"pm_deposit kernel launch failed: CUDA error {rc}")
-    for k, v in deposit_launches(n, long_run, parent).items():
+    for k, v in deposit_launches(n, long_run).items():
         LAUNCHES[k] += v
     return out
 
 
 def segment_sum(keys: torch.Tensor, w: torch.Tensor, num_segments: int,
-                prev: torch.Tensor | None = None, *,
-                parent: bool = False) -> torch.Tensor:
+                prev: torch.Tensor | None = None) -> torch.Tensor:
     """Deterministic segment sum (``jax.ops.segment_sum`` of ``w`` by
-    ``keys``, plus ``prev``): the deposit kernel for a CUDA tensor
-    (``parent``: its first design), its plain version for a CPU tensor;
-    bitwise the same function."""
+    ``keys``, plus ``prev``): the deposit kernel for a CUDA tensor, its
+    plain version for a CPU tensor; bitwise the same function."""
     _check_segment_args(keys, w, num_segments, prev)
     if keys.device.type == "cpu":
         return segment_sum_plain(keys, w, num_segments, prev)
     sorted_keys, perm = sort_keys(keys)
-    return deposit_sorted(sorted_keys, perm, w, num_segments, prev,
-                          parent=parent)
+    return deposit_sorted(sorted_keys, perm, w, num_segments, prev)
 
 
 def sorted_runs(sorted_keys: torch.Tensor, num_segments: int) -> tuple:

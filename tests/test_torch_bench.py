@@ -20,8 +20,7 @@ package's run_steps, on the CPU.
   default device is the card, and without one it raises.
 * chip_smoke.py's phase bench holds the card's line to root bench.py's 14
   keys, read from its source, and each arm's and ladder mode's launches
-  to PERF.md section 2's formulas (checked here at the card's shapes);
-  phase ab's turns (design_turns) time the parent design only there.
+  to PERF.md section 2's formulas (checked here at the card's shapes).
 """
 
 import contextlib
@@ -276,24 +275,3 @@ def test_ladder_launch_formula(mode, want):
 
     arm = bench.Arm(mode, 131072, 3, mode, 30, 3, 1.0, {})
     assert chip_smoke.ladder_launches(arm) == want
-
-
-@pytest.mark.parametrize("ab", (False, True))
-def test_design_turns_time_the_parent_only_under_phase_ab(ab):
-    import chip_smoke
-
-    calls = []
-    olds, news = chip_smoke.design_turns(
-        lambda f: calls.append(f()) or len(calls), lambda: "old",
-        lambda: "new", ab)
-    if ab:
-        assert calls == ["old", "new", "new", "old"]
-        assert (olds, news) == ([1, 4], [2, 3])
-        assert chip_smoke.mean_ms(olds) == 2.5
-        assert chip_smoke.ab_text(olds, news, "a", "b", ".1f") == \
-            "a 1.0 / 4.0 ms, b 2.0 / 3.0 ms (+0.00%)"
-    else:
-        assert calls == ["new"] and (olds, news) == ([], [1])
-        assert chip_smoke.mean_ms(olds) is None
-        assert chip_smoke.ab_text(olds, news, "a", "b", ".1f") == \
-            "b 1.0 ms"

@@ -298,7 +298,9 @@ def test_pair_pe_rows_kernel_matches_plain(cuda, dim, n_i, n_j, soft):
 def test_virtual_ring_on_card_matches_single_device(cuda, schedule, mode):
     """Three shards on the card, N unaligned (phantom rows): one force
     evaluation against single-launch sym_force, the ring's max d^2 bitwise
-    the single-device max, and exact launch counts."""
+    the single-device max, and exact launch counts (the int bounds on one
+    controller: the pruned pass on the home card, two max_d2 launches past
+    PRUNED_CANDIDATES, no pair_max)."""
     from nbody_tpu_torch.diagnostics import metrics
     from nbody_tpu_torch.parallel import ring
     n, S = 3001, 3
@@ -312,7 +314,8 @@ def test_virtual_ring_on_card_matches_single_device(cuda, schedule, mode):
     want = {"sym_force": S, "pair_sym_force": S * (S - 1) // 2,
             "pair_force": 0} if schedule == "sym" else \
         {"sym_force": 0, "pair_sym_force": 0, "pair_force": S * S}
-    want["pair_max"] = S * (S // 2 + 1) if q.is_int else 0
+    want["pair_max"] = 0
+    want["max_d2"] = (2 if n > hn.PRUNED_CANDIDATES else 1) if q.is_int else 0
     assert {k: launched[k] for k in want} == want
     single = hn.sym_accelerations(pt, m, q, cfg, quantize_forces=False)
     scale = hn.sym_force_term_scale(pt, cfg.G * m, hn.kernel_bounds(pt, q, cfg),
@@ -570,9 +573,9 @@ def test_one_pass_fused_max_bitwise_and_forces_unchanged(cuda, mode, dim,
 @pytest.mark.parametrize("dim", [2, 3])
 @pytest.mark.parametrize("layout", ["all valid", "tail phantom",
                                     "scattered", "none valid"])
-def test_tiled_pair_max_bitwise_plain_and_parent(cuda, dim, layout):
-    """The register-tiled pair_max bitwise its plain version and its
-    earlier two launches (parent=True), over 100 consecutive launches."""
+def test_tiled_pair_max_bitwise_plain(cuda, dim, layout):
+    """The register-tiled pair_max bitwise its plain version, over 100
+    consecutive launches."""
     n_i, n_j = 4099, 5001
     xi, xj, _, _ = _two_sets(n_i, n_j, dim, 33, cuda)
     rng = np.random.default_rng(dim)
@@ -586,7 +589,6 @@ def test_tiled_pair_max_bitwise_plain_and_parent(cuda, dim, layout):
     got = hn.pair_max(xi, xj, vi, vj)
     assert hn.LAUNCHES["pair_max"] == before + 1
     assert torch.equal(got, hn.pair_max_plain(xi, xj, vi, vj))
-    assert torch.equal(got, hn.pair_max(xi, xj, vi, vj, parent=True))
     assert all(torch.equal(hn.pair_max(xi, xj, vi, vj), got)
                for _ in range(100))
     if layout == "none valid":
@@ -618,12 +620,11 @@ def _pe_ids(pattern, n_i, n_j, cuda):
                                      "overlapping", "disjoint"])
 @pytest.mark.parametrize("n_i,n_j", PE_SHAPES)
 @pytest.mark.parametrize("dim", [2, 3])
-def test_tiled_pair_pe_rows_matches_plain_and_parent(cuda, dim, n_i, n_j,
-                                                     pattern):
-    """The routed design against the plain version within its bound, at
-    the route's edge (16384 keeps the first design bit for bit), ragged
-    and prime N, adversarial ids, softening 0.1 and 0; bitwise run to
-    run."""
+def test_tiled_pair_pe_rows_matches_plain(cuda, dim, n_i, n_j, pattern):
+    """The routed design against the plain version within its bound, on
+    both sides of the route's edge (16384 one thread a receiver, 16385
+    register-tiled), ragged and prime N, adversarial ids, softening 0.1
+    and 0; bitwise run to run."""
     xi, xj, mi, mj = _two_sets(n_i, n_j, dim, 41, cuda)
     mi, mj = mi * 1000.0, mj * 1000.0
     ids_i, ids_j = _pe_ids(pattern, n_i, n_j, cuda)
@@ -638,9 +639,6 @@ def test_tiled_pair_pe_rows_matches_plain_and_parent(cuda, dim, n_i, n_j,
         err = (got - want).abs()[fin]
         assert bool((err <= pe_bound_rtol(n_i, n_j) * want.abs()[fin]).all())
         assert torch.equal(got, hn.pair_pe_rows(*args))
-        first = hn.pair_pe_rows(*args, parent=True)
-        if hn.pe_design(n_i, n_j) == "per_receiver":
-            assert torch.equal(got, first)
 
 
 @pytest.mark.gpu
@@ -648,16 +646,15 @@ def test_tiled_pair_pe_rows_matches_plain_and_parent(cuda, dim, n_i, n_j,
                                131075])
 @pytest.mark.parametrize("dim", [2, 3])
 def test_max_d2_designs_bitwise_at_the_route_edges(cuda, dim, n):
-    """Every design bitwise the plain version and the design it replaced
-    (parent=True); the skip flag gives 0 and counts nothing, a run counts
-    one; bitwise over 20 consecutive launches."""
+    """Every design bitwise the plain version; the skip flag gives 0 and
+    counts nothing, a run counts one; bitwise over 20 consecutive
+    launches."""
     pt = torch.from_numpy(_disk(n, dim, 43)).to(cuda)
     want = hn.max_d2_plain(pt)
     before = hn.LAUNCHES["max_d2"]
     got = hn.max_d2(pt)
     assert hn.LAUNCHES["max_d2"] == before + 1
     assert torch.equal(got, want)
-    assert torch.equal(hn.max_d2(pt, parent=True), want)
     one = torch.ones((), dtype=torch.int32, device=cuda)
     count = torch.zeros((), dtype=torch.int32, device=cuda)
     assert float(hn.max_d2(pt, skip=one, count=count)) == 0.0
@@ -745,8 +742,8 @@ def _pm_bits(t):
                                   "n1"])
 def test_pm_deposit_runs_adversarial_keys(cuda, name, n, cells, long_run):
     """The run-centric deposit on diagnostics.deposit_cases' keys, with and
-    without prev: bitwise (float32 bits) its plain version, the parent
-    design and itself run to run; its long pass took exactly the runs
+    without prev: bitwise (float32 bits) its plain version and itself run
+    to run; its long pass took exactly the runs
     longer than long_run (the work list's count), and it counts the
     launches of pm.deposit_launches."""
     from nbody_tpu_torch.diagnostics.deposit_cases import (
@@ -775,9 +772,6 @@ def test_pm_deposit_runs_adversarial_keys(cuda, name, n, cells, long_run):
         assert {k: pm.LAUNCHES[k] - before[k] for k in expect} == expect
         assert int(scratch[0]) == int((lengths > long_run).sum())
         assert torch.equal(_pm_bits(got), _pm_bits(want))
-        parent = pm.deposit_sorted(sorted_keys, perm, w.to(cuda), cells, pc,
-                                   parent=True)
-        assert torch.equal(_pm_bits(parent), _pm_bits(want))
         assert all(torch.equal(_pm_bits(pm.deposit_sorted(
             sorted_keys, perm, w.to(cuda), cells, pc, long_run=long_run)),
             _pm_bits(want)) for _ in range(3))
@@ -788,12 +782,12 @@ def test_pm_deposit_runs_adversarial_keys(cuda, name, n, cells, long_run):
 @pytest.mark.parametrize("dim, n_grid, box", [(2, 512, 200.0),
                                               (3, 256, 400.0)])
 @pytest.mark.parametrize("deposit", ["ngp_deposit", "cic_deposit"])
-def test_pm_deposit_in_place_chain_vs_parent(cuda, deposit, dim, n_grid,
-                                             box, layout):
+def test_pm_deposit_in_place_chain_vs_out_of_place(cuda, deposit, dim,
+                                                   n_grid, box, layout):
     """NGP and CIC at N=262144 through the entry points (CIC's later
     corners added into the grid in place): bitwise (float32 bits) the
-    parent design's out-of-place chain, the plain version on a CPU copy,
-    and itself run to run."""
+    out-of-place chain of segment_sum(prev=...), the plain version on a
+    CPU copy, and itself run to run."""
     from nbody_tpu_torch.ops import pm
 
     n = 262144
@@ -806,12 +800,12 @@ def test_pm_deposit_in_place_chain_vs_parent(cuda, deposit, dim, n_grid,
         0.5, 1.5, n).astype(np.float32)).to(cuda)
     cells = n_grid ** dim
     kind = deposit.split("_")[0]
-    parent = want = None
+    chain = want = None
     for keys, ws in pm.deposit_segments(pos, w, n_grid, box, kind):
         want = pm.segment_sum_plain(keys.cpu(), ws.cpu(), cells, want)
-        parent = pm.segment_sum(keys, ws, cells, parent, parent=True)
+        chain = pm.segment_sum(keys, ws, cells, chain)
     got = getattr(pm, deposit)(pos, w, n_grid, box).reshape(-1)
     assert torch.equal(_pm_bits(got), _pm_bits(want))
-    assert torch.equal(_pm_bits(parent), _pm_bits(want))
+    assert torch.equal(_pm_bits(chain), _pm_bits(want))
     assert all(torch.equal(_pm_bits(getattr(pm, deposit)(
         pos, w, n_grid, box).reshape(-1)), _pm_bits(got)) for _ in range(3))

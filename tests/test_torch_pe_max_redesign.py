@@ -92,26 +92,20 @@ def test_tiled_edge_is_the_one_pass_edge():
     assert hn.TILED_MIN_N == hn.ONE_PASS_MIN_TILES * hn.TILE == 16384
 
 
-@pytest.mark.parametrize("n_i,parent,want", [
-    (1, False, "per_receiver"), (16384, False, "per_receiver"),
-    (16385, False, "tiled"), (131072, False, "tiled"),
-    (1_048_576, False, "tiled"), (16385, True, "per_receiver"),
-    (131072, True, "per_receiver")])
-def test_pe_design(n_i, parent, want):
+@pytest.mark.parametrize("n_i,want", [
+    (1, "per_receiver"), (16384, "per_receiver"), (16385, "tiled"),
+    (131072, "tiled"), (1_048_576, "tiled")])
+def test_pe_design(n_i, want):
     for n_j in (1, 300, 131072):
-        assert hn.pe_design(n_i, n_j, parent=parent) == want
+        assert hn.pe_design(n_i, n_j) == want
 
 
-@pytest.mark.parametrize("n,parent,want", [
-    (1, False, "single_64"), (4096, False, "single_64"),
-    (4097, False, "single_256"), (16384, False, "single_256"),
-    (16385, False, "tiled"), (131072, False, "tiled"),
-    (1_048_576, False, "tiled"),
-    (5000, True, "two_launch"), (4096, True, "two_launch"),
-    (16384, True, "two_launch"), (16385, True, "single_256"),
-    (1_048_576, True, "single_256")])
-def test_max_d2_design(n, parent, want):
-    assert hn.max_d2_design(n, parent=parent) == want
+@pytest.mark.parametrize("n,want", [
+    (1, "single_64"), (4096, "single_64"), (4097, "single_256"),
+    (16384, "single_256"), (16385, "tiled"), (131072, "tiled"),
+    (1_048_576, "tiled")])
+def test_max_d2_design(n, want):
+    assert hn.max_d2_design(n) == want
 
 
 @pytest.mark.parametrize("n,device,compensated,want", [
@@ -224,13 +218,11 @@ def test_pair_pe_rows_plain_matches_jax(dim, pattern, sizes):
             jnp.asarray(xj), jnp.asarray(mj), jnp.asarray(ids_j), soft,
             block_i=128))
         before = dict(hn.LAUNCHES)
-        got = [hn.pair_pe_rows(_t(xi), _t(mi), _t(ids_i), _t(xj), _t(mj),
-                               _t(ids_j), soft, parent=parent).numpy()
-               for parent in (False, True)]
+        got = hn.pair_pe_rows(_t(xi), _t(mi), _t(ids_i), _t(xj), _t(mj),
+                              _t(ids_j), soft).numpy()
         assert hn.LAUNCHES == before   # CPU tensors: the plain version
-        assert np.array_equal(got[0], got[1])
-        assert got[0].shape == (n_i,) and np.isfinite(got[0]).all()
-        np.testing.assert_allclose(got[0], want, rtol=1e-5, atol=1e-30)
+        assert got.shape == (n_i,) and np.isfinite(got).all()
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-30)
 
 
 # --------------------------------------------------------------------------
@@ -270,8 +262,7 @@ def _record_routes(monkeypatch, route):
 
 def test_potential_energy_takes_the_route(monkeypatch):
     """The "kernel" route is pe_rows_energy (CPU tensors: its plain rows,
-    no launch), the "plain" route (here: compensated) pair_potential_sum;
-    ENERGY_DESIGN "plain" keeps the plain sum whatever the route says."""
+    no launch), the "plain" route (here: compensated) pair_potential_sum."""
     pos, m = (_t(x) for x in _points(600, 2, seed=5))
     cfg = SimConfig()
     seen = _record_routes(monkeypatch, "kernel")
@@ -283,8 +274,6 @@ def test_potential_energy_takes_the_route(monkeypatch):
                                                  cfg.softening_sq))
     plain = tm.potential_energy(pos, m, cfg, compensated=True)
     assert seen[-1] == (600, "cpu", True)
-    monkeypatch.setattr(tm, "ENERGY_DESIGN", "plain")
-    assert torch.equal(tm.potential_energy(pos, m, cfg), plain)
     ids = torch.arange(600)
     assert torch.equal(plain, -0.5 * cfg.G * tm.pair_potential_sum(
         pos, m, ids, pos, m, ids, cfg.softening_sq))

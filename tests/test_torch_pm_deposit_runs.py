@@ -217,9 +217,8 @@ def test_no_deposit_grid_holds_negative_zero(deposit):
 
 
 def test_deposit_launches_rule():
-    """One deposit counts one "pm_deposit"; the run-centric design adds a
-    fill always and a long pass exactly when n > long_run; the parent one
-    launch."""
+    """One deposit counts one "pm_deposit", a fill always and a long pass
+    exactly when n > long_run."""
     r = pm.LONG_RUN
     assert set(pm.LAUNCHES) == {"pm_deposit", "pm_deposit_fill",
                                 "pm_deposit_long"}
@@ -229,7 +228,6 @@ def test_deposit_launches_rule():
     assert pm.deposit_launches(r + 1, r)["pm_deposit_long"] == 1
     assert pm.deposit_launches(1)["pm_deposit_long"] == 0
     assert pm.deposit_launches(262144)["pm_deposit_long"] == 1
-    assert pm.deposit_launches(262144, parent=True) == {"pm_deposit": 1}
 
 
 @pytest.mark.parametrize("n, long_run", [(0, 32), (1, 32), (32, 32),
@@ -262,5 +260,5 @@ def test_cpu_path_launches_nothing_and_the_kernel_needs_the_card():
         pm.deposit_sorted(*pm.sort_keys(kt), wt, cells,
                           into=torch.zeros(cells + 1))
     with pytest.raises(ValueError):
-        pm.deposit_sorted(*pm.sort_keys(kt), wt, cells,
-                          into=torch.zeros(cells), parent=True)
+        pm.deposit_sorted(*pm.sort_keys(kt), wt, cells, torch.zeros(cells),
+                          into=torch.zeros(cells))

@@ -4,19 +4,17 @@ sweep, and the rules that shape their launches.
 ``pair_sym_force`` with unequal masses takes the one-pass design
 (csrc/one_pass.cuh's body with G m per particle) under the same rule as
 its equal-mass variant (``pair_design``: both sets multiples of TILE, more
-than ``ONE_PASS_MIN_TILES`` receiver tiles, the (mode family, D) in
-``ONE_PASS_ROUTES``); ragged or phantom sets and ``parent=True`` keep the
-two-pass tile. ``row_force`` and ``pair_force`` run the register-tiled
-kernel (csrc/row_force.cu's row_tiled), its source segments a fixed
-function of (n_i, n_j) (``row_segments``); ``parent=True`` reaches the
-earlier kernel.
+than ``ONE_PASS_MIN_TILES`` receiver tiles, in every mode and D); ragged
+or phantom sets keep the two-pass tile. ``row_force`` and ``pair_force``
+run the register-tiled kernel (csrc/row_force.cu's row_tiled), its source
+segments a fixed function of (n_i, n_j) (``row_segments``).
 
 On the CPU these tests hold the rules, the scratch reckoning (the one-pass
 scratch under the two-pass reckoning, so the 1M chunking stays 5 x 209728
 at D=2 and 6 x 174784 at D=3; the row sweep's segment sums far under
-``SCRATCH_BUDGET``), the wrappers' ``parent`` flags on CPU tensors, and the
-plain versions (which the wrappers take for CPU tensors) against the JAX
-package: ``pair_sym_force_plain`` with unequal masses against
+``SCRATCH_BUDGET``), the wrappers on CPU tensors, and the plain versions
+(which the wrappers take for CPU tensors) against the JAX package:
+``pair_sym_force_plain`` with unequal masses against
 ``pallas_pair_force_sym`` (Pallas interpret mode) at odd multiples of 64
 and ragged sizes; ``accelerations_rows`` against ``pallas_accelerations``
 at zero softening (self-masked) across a 512-receiver block; ``pair_force``
@@ -80,12 +78,10 @@ def _q(mode):
 @pytest.mark.parametrize("dim", [2, 3])
 def test_general_pair_design_follows_the_equal_mass_rule(tiles, mode, dim):
     q = _q(mode)
-    want = ("one_pass" if tiles > hn.ONE_PASS_MIN_TILES
-            and (FAMILIES[mode], dim) in hn.ONE_PASS_ROUTES else "two_pass")
+    want = "one_pass" if tiles > hn.ONE_PASS_MIN_TILES else "two_pass"
     n = tiles * hn.TILE
     for n_b in (n, hn.TILE, 209728):
         assert hn.pair_design(n, n_b, dim, q) == want
-        assert hn.pair_design(n, n_b, dim, q, parent=True) == "two_pass"
 
 
 @pytest.mark.parametrize("n_a,n_b", [(131075, 131075), (209727, 209728),
@@ -97,17 +93,6 @@ def test_ragged_and_phantom_sets_keep_the_two_pass_tile(n_a, n_b, mode):
     neither kind takes the one-pass design."""
     for dim in (2, 3):
         assert hn.pair_design(n_a, n_b, dim, _q(mode)) == "two_pass"
-
-
-@pytest.mark.parametrize("routes", [frozenset(), frozenset({("int", 3)})])
-def test_general_routes_follow_one_pass_routes(monkeypatch, routes):
-    """Emptying ONE_PASS_ROUTES (a whole path's A/B) takes the general tile
-    back to the two-pass design, as it does the equal-mass one."""
-    monkeypatch.setattr(hn, "ONE_PASS_ROUTES", routes)
-    for mode, family in FAMILIES.items():
-        for dim in (2, 3):
-            assert hn.pair_design(209728, 209728, dim, _q(mode)) == (
-                "one_pass" if (family, dim) in routes else "two_pass")
 
 
 # --------------------------------------------------------------------------
@@ -192,33 +177,28 @@ def test_one_segment_needs_no_scratch():
 # The wrappers on CPU tensors
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("parent", [False, True])
 @pytest.mark.parametrize("masked", [False, True])
-def test_row_force_parent_flag_takes_the_plain_version_on_the_cpu(parent,
-                                                                  masked):
+def test_row_force_takes_the_plain_version_on_the_cpu(masked):
     pos, m = _inputs(577, 2, seed=1)
     q = _q("int4")
     bounds = hn.kernel_bounds(_t(pos), q, CFG)
     gm = CFG.G * _t(m)
     before = dict(hn.LAUNCHES)
-    got = hn.row_force(_t(pos), gm, bounds, q, masked, parent=parent)
+    got = hn.row_force(_t(pos), gm, bounds, q, masked)
     assert hn.LAUNCHES == before
     assert torch.equal(got, hn.row_force_plain(_t(pos), gm, bounds, q,
                                                masked))
 
 
-@pytest.mark.parametrize("parent", [False, True])
-def test_pair_force_parent_flag_takes_the_plain_version_on_the_cpu(parent):
+def test_pair_force_takes_the_plain_version_on_the_cpu():
     pos, m = _inputs(517 + 389, 3, seed=2)
     gm = CFG.G * _t(m)
     q = _q("float32")
-    got = hn.pair_force(_t(pos[:517]), _t(pos[517:]), gm[517:], q, CFG,
-                        parent=parent)
+    got = hn.pair_force(_t(pos[:517]), _t(pos[517:]), gm[517:], q, CFG)
     assert torch.equal(got, hn.pair_force_plain(_t(pos[:517]), _t(pos[517:]),
                                                 gm[517:], q, CFG))
     with pytest.raises(ValueError):
-        hn.pair_force(_t(pos[:517]), _t(pos[517:]), gm[:5], q, CFG,
-                      parent=parent)
+        hn.pair_force(_t(pos[:517]), _t(pos[517:]), gm[:5], q, CFG)
 
 
 # --------------------------------------------------------------------------
@@ -385,9 +365,6 @@ def test_general_one_pass_pair_against_plain(cuda, n_a, n_b, dim, mode):
     rw, cw = hn.pair_sym_force_plain(pa, ga, pb, gb, bounds, q)
     _card_rule(rows, rw, q)
     _card_rule(cols, cw, q)
-    for got, want in zip(hn.pair_sym_force(pa, ga, pb, gb, bounds, q,
-                                           parent=True), (rw, cw)):
-        _card_rule(got, want, q)
     for _ in range(20):
         r, c = hn.pair_sym_force(pa, ga, pb, gb, bounds, q)
         assert torch.equal(r, rows) and torch.equal(c, cols)
@@ -410,8 +387,6 @@ def test_tiled_row_force_against_plain(cuda, n, dim, mode, soft, masked):
     want = hn.row_force_plain(pos, gm, bounds, q, masked)
     scale = hn.sym_force_term_scale(pos, gm, bounds, q, masked)
     _card_rule(got, want, q, scale)
-    _card_rule(hn.row_force(pos, gm, bounds, q, masked, parent=True), want,
-               q, scale)
     assert all(torch.equal(hn.row_force(pos, gm, bounds, q, masked), got)
                for _ in range(20))
 
@@ -434,7 +409,5 @@ def test_tiled_pair_force_against_plain(cuda, n_i, n_j, dim, mode):
     want = hn.pair_force_plain(xi, xj, gm_j, q, CFG, lo, hi)
     scale = hn.pair_force_term_scale(xi, xj, gm_j, bounds, q)
     _card_rule(got, want, q, scale)
-    _card_rule(hn.pair_force(xi, xj, gm_j, q, CFG, lo, hi, parent=True), want,
-               q, scale)
     assert all(torch.equal(hn.pair_force(xi, xj, gm_j, q, CFG, lo, hi), got)
                for _ in range(20))

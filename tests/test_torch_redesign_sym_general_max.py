@@ -2,14 +2,13 @@
 tiles, pair_max as one register-tiled launch, and the rules that route them.
 
 ``sym_force`` over a multiple of TILE past ``ONE_PASS_MIN_TILES`` tiles,
-for the (mode family, D) in ``ONE_PASS_ROUTES``, takes the one-pass design
-(csrc/one_pass.cuh) whatever its masses (G m per particle for unequal
-ones) and with or without the fused max (``max_out``); launches with a
-skip or count flag (the cached redo), ``parent=True``, ragged N and the
-fused max at T <= 256 keep the T x T grid of the two-pass tile, and
-unflagged launches at T <= 256 the triangle (``sym_design``). ``pair_max``
-runs one register-tiled launch over ``pair_max_segments``' grid;
-``parent=True`` reaches the earlier two launches.
+in every mode and D, takes the one-pass design (csrc/one_pass.cuh)
+whatever its masses (G m per particle for unequal ones) and with or
+without the fused max (``max_out``); launches with a skip or count flag
+(the cached redo), ragged N and the fused max at T <= 256 keep the T x T
+grid of the two-pass tile, and unflagged launches at T <= 256 the
+triangle (``sym_design``). ``pair_max`` runs one register-tiled launch
+over ``pair_max_segments``' grid.
 
 On the CPU these tests hold the rules, the wrappers' flags on CPU tensors
 (the plain versions), and the plain versions against the JAX package in
@@ -80,8 +79,7 @@ def test_general_and_fused_launches_follow_the_one_pass_rule(tiles, mode,
     grid for the fused max."""
     q, n = _q(mode), tiles * hn.TILE
     routed = hn.uniform_design(tiles, q, dim) == "one_pass"
-    assert routed == (tiles > hn.ONE_PASS_MIN_TILES
-                      and (FAMILIES[mode], dim) in hn.ONE_PASS_ROUTES)
+    assert routed == (tiles > hn.ONE_PASS_MIN_TILES)
     assert hn.sym_design(n, dim, q) == (
         "one_pass" if routed else hn.sym_schedule(n))
     assert hn.sym_design(n, dim, q, fused_max=True) == (
@@ -93,32 +91,14 @@ def test_general_and_fused_launches_follow_the_one_pass_rule(tiles, mode,
 @pytest.mark.parametrize("dim", [2, 3])
 def test_skip_count_parent_and_ragged_keep_the_two_pass_tile(tiles, mode,
                                                              dim):
-    """The cached redo's skip / count flags and parent=True take the T x T
-    grid whatever the rule says; ragged N keeps the earlier routes."""
+    """The cached redo's skip / count flags take the T x T grid whatever
+    the rule says; ragged N keeps the triangle or the T x T grid."""
     q, n = _q(mode), tiles * hn.TILE
     for fused in (False, True):
         assert hn.sym_design(n, dim, q, flagged=True,
                              fused_max=fused) == "square"
-        assert hn.sym_design(n, dim, q, parent=True,
-                             fused_max=fused) == "square"
         assert hn.sym_design(n + 1, dim, q, fused_max=fused) == (
             "square" if fused else hn.sym_schedule(n + 1))
-
-
-@pytest.mark.parametrize("routes", [frozenset(),
-                                    frozenset({("float", 2)}),
-                                    frozenset({("int", 3)})])
-def test_general_and_fused_routes_follow_one_pass_routes(monkeypatch,
-                                                         routes):
-    monkeypatch.setattr(hn, "ONE_PASS_ROUTES", routes)
-    n = 2731 * hn.TILE
-    for mode, family in FAMILIES.items():
-        for dim in (2, 3):
-            routed = (family, dim) in routes
-            assert hn.sym_design(n, dim, _q(mode)) == (
-                "one_pass" if routed else "square")
-            assert hn.sym_design(n, dim, _q(mode), fused_max=True) == (
-                "one_pass" if routed else "square")
 
 
 def test_the_fused_max_at_256_tiles_stays_on_the_t_by_t_grid():
@@ -175,18 +155,17 @@ def test_pair_max_segments_cover_every_tile_once(n_i, n_j):
         hn.PAIR_MAX_TARGET_BLOCKS)
 
 
-@pytest.mark.parametrize("parent", [False, True])
-def test_pair_max_parent_flag_takes_the_plain_version_on_the_cpu(parent):
+def test_pair_max_takes_the_plain_version_on_the_cpu():
     pos, _ = _inputs(300, 2, seed=4)
     rng = np.random.default_rng(4)
     vi, vj = _t(rng.random(120) < 0.8), _t(rng.random(180) < 0.8)
     xi, xj = _t(pos[:120]), _t(pos[120:])
     before = dict(hn.LAUNCHES)
-    got = hn.pair_max(xi, xj, vi, vj, parent=parent)
+    got = hn.pair_max(xi, xj, vi, vj)
     assert hn.LAUNCHES == before
     assert torch.equal(got, hn.pair_max_plain(xi, xj, vi, vj))
     with pytest.raises(ValueError):
-        hn.pair_max(xi, xj, vi.float(), vj, parent=parent)
+        hn.pair_max(xi, xj, vi.float(), vj)
 
 
 # --------------------------------------------------------------------------

@@ -1,12 +1,12 @@
-"""The main path's two kernels, sym_force and max_d2, and their earlier designs.
+"""The main path's two kernels, sym_force and max_d2, and their schedules.
 
 sym_force's unflagged launch runs its tile pairs on one of two grids, a
 fixed function of T = ceil(N / TILE) in the wrapper: "triangle" (one block
-per tile pair I <= J) or "square" (the earlier T x T grid, whose blocks with
-I > J exit at once); the same reduce_partials follows both. max_d2 makes one
-launch with tiles of 64 or 256 points, its per-block maxima folded by the
-block that takes the last integer ticket. ``parent=True`` reaches each
-kernel's earlier design; both give the same bits.
+per tile pair I <= J) or "square" (the T x T grid, whose blocks with I > J
+exit at once; a launch with a count or skip flag takes it at every T); the
+same reduce_partials follows both, and both give the same bits. max_d2
+makes one launch with tiles of 64 or 256 points, its per-block maxima
+folded by the block that takes the last integer ticket.
 
 On the CPU these tests hold the routing rules, the ticket and the wrappers'
 arguments, and the plain versions (which the wrappers take for CPU tensors)
@@ -14,8 +14,8 @@ against the JAX package at the main path's N=5000, off the 64-row tile:
 ``pallas_accelerations_sym`` in Pallas interpret mode and the dense jnp
 forces, float32 and int4, with the tolerances of tests/test_torch_forces.py
 (float rtol 5e-5, atol 2e-6; int modes <2% of components off by >1e-4
-max|a|). The ``gpu`` tests hold the new designs bitwise against the earlier
-ones on the card; they skip without one:
+max|a|). The ``gpu`` tests hold the triangle bitwise the T x T grid and
+max_d2 bitwise its plain version on the card; they skip without one:
 
     python -m pytest --noconftest -q -m gpu tests/test_torch_schedules.py
 """
@@ -97,32 +97,29 @@ def _small():
     return pt, gm, torch.stack([lo, hi, torch.full((), 0.01)]), q
 
 
-def test_the_parent_flag_keeps_the_flags_and_validation():
-    """parent=True takes the earlier designs with every flag; the inputs
-    are validated as before on either design."""
+def test_the_flags_and_the_input_validation():
+    """The skip and count flags on a CPU tensor, as the kernels honour
+    them; the inputs are validated."""
     pt, gm, bounds, q = _small()
     flag = torch.zeros((), dtype=torch.int32)
     count = torch.zeros((), dtype=torch.int32)
-    out = hn.sym_force(pt, gm, bounds, q, False, skip=flag, count=count,
-                       parent=True)
+    out = hn.sym_force(pt, gm, bounds, q, False, skip=flag, count=count)
     assert torch.equal(out, hn.sym_force_plain(pt, gm, bounds, q, False))
     assert int(count) == 1
-    for parent in (False, True):
-        with pytest.raises(ValueError):
-            hn.max_d2(pt, skip=torch.ones(()), parent=parent)
-        with pytest.raises(TypeError):
-            hn.sym_force(pt.double(), gm, bounds, q, False, parent=parent)
+    with pytest.raises(ValueError):
+        hn.max_d2(pt, skip=torch.ones(()))
+    with pytest.raises(TypeError):
+        hn.sym_force(pt.double(), gm, bounds, q, False)
 
 
-@pytest.mark.parametrize("parent", [False, True])
-def test_cpu_tensors_take_the_plain_version_on_either_design(parent):
+def test_cpu_tensors_take_the_plain_version():
     pt, gm, bounds, q = _small()
-    assert torch.equal(hn.sym_force(pt, gm, bounds, q, False, parent=parent),
+    assert torch.equal(hn.sym_force(pt, gm, bounds, q, False),
                        hn.sym_force_plain(pt, gm, bounds, q, False))
     one = torch.ones((), dtype=torch.int32)
     count = torch.zeros((), dtype=torch.int32)
-    assert torch.equal(hn.max_d2(pt, parent=parent), hn.max_d2_plain(pt))
-    assert hn.max_d2(pt, skip=one, count=count, parent=parent).item() == 0
+    assert torch.equal(hn.max_d2(pt), hn.max_d2_plain(pt))
+    assert hn.max_d2(pt, skip=one, count=count).item() == 0
     assert int(count) == 0
 
 
@@ -196,7 +193,8 @@ def _bounds(q, pt, soft, device):
 @pytest.mark.parametrize("equal", [False, True])
 def test_triangle_bitwise_the_square_grid(cuda, n, dim, equal):
     """Every mode, softening 0.1 / 0 / run-time, unequal and equal masses
-    (the equal-mass variant where N is a multiple of the tile)."""
+    (the equal-mass variant where N is a multiple of the tile); a count
+    flag takes the T x T grid at every T."""
     rng = np.random.default_rng(n)
     pt = torch.from_numpy(_disk(n, dim, seed=19)).to(cuda)
     gm = (torch.full((n,), 1e-3) if equal else
@@ -205,10 +203,11 @@ def test_triangle_bitwise_the_square_grid(cuda, n, dim, equal):
         q = tp.Quantizer.from_string(mode)
         for soft, masked in SOFTENINGS:
             bounds = _bounds(q, pt, soft, cuda)
-            new = hn.sym_force(pt, gm, bounds, q, masked, uniform=equal)
-            old = hn.sym_force(pt, gm, bounds, q, masked, uniform=equal,
-                               parent=True)
-            assert torch.equal(new, old), (mode, soft)
+            tri = hn.sym_force(pt, gm, bounds, q, masked, uniform=equal)
+            square = hn.sym_force(pt, gm, bounds, q, masked, uniform=equal,
+                                  count=torch.zeros((), dtype=torch.int32,
+                                                    device=cuda))
+            assert torch.equal(tri, square), (mode, soft)
 
 
 @pytest.mark.gpu
@@ -227,20 +226,19 @@ def test_triangle_bitwise_over_100_launches(cuda, mode):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n", [1024, STARS])
-@pytest.mark.parametrize("parent", [False, True])
-def test_max_d2_bitwise_skipped_and_running(cuda, n, parent):
+def test_max_d2_bitwise_skipped_and_running(cuda, n):
     """100 launches that run, bitwise the plain max, each counted once (the
     single launch's ticket is back at 0 after every launch), and one
     skipped launch: 0, not counted."""
     pt = torch.from_numpy(_disk(n, 2, seed=21)).to(cuda)
     one = torch.ones((), dtype=torch.int32, device=cuda)
     count = torch.zeros((), dtype=torch.int32, device=cuda)
-    assert hn.max_d2(pt, skip=one, count=count, parent=parent).item() == 0.0
+    assert hn.max_d2(pt, skip=one, count=count).item() == 0.0
     assert int(count) == 0
     want = hn.max_d2_plain(pt)
     for _ in range(100):
-        got = hn.max_d2(pt, skip=one * 0, count=count, parent=parent)
+        got = hn.max_d2(pt, skip=one * 0, count=count)
         assert torch.equal(got, want)
     assert int(count) == 100
-    assert torch.equal(hn.max_d2(pt, parent=parent), want)
+    assert torch.equal(hn.max_d2(pt), want)
     assert int(hn.ticket(cuda)) == 0

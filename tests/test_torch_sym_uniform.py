@@ -1,14 +1,13 @@
 """The equal-mass sym kernels' one-pass design, and the rule that picks it.
 
 sym_force_uniform and pair_sym_force_uniform run one of two designs on the
-card, a fixed function of (T, mode, D) in the wrapper (``uniform_design``):
-the one-pass design (csrc/one_pass.cuh: t = w diff formed once, added into
-the rows and the reactions in the same iteration, 256 receivers a block)
-past ``ONE_PASS_MIN_TILES`` for the (mode family, D) in ``ONE_PASS_ROUTES``,
-else the earlier two-pass tile. The general kernels and the fused max
-follow the same rule (tests/test_torch_redesign_sym_general_max.py); the
-skip and count flags and the T <= 256 triangle keep their routes; both
-wrappers take ``parent=True`` to reach the earlier design.
+card, a fixed function of T in the wrapper (``uniform_design``), the same
+in every mode and D: the one-pass design (csrc/one_pass.cuh: t = w diff
+formed once, added into the rows and the reactions in the same iteration,
+256 receivers a block) past ``ONE_PASS_MIN_TILES``, else the two-pass
+tile. The general kernels and the fused max follow the same rule
+(tests/test_torch_redesign_sym_general_max.py); the skip and count flags
+and the T <= 256 triangle keep their routes.
 
 On the CPU these tests hold the rule, the routes, the wrappers' arguments,
 the scratch reckoning (``sym_force_scratch_bytes`` and
@@ -81,8 +80,7 @@ def _q(mode):
 @pytest.mark.parametrize("dim", [2, 3])
 def test_uniform_design_is_a_function_of_tiles_mode_and_dim(tiles, mode,
                                                              dim):
-    want = ("one_pass" if tiles > hn.ONE_PASS_MIN_TILES
-            and (FAMILIES[mode], dim) in hn.ONE_PASS_ROUTES else "two_pass")
+    want = "one_pass" if tiles > hn.ONE_PASS_MIN_TILES else "two_pass"
     assert hn.uniform_design(tiles, _q(mode), dim) == want
     # every N with the same T takes the same design
     for n in (tiles * hn.TILE, (tiles - 1) * hn.TILE + 64):
@@ -92,26 +90,12 @@ def test_uniform_design_is_a_function_of_tiles_mode_and_dim(tiles, mode,
 
 def test_the_rule_edge_is_the_triangles():
     """sym_force_uniform keeps the triangle up to 256 tiles and takes
-    the one-pass design beyond, where its routes allow."""
+    the one-pass design beyond."""
     assert hn.ONE_PASS_MIN_TILES == hn.TRIANGLE_MAX_TILES
     edge = hn.TRIANGLE_MAX_TILES * hn.TILE
     q = _q("float32")
     assert hn.sym_design(edge, 2, q) == "triangle"
-    want = ("one_pass" if ("float", 2) in hn.ONE_PASS_ROUTES else "square")
-    assert hn.sym_design(edge + hn.TILE, 2, q) == want
-
-
-@pytest.mark.parametrize("routes", [frozenset(),
-                                    frozenset({("float", 2)}),
-                                    frozenset({("int", 3)})])
-def test_routes_pick_the_design_per_mode_family_and_dim(monkeypatch,
-                                                        routes):
-    monkeypatch.setattr(hn, "ONE_PASS_ROUTES", routes)
-    for mode, family in FAMILIES.items():
-        for dim in (2, 3):
-            got = hn.uniform_design(2048, _q(mode), dim)
-            assert got == ("one_pass" if (family, dim) in routes
-                           else "two_pass")
+    assert hn.sym_design(edge + hn.TILE, 2, q) == "one_pass"
 
 
 @pytest.mark.parametrize("n", [131072, 209728, 174784])
@@ -121,21 +105,17 @@ def test_flagged_general_and_parent_launches_keep_their_routes(n, mode):
     for dim in (2, 3):
         routed = hn.uniform_design(-(-n // hn.TILE), q, dim)
         # the general kernel follows the equal-mass rule (the one-pass body
-        # with G m per particle); the skip / count flags and parent=True
-        # take the T x T grid of the two-pass tile, whatever the rule says
+        # with G m per particle); the skip / count flags take the T x T
+        # grid of the two-pass tile, whatever the rule says
         assert hn.sym_design(n, dim, q) == (
             "one_pass" if routed == "one_pass" else "square")
         assert hn.sym_design(n, dim, q, flagged=True) == \
-            "square"
-        assert hn.sym_design(n, dim, q, parent=True) == \
             "square"
         # off the tile: the T x T grid of the two-pass tile
         assert hn.sym_design(n + 1, dim, q) == "square"
         # the general pair tile follows the same rule as the equal-mass one
         # (its one-pass body carries G m per particle)
         assert hn.pair_design(n, n, dim, q) == routed
-        assert hn.pair_design(n, n, dim, q, parent=True) == \
-            "two_pass"
         assert hn.pair_design(n, n + 1, dim, q) == "two_pass"
         assert hn.pair_design(n + 1, n, dim, q) == "two_pass"
         # the fused max alone follows the rule too; with skip it does not
@@ -208,8 +188,7 @@ def test_the_1m_chunking_stays_as_it_was(dim, chunk):
     last = 1_048_576 - (chunks - 1) * chunk
     assert last % hn.TILE == 0
     for n in (chunk, last):
-        assert hn.sym_design(n, dim, _q("float32")) == (
-            "one_pass" if ("float", dim) in hn.ONE_PASS_ROUTES else "square")
+        assert hn.sym_design(n, dim, _q("float32")) == "one_pass"
 
 
 # --------------------------------------------------------------------------
@@ -224,30 +203,23 @@ def _pair_inputs(n_a, n_b, dim, mode):
     return _t(pos[:n_a]), gm[:n_a], _t(pos[n_a:]), gm[n_a:], bounds, q
 
 
-@pytest.mark.parametrize("parent", [False, True])
-def test_pair_parent_flag_keeps_the_argument_checks(parent):
+def test_pair_keeps_the_argument_checks():
     pa, ga, pb, gb, bounds, q = _pair_inputs(192, 320, 2, "int4")
     with pytest.raises(TypeError):
-        hn.pair_sym_force(pa.double(), ga, pb, gb, bounds, q, uniform=True,
-                          parent=parent)
+        hn.pair_sym_force(pa.double(), ga, pb, gb, bounds, q, uniform=True)
     with pytest.raises(ValueError):
         hn.pair_sym_force(pa, ga, pb[:, :1].contiguous(), gb, bounds, q,
-                          uniform=True, parent=parent)
+                          uniform=True)
     with pytest.raises(ValueError):
-        hn.pair_sym_force(pa, ga, pb, gb[:5], bounds, q, uniform=True,
-                          parent=parent)
+        hn.pair_sym_force(pa, ga, pb, gb[:5], bounds, q, uniform=True)
     with pytest.raises(ValueError):
-        hn.pair_sym_force(pa, ga, pb, gb, bounds[:2], q, uniform=True,
-                          parent=parent)
+        hn.pair_sym_force(pa, ga, pb, gb, bounds[:2], q, uniform=True)
 
 
-@pytest.mark.parametrize("parent", [False, True])
 @pytest.mark.parametrize("uniform", [False, True])
-def test_pair_parent_flag_takes_the_plain_version_on_the_cpu(parent,
-                                                             uniform):
+def test_pair_takes_the_plain_version_on_the_cpu(uniform):
     pa, ga, pb, gb, bounds, q = _pair_inputs(192, 320, 3, "float32")
-    got = hn.pair_sym_force(pa, ga, pb, gb, bounds, q, uniform=uniform,
-                            parent=parent)
+    got = hn.pair_sym_force(pa, ga, pb, gb, bounds, q, uniform=uniform)
     plain = (hn.pair_sym_force_uniform_plain if uniform
              else hn.pair_sym_force_plain)
     want = plain(pa, ga, pb, gb, bounds, q)
@@ -522,8 +494,6 @@ def test_one_pass_sym_against_plain(cuda, monkeypatch, n, dim, mode):
     256-receiver tails under the real rule), softening 0.1 and 0."""
     if n in ODD_NS:
         monkeypatch.setattr(hn, "ONE_PASS_MIN_TILES", 0)
-    monkeypatch.setattr(hn, "ONE_PASS_ROUTES",
-                        frozenset({("float", dim), ("int", dim)}))
     for soft, masked in ((0.01, False), (0.0, True)):
         pos, gm, bounds, q = _card_inputs(n, dim, mode, cuda, soft)
         assert hn.sym_design(n, dim, q) == "one_pass"
@@ -547,8 +517,6 @@ def test_one_pass_sym_against_plain(cuda, monkeypatch, n, dim, mode):
 def test_one_pass_pair_against_plain(cuda, monkeypatch, n_a, n_b, dim, mode):
     if n_a in ODD_NS:
         monkeypatch.setattr(hn, "ONE_PASS_MIN_TILES", 0)
-    monkeypatch.setattr(hn, "ONE_PASS_ROUTES",
-                        frozenset({("float", dim), ("int", dim)}))
     pos, gm, bounds, q = _card_inputs(n_a + n_b, dim, mode, cuda)
     pa, pb, ga, gb = pos[:n_a], pos[n_a:], gm[:n_a], gm[n_a:]
     assert hn.pair_design(n_a, n_b, dim, q) == "one_pass"
@@ -560,9 +528,7 @@ def test_one_pass_pair_against_plain(cuda, monkeypatch, n_a, n_b, dim, mode):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", ["float32", "int4"])
-def test_one_pass_bitwise_over_100_launches(cuda, monkeypatch, mode):
-    monkeypatch.setattr(hn, "ONE_PASS_ROUTES",
-                        frozenset({("float", 2), ("int", 2)}))
+def test_one_pass_bitwise_over_100_launches(cuda, mode):
     pos, gm, bounds, q = _card_inputs(16448 + 320, 2, mode, cuda)
     p1, g1 = pos[:16448], gm[:16448]
     first = hn.sym_force(p1, g1, bounds, q, False, uniform=True)
